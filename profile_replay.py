@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Where the replay's time goes: one replay of the port's ADD and MUL
+groups on the card under torch.profiler.
+
+    python3 profile_replay.py [--lanes 131072]
+
+For each group it prints one JSON line: the replay's host wall time, the
+device's busy time (union of kernel intervals) and idle share within it,
+the number of device kernels, and the device time of the ten costliest
+kernel names (the port's four kernels and PyTorch's own).  Needs a CUDA
+device; the kernels are built on first use.
+"""
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
+from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload
+
+
+def busy_us(intervals):
+    """Length of the union of [start, end) intervals, in microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_group(name, state, build, lanes, card):
+    tables, steps, nexts = build(lanes)
+    verifier = CompiledGroupVerifier(tables, state, steps, nexts)
+    inputs = verifier.prepare_inputs(steps, nexts)
+    for _ in range(3):
+        verifier(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        verifier(*inputs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0, 0.0])
+    intervals = []
+    for e in kernels:
+        s, t = e.time_range.start, e.time_range.end
+        intervals.append((s, t))
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += t - s
+    busy = busy_us(intervals)
+    span = (max(t for _, t in intervals) - min(s for s, _ in intervals)) if intervals else 0.0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    print(json.dumps({
+        "group": name, "lanes": lanes, "card": card, "wall_ms": wall_us / 1e3,
+        "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
+        "device_span_ms": span / 1e3,
+        "idle_share_of_wall": (1 - busy / wall_us) if kernels else None,
+        "top_kernels": [{"name": n[:90], "count": c, "ms": us / 1e3} for n, (c, us) in top],
+    }), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lanes", type=int, default=131072)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_replay: needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    for name, state, build in (("ADD", ExecutionState.ADD, build_add_workload),
+                               ("MUL", ExecutionState.MUL, build_mul_workload)):
+        profile_group(name, state, build, args.lanes, card)
+
+
+if __name__ == "__main__":
+    main()

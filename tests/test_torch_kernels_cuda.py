@@ -1,0 +1,129 @@
+"""The four CUDA kernels against their plain PyTorch versions on the card,
+over every mode and operand width class they take, bit-exact (they are
+integer functions).  Marked ``cuda``: each test skips where no CUDA device
+is present, and runs on the card with
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which a CUDA machine
+need not have.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.tables import engine
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+ROWS = 1000     # not a multiple of the 256-thread block
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _limbs(rng, rows, n, bits, dev):
+    vals = [int.from_bytes(rng.bytes(40), "little") % (1 << bits) for _ in range(rows)]
+    edges = [0, 1, (1 << bits) - 1, fr.P - 1 if bits >= 254 else 1, (1 << bits) >> 1]
+    vals[:len(edges)] = [e % (1 << bits) for e in edges][:rows]
+    if bits >= 254:
+        vals = [v % fr.P for v in vals]
+    return L.ints_to_limbs(vals, n).to(dev)
+
+
+def _operands(seed, na, nb, broadcast, dev, bits_a=None, bits_b=None):
+    rng = np.random.RandomState(seed)
+    a = _limbs(rng, ROWS, na, bits_a or 16 * na, dev)
+    b = _limbs(rng, ROWS, nb, bits_b or 16 * nb, dev)
+    if broadcast == "b":
+        b = b[3:4]
+    elif broadcast == "a":
+        a = a[4:5]
+    return a, b
+
+
+def _equal(got, want):
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+@pytest.mark.parametrize("na,nb,out_n", [(1, 1, 1), (2, 2, 4), (3, 5, 8), (4, 4, 8), (8, 8, 16),
+                                         (16, 8, 16), (16, 16, 32), (17, 16, 17), (17, 17, 34),
+                                         (9, 16, 20), (4, 4, 2), (16, 4, 34)])
+def test_limb_mul(dev, na, nb, out_n, broadcast):
+    a, b = _operands(na * 37 + nb, na, nb, broadcast, dev)
+    _equal(L.limb_mul(a, b, out_n), L.mul_plain(a, b, out_n))
+
+
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+@pytest.mark.parametrize("mode,na,nb,out_n", [
+    (L.ADD, 1, 1, 1), (L.ADD, 1, 2, 2), (L.ADD, 2, 2, 4), (L.ADD, 8, 16, 16), (L.ADD, 16, 16, 17),
+    (L.ADD, 17, 17, 17), (L.ADD, 16, 16, 8),
+    (L.SUB, 1, 1, 0), (L.SUB, 2, 4, 0), (L.SUB, 16, 16, 0), (L.SUB, 17, 17, 0), (L.SUB, 16, 8, 0),
+    (L.FR_ADD, 16, 16, 0), (L.FR_ADD, 4, 16, 0), (L.FR_ADD, 17, 1, 0),
+    (L.FR_SUB, 16, 16, 0), (L.FR_SUB, 1, 16, 0), (L.FR_SUB, 16, 4, 0),
+])
+def test_limb_addsub(dev, mode, na, nb, out_n, broadcast):
+    fr_bits = 254 if mode in (L.FR_ADD, L.FR_SUB) else None
+    a, b = _operands(mode * 100 + na * 7 + nb, na, nb, broadcast, dev,
+                     bits_a=None if na > 16 or not fr_bits else min(fr_bits, 16 * na),
+                     bits_b=None if nb > 16 or not fr_bits else min(fr_bits, 16 * nb))
+    _equal(L.limb_addsub(a, b, mode, out_n), L.addsub_plain(a, b, mode, out_n))
+
+
+@pytest.mark.parametrize("broadcast", [None, "a", "b"])
+@pytest.mark.parametrize("na,nb", [(16, 16), (4, 16), (16, 1), (8, 8), (1, 1)])
+def test_fr_mul(dev, na, nb, broadcast):
+    a, b = _operands(na * 11 + nb, na, nb, broadcast, dev,
+                     bits_a=min(254, 16 * na), bits_b=min(254, 16 * nb))
+    _equal(fr.fr_mul(a, b), fr.fr_mul_plain(a, b))
+    p1 = fr.from_ints([fr.P - 1] * 7, dev)
+    _equal(fr.fr_mul(p1, p1), fr.fr_mul_plain(p1, p1))
+
+
+@pytest.mark.parametrize("with_enabled", [None, "lanes", "row"])
+def test_lookup_gather_eq(dev, with_enabled):
+    rng = np.random.RandomState(5)
+    n_rows = 3000
+    widths = [2, 1, 16, 8, 8]
+    table = [torch.from_numpy(rng.randint(0, 1 << 16, size=(n_rows, w))).to(dev) for w in widths]
+    table[2][:, 2:] = 0                                 # a wide column holding narrow values
+    idx = torch.from_numpy(rng.randint(-3, n_rows + 3, size=ROWS).astype(np.int32)).to(dev)
+    rows = idx.long().clamp(0, n_rows - 1)
+    query = [table[0][rows].clone(), table[1][rows[:1]].clone(), table[2][rows][:, :2].clone(),
+             table[3][rows].clone(), None]
+    query[0][::7, 0] += 1                               # some lanes mismatch
+    enabled = None
+    if with_enabled == "lanes":
+        enabled = torch.from_numpy(rng.rand(ROWS) < 0.5).to(dev)
+    elif with_enabled == "row":
+        enabled = torch.tensor([False], device=dev)
+    got = engine.lookup_gather_eq(table, query, idx, enabled)
+    want = engine.lookup_gather_eq_plain(table, query, idx, enabled)
+    _equal([got[0], *got[1]], [want[0], *want[1]])
+    ok, gathered = engine.lookup_gather_eq(table, [None] * 5, idx, want_ok=False)
+    assert ok is None
+    _equal(gathered, engine.lookup_gather_eq_plain(table, [None] * 5, idx)[1])
+
+
+def test_counts_rise_only_where_a_kernel_launches(dev):
+    a = torch.ones((4, 4), dtype=torch.int64, device=dev)
+    before = L.limb_mul.launches
+    L.limb_mul(a, a, 8)
+    L.limb_mul(a.cpu(), a.cpu(), 8)
+    assert L.limb_mul.launches == before + 1
+    with pytest.raises(ValueError):
+        L.limb_mul(a, a.cpu(), 8)

@@ -1,0 +1,489 @@
+"""The batched EVM-step constraint builder (the part the ported gadgets use).
+
+Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
+src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
+semantics are evaluated over a whole *group* of steps at once: values are
+batched ``F``/``Word`` tensors, constraints are boolean tensors ORed per
+lane in the ConstraintSystem, and data-dependent control flow goes through
+``branch()``, which is lane-uniform by group splitting (eager) or
+signature replay (replay).  The offset bookkeeping is Python-side and
+static per control path, exactly as in the reference.
+"""
+from __future__ import annotations
+
+from enum import IntEnum, auto
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..dsl.cs import ConstraintSystem
+from ..dsl.value import Ctx, F, Word
+from ..utils.param import MAX_N_BYTES, N_BYTES_GAS
+from ..tables.container import Tables
+from ..tables.schemas import RW, BytecodeFieldTag, FixedTableTag, Target
+from .execution_state import ExecutionState
+from .opcode import constant_gas_cost, valid_opcodes
+from .step import StepStateBatch
+
+IntOrF = Union[int, F]
+
+
+class _HintDummy:
+    """Inert stand-in for a host int in the replay.
+
+    ``ints_of`` returns these outside the eager pass: the gadget's Python
+    hint arithmetic still executes structurally (every operation yields
+    another dummy, every comparison is False), but the values never matter
+    because ``f_hint`` / ``word_hint`` replay the recorded hint stream."""
+
+    __slots__ = ()
+
+    def _op(self, *a):
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+    __floordiv__ = __rfloordiv__ = __truediv__ = __rtruediv__ = _op
+    __mod__ = __rmod__ = __pow__ = __rpow__ = _op
+    __lshift__ = __rlshift__ = __rshift__ = __rrshift__ = _op
+    __and__ = __rand__ = __or__ = __ror__ = __xor__ = __rxor__ = _op
+    __neg__ = __pos__ = __invert__ = __abs__ = _op
+
+    def __divmod__(self, other):
+        return (self, self)
+
+    def __rdivmod__(self, other):
+        return (self, self)
+
+    __call__ = _op
+    __getitem__ = _op
+
+    def __getattr__(self, name):
+        return self
+
+    def __len__(self):
+        return 0
+
+    def __bool__(self):
+        return False
+
+    def __eq__(self, other):
+        return False
+
+    def __ne__(self, other):
+        return True
+
+    __lt__ = __le__ = __gt__ = __ge__ = __eq__
+
+    def __int__(self):
+        return 0
+
+    __index__ = __int__
+    __hash__ = object.__hash__
+
+    def __repr__(self):
+        return "<hint>"
+
+
+_DUMMY = _HintDummy()
+
+
+class TransitionKind(IntEnum):
+    Same = auto()
+    SameWord = auto()
+    Delta = auto()
+    To = auto()
+    ToWord = auto()
+
+
+class Transition:
+    def __init__(self, kind: TransitionKind, value=0):
+        self.kind = kind
+        self.value = value
+
+    @staticmethod
+    def same() -> "Transition":
+        return Transition(TransitionKind.Same)
+
+    @staticmethod
+    def same_word() -> "Transition":
+        return Transition(TransitionKind.SameWord)
+
+    @staticmethod
+    def delta(delta) -> "Transition":
+        return Transition(TransitionKind.Delta, delta)
+
+    @staticmethod
+    def to(to) -> "Transition":
+        return Transition(TransitionKind.To, to)
+
+    @staticmethod
+    def to_word(to: Word) -> "Transition":
+        return Transition(TransitionKind.ToWord, to)
+
+
+# host gas table for the per-lane constant-gas gather
+_GAS_TABLE = np.zeros((256,), dtype=np.int64)
+for _op in valid_opcodes():
+    _GAS_TABLE[int(_op)] = constant_gas_cost(_op)
+_GAS_TABLES = {}
+
+
+def _gas_table(device: torch.device) -> torch.Tensor:
+    t = _GAS_TABLES.get(str(device))
+    if t is None:
+        t = torch.from_numpy(_GAS_TABLE).to(device)
+        _GAS_TABLES[str(device)] = t
+    return t
+
+
+class Instruction:
+    def __init__(
+        self,
+        ctx: Ctx,
+        cs: ConstraintSystem,
+        tables: Tables,
+        curr: StepStateBatch,
+        next: StepStateBatch,
+        is_first_step: bool,
+        is_last_step: bool,
+    ):
+        self.ctx = ctx
+        self.cs = cs
+        self.tables = tables
+        self.curr = curr
+        self.next = next
+        self.is_first_step = is_first_step
+        self.is_last_step = is_last_step
+        self.rw_counter_offset = 0
+        self.program_counter_offset = 0
+        self.stack_pointer_offset = 0
+
+    # -- small helpers -----------------------------------------------------
+
+    def _f(self, v: IntOrF) -> F:
+        return v if isinstance(v, F) else F.const(self.ctx, int(v))
+
+    def fq(self, v: int) -> F:
+        return F.const(self.ctx, int(v))
+
+    def word(self, v: int) -> Word:
+        return Word.const(self.ctx, int(v))
+
+    # -- constraints -------------------------------------------------------
+
+    def constrain_zero(self, value: F):
+        self.cs.constrain_zero(self._f(value))
+
+    def constrain_not_zero(self, value: F):
+        self.cs.constrain_not_zero(self._f(value))
+
+    def constrain_zero_word(self, value: Word):
+        self.cs.constrain_zero_word(value)
+
+    def constrain_not_zero_word(self, value: Word):
+        self.cs.constrain_not_zero_word(value)
+
+    def constrain_equal(self, lhs: IntOrF, rhs: IntOrF):
+        self.cs.constrain_equal(self._f(lhs), self._f(rhs))
+
+    def constrain_equal_word(self, lhs: Word, rhs: Word):
+        self.cs.constrain_equal_word(lhs, rhs)
+
+    def constrain_in(self, lhs: F, rhs: List[int]):
+        self.cs.constrain_in_consts(self._f(lhs), [int(v) for v in rhs])
+
+    def constrain_bool(self, num: F):
+        self.cs.constrain_bool(self._f(num))
+
+    def constrain_gas_left_not_underflow(self, gas_left: F):
+        self.range_check(gas_left, N_BYTES_GAS)
+
+    def range_check(self, value: F, n_bytes: int):
+        assert n_bytes <= MAX_N_BYTES
+        self.cs.range_check(self._f(value), n_bytes)
+
+    # -- branching ---------------------------------------------------------
+
+    def branch(self, cond) -> bool:
+        """Lane-uniform bool of a data-dependent condition."""
+        mask = cond if not isinstance(cond, F) else ~cond.is_zero_mask()
+        return self.cs.branch(mask)
+
+    # -- host witness hints (two-phase hint protocol) ----------------------
+
+    def ints_of(self, v: Union[F, Word]) -> list:
+        """Per-lane Python ints of a value, broadcast to the batch size.
+
+        In the replay the host arithmetic cannot run, so inert
+        ``_HintDummy`` placeholders are returned; ``word_hint`` / ``f_hint``
+        replay the arrays recorded by the eager hint pass."""
+        if not self.ctx.eager:
+            return [_DUMMY] * self.ctx.batch
+        vals = v.to_ints()
+        if len(vals) == 1 and self.ctx.batch > 1:
+            vals = vals * self.ctx.batch
+        return vals
+
+    def word_hint(self, values: Sequence[int]) -> Word:
+        """A 256-bit witness hint column: built from host ints in the eager
+        pass (and recorded), replayed from the hint stream otherwise."""
+        cs = self.cs
+        if cs.hint_replay is not None:
+            entry = cs.hint_replay[cs._hint_idx]
+            bits = cs.hint_bits[cs._hint_idx]
+            cs._hint_idx += 1
+            return Word(F(self.ctx, entry["lo"], bits[0]), F(self.ctx, entry["hi"], bits[1]))
+        w = Word.from_ints(self.ctx, [v % (1 << 256) for v in values])
+        if cs.hint_record is not None:
+            cs.hint_record.append({"lo": w.lo.limbs.numpy(), "hi": w.hi.limbs.numpy()})
+            cs.hint_bits.append((w.lo.bits, w.hi.bits))
+        return w
+
+    def f_hint(self, values: Sequence[int], bits: int = 254) -> F:
+        """A field witness hint column (see word_hint)."""
+        cs = self.cs
+        if cs.hint_replay is not None:
+            entry = cs.hint_replay[cs._hint_idx]
+            b = cs.hint_bits[cs._hint_idx]
+            cs._hint_idx += 1
+            return F(self.ctx, entry["f"], b)
+        f = F.from_ints(self.ctx, values, bits)
+        if cs.hint_record is not None:
+            cs.hint_record.append({"f": f.limbs.numpy()})
+            cs.hint_bits.append(f.bits)
+        return f
+
+    # -- execution-state machine ------------------------------------------
+
+    def constrain_execution_state_transition(self):
+        curr = self.curr.execution_state_static
+        next_f = self.next.execution_state
+        ES = ExecutionState
+        if curr == ES.EndTx:
+            self.constrain_in(next_f, [int(ES.BeginTx), int(ES.EndBlock)])
+        elif curr == ES.EndBlock:
+            self.constrain_equal(next_f, int(ES.EndBlock))
+        # negation rules, with curr static the masks collapse to constants
+        if curr != ES.EndTx:
+            self.cs.check(~next_f.eq_mask(int(ES.BeginTx)),
+                          lambda: f"BeginTx must follow EndTx, curr={curr!r}")
+        if not (curr.halts() or curr == ES.BeginTx):
+            self.cs.check(~next_f.eq_mask(int(ES.EndTx)),
+                          lambda: f"EndTx must follow a halt or BeginTx, curr={curr!r}")
+        if curr not in (ES.EndTx, ES.EndBlock):
+            self.cs.check(~next_f.eq_mask(int(ES.EndBlock)),
+                          lambda: f"EndBlock must follow EndTx/EndBlock, curr={curr!r}")
+
+    _STEP_KEYS = (
+        "rw_counter", "call_id", "is_root", "is_create", "code_hash",
+        "program_counter", "stack_pointer", "gas_left", "memory_word_size",
+        "reversible_write_counter", "log_id",
+    )
+
+    def constrain_step_state_transition(self, **kwargs: Transition):
+        assert set(self._STEP_KEYS).issuperset(kwargs.keys()), (
+            f"Invalid keys {set(kwargs) - set(self._STEP_KEYS)}")
+        for key, transition in kwargs.items():
+            curr, next = getattr(self.curr, key), getattr(self.next, key)
+            k = transition.kind
+            if k == TransitionKind.Same:
+                self.cs.constrain_equal(next, curr, name=f"state {key} (same)")
+            elif k == TransitionKind.SameWord:
+                self.cs.constrain_equal_word(next, curr, name=f"state {key} (same)")
+            elif k == TransitionKind.Delta:
+                self.cs.constrain_equal(next, curr + self._f(transition.value),
+                                        name=f"state {key} (delta)")
+            elif k == TransitionKind.To:
+                self.cs.constrain_equal(next, self._f(transition.value), name=f"state {key} (to)")
+            elif k == TransitionKind.ToWord:
+                self.cs.constrain_equal_word(next, transition.value, name=f"state {key} (to)")
+            else:
+                raise ValueError("Unreachable")
+
+    def step_state_transition_in_same_context(
+        self,
+        opcode: F,
+        rw_counter: Transition = None,
+        program_counter: Transition = None,
+        stack_pointer: Transition = None,
+        memory_word_size: Transition = None,
+        reversible_write_counter: Transition = None,
+        dynamic_gas_cost: IntOrF = 0,
+        log_id: Transition = None,
+    ):
+        self.responsible_opcode_lookup(opcode)
+
+        gas_cost = self.opcode_constant_gas(opcode) + self._f(dynamic_gas_cost)
+        self.constrain_gas_left_not_underflow(self.curr.gas_left - gas_cost)
+
+        self.constrain_step_state_transition(
+            rw_counter=rw_counter or Transition.same(),
+            program_counter=program_counter or Transition.same(),
+            stack_pointer=stack_pointer or Transition.same(),
+            gas_left=Transition.delta(-gas_cost),
+            memory_word_size=memory_word_size or Transition.same(),
+            reversible_write_counter=reversible_write_counter or Transition.same(),
+            log_id=log_id or Transition.same(),
+            call_id=Transition.same(),
+            is_root=Transition.same(),
+            is_create=Transition.same(),
+            code_hash=Transition.same_word(),
+        )
+
+    def opcode_constant_gas(self, opcode: F) -> F:
+        """Per-lane constant gas cost (reference instruction.py:378)."""
+        idx = opcode.limbs[..., 0].clamp(max=255)
+        gas = _gas_table(opcode.limbs.device)[idx]
+        return F(self.ctx, gas[..., None], 16)
+
+    # -- math gadgets ------------------------------------------------------
+
+    def sum(self, values: Sequence[IntOrF]) -> F:
+        acc = self.fq(0)
+        for v in values:
+            acc = acc + self._f(v)
+        return acc
+
+    def is_zero(self, value: F) -> F:
+        return F.from_bool(self.ctx, self._f(value).is_zero_mask())
+
+    def is_equal(self, lhs: IntOrF, rhs: IntOrF) -> F:
+        return F.from_bool(self.ctx, self._f(lhs).eq_mask(self._f(rhs)))
+
+    def is_zero_word(self, word: Word) -> F:
+        return self.is_zero(self.sum([word.lo, word.hi]))
+
+    def is_equal_word(self, lhs: Word, rhs: Word) -> F:
+        return F.from_bool(self.ctx, lhs.eq_mask(rhs))
+
+    def select(self, condition: F, when_true, when_false):
+        mask = ~condition.is_zero_mask()
+        if isinstance(when_true, Word):
+            return when_true.select(mask, when_false)
+        return self._f(when_true).select(mask, self._f(when_false))
+
+    def select_word(self, condition: F, when_true: Word, when_false: Word) -> Word:
+        return when_true.select(~condition.is_zero_mask(), when_false)
+
+    def pair_select(self, value: F, lhs: IntOrF, rhs: IntOrF) -> Tuple[F, F]:
+        return self.is_equal(value, lhs), self.is_equal(value, rhs)
+
+    def compare(self, lhs: F, rhs: F, n_bytes: int) -> Tuple[F, F]:
+        assert n_bytes <= MAX_N_BYTES
+        lhs, rhs = self._f(lhs), self._f(rhs)
+        # reference asserts operands fit n_bytes (instruction.py:449-450)
+        self.cs.check(lhs.le_bits_mask(8 * n_bytes), lambda: f"lhs {lhs!r} exceeds {n_bytes} bytes")
+        self.cs.check(rhs.le_bits_mask(8 * n_bytes), lambda: f"rhs {rhs!r} exceeds {n_bytes} bytes")
+        return (F.from_bool(self.ctx, lhs.lt_mask(rhs)), F.from_bool(self.ctx, lhs.eq_mask(rhs)))
+
+    def compare_word(self, lhs: Word, rhs: Word) -> Tuple[F, F]:
+        hi_lt, hi_eq = self.compare(lhs.hi, rhs.hi, 16)
+        lo_lt, lo_eq = self.compare(lhs.lo, rhs.lo, 16)
+        return hi_lt + hi_eq * lo_lt, hi_eq * lo_eq
+
+    def add_words(self, addends: Sequence[Word]) -> Tuple[Word, F]:
+        """Multi-addend 256-bit add with carry (reference arithmetic.py:236-242)."""
+        lo_sum = self.sum([w.lo for w in addends])
+        carry_lo, sum_lo = lo_sum.split_pow2(128, 8)
+        hi_sum = self.sum([w.hi for w in addends]) + carry_lo
+        carry_hi, sum_hi = hi_sum.split_pow2(128, 8)
+        return Word(sum_lo, sum_hi), carry_hi
+
+    def _mul_512_terms(self, a: Word, b: Word):
+        a64s = a.to_64s()
+        b64s = b.to_64s()
+        t0 = a64s[0] * b64s[0]
+        t1 = a64s[0] * b64s[1] + a64s[1] * b64s[0]
+        t2 = a64s[0] * b64s[2] + a64s[1] * b64s[1] + a64s[2] * b64s[0]
+        t3 = (a64s[0] * b64s[3] + a64s[1] * b64s[2] + a64s[2] * b64s[1]
+              + a64s[3] * b64s[0])
+        t4 = a64s[1] * b64s[3] + a64s[2] * b64s[2] + a64s[3] * b64s[1]
+        t5 = a64s[2] * b64s[3] + a64s[3] * b64s[2]
+        t6 = a64s[3] * b64s[3]
+        return a64s, b64s, (t0, t1, t2, t3, t4, t5, t6)
+
+    def mul_add_words(self, a: Word, b: Word, c: Word, d: Word) -> F:
+        """Constrain a*b + c == d (mod 2^256); returns overflow
+        (reference instruction.py:599-632)."""
+        _, _, (t0, t1, t2, t3, t4, t5, t6) = self._mul_512_terms(a, b)
+        c_lo, c_hi = c.to_lo_hi()
+        d_lo, d_hi = d.to_lo_hi()
+        pow64 = F.const(self.ctx, 1 << 64)
+        pow128 = F.const(self.ctx, 1 << 128)
+        carry_lo = (t0 + t1 * pow64 + c_lo - d_lo).fdiv_const(1 << 128)
+        carry_hi = (t2 + t3 * pow64 + c_hi + carry_lo - d_hi).fdiv_const(1 << 128)
+        overflow = carry_hi + t4 + t5 + t6
+
+        self.range_check(carry_lo, 9)
+        self.range_check(carry_hi, 9)
+        self.constrain_equal(t0 + t1 * pow64 + c_lo, d_lo + carry_lo * pow128)
+        self.constrain_equal(t2 + t3 * pow64 + c_hi + carry_lo, d_hi + carry_hi * pow128)
+        return overflow
+
+    # -- typed lookups -----------------------------------------------------
+
+    def fixed_lookup(self, tag: FixedTableTag, value0: F, value1: F = None, value2: F = None):
+        self.tables.fixed_lookup(self.cs, tag, self._f(value0),
+                                 None if value1 is None else self._f(value1),
+                                 None if value2 is None else self._f(value2))
+
+    def bytecode_lookup(self, bytecode_hash: Word, index: F, is_code: Optional[F] = None) -> F:
+        row = self.tables.bytecode_lookup(
+            self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Byte), self._f(index),
+            None if is_code is None else self._f(is_code),
+        )
+        return row.value
+
+    def responsible_opcode_lookup(self, opcode: F, aux: IntOrF = 0):
+        self.fixed_lookup(
+            FixedTableTag.ResponsibleOpcode,
+            self.fq(int(self.curr.execution_state_static)),
+            self._f(opcode),
+            self._f(aux),
+        )
+
+    def opcode_lookup(self, is_code: bool) -> F:
+        index = self.curr.program_counter + self.program_counter_offset
+        self.program_counter_offset += 1
+        return self.opcode_lookup_at(index, is_code)
+
+    def opcode_lookup_at(self, index: F, is_code: bool) -> F:
+        return self.bytecode_lookup(self.curr.code_hash, index, self.fq(is_code))
+
+    def rw_lookup(
+        self,
+        rw: RW,
+        tag: Target,
+        id: Optional[F] = None,
+        address: Optional[F] = None,
+        field_tag: Optional[F] = None,
+        storage_key: Optional[Word] = None,
+        value=None,
+        value_prev=None,
+        aux0: Optional[Word] = None,
+        rw_counter: Optional[F] = None,
+    ):
+        if rw_counter is None:
+            rw_counter = self.curr.rw_counter + self.rw_counter_offset
+            self.rw_counter_offset += 1
+        return self.tables.rw_lookup(
+            self.cs, self._f(rw_counter), self.fq(rw), self.fq(tag),
+            id=id, address=address, field_tag=field_tag,
+            storage_key=storage_key, value=value, value_prev=value_prev,
+            aux0=aux0,
+        )
+
+    def stack_pop(self) -> Word:
+        offset = self.stack_pointer_offset
+        self.stack_pointer_offset += 1
+        return self.stack_lookup(RW.Read, offset)
+
+    def stack_push(self) -> Word:
+        self.stack_pointer_offset -= 1
+        return self.stack_lookup(RW.Write, self.stack_pointer_offset)
+
+    def stack_lookup(self, rw: RW, stack_pointer_offset: IntOrF) -> Word:
+        stack_pointer = self.curr.stack_pointer + self._f(stack_pointer_offset)
+        row = self.rw_lookup(rw, Target.Stack, self.curr.call_id, stack_pointer)
+        return row.value

@@ -1,0 +1,417 @@
+"""Multi-precision integer arithmetic on 16-bit limb tensors.
+
+Counterpart of ``zkevm_specs_tpu/ops/limbs.py``.  Big integers are stored
+as little-endian ``torch.int64`` tensors of 16-bit limbs, shape
+``[B or 1, n_limbs]``; a ``[1, n]`` row broadcasts against a ``[B, n]``
+batch.  int64 is wide enough for every intermediate of the plain versions:
+a limb product is below 2^32 and a product column of up to 17 terms plus
+its carry stays far below 2^63.
+
+Two functions carry the arithmetic on the card, each a hand-written CUDA
+kernel with a plain PyTorch version beside it:
+
+* ``limb_mul`` (K2, ``csrc/limb_mul.cu``): the unreduced narrow product,
+  carries normalised into canonical limbs, top carry dropped;
+* ``limb_addsub`` (K3, ``csrc/limb_addsub.cu``): the add and subtract
+  chains, plain or mod p (the Fr modes are used by ``ops/fr.py``).
+
+A wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel, and it raises for anything else.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+LIMB_BITS = 16
+LIMB_BASE = 1 << LIMB_BITS
+LIMB_MASK = LIMB_BASE - 1
+DTYPE = torch.int64
+
+# BN254 scalar-field modulus; the Fr modes of limb_addsub need it here
+# (ops/fr.py re-exports it as fr.P).
+P = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+
+
+# ---------------------------------------------------------------------------
+# Host-side conversions (CPU tensors; used for constants and witness IO)
+# ---------------------------------------------------------------------------
+
+def int_to_limbs(value: int, n_limbs: int) -> torch.Tensor:
+    """Convert a Python int to a little-endian 16-bit limb vector."""
+    assert value >= 0
+    assert value < (1 << (LIMB_BITS * n_limbs)), f"value needs more than {n_limbs} limbs"
+    return torch.tensor(
+        [(value >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n_limbs)], dtype=DTYPE)
+
+
+def ints_to_limbs(values, n_limbs: int) -> torch.Tensor:
+    """Convert a sequence of Python ints to a [len, n_limbs] limb tensor."""
+    vals = list(values)
+    if all(0 <= v < (1 << 63) for v in map(int, vals)):
+        arr = np.asarray(vals, dtype=np.uint64)
+        out = np.zeros((len(vals), n_limbs), dtype=np.int64)
+        for k in range(min(4, n_limbs)):
+            out[:, k] = ((arr >> np.uint64(LIMB_BITS * k)) & np.uint64(LIMB_MASK)).astype(np.int64)
+        assert n_limbs >= 4 or not (arr >> np.uint64(LIMB_BITS * n_limbs)).any(), (
+            f"values need more than {n_limbs} limbs")
+        return torch.from_numpy(out)
+    nbytes = n_limbs * (LIMB_BITS // 8)
+    try:
+        buf = b"".join(int(v).to_bytes(nbytes, "little") for v in vals)
+    except OverflowError:
+        raise AssertionError(f"values need more than {n_limbs} limbs")
+    arr = np.frombuffer(buf, dtype="<u2").reshape(len(vals), n_limbs).astype(np.int64)
+    return torch.from_numpy(arr)
+
+
+def limbs_to_int(limbs) -> int:
+    """Convert a 1-D limb vector back to a Python int."""
+    arr = _host_array(limbs)
+    assert arr.ndim == 1
+    value = 0
+    for i in range(arr.shape[0] - 1, -1, -1):
+        value = (value << LIMB_BITS) | int(arr[i])
+    return value
+
+
+def limbs_to_ints(limbs) -> list:
+    """Convert a [..., n_limbs] limb array to a nested list of Python ints."""
+    arr = _host_array(limbs)
+    if arr.ndim == 1:
+        return limbs_to_int(arr)
+    if arr.ndim == 2:
+        # one vectorised Horner pass over Python-int object columns
+        acc = np.zeros(arr.shape[0], dtype=object)
+        for i in range(arr.shape[1] - 1, -1, -1):
+            acc = (acc << LIMB_BITS) | arr[:, i].astype(object)
+        return [int(v) for v in acc]
+    return [limbs_to_ints(a) for a in arr]
+
+
+def _host_array(limbs) -> np.ndarray:
+    if isinstance(limbs, torch.Tensor):
+        return limbs.detach().cpu().numpy()
+    return np.asarray(limbs)
+
+
+# ---------------------------------------------------------------------------
+# Shape helpers
+# ---------------------------------------------------------------------------
+
+def pad_limbs(a: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad the limb axis of ``a`` up to ``n`` limbs."""
+    cur = a.shape[-1]
+    if cur == n:
+        return a
+    assert cur < n
+    return torch.nn.functional.pad(a, (0, n - cur))
+
+
+def batch_rows(a: torch.Tensor, b: torch.Tensor) -> int:
+    ra, rb = a.shape[0], b.shape[0]
+    if ra != rb and 1 not in (ra, rb):
+        raise ValueError(f"batch sizes {ra} and {rb} do not broadcast")
+    return max(ra, rb)
+
+
+# ---------------------------------------------------------------------------
+# Carry normalisation (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def _normalize(cols: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Sequential carry ripple of non-negative columns into ``out_n``
+    canonical limbs; the carry out of the top limb is dropped."""
+    m = cols.shape[-1]
+    out = torch.empty(cols.shape[:-1] + (out_n,), dtype=DTYPE, device=cols.device)
+    carry = torch.zeros(cols.shape[:-1], dtype=DTYPE, device=cols.device)
+    for k in range(out_n):
+        v = cols[..., k] + carry if k < m else carry
+        out[..., k] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    return out
+
+
+def carry_propagate(cols: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Normalize accumulated non-negative columns into ``out_n`` canonical
+    16-bit limbs; any residual carry out of the top limb is dropped, as in
+    the JAX package."""
+    if cols.shape[-1] > out_n:
+        cols = cols[..., :out_n]
+    return _normalize(cols, out_n)
+
+
+# ---------------------------------------------------------------------------
+# Kernel plumbing
+# ---------------------------------------------------------------------------
+
+def check_limbs(t: torch.Tensor, name: str) -> None:
+    if t.dtype != DTYPE:
+        raise TypeError(f"{name}: expected int64 limbs, got {t.dtype}")
+    if t.dim() != 2:
+        raise ValueError(f"{name}: expected a [rows, limbs] tensor, got shape {tuple(t.shape)}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: limb axis must be contiguous (stride {t.stride(-1)})")
+
+
+def row_stride(t: torch.Tensor) -> int:
+    """Element stride between lanes; 0 for a broadcast [1, w] row."""
+    return 0 if t.shape[0] == 1 else t.stride(0)
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (plain version); False when
+    every tensor lies on one CUDA device (kernel).  Raises otherwise."""
+    devs = {t.device for t in ts}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return False
+    raise ValueError(f"tensors must all be on the CPU or all on one CUDA device, got {devs}")
+
+
+def cuda_stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+# ---------------------------------------------------------------------------
+# K2: narrow product
+# ---------------------------------------------------------------------------
+
+MAX_MUL_LIMBS = 17   # widest operand on the path (Barrett's 17-limb terms)
+MAX_MUL_OUT = 34
+
+
+def mul_plain(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Plain version of K2: (a * b) mod 2^(16 out_n) in canonical limbs."""
+    na, nb = a.shape[-1], b.shape[-1]
+    rows = batch_rows(a, b)
+    ncols = min(na + nb, out_n)
+    cols = torch.zeros((rows, ncols), dtype=DTYPE, device=a.device)
+    for i in range(min(na, ncols)):
+        n = min(nb, ncols - i)
+        cols[:, i:i + n] += a[:, i:i + 1] * b[:, :n]
+    return _normalize(cols, out_n)
+
+
+def limb_mul(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
+    """K2 wrapper: unreduced product of ``a [B|1, na]`` and ``b [B|1, nb]``
+    as ``[B, out_n]`` canonical limbs, carry out of the top limb dropped.
+
+    Replaces ``zkevm_specs_tpu/ops/limbs.py:mul`` with its
+    ``carry_propagate``/``_resolve_carries``."""
+    check_limbs(a, "limb_mul a")
+    check_limbs(b, "limb_mul b")
+    na, nb = a.shape[-1], b.shape[-1]
+    if not (1 <= na <= MAX_MUL_LIMBS and 1 <= nb <= MAX_MUL_LIMBS and 1 <= out_n <= MAX_MUL_OUT):
+        raise ValueError(f"limb_mul: widths ({na}, {nb} -> {out_n}) out of range")
+    rows = batch_rows(a, b)
+    if on_cpu(a, b):
+        return mul_plain(a, b, out_n)
+    from ..runtime import cuda_build
+
+    out = torch.empty((rows, out_n), dtype=DTYPE, device=a.device)
+    lib = cuda_build.library("limb_mul")
+    err = lib.limb_mul_launch(a.data_ptr(), row_stride(a), na, b.data_ptr(), row_stride(b), nb,
+                              out.data_ptr(), out_n, rows, cuda_stream())
+    check_launch(err, "limb_mul")
+    limb_mul.launches += 1
+    return out
+
+
+limb_mul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: add / subtract chains, plain and mod p
+# ---------------------------------------------------------------------------
+
+ADD, SUB, FR_ADD, FR_SUB = 0, 1, 2, 3
+MAX_ADDSUB_LIMBS = 64
+_FR_LIMBS = 16
+
+
+def _p_row(n: int, device) -> torch.Tensor:
+    return int_to_limbs(P, n)[None, :].to(device)
+
+
+def _sub_plain(a: torch.Tensor, b: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    rows = batch_rows(a, b)
+    a = pad_limbs(a, n)
+    b = pad_limbs(b, n)
+    out = torch.empty((rows, n), dtype=DTYPE, device=a.device)
+    borrow = torch.zeros((rows,), dtype=DTYPE, device=a.device)
+    for k in range(n):
+        v = a[:, k] - b[:, k] - borrow
+        out[:, k] = v & LIMB_MASK
+        borrow = -(v >> LIMB_BITS)      # v in [-2^16, 2^16): 1 iff negative
+    return out, borrow
+
+
+def addsub_plain(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int):
+    """Plain version of K3 (see ``limb_addsub`` for the modes)."""
+    if mode == ADD:
+        n = max(a.shape[-1], b.shape[-1])
+        s = pad_limbs(a, n) + pad_limbs(b, n)
+        return _normalize(s[:, :out_n], out_n)
+    if mode == SUB:
+        return _sub_plain(a, b, max(a.shape[-1], b.shape[-1]))
+    if mode == FR_ADD:
+        n = max(a.shape[-1], b.shape[-1], _FR_LIMBS)
+        s = addsub_plain(a, b, ADD, max(n, _FR_LIMBS + 1))
+        d, borrow = _sub_plain(s, _p_row(s.shape[-1], s.device), s.shape[-1])
+        return torch.where((borrow == 0)[:, None], d, s)[:, :_FR_LIMBS]
+    if mode == FR_SUB:
+        d, borrow = _sub_plain(a, b, _FR_LIMBS)
+        d_plus_p = addsub_plain(d, _p_row(_FR_LIMBS, d.device), ADD, _FR_LIMBS)
+        return torch.where((borrow == 0)[:, None], d, d_plus_p)
+    raise ValueError(f"unknown limb_addsub mode {mode}")
+
+
+def limb_addsub(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int = 0):
+    """K3 wrapper: the carry and borrow chains.
+
+    Modes, for ``a [B|1, na]`` and ``b [B|1, nb]``:
+
+    * ``ADD``: (a + b) mod 2^(16 out_n) as ``[B, out_n]``;
+    * ``SUB``: ((a - b) mod 2^(16n), borrow) with n = max(na, nb), borrow
+      an int64 ``[B]`` that is 1 where a < b;
+    * ``FR_ADD``: a + b over 17 limbs, then ``reduce_once`` (subtract p
+      unless that borrows), low 16 limbs; with b = 0 it is ``reduce_once``;
+    * ``FR_SUB``: (a - b) mod 2^256, p added back (mod 2^256) under borrow;
+      with a = 0 it is ``fr.neg`` (neg(0) = 0).
+
+    Replaces ``zkevm_specs_tpu/ops/limbs.py:add``/``sub`` and
+    ``ops/fr.py:add``/``sub``/``neg``/``reduce_once``."""
+    check_limbs(a, "limb_addsub a")
+    check_limbs(b, "limb_addsub b")
+    na, nb = a.shape[-1], b.shape[-1]
+    if mode == SUB:
+        out_n = max(na, nb)
+    elif mode in (FR_ADD, FR_SUB):
+        out_n = _FR_LIMBS
+        cap = _FR_LIMBS + 1 if mode == FR_ADD else _FR_LIMBS
+        if na > cap or nb > cap:
+            raise ValueError(f"limb_addsub: Fr mode takes at most {cap} limbs, got {na}, {nb}")
+    elif mode != ADD:
+        raise ValueError(f"unknown limb_addsub mode {mode}")
+    if not (1 <= out_n <= MAX_ADDSUB_LIMBS and max(na, nb) <= MAX_ADDSUB_LIMBS):
+        raise ValueError(f"limb_addsub: widths ({na}, {nb} -> {out_n}) out of range")
+    rows = batch_rows(a, b)
+    if on_cpu(a, b):
+        return addsub_plain(a, b, mode, out_n)
+    from ..runtime import cuda_build
+
+    out = torch.empty((rows, out_n), dtype=DTYPE, device=a.device)
+    borrow = torch.empty((rows,), dtype=DTYPE, device=a.device) if mode == SUB else None
+    lib = cuda_build.library("limb_addsub")
+    err = lib.limb_addsub_launch(a.data_ptr(), row_stride(a), na, b.data_ptr(), row_stride(b), nb,
+                                 out.data_ptr(), out_n,
+                                 None if borrow is None else borrow.data_ptr(),
+                                 mode, rows, cuda_stream())
+    check_launch(err, "limb_addsub")
+    limb_addsub.launches += 1
+    return (out, borrow) if mode == SUB else out
+
+
+limb_addsub.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Addition / subtraction / comparison
+# ---------------------------------------------------------------------------
+
+def add(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
+    """(a + b) as an out_n-limb value; caller guarantees it fits."""
+    return limb_addsub(a, b, ADD, out_n)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a - b) mod 2^(16n) plus a borrow flag (1 where a < b)."""
+    return limb_addsub(a, b, SUB)
+
+
+def lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean a < b (unsigned), elementwise over the batch."""
+    _, borrow = sub(a, b)
+    return borrow.bool()
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean a == b, elementwise over the batch."""
+    n = max(a.shape[-1], b.shape[-1])
+    return (pad_limbs(a, n) == pad_limbs(b, n)).all(dim=-1)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Multiplication
+# ---------------------------------------------------------------------------
+
+def mul(a: torch.Tensor, b: torch.Tensor, out_n: int = None) -> torch.Tensor:
+    """Schoolbook product a [B|1, na] x b [B|1, nb] -> [B, out_n] (default
+    na + nb), through K2."""
+    if out_n is None:
+        out_n = a.shape[-1] + b.shape[-1]
+    return limb_mul(a, b, out_n)
+
+
+def mul_small(a: torch.Tensor, k: int, out_n: int) -> torch.Tensor:
+    """Multiply by a small Python-int scalar k < 2^16."""
+    assert 0 <= k < LIMB_BASE
+    return limb_mul(a, torch.tensor([[k]], dtype=DTYPE, device=a.device), out_n)
+
+
+# ---------------------------------------------------------------------------
+# Division by powers of two, select
+# ---------------------------------------------------------------------------
+
+def divmod_pow2(a: torch.Tensor, bits: int, out_n: int = None):
+    """(a >> bits, a mod 2^bits) for a static bit count."""
+    k, rem_bits = divmod(bits, LIMB_BITS)
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    if out_n is None:
+        out_n = max(1, n - k)
+
+    def zeros(w):
+        return torch.zeros(lead + (w,), dtype=DTYPE, device=a.device)
+
+    if rem_bits == 0:
+        q = a[..., k:] if k < n else zeros(1)
+    else:
+        shifted = a[..., k:]
+        lo_parts = shifted >> rem_bits
+        hi_parts = (shifted & ((1 << rem_bits) - 1)) << (LIMB_BITS - rem_bits)
+        q = lo_parts.clone()
+        q[..., :-1] |= hi_parts[..., 1:]
+    q = pad_limbs(q[..., :out_n], out_n)
+    rem_n = k + (1 if rem_bits else 0)
+    if rem_n == 0:
+        r = zeros(1)
+    else:
+        parts = [a[..., :min(k, n)]]
+        if k > n:
+            parts.append(zeros(k - n))
+        if rem_bits:
+            top = a[..., k:k + 1] & ((1 << rem_bits) - 1) if k < n else zeros(1)
+            parts.append(top)
+        r = torch.cat(parts, dim=-1)
+    return q, r
+
+
+def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise limb select: cond ? a : b.  cond: bool[...]."""
+    n = max(a.shape[-1], b.shape[-1])
+    return torch.where(cond[..., None], pad_limbs(a, n), pad_limbs(b, n))

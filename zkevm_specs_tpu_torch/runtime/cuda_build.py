@@ -1,0 +1,111 @@
+"""Builds the package's CUDA kernels with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+into ``build/kernels/lib<name>-<hash>.so`` at the repository root, where
+``<hash>`` hashes the source and the shared headers, so an edited source is rebuilt
+and an unchanged one is reused.  ``build_all`` starts one nvcc per source,
+all at once; ``library`` builds one on first use and loads it.  Nothing is
+built or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+
+# C entry points and their argument types; every pointer (and the stream)
+# is a c_void_p so ctypes never cuts it to 32 bits
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "fr_mul": {
+        "fr_mul_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I64, _P],
+    },
+    "limb_mul": {
+        "limb_mul_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I32, _I64, _P],
+    },
+    "limb_addsub": {
+        "limb_addsub_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I32, _P, _I32, _I64, _P],
+    },
+    "lookup_gather_eq": {
+        "lookup_gather_eq_launch": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I64, _P, _I64, _P, _I64, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _so_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
+    """Compile the named kernels in parallel; returns wall seconds per
+    kernel (0.0 for one that was already built).  Raises with nvcc's
+    output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        so = _so_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, so)
+    seconds = {name: 0.0 for name in names}
+    failures = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built first if needed)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        so = _so_path(name)
+        if not so.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(so))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

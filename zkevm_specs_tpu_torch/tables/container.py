@@ -1,0 +1,152 @@
+"""The shared Tables container consumed by the EVM circuit.
+
+Counterpart of ``zkevm_specs_tpu/tables/container.py`` (reference:
+src/zkevm_specs/evm_circuit/table.py:578-858): tables are built once from
+host-side witness rows (dicts of ints) on the CPU; the fixed tables are
+computed predicates (see fixed.py).  Only the typed lookups of the ported
+gadgets are here (fixed, block, bytecode, rw).
+"""
+from __future__ import annotations
+
+import copy as _copy
+from typing import Mapping, Optional, Sequence, Union
+
+from ..dsl.value import Ctx, F, Word, WordOrValue
+from ..evm.execution_state import responsible_opcode_codes
+from ..evm.opcode import constant_gas_cost_pairs
+from ..evm.precompile import precompile_info_pairs
+from . import schemas as S
+from .engine import Row, Table
+from .fixed import FixedTables
+
+TABLE_NAMES = (
+    "block", "tx", "withdrawal", "bytecode", "rw", "copy",
+    "keccak", "exp", "sig", "ecc", "mpt",
+)
+
+
+def _shared_fixed() -> FixedTables:
+    ft = FixedTables()
+    ft.register_set(S.FixedTableTag.ResponsibleOpcode, responsible_opcode_codes())
+    ft.register_set(
+        S.FixedTableTag.OpcodeConstantGas,
+        sorted(op * 65536 + gas for op, gas in constant_gas_cost_pairs()),
+    )
+    ft.register_set(
+        S.FixedTableTag.PrecompileInfo,
+        sorted(st * 65536 * 256 + addr * 65536 + gas for st, addr, gas in precompile_info_pairs()),
+    )
+    return ft
+
+
+_FIXED = None
+
+
+def fixed_tables() -> FixedTables:
+    global _FIXED
+    if _FIXED is None:
+        _FIXED = _shared_fixed()
+    return _FIXED
+
+
+class Tables:
+    def __init__(
+        self,
+        ctx: Ctx = None,
+        block_table: Sequence[Mapping[str, int]] = (),
+        tx_table: Sequence[Mapping[str, int]] = (),
+        withdrawal_table: Sequence[Mapping[str, int]] = (),
+        bytecode_table: Sequence[Mapping[str, int]] = (),
+        rw_table: Sequence[Mapping[str, int]] = (),
+        copy_table: Sequence[Mapping[str, int]] = (),
+        keccak_table: Sequence[Mapping[str, int]] = (),
+        exp_table: Sequence[Mapping[str, int]] = (),
+        sig_table: Sequence[Mapping[str, int]] = (),
+        ecc_table: Sequence[Mapping[str, int]] = (),
+        mpt_table: Sequence[Mapping[str, int]] = (),
+    ):
+        if ctx is None:
+            ctx = Ctx("cpu", 1, "eager")
+        self.ctx = ctx
+        self.fixed = fixed_tables()
+        self.block = Table.from_rows(ctx, S.BLOCK_SCHEMA, block_table)
+        self.tx = Table.from_rows(ctx, S.TX_SCHEMA, tx_table)
+        self.withdrawal = Table.from_rows(ctx, S.WITHDRAWAL_SCHEMA, withdrawal_table)
+        self.bytecode = Table.from_rows(ctx, S.BYTECODE_SCHEMA, bytecode_table)
+        self.rw = Table.from_rows(ctx, S.RW_SCHEMA, rw_table)
+        self.copy = Table.from_rows(ctx, S.COPY_SCHEMA, copy_table)
+        self.keccak = Table.from_rows(ctx, S.KECCAK_SCHEMA, keccak_table)
+        self.exp = Table.from_rows(ctx, S.EXP_SCHEMA, exp_table)
+        self.sig = Table.from_rows(ctx, S.SIG_SCHEMA, sig_table)
+        self.ecc = Table.from_rows(ctx, S.ECC_SCHEMA, ecc_table)
+        self.mpt = Table.from_rows(ctx, S.MPT_SCHEMA, mpt_table)
+
+    def with_ctx(self, ctx: Ctx) -> "Tables":
+        """Re-bind the same table data to a different batch context (tables
+        are batch-agnostic; only queries carry the batch)."""
+        out = _copy.copy(self)
+        out.ctx = ctx
+        for name in TABLE_NAMES:
+            t: Table = getattr(self, name)
+            nt = Table(ctx, t.schema, t.data, t.n_rows)
+            nt._indexes = t._indexes
+            setattr(out, name, nt)
+        return out
+
+    # -- typed lookups (reference table.py:673-858) ------------------------
+
+    def fixed_lookup(self, cs, tag, value0: F, value1: F = None, value2: F = None, enabled=None):
+        ctx = value0.ctx
+        value1 = value1 if value1 is not None else F.const(ctx, 0)
+        value2 = value2 if value2 is not None else F.const(ctx, 0)
+        self.fixed.lookup(cs, tag, value0, value1, value2, enabled=enabled)
+
+    def block_lookup(self, cs, field_tag: F, block_number: F, enabled=None) -> Row:
+        return self.block.lookup(
+            cs, {"field_tag": field_tag, "block_number_or_zero": block_number}, enabled=enabled)
+
+    def bytecode_lookup(self, cs, bytecode_hash: Word, field_tag: F, index: F,
+                        is_code: Optional[F] = None, enabled=None) -> Row:
+        return self.bytecode.lookup(
+            cs,
+            {"bytecode_hash": bytecode_hash, "field_tag": field_tag, "index": index,
+             "is_code": is_code},
+            enabled=enabled,
+        )
+
+    def rw_lookup(
+        self,
+        cs,
+        rw_counter: F,
+        rw: F,
+        tag: F,
+        id: Optional[F] = None,
+        address: Optional[F] = None,
+        field_tag: Optional[F] = None,
+        storage_key: Optional[Word] = None,
+        value: Optional[Union[Word, F]] = None,
+        value_prev: Optional[Union[Word, F]] = None,
+        aux0: Optional[Word] = None,
+        enabled=None,
+    ) -> Row:
+        def wv(x):
+            if x is None:
+                return None
+            return x if isinstance(x, Word) else WordOrValue(x)
+
+        return self.rw.lookup(
+            cs,
+            {
+                "rw_counter": rw_counter,
+                "rw": rw,
+                "key0": tag,
+                "id": id,
+                "address": address,
+                "field_tag": field_tag,
+                "storage_key": storage_key,
+                "value": wv(value),
+                "value_prev": wv(value_prev),
+                "aux0": aux0,
+            },
+            enabled=enabled,
+        )

@@ -1,0 +1,211 @@
+"""Host-side witness builders (the part the compiled group path needs).
+
+``Block``, ``Bytecode`` and ``RWDictionary`` emit plain row dicts (Python
+ints, words as ints < 2^256) that feed the columnar ``Tables``; they are
+copies of the JAX package's builders of the same names
+(reference: src/zkevm_specs/evm_circuit/typing.py:64-845).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..ops.fr import P
+from ..ops.keccak import keccak256
+from ..tables.schemas import RW, BlockContextFieldTag, BytecodeFieldTag, Target
+from .rlc import RLC
+
+
+def _opcode_mod():
+    # deferred to avoid a circular import through the evm package __init__
+    from ..evm import opcode as m
+
+    return m
+
+
+_U256_LIMIT = 1 << 256
+
+
+def _to_int(v) -> int:
+    """Witness values are raw ints (words up to 2^256); field reduction only
+    happens on circuit-side tensors, never on stored witness rows."""
+    if type(v) is int:
+        if 0 <= v < _U256_LIMIT:
+            return v
+        assert v == -1
+        return P - 1
+    if isinstance(v, RLC):
+        return v.int_value
+    v = int(v)
+    assert -1 <= v < _U256_LIMIT
+    return v % P if v < 0 else v
+
+
+class Block:
+    def __init__(
+        self,
+        coinbase: int = 0x10,
+        gas_limit: int = int(15e6),
+        number: int = 0,
+        timestamp: int = 0,
+        prev_randao: int = 0,
+        base_fee: int = int(1e9),
+        chainid: int = 0x01,
+        withdrawal_root: int = 0,
+        history_hashes: Sequence[int] = (),
+    ):
+        assert len(history_hashes) <= min(256, number)
+        self.coinbase = coinbase
+        self.gas_limit = gas_limit
+        self.number = number
+        self.timestamp = timestamp
+        self.prev_randao = prev_randao
+        self.base_fee = base_fee
+        self.chainid = chainid
+        self.withdrawal_root = withdrawal_root
+        self.history_hashes = list(history_hashes)
+
+    def table_assignments(self) -> List[dict]:
+        T = BlockContextFieldTag
+        rows = [
+            {"field_tag": T.Coinbase, "block_number_or_zero": 0, "value": self.coinbase},
+            {"field_tag": T.GasLimit, "block_number_or_zero": 0, "value": self.gas_limit},
+            {"field_tag": T.Number, "block_number_or_zero": 0, "value": self.number},
+            {"field_tag": T.Timestamp, "block_number_or_zero": 0, "value": self.timestamp},
+            {"field_tag": T.PrevRandao, "block_number_or_zero": 0, "value": self.prev_randao},
+            {"field_tag": T.BaseFee, "block_number_or_zero": 0, "value": self.base_fee},
+            {"field_tag": T.ChainId, "block_number_or_zero": 0, "value": self.chainid},
+            {"field_tag": T.WithdrawalRoot, "block_number_or_zero": 0, "value": self.withdrawal_root},
+        ]
+        for idx, history_hash in enumerate(reversed(self.history_hashes)):
+            rows.append(
+                {
+                    "field_tag": T.HistoryHash,
+                    "block_number_or_zero": self.number - idx - 1,
+                    "value": history_hash,
+                }
+            )
+        return rows
+
+
+def init_is_code(code: bytearray) -> List[bool]:
+    is_codes = []
+    push_data_left = 0
+    for b in code:
+        is_code = push_data_left == 0
+        push_data_left = _opcode_mod().get_push_size(b) if is_code else push_data_left - 1
+        is_codes.append(is_code)
+    return is_codes
+
+
+class Bytecode:
+    """Opcode-DSL bytecode builder: Bytecode().add(a, b).stop() etc.
+    (reference typing.py:327-427)."""
+
+    def __init__(self, code: Optional[bytearray] = None, is_code: Optional[List[bool]] = None):
+        self.code = bytearray() if code is None else code
+        self.is_code = init_is_code(self.code) if is_code is None else is_code
+
+    def __getattr__(self, name: str):
+        def method(*args) -> "Bytecode":
+            Opcode = _opcode_mod().Opcode
+            try:
+                opcode = Opcode[name.rstrip("_").upper()]
+            except KeyError:
+                raise ValueError(f"Invalid opcode {name}")
+            if Opcode.PUSH1 <= opcode <= Opcode.PUSH32:
+                assert len(args) == 1
+                self.push(args[0], int(opcode) - int(Opcode.PUSH0))
+            elif Opcode.DUP1 <= opcode <= Opcode.DUP16 or Opcode.SWAP1 <= opcode <= Opcode.SWAP16:
+                assert len(args) == 0
+                self.code.append(opcode)
+                self.is_code.append(True)
+            else:
+                assert len(args) <= 1024 - _opcode_mod().max_stack_pointer(opcode)
+                for arg in reversed(args):
+                    self.push(arg)
+                self.code.append(opcode)
+                self.is_code.append(True)
+            return self
+
+        return method
+
+    def push(self, value, n_bytes: int = 32) -> "Bytecode":
+        if isinstance(value, int):
+            value = value.to_bytes(n_bytes, "big")
+        elif isinstance(value, str):
+            value = bytes.fromhex(value.lower().removeprefix("0x"))
+        elif isinstance(value, RLC):
+            value = bytes(reversed(value.le_bytes))
+        elif isinstance(value, (bytes, bytearray)):
+            pass
+        else:
+            raise NotImplementedError(f"Value of type {type(value)} is not yet supported")
+        assert 0 <= len(value) <= n_bytes
+        self.code.append(int(_opcode_mod().Opcode.PUSH0) + n_bytes)
+        self.is_code.append(True)
+        self.code.extend(bytes(value).rjust(n_bytes, b"\x00"))
+        self.is_code.extend([False] * n_bytes)
+        return self
+
+    def hash(self) -> int:
+        return int.from_bytes(keccak256(bytes(self.code)), "big")
+
+    def table_assignments(self) -> List[dict]:
+        h = self.hash()
+        rows = [
+            {
+                "bytecode_hash": h,
+                "field_tag": BytecodeFieldTag.Header,
+                "index": 0,
+                "is_code": 0,
+                "value": len(self.code),
+            }
+        ]
+        for idx, (byte, is_code) in enumerate(zip(self.code, self.is_code)):
+            rows.append(
+                {
+                    "bytecode_hash": h,
+                    "field_tag": BytecodeFieldTag.Byte,
+                    "index": idx,
+                    "is_code": int(is_code),
+                    "value": byte,
+                }
+            )
+        return rows
+
+
+class RWDictionary:
+    """Fluent builder of rw-table rows with auto rw_counter
+    (reference typing.py:464-845)."""
+
+    def __init__(self, rw_counter: int):
+        self.rw_counter = rw_counter
+        self.rws: List[dict] = []
+
+    def _append(self, rw: RW, tag: Target, id=0, address=0, field_tag=0,
+                storage_key=0, value=0, value_prev=0, aux0=0,
+                rw_counter: Optional[int] = None) -> "RWDictionary":
+        if rw_counter is None:
+            rw_counter = self.rw_counter
+            self.rw_counter += 1
+        self.rws.append(
+            {
+                "rw_counter": rw_counter,
+                "rw": int(rw),
+                "key0": int(tag),
+                "id": _to_int(id),
+                "address": _to_int(address),
+                "field_tag": _to_int(field_tag),
+                "storage_key": _to_int(storage_key),
+                "value": _to_int(value),
+                "value_prev": _to_int(value_prev),
+                "aux0": _to_int(aux0),
+            }
+        )
+        return self
+
+    def stack_read(self, call_id, stack_pointer, value) -> "RWDictionary":
+        return self._append(RW.Read, Target.Stack, id=call_id, address=stack_pointer, value=value)
+
+    def stack_write(self, call_id, stack_pointer, value) -> "RWDictionary":
+        return self._append(RW.Write, Target.Stack, id=call_id, address=stack_pointer, value=value)
