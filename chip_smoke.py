@@ -5,23 +5,33 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the compiled EVM group verifier, through
-the entry points a user calls, and checks it.  Phases (JSON lines on
-stdout; any failure raises and the script exits non-zero):
+It drives the port's paths through the entry points a user calls, and
+checks them.  Phases (JSON lines on stdout; any failure raises and the
+script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the four kernels of ``zkevm_specs_tpu_torch/csrc``, one nvcc per
+2. build: the kernels of ``zkevm_specs_tpu_torch/csrc``, one nvcc per
    source, all started together;
-3. slice: the ADD and MUL groups at 131072 lanes (``bench.py``'s
-   ``BENCH_STEPS``): host trace, upload, one replay on the card with every
-   kernel launch count set to 0 just before it and read just after, every
-   lane passing, then the replay timed, then a rebuild with one corrupted
-   lane that must fail alone; plus the replay at 256 lanes held against
-   the same replay on the CPU (the plain versions, which the CPU tests hold
-   against the JAX package);
-4. kernels: each kernel against its plain version on the card at a shape
+3. slice: the compiled EVM group verifier on the ADD and MUL groups at
+   131072 lanes (``bench.py``'s ``BENCH_STEPS``): host trace, upload, one
+   replay on the card with every kernel launch count set to 0 just before
+   it and read just after, every lane passing, then the replay timed, then
+   a rebuild with one corrupted lane that must fail alone; plus the replay
+   at 256 lanes held against the same replay on the CPU (the plain
+   versions, which the CPU tests hold against the JAX package);
+4. state: the state circuit (``make_state_check_fn``) on both of
+   ``bench.py``'s row mixes at 2^19 rows: build, pack and upload, one
+   counted check with every row passing, 10 timed checks, a rebuild with
+   one corrupted row that must fail alone, and the check at 512 rows held
+   against the CPU;
+5. bytecode: the bytecode circuit (``bytecode_kernel``, a ``CircuitKernel``)
+   on the ALU-mix bytecodes at k = 20, the same steps, one corrupted byte,
+   and the check at k = 10 held against the CPU;
+6. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
-   25 timed launches, the plain version's time and the bound.
+   25 timed launches, the plain version's time and the bound; K1 and K3
+   also at every distinct shape and mode the state and bytecode paths
+   gave them (``path_shapes``), as K6 at both of its lookups.
 
 The last three lines are the kernels line, the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -39,20 +49,29 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA GPU")
 
+from zkevm_specs_tpu_torch import workloads  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import bytecode as bytecode_circuit  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import state  # noqa: E402
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E402
 from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
+from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
-from zkevm_specs_tpu_torch.tables.schemas import Target  # noqa: E402
+from zkevm_specs_tpu_torch.tables.schemas import BytecodeFieldTag, Target  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
-LANES = 131072          # bench.py's default BENCH_STEPS
+LANES = workloads.GROUP_LANES
 SMALL_LANES = 256
 CORRUPT_LANE = 77_777
 REPLAY_REPEATS = 10
 KERNEL_REPEATS = 25
+STATE_ROWS = workloads.ALU_BLOCK_STATE_ROWS
+SMALL_STATE_ROWS = 512
+CORRUPT_ROW = 77_777
+ALU_TXS, ALU_OPS = workloads.ALU_BLOCK_TXS, workloads.ALU_BLOCK_OPS
+SMALL_K = 10
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -60,12 +79,11 @@ KERNEL_REPEATS = 25
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-WRAPPERS = {
-    "fr_mul": fr.fr_mul,
-    "limb_mul": L.limb_mul,
-    "limb_addsub": L.limb_addsub,
-    "lookup_gather_eq": engine.lookup_gather_eq,
-}
+# the kernels by the name their wrapper counts launches under (L.LAUNCHES)
+KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
+           "lookup_search_eq", "lookup_fingerprint")
+SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
+SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
 REPLACES = {
     "fr_mul": "zkevm_specs_tpu/ops/fr.py:97 (mul -> reduce_wide :43; retired Pallas "
               "fr_mul_pallas, ops/pallas_fr.py:146 before 8a07970)",
@@ -74,10 +92,20 @@ REPLACES = {
                    "add/sub/neg/reduce_once)",
     "lookup_gather_eq": "zkevm_specs_tpu/tables/engine.py:199 (Table.lookup hint replay, "
                         "_gather_rows :313)",
+    "state_order_lt": "zkevm_specs_tpu/circuits/state.py:253 (_order_limbs of the rows and of "
+                      "shifted(-1), with the L.lt of :304-311)",
+    "lookup_search_eq": "zkevm_specs_tpu/tables/engine.py:227 (Table.lookup non-hinted branch, "
+                        ":227-280)",
+    "lookup_fingerprint": "zkevm_specs_tpu/tables/engine.py:109 (_fingerprint inside index_for "
+                          ":141-164, built under jit)",
 }
 # kernels each path must launch
 PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
-                "MUL": ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq")}
+                "MUL": ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq"),
+                "state_memory_stack": ("state_order_lt", "limb_addsub"),
+                "state_storage_account": ("state_order_lt", "limb_addsub", "lookup_search_eq",
+                                          "lookup_fingerprint"),
+                "bytecode": ("fr_mul", "limb_addsub", "lookup_search_eq")}
 
 
 def emit(obj):
@@ -85,12 +113,11 @@ def emit(obj):
 
 
 def reset_counts():
-    for w in WRAPPERS.values():
-        w.launches = 0
+    L.LAUNCHES.clear()
 
 
 def read_counts():
-    return {name: w.launches for name, w in WRAPPERS.items()}
+    return {name: L.LAUNCHES[name] for name in KERNELS}
 
 
 def card_line():
@@ -121,12 +148,12 @@ def time_on_card_ms(fn, repeats=KERNEL_REPEATS, warmup=3):
 
 # -- phase 3: the slice ---------------------------------------------------------
 
-def run_group(name, state, build, card):
+def run_group(name, exec_state, build, card):
     out = {"phase": "slice", "group": name, "lanes": LANES, "card": card}
     t0 = time.perf_counter()
     tables, steps, nexts = build(LANES)
     t1 = time.perf_counter()
-    verifier = CompiledGroupVerifier(tables, state, steps, nexts)        # device "cuda"
+    verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)   # device "cuda"
     t2 = time.perf_counter()
     inputs = verifier.prepare_inputs(steps, nexts)
     torch.cuda.synchronize()
@@ -161,7 +188,7 @@ def run_group(name, state, build, card):
     del tables, steps, nexts, verifier, inputs, fail
 
     tables, steps, nexts = build(LANES, corrupt_lane=CORRUPT_LANE)
-    verifier = CompiledGroupVerifier(tables, state, steps, nexts)
+    verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)
     fail = verifier(*verifier.prepare_inputs(steps, nexts))
     bad = torch.nonzero(fail).flatten().tolist()
     assert bad == [CORRUPT_LANE], f"{name}: corrupted lane {CORRUPT_LANE}, failing lanes {bad[:8]}"
@@ -171,8 +198,8 @@ def run_group(name, state, build, card):
     # the card's replay against the CPU replay (plain versions) at 256 lanes
     for corrupt in (None, 3):
         tables, steps, nexts = build(SMALL_LANES, seed=1, corrupt_lane=corrupt)
-        on_card = CompiledGroupVerifier(tables, state, steps, nexts)
-        on_cpu = CompiledGroupVerifier(tables, state, steps, nexts, device="cpu")
+        on_card = CompiledGroupVerifier(tables, exec_state, steps, nexts)
+        on_cpu = CompiledGroupVerifier(tables, exec_state, steps, nexts, device="cpu")
         f_card = on_card(*on_card.prepare_inputs(steps, nexts)).cpu()
         f_cpu = on_cpu(*on_cpu.prepare_inputs(steps, nexts))
         assert torch.equal(f_card, f_cpu), f"{name}: card and CPU replays disagree"
@@ -183,7 +210,189 @@ def run_group(name, state, build, card):
     return counts, keep
 
 
-# -- phase 4: the kernels against their plain versions ---------------------------
+# -- phase 4: the state circuit ---------------------------------------------------
+
+class Capture:
+    """Records the arguments of calls of ``module.name`` while active: the
+    first call for each value of ``key(args)`` (by default the first call
+    only).  Used on a run outside the counted main path, to hold and time
+    the kernels at the path's own shapes."""
+
+    def __init__(self, module, name, key=lambda args: None):
+        self.module, self.name, self.key, self.calls = module, name, key, {}
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        def record(*args):
+            self.calls.setdefault(self.key(args), args)
+            return self.orig(*args)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def addsub_key(args):
+    """K3's (mode, out_n, operand shapes): one capture for each."""
+    a, b, mode = args[:3]
+    return (mode, args[3] if len(args) > 3 else 0, tuple(a.shape), tuple(b.shape))
+
+
+def state_inputs(mix, n_rows, corrupt_row=None, seed=0):
+    rows, mpt_rows = getattr(workloads, f"build_state_{mix}")(n_rows, seed=seed,
+                                                             corrupt_row=corrupt_row)
+    return state.pack_state_inputs(rows, mpt_rows)
+
+
+def run_state(mix, card):
+    path = f"state_{mix}"
+    out = {"phase": "state", "mix": mix, "rows": STATE_ROWS, "card": card}
+    t0 = time.perf_counter()
+    rows, mpt_rows = getattr(workloads, f"build_state_{mix}")(STATE_ROWS)
+    t1 = time.perf_counter()
+    cols, tree, meta = state.pack_state_inputs(rows, mpt_rows)
+    t2 = time.perf_counter()
+    inputs = to_device((cols, tree), "cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check = state.make_state_check_fn(meta)                 # device "cuda"
+    del rows, mpt_rows, cols, tree
+
+    # the main path: counts set to 0 just before the check, read just after
+    reset_counts()
+    fail = check(*inputs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert fail.device.type == "cuda" and fail.dtype == torch.bool and fail.shape == (STATE_ROWS,)
+    assert not bool(fail.any()), f"{path}: {int(fail.sum())} rows failed on a valid witness"
+    for k in PATH_KERNELS[path]:
+        assert counts[k] > 0, f"{path}: kernel {k} was not launched on the main path"
+    if mix == "storage_account":
+        assert counts["lookup_search_eq"] == 2, f"{path}: {counts['lookup_search_eq']} K6 launches"
+
+    torch.cuda.reset_peak_memory_stats()
+    check_ms = []
+    for _ in range(REPLAY_REPEATS):
+        r0 = time.perf_counter()
+        check(*inputs)
+        torch.cuda.synchronize()
+        check_ms.append((time.perf_counter() - r0) * 1e3)
+    med = statistics.median(check_ms)
+    out.update({
+        "workload_build_s": t1 - t0, "pack_s": t2 - t1, "upload_s": t3 - t2,
+        "mpt_rows": meta["mpt_rows"], "launches": counts, "check_ms_median": med,
+        "check_ms_min": min(check_ms), "rows_per_s": STATE_ROWS / (med / 1e3),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+
+    # the kernels' arguments at the path's shapes, from one more check; K5
+    # takes the uploaded key columns as they are
+    cols = inputs[0]
+    captured = {"state_order_lt": tuple(cols[c] for c in (
+        "tag", "id", "address", "field_tag", "storage_key_lo", "storage_key_hi", "rw_counter"))}
+    with Capture(L, "limb_addsub", addsub_key) as k3, Capture(engine, "lookup_search_eq") as k6, \
+            Capture(engine, "lookup_fingerprint") as k6f:
+        check(*inputs)
+    captured.update(limb_addsub=k3.calls, lookup_search_eq=k6.calls.get(None),
+                    lookup_fingerprint=k6f.calls.get(None))
+    del inputs, fail, cols
+
+    cols, tree, meta = state_inputs(mix, STATE_ROWS, corrupt_row=CORRUPT_ROW)
+    fail = state.make_state_check_fn(meta)(*to_device((cols, tree), "cuda"))
+    bad = torch.nonzero(fail).flatten().tolist()
+    assert bad == [CORRUPT_ROW], f"{path}: corrupted row {CORRUPT_ROW}, failing rows {bad[:8]}"
+    out["corrupt_row_caught"] = CORRUPT_ROW
+    del cols, tree, fail
+
+    # the card's check against the same check on the CPU at 512 rows
+    for corrupt in (None, 101):
+        cols, tree, meta = state_inputs(mix, SMALL_STATE_ROWS, corrupt_row=corrupt, seed=1)
+        f_card = state.make_state_check_fn(meta)(*to_device((cols, tree), "cuda")).cpu()
+        f_cpu = state.make_state_check_fn(meta, device="cpu")(*to_device((cols, tree), "cpu"))
+        assert torch.equal(f_card, f_cpu), f"{path}: card and CPU checks disagree"
+        assert torch.nonzero(f_card).flatten().tolist() == ([] if corrupt is None else [corrupt])
+    out["small_check_matches_cpu"] = True
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts, captured
+
+
+# -- phase 5: the bytecode circuit ------------------------------------------------
+
+def run_bytecode(card):
+    out = {"phase": "bytecode", "txs": ALU_TXS, "ops_per_tx": ALU_OPS, "card": card}
+    t0 = time.perf_counter()
+    rows, keccak_rows, r = workloads.build_alu_bytecodes(ALU_TXS, ALU_OPS)
+    t1 = time.perf_counter()
+    kernel = bytecode_circuit.bytecode_kernel(rows, keccak_rows, r)     # device "cuda"
+    t2 = time.perf_counter()
+    args = kernel.device_args()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n = len(rows)
+    k = n.bit_length() - 1
+    codes = workloads.alu_bytecodes(ALU_TXS, ALU_OPS)
+    assert n == 1 << k == 1 << workloads.bytecode_k(codes)
+    unrolled = sum(len(c) + 1 for c in codes)       # a Header and the Byte rows of each code
+    corrupt = next(i for i in range(CORRUPT_ROW, n) if rows[i]["tag"] == int(BytecodeFieldTag.Byte))
+    del rows
+
+    reset_counts()
+    fail = kernel(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert fail.device.type == "cuda" and fail.shape == (n,)
+    assert not bool(fail.any()), f"bytecode: {int(fail.sum())} rows failed on valid bytecodes"
+    for name in PATH_KERNELS["bytecode"]:
+        assert counts[name] > 0, f"bytecode: kernel {name} was not launched on the main path"
+
+    torch.cuda.reset_peak_memory_stats()
+    check_ms = []
+    for _ in range(REPLAY_REPEATS):
+        r0 = time.perf_counter()
+        kernel(args)
+        torch.cuda.synchronize()
+        check_ms.append((time.perf_counter() - r0) * 1e3)
+    med = statistics.median(check_ms)
+    out.update({
+        "k": k, "rows": n, "keccak_rows": len(keccak_rows), "workload_build_s": t1 - t0,
+        "pack_s": t2 - t1, "upload_s": t3 - t2, "launches": counts, "check_ms_median": med,
+        "check_ms_min": min(check_ms), "rows_per_s": n / (med / 1e3),
+        "unrolled_rows": unrolled, "unrolled_rows_per_s": unrolled / (med / 1e3),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    with Capture(engine, "lookup_search_eq") as k6, Capture(fr, "fr_mul") as k1, \
+            Capture(L, "limb_addsub", addsub_key) as k3:
+        kernel(args)
+    captured = {"lookup_search_eq": k6.calls[None], "fr_mul": k1.calls[None],
+                "limb_addsub": k3.calls}
+    del kernel, args, fail
+
+    rows, keccak_rows, r = workloads.build_alu_bytecodes(ALU_TXS, ALU_OPS, corrupt_row=corrupt)
+    fail = bytecode_circuit.bytecode_kernel(rows, keccak_rows, r)()
+    bad = torch.nonzero(fail).flatten().tolist()
+    assert bad and all(abs(i - corrupt) <= 1 for i in bad), \
+        f"bytecode: corrupted byte at row {corrupt}, failing rows {bad[:8]}"
+    out["corrupt_row"], out["failing_rows"] = corrupt, bad
+    del rows, fail
+
+    # the card's check against the same check on the CPU at k = 10
+    for corrupt in (None, 45):
+        rows, keccak_rows, r = workloads.build_alu_bytecodes(2, 40, k=SMALL_K, seed=1,
+                                                             corrupt_row=corrupt)
+        f_card = bytecode_circuit.bytecode_kernel(rows, keccak_rows, r)().cpu()
+        f_cpu = bytecode_circuit.bytecode_kernel(rows, keccak_rows, r, device="cpu")()
+        assert torch.equal(f_card, f_cpu), "bytecode: card and CPU checks disagree"
+        assert bool(f_card.any()) == (corrupt is not None)
+    out["small_check_matches_cpu"] = True
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts, captured
+
+
+# -- phase 6: the kernels against their plain versions ---------------------------
 
 def seeded_limbs(rng, rows, n, bound_bits, device):
     """[rows, n] canonical limbs of random values below 2^bound_bits (and
@@ -204,12 +413,14 @@ def bound(bytes_moved, int_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launches):
+def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note):
+    """One call of a kernel held against its plain version on the same
+    inputs (bit-exact), then both timed, and the bound of the work."""
     torch.cuda.synchronize()
-    before = WRAPPERS[name].launches
+    before = L.LAUNCHES[name]
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
-    assert WRAPPERS[name].launches == before + 1, f"{name}: the wrapper did not launch its kernel"
+    assert L.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch its kernel"
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     err = 0
@@ -218,15 +429,45 @@ def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launche
         exact = exact and g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
         if g.shape == w.shape:
             err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
-    assert exact, f"{name}: kernel disagrees with its plain version (max abs err {err})"
+    assert exact, f"{name} at {shape_note}: kernel disagrees with its plain version " \
+                  f"(max abs err {err})"
     ms = time_on_card_ms(kernel_fn)
     plain_ms = time_on_card_ms(plain_fn, repeats=5, warmup=1)
     b_ms, b_by = bound(bytes_moved, int_ops)
-    return {"name": name, "route": "cuda", "source": f"zkevm_specs_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "shape": shape_note, "launches": launches,
-            "exact": exact, "tolerance": 0, "max_abs_err": err, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved, "int_ops": int_ops,
+    return {"shape": shape_note, "exact": exact, "tolerance": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
+            "int_ops": int_ops}
+
+
+def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launches):
+    """A kernel's row of the kernels line, at one shape of a path."""
+    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches,
+            **measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note),
             "library_ms": None}
+
+
+def fr_mul_cost(a, b):
+    """(bytes, int32 operations) of K1: the product, Barrett's two products
+    and its three carry and borrow chains."""
+    rows = max(a.shape[0], b.shape[0])
+    products = a.shape[1] * b.shape[1] + 17 * 17 + 17 * 18 // 2
+    return (nbytes(a, b) + rows * 16 * 8,
+            rows * (2 * products + 3 * (32 + 34 + 17) + 3 * 17 * 3))
+
+
+def addsub_cost(a, b, mode, out_n=0):
+    """(bytes, int32 operations) of K3: three per limb of a chain (add,
+    mask, carry shift), two chains and a select in the Fr modes."""
+    rows = max(a.shape[0], b.shape[0])
+    n = max(a.shape[1], b.shape[1])
+    out_limbs = {L.SUB: n, L.FR_ADD: 16, L.FR_SUB: 16}.get(mode, out_n)
+    moved = nbytes(a, b) + rows * out_limbs * 8 + (rows * 8 if mode == L.SUB else 0)
+    per_row = 3 * max(n, out_limbs) if mode in (L.ADD, L.SUB) else 3 * 17 + 3 * 17 + 16
+    return moved, rows * per_row
+
+
+MODE_NAMES = {L.ADD: "ADD", L.SUB: "SUB", L.FR_ADD: "FR_ADD", L.FR_SUB: "FR_SUB"}
 
 
 def kernel_phase(launches, mul_inputs):
@@ -238,11 +479,8 @@ def kernel_phase(launches, mul_inputs):
     # K1: the fdiv_const shape, [B, 16] x constant [1, 16]
     a = seeded_limbs(rng, B, 16, 254, dev)
     b = L.int_to_limbs(pow(8, fr.P - 2, fr.P), 16)[None, :].to(dev)
-    products = 16 * 16 + 17 * 17 + 17 * 18 // 2
-    ops = B * (2 * products + 3 * (32 + 34 + 17) + 3 * 17 * 3)
     rows.append(compare("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
-                        nbytes(a, b) + B * 16 * 8, ops, "[B,16] x [1,16] -> [B,16]",
-                        launches["fr_mul"]))
+                        *fr_mul_cost(a, b), "MUL: [B,16] x [1,16] -> [B,16]", launches["fr_mul"]))
 
     # K2: the 64x64-bit products of _mul_512_terms, [B, 4] x [B, 4] -> 8
     a4 = seeded_limbs(rng, B, 4, 64, dev)
@@ -255,9 +493,8 @@ def kernel_phase(launches, mul_inputs):
     x = seeded_limbs(rng, B, 16, 254, dev)
     y = seeded_limbs(rng, B, 16, 254, dev)
     rows.append(compare("limb_addsub", lambda: L.limb_addsub(x, y, L.FR_ADD),
-                        lambda: L.addsub_plain(x, y, L.FR_ADD, 16),
-                        nbytes(x, y) + B * 16 * 8, B * (3 * 17 + 3 * 17 + 16),
-                        "FR_ADD [B,16] + [B,16] -> [B,16]", launches["limb_addsub"]))
+                        lambda: L.addsub_plain(x, y, L.FR_ADD, 16), *addsub_cost(x, y, L.FR_ADD),
+                        "MUL: FR_ADD [B,16] + [B,16] -> [B,16]", launches["limb_addsub"]))
 
     # K4: the first stack pop of the MUL replay on its own rw table (3B rows)
     # and hint stream: rw_counter, rw, tag, call id, stack pointer
@@ -283,6 +520,91 @@ def kernel_phase(launches, mul_inputs):
     return rows
 
 
+def search_cost(args):
+    """(bytes, int32 operations, candidates scanned) of one K6 search, for
+    this run's data: the binary search, then the candidates that share the
+    query's fingerprint (at most ``max_span``), each gathered and compared."""
+    query, table, coefs, fps, order, max_span, batch = args
+    T = fps.shape[0]
+    qfp = engine.fingerprint_plain(query, coefs).expand(batch).contiguous()
+    keys, qkeys = fps ^ engine._SIGN, qfp ^ engine._SIGN
+    left = torch.searchsorted(keys, qkeys, side="left")
+    right = torch.searchsorted(keys, qkeys, side="right")
+    scanned = int((right - left).clamp(max=max_span).sum())
+    row_bytes = sum(8 * t.shape[1] for t in table)
+    q_width = sum(q.shape[1] for q in query)
+    steps = max(1, (T - 1).bit_length())
+    moved = (sum(nbytes(q) for q in query) + min(T, batch * steps) * 8
+             + scanned * (8 + row_bytes) + batch * (4 + 3))
+    ops = batch * (8 * q_width + 3 * steps) + scanned * 2 * (row_bytes // 8)
+    return moved, ops, scanned, (keys, qkeys)
+
+
+def slice_kernel_rows(launches, captured):
+    """K5 and K6 at the shapes the state and bytecode paths gave them."""
+    rows = []
+
+    # K5: the ordering check over the Memory/Stack mix's 2^19 uploaded rows
+    cols = captured["memory_stack"]["state_order_lt"]
+    n = cols[0].shape[0]
+    limbs_needed = 1 + 2 + 10 + 1 + 8 + 8 + 2               # the key's limbs of a row
+    rows.append(compare("state_order_lt", lambda: state.state_order_lt(*cols),
+                        lambda: state.state_order_lt_plain(*cols),
+                        n * limbs_needed * 8 + n, n * 2 * (3 * 17 + 4 + 19),
+                        f"state_memory_stack: {n} rows, 7 key columns", launches["state_order_lt"]))
+
+    # K6: the Storage lookup of the Storage/Account mix (the kernel's row)
+    # and the keccak lookup of the bytecode circuit (its path_shapes); the
+    # search part alone is timed with torch.searchsorted on the same index
+    # and query fingerprints
+    k6 = []
+    for label, args in (("state_storage_account: Storage MPT lookup",
+                         captured["storage_account"]["lookup_search_eq"]),
+                        ("bytecode: keccak lookup", captured["bytecode"]["lookup_search_eq"])):
+        query, table, _, fps, _, max_span, batch = args
+        moved, ops, scanned, (keys, qkeys) = search_cost(args)
+        note = (f"{label}: {batch} lanes, {len(query)} parts, {fps.shape[0]}-row index, "
+                f"span {max_span}, {scanned} candidates")
+        entry = measure("lookup_search_eq", lambda: list(engine.lookup_search_eq(*args)),
+                        lambda: list(engine.lookup_search_eq_plain(*args)), moved, ops, note)
+        entry["searchsorted_ms"] = time_on_card_ms(
+            lambda: torch.searchsorted(keys, qkeys, side="left"))
+        k6.append(entry)
+    rows.append({"name": "lookup_search_eq", "route": "cuda", "source": SOURCES["lookup_search_eq"],
+                 "replaces": REPLACES["lookup_search_eq"], "launches": launches["lookup_search_eq"],
+                 **k6[0], "library_ms": None, "path_shapes": k6[1:]})
+
+    # K6's fingerprint entry: the MPT index build of the Storage/Account mix
+    parts, coefs = captured["storage_account"]["lookup_fingerprint"]
+    T = parts[0].shape[0]
+    width = sum(t.shape[1] for t in parts)
+    rows.append(compare("lookup_fingerprint", lambda: engine.lookup_fingerprint(parts, coefs),
+                        lambda: engine.fingerprint_plain(parts, coefs),
+                        sum(nbytes(t) for t in parts) + T * 8, T * width * 8,
+                        f"state_storage_account: MPT table, {T} rows, {len(parts)} parts",
+                        launches["lookup_fingerprint"]))
+    return rows
+
+
+def path_shape_entries(captured):
+    """K1 and K3 at every distinct shape and mode that the state and
+    bytecode paths gave them, each held against its plain version."""
+    a, b = captured["bytecode"]["fr_mul"]
+    k1 = [measure("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
+                  *fr_mul_cost(a, b), f"bytecode: {list(a.shape)} x {list(b.shape)} -> [B,16]")]
+    seen = {}
+    for path in ("memory_stack", "storage_account", "bytecode"):
+        for key, args in captured[path]["limb_addsub"].items():
+            seen.setdefault(key, (path if path == "bytecode" else f"state_{path}", args))
+    k3 = []
+    for (mode, out_n, sa, sb), (path, args) in seen.items():
+        x, y = args[:2]
+        k3.append(measure("limb_addsub", lambda: L.limb_addsub(*args),
+                          lambda: L.addsub_plain(x, y, mode, out_n), *addsub_cost(*args),
+                          f"{path}: {MODE_NAMES[mode]} {list(sa)} {list(sb)} out_n {out_n}"))
+    return {"fr_mul": k1, "limb_addsub": k3}
+
+
 def main():
     card = card_line()
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
@@ -294,19 +616,22 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": per_kernel,
           "flags": cuda_build.NVCC_FLAGS})
 
-    launches = {name: 0 for name in WRAPPERS}
     by_path = {}
     mul_inputs = None
-    for name, state, build in (("ADD", ExecutionState.ADD, build_add_workload),
-                               ("MUL", ExecutionState.MUL, build_mul_workload)):
-        counts, keep = run_group(name, state, build, card)
-        by_path[name] = counts
-        for k, v in counts.items():
-            launches[k] += v
+    for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
+                                    ("MUL", ExecutionState.MUL, build_mul_workload)):
+        by_path[name], keep = run_group(name, exec_state, build, card)
         if keep is not None:
             mul_inputs = keep
+    captured = {}
+    for mix in ("memory_stack", "storage_account"):
+        by_path[f"state_{mix}"], captured[mix] = run_state(mix, card)
+    by_path["bytecode"], captured["bytecode"] = run_bytecode(card)
+    launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
-    rows = kernel_phase(launches, mul_inputs)
+    rows = kernel_phase(launches, mul_inputs) + slice_kernel_rows(launches, captured)
+    for name, entries in path_shape_entries(captured).items():
+        next(r for r in rows if r["name"] == name)["path_shapes"] = entries
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["card"] = card

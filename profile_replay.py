@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the replay's time goes: one replay of the port's ADD and MUL
-groups on the card under torch.profiler.
+"""Where the time goes on the card: one call of each of the port's paths
+under torch.profiler.
 
-    python3 profile_replay.py [--lanes 131072]
+    python3 profile_replay.py
 
-For each group it prints one JSON line: the replay's host wall time, the
-device's busy time (union of kernel intervals) and idle share within it,
-the number of device kernels, and the device time of the ten costliest
-kernel names (the port's four kernels and PyTorch's own).  Needs a CUDA
-device; the kernels are built on first use.
+Paths, at the sizes ``chip_smoke.py`` runs them (``workloads.py``): the
+compiled group verifier's replay on the ADD and MUL groups at 131072
+lanes, the state check on both of ``bench.py``'s row mixes at 2^19 rows,
+and the bytecode check on the ALU-mix bytecodes at k = 20.  For each it
+prints one JSON line: the call's host wall time, the device's busy time
+(union of kernel intervals) and idle share within it, the number of device
+kernels, and the device time of the ten costliest kernel names (the port's
+kernels and PyTorch's own).  Needs a CUDA device; the kernels are built on
+first use.
 """
-import argparse
 import json
 import subprocess
 import time
@@ -20,7 +23,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.circuits import bytecode, state
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload
 
@@ -40,16 +46,14 @@ def busy_us(intervals):
     return total
 
 
-def profile_group(name, state, build, lanes, card):
-    tables, steps, nexts = build(lanes)
-    verifier = CompiledGroupVerifier(tables, state, steps, nexts)
-    inputs = verifier.prepare_inputs(steps, nexts)
+def profile_call(label, call, card, **info):
+    """Profile one call of ``call`` (after three unprofiled warm-up calls)."""
     for _ in range(3):
-        verifier(*inputs)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        verifier(*inputs)
+        call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -64,7 +68,7 @@ def profile_group(name, state, build, lanes, card):
     span = (max(t for _, t in intervals) - min(s for s, _ in intervals)) if intervals else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     print(json.dumps({
-        "group": name, "lanes": lanes, "card": card, "wall_ms": wall_us / 1e3,
+        "path": label, **info, "card": card, "wall_ms": wall_us / 1e3,
         "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
         "device_span_ms": span / 1e3,
         "idle_share_of_wall": (1 - busy / wall_us) if kernels else None,
@@ -73,16 +77,26 @@ def profile_group(name, state, build, lanes, card):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--lanes", type=int, default=131072)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_replay: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    for name, state, build in (("ADD", ExecutionState.ADD, build_add_workload),
-                               ("MUL", ExecutionState.MUL, build_mul_workload)):
-        profile_group(name, state, build, args.lanes, card)
+    for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
+                                    ("MUL", ExecutionState.MUL, build_mul_workload)):
+        tables, steps, nexts = build(workloads.GROUP_LANES)
+        verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)
+        inputs = verifier.prepare_inputs(steps, nexts)
+        profile_call(name, lambda: verifier(*inputs), card, lanes=workloads.GROUP_LANES)
+    for mix in ("memory_stack", "storage_account"):
+        rows, mpt_rows = getattr(workloads, f"build_state_{mix}")(workloads.ALU_BLOCK_STATE_ROWS)
+        cols, tree, meta = state.pack_state_inputs(rows, mpt_rows)
+        check, inputs = state.make_state_check_fn(meta), to_device((cols, tree), "cuda")
+        profile_call(f"state_{mix}", lambda: check(*inputs), card,
+                     rows=workloads.ALU_BLOCK_STATE_ROWS)
+    rows, keccak_rows, r = workloads.build_alu_bytecodes(workloads.ALU_BLOCK_TXS,
+                                                         workloads.ALU_BLOCK_OPS)
+    kernel = bytecode.bytecode_kernel(rows, keccak_rows, r)
+    profile_call("bytecode", kernel, card, rows=len(rows))
 
 
 if __name__ == "__main__":

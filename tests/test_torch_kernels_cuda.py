@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
+"""The CUDA kernels against their plain PyTorch versions on the card,
 over every mode and operand width class they take, bit-exact (they are
 integer functions).  Marked ``cuda``: each test skips where no CUDA device
 is present, and runs on the card with
@@ -121,9 +121,113 @@ def test_lookup_gather_eq(dev, with_enabled):
 
 def test_counts_rise_only_where_a_kernel_launches(dev):
     a = torch.ones((4, 4), dtype=torch.int64, device=dev)
-    before = L.limb_mul.launches
+    before = L.LAUNCHES["limb_mul"]
     L.limb_mul(a, a, 8)
     L.limb_mul(a.cpu(), a.cpu(), 8)
-    assert L.limb_mul.launches == before + 1
+    assert L.LAUNCHES["limb_mul"] == before + 1
     with pytest.raises(ValueError):
         L.limb_mul(a, a.cpu(), 8)
+
+
+# -- K1 at the bytecode circuit's shape: a one-limb constant multiplier ----------
+
+@pytest.mark.parametrize("value", [1, 2, 0xFFFF])
+def test_fr_mul_one_limb_constant(dev, value):
+    a, _ = _operands(value % 97, 16, 1, None, dev, bits_a=254)
+    b = L.int_to_limbs(value, 1)[None, :].to(dev)
+    _equal(fr.fr_mul(a, b), fr.fr_mul_plain(a, b))
+
+
+# -- K5: the state circuit's ordering check ---------------------------------------
+
+def _order_cols(seed, dev):
+    """The key columns of ROWS rows at their declared widths, neighbours
+    sharing prefixes, with the edge values id = MAX_ID, address = 2^160-1,
+    storage_key = 2^256-1 and rw_counter = 2^32-1."""
+    rng = np.random.RandomState(seed)
+
+    def col(bits, n, edge):
+        vals = [int.from_bytes(rng.bytes(40), "little") % (1 << bits) for _ in range(ROWS)]
+        vals[5:9] = [edge] * 4
+        vals[300:400] = [vals[299]] * 100
+        return L.ints_to_limbs(vals, n)
+
+    tag = L.ints_to_limbs([int(t) for t in rng.randint(1, 12, size=ROWS)], 1)
+    tag[::50] = 1                                       # Start rows
+    sk = col(256, 16, (1 << 256) - 1)
+    cols = [tag, col(28, 2, (1 << 28) - 1), col(160, 16, (1 << 160) - 1), col(16, 1, 0xFFFF),
+            sk[:, :8].contiguous(), sk[:, 8:].contiguous(), col(32, 2, (1 << 32) - 1)]
+    return [c.to(dev) for c in cols]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_state_order_lt(dev, seed):
+    from zkevm_specs_tpu_torch.circuits import state
+
+    cols = _order_cols(seed, dev)
+    before = L.LAUNCHES["state_order_lt"]
+    got = state.state_order_lt(*cols)
+    assert L.LAUNCHES["state_order_lt"] == before + 1
+    _equal(got, state.state_order_lt_plain(*cols))
+    assert got.any() and not got.all()
+
+
+# -- K6: the fingerprint search ---------------------------------------------------
+
+def _search_case(dev, n_rows=3000, span_run=3):
+    """A table of three parts (2, 16 and 8 limbs), its host index, and
+    ROWS queries: most copy a row, every 7th differs, and a run of
+    ``span_run`` rows shares the first two parts."""
+    rng = np.random.RandomState(17)
+    table = [rng.randint(0, 1 << 16, size=(n_rows, w)).astype(np.int64) for w in (2, 16, 8)]
+    table[1][:, 10:] = 0
+    run = [10, 500, 2000][:span_run]
+    for p in (0, 1):
+        table[p][run] = table[p][run[0]]
+    coefs = torch.from_numpy(rng.randint(-(1 << 62), 1 << 62, size=(3, 16)).astype(np.int64))
+    table_t = [torch.from_numpy(t) for t in table]
+    fps = engine.fingerprint_plain(table_t, coefs)
+    order = torch.sort(fps ^ engine._SIGN, stable=True).indices
+    sorted_fps = fps[order].contiguous()
+    picks = rng.randint(0, n_rows, size=ROWS)
+    picks[:4] = run[0]
+    query = [t[picks].clone() for t in table_t]
+    query[2][::7, 0] += 1
+    query[1] = query[1][:, :10].contiguous()           # a narrower query than its column
+    to = lambda ts: [t.to(dev) for t in ts]            # noqa: E731
+    return to(query), to(table_t), coefs.to(dev), sorted_fps.to(dev), order.to(dev)
+
+
+@pytest.mark.parametrize("subset", ["all", "first_two"])
+@pytest.mark.parametrize("max_span", [1, 2, 3, 8])
+def test_lookup_search_eq(dev, subset, max_span):
+    query, table, coefs, fps, order = _search_case(dev)
+    if subset == "first_two":                          # the span-3 run is ambiguous here
+        table_c = [t.cpu() for t in table[:2]]
+        coefs = coefs[:2].contiguous()
+        fps_rows = engine.fingerprint_plain(table_c, coefs.cpu())
+        order = torch.sort(fps_rows ^ engine._SIGN, stable=True).indices
+        fps = fps_rows[order].contiguous().to(dev)
+        order = order.to(dev)
+        query, table = query[:2], table[:2]
+    args = (query, table, coefs, fps, order, max_span, ROWS)
+    before = L.LAUNCHES["lookup_search_eq"]
+    got = engine.lookup_search_eq(*args)
+    assert L.LAUNCHES["lookup_search_eq"] == before + 1
+    want = engine.lookup_search_eq_plain(*args)
+    _equal(list(got), list(want))
+    if subset == "first_two":
+        assert bool(got[2][:4].all()) == (max_span < 2)    # ambiguous once 2 are scanned
+        assert bool(got[3][:4].all()) == (max_span >= 3)   # covered only with span >= 3
+    # a broadcast [1, w] query row
+    row_query = [q[:1].contiguous() for q in query]
+    args = (row_query, table, coefs, fps, order, max_span, ROWS)
+    _equal(list(engine.lookup_search_eq(*args)), list(engine.lookup_search_eq_plain(*args)))
+
+
+def test_lookup_fingerprint(dev):
+    _, table, coefs, _, _ = _search_case(dev)
+    before = L.LAUNCHES["lookup_fingerprint"]
+    got = engine.lookup_fingerprint(table, coefs)
+    assert L.LAUNCHES["lookup_fingerprint"] == before + 1
+    _equal(got, engine.fingerprint_plain(table, coefs))

@@ -14,6 +14,7 @@ from zkevm_specs_tpu.tables.container import Tables as JTables
 from zkevm_specs_tpu.tables.schemas import RW, Target
 from zkevm_specs_tpu_torch.dsl.cs import ConstraintSystem
 from zkevm_specs_tpu_torch.dsl.value import Ctx, F
+from zkevm_specs_tpu_torch.ops import limbs as L
 from zkevm_specs_tpu_torch.runtime import jit as pjit
 from zkevm_specs_tpu_torch.runtime.convert import inputs_from_numpy
 from zkevm_specs_tpu_torch.tables import engine
@@ -78,7 +79,7 @@ def replayed():
     pcs = ConstraintSystem(pctx)
     pcs.hint_replay, pcs.hint_bits = phints, ["lookup_idx"]
     ptables = pjit.tables_from_pytree(pctx, ptree, pjit.tables_meta(Tables(rw_table=rows)))
-    launches = engine.lookup_gather_eq.launches
+    launches = L.LAUNCHES["lookup_gather_eq"]
     prow = ptables.rw_lookup(pcs, **_query(F, pctx, rw_counters))
     return dict(jfail=np.asarray(rcs.fail), pfail=pcs.fail.numpy(), jrow=jrow, prow=prow,
                 launches=launches)
@@ -102,7 +103,7 @@ def test_gathered_columns_match_jax(replayed, col):
 
 
 def test_cpu_replay_launches_no_kernel(replayed):
-    assert engine.lookup_gather_eq.launches == replayed["launches"]
+    assert L.LAUNCHES["lookup_gather_eq"] == replayed["launches"]
 
 
 def test_plain_lookup_enabled_mask_and_clamp():

@@ -8,9 +8,10 @@ and the borrow-free constant subtract).  ``Word`` is the lo/hi 128-bit
 split word (reference: src/zkevm_specs/util/arithmetic.py:99-168).
 
 ``Ctx`` holds the device the values live on.  The eager trace pass runs on
-host tensors and may read values; the replay runs on ``Ctx.device`` and
-never reads one back.  Constants carry their Python int (``F.value``), so
-the constant-subtract fast path is decided on the host in both passes.
+host tensors and may read values; the replay and the device mode run on
+``Ctx.device`` and never read one back.  Constants carry their Python int
+(``F.value``), so the constant-subtract fast path is decided on the host in
+every mode.
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ class Ctx:
     mode "replay": the replay of a traced group on ``device``; reading
     values is forbidden, branch decisions come from the static signature
     and witness hints from the recorded hint stream.
+    mode "device": a standalone circuit check on ``device`` (the JAX
+    package's "jit" mode); reading values is forbidden and there is no
+    hint stream, so lookups search their table on the device.
     """
 
     def __init__(self, device, batch: int, mode: str = "eager"):
@@ -96,7 +100,11 @@ class F:
         Well-formed witnesses respect the bound; malformed ones auto-widen
         instead of crashing, so range constraints can reject them."""
         P = fr.P
-        vals = [v if (type(v) is int and 0 <= v < P) else int(v) % P for v in values]
+        # values in [0, 2^64) are canonical already; numpy finds that
+        # without a Python loop, which matters at millions of values
+        vals = L.small_ints(values)
+        if vals is None:
+            vals = [v if (type(v) is int and 0 <= v < P) else int(v) % P for v in values]
         w = width_for_bits(bits)
         try:
             arr = L.ints_to_limbs(vals, w)

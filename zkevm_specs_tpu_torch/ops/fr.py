@@ -115,11 +115,7 @@ def fr_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     err = lib.fr_mul_launch(a.data_ptr(), L.row_stride(a), na, b.data_ptr(), L.row_stride(b), nb,
                             out.data_ptr(), rows, L.cuda_stream())
     L.check_launch(err, "fr_mul")
-    fr_mul.launches += 1
     return out
-
-
-fr_mul.launches = 0
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

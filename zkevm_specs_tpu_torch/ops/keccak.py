@@ -6,6 +6,7 @@ package's path yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import List
 
 # rotation offsets r[x][y] and round constants per Keccak spec
@@ -60,7 +61,13 @@ def keccak_f(state: List[int]) -> List[int]:
 
 
 def keccak256(data: bytes) -> bytes:
-    """Keccak-256 (the Ethereum hash; pad 0x01, NOT sha3's 0x06)."""
+    """Keccak-256 (the Ethereum hash; pad 0x01, NOT sha3's 0x06).  Digests
+    are memoised: a witness hashes the same bytecode several times."""
+    return _keccak256(bytes(data))
+
+
+@functools.lru_cache(maxsize=256)
+def _keccak256(data: bytes) -> bytes:
     rate = 136  # bytes, for capacity 512
     # pad10*1 with domain byte 0x01
     padded = bytearray(data)
@@ -73,3 +80,6 @@ def keccak256(data: bytes) -> bytes:
             state[i] ^= int.from_bytes(block[8 * i:8 * i + 8], "little")
         state = keccak_f(state)
     return b"".join(state[i].to_bytes(8, "little") for i in range(4))
+
+
+EMPTY_HASH = int.from_bytes(keccak256(b""), "big")

@@ -16,11 +16,14 @@ kernel with a plain PyTorch version beside it:
   chains, plain or mod p (the Fr modes are used by ``ops/fr.py``).
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel, and it raises for anything else.
+tensors it launches the kernel, and it raises for anything else.  Every
+wrapper of the port passes its launch to ``check_launch``, which counts it
+in ``LAUNCHES`` under the kernel's name.
 """
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Tuple
 
 import numpy as np
@@ -48,11 +51,21 @@ def int_to_limbs(value: int, n_limbs: int) -> torch.Tensor:
         [(value >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n_limbs)], dtype=DTYPE)
 
 
+def small_ints(values) -> "np.ndarray | None":
+    """``values`` as a numpy ``uint64`` array when every one is an int in
+    [0, 2^64), else None.  numpy infers the type in C (int64, uint64, or
+    object once a value leaves that range), so no Python loop runs."""
+    arr = values if isinstance(values, np.ndarray) else np.asarray(values)
+    if arr.dtype.kind == "u" or (arr.dtype.kind == "i" and (arr.size == 0 or arr.min() >= 0)):
+        return arr.astype(np.uint64, copy=False)
+    return None
+
+
 def ints_to_limbs(values, n_limbs: int) -> torch.Tensor:
     """Convert a sequence of Python ints to a [len, n_limbs] limb tensor."""
-    vals = list(values)
-    if all(0 <= v < (1 << 63) for v in map(int, vals)):
-        arr = np.asarray(vals, dtype=np.uint64)
+    vals = values if isinstance(values, np.ndarray) else list(values)
+    arr = small_ints(vals)
+    if arr is not None:
         out = np.zeros((len(vals), n_limbs), dtype=np.int64)
         for k in range(min(4, n_limbs)):
             out[:, k] = ((arr >> np.uint64(LIMB_BITS * k)) & np.uint64(LIMB_MASK)).astype(np.int64)
@@ -177,9 +190,15 @@ def cuda_stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+# launches of each kernel by name, counted where the launch is checked (the
+# plain versions launch nothing)
+LAUNCHES: Counter = Counter()
+
+
 def check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +242,7 @@ def limb_mul(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
     err = lib.limb_mul_launch(a.data_ptr(), row_stride(a), na, b.data_ptr(), row_stride(b), nb,
                               out.data_ptr(), out_n, rows, cuda_stream())
     check_launch(err, "limb_mul")
-    limb_mul.launches += 1
     return out
-
-
-limb_mul.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -318,11 +333,7 @@ def limb_addsub(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int = 0):
                                  None if borrow is None else borrow.data_ptr(),
                                  mode, rows, cuda_stream())
     check_launch(err, "limb_addsub")
-    limb_addsub.launches += 1
     return (out, borrow) if mode == SUB else out
-
-
-limb_addsub.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""Carries a compiled group's inputs onto a device.
+"""Carries a check's inputs onto a device.
 
-``inputs_from_numpy`` takes what the JAX package's
-``CompiledGroupVerifier.prepare_inputs`` returns (step columns, the tables
-tree and the hint stream, as numpy ``uint32`` limb arrays and ``int32``
-hint indexes) and returns the port's tensors: limbs as ``int64``, hint
-indexes as ``int32``.  The port's own ``prepare_inputs`` uses the same
-conversion, so both packages' witnesses enter the replay the same way.
+``to_device`` takes a tree of dicts/lists of arrays, as the JAX package's
+``CompiledGroupVerifier.prepare_inputs``, ``pack_state_inputs`` and
+``CircuitKernel`` build them (numpy ``uint32`` limb arrays, ``int32`` hint
+indexes, ``uint64`` fingerprints, ``int64`` orders) or as the port builds
+them (CPU tensors), and returns the port's tensors on the device: limbs as
+``int64``, hint indexes as ``int32``, and u64 fingerprints as the ``int64``
+view of the same bits (their values are never converted).
+``inputs_from_numpy`` is the group verifier's case.
 """
 from __future__ import annotations
 
@@ -13,21 +15,27 @@ import numpy as np
 import torch
 
 
+def _leaf(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint64:
+        return torch.from_numpy(arr.view(np.int64))
+    if arr.dtype in (np.int32, np.int64):
+        return torch.from_numpy(arr)
+    return torch.from_numpy(arr.astype(np.int64))
+
+
 def to_device(tree, device):
-    """Recursively move a tree of dicts/lists of arrays onto ``device``:
-    int32 arrays (hint indexes) stay int32, every other array becomes an
-    int64 limb tensor."""
+    """Recursively move a tree of dicts/lists/tuples of arrays onto
+    ``device``: int32 arrays (hint indexes) stay int32, uint64 arrays
+    (fingerprints) become their int64 view, every other array becomes
+    int64."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        t = tree
-    else:
-        arr = np.asarray(tree)
-        t = torch.from_numpy(np.ascontiguousarray(
-            arr if arr.dtype == np.int32 else arr.astype(np.int64)))
-    return t.to(device).contiguous()
+    return _leaf(tree).to(device).contiguous()
 
 
 def inputs_from_numpy(curr_cols, next_cols, tables_tree, hints, device):

@@ -43,6 +43,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "lookup_gather_eq_launch": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I64, _P, _I64, _P, _I64, _P],
     },
+    "state_order_lt": {
+        "state_order_lt_launch": [_P, _I64] * 7 + [_P, _I64, _P],
+    },
+    "lookup_search_eq": {
+        "lookup_search_eq_launch": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I64, _I32, _P, _P, _I64, _P],
+        "lookup_fingerprint_launch": [_I32, _P, _P, _P, _P, _P, _I64, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

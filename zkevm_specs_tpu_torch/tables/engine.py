@@ -1,7 +1,7 @@
-"""Columnar tables, the host fingerprint lookup and the hinted replay lookup.
+"""Columnar tables and their three lookup paths.
 
 Counterpart of ``zkevm_specs_tpu/tables/engine.py``.  A table is a
-structure of arrays (one limb tensor per column).  Two lookup paths:
+structure of arrays (one limb tensor per column).  The lookup paths:
 
 * eager (host, the trace pass): each static key subset gets a sorted u64
   fingerprint index, computed in numpy ``uint64`` with the JAX package's
@@ -12,7 +12,11 @@ structure of arrays (one limb tensor per column).  Two lookup paths:
   the lookup is one launch of kernel K4 (``lookup_gather_eq``,
   ``csrc/lookup_gather_eq.cu``): gather the hinted row, compare the
   queried columns limb for limb, return the per-lane verdict.  ``Row``
-  gathers any other column lazily, on first access.
+  gathers any other column lazily, on first access;
+* device (a standalone circuit check, no hints): one launch of kernel K6
+  (``lookup_search_eq``, ``csrc/lookup_search_eq.cu``) fingerprints each
+  lane's query, searches the sorted index and compares the candidates
+  exactly.
 """
 from __future__ import annotations
 
@@ -142,11 +146,166 @@ def lookup_gather_eq(table_cols: Sequence[torch.Tensor],
         0 if enabled is None else L.row_stride(enabled[:, None]),
         None if ok is None else ok.data_ptr(), batch, L.cuda_stream())
     L.check_launch(err, "lookup_gather_eq")
-    lookup_gather_eq.launches += 1
     return ok, gathered
 
 
-lookup_gather_eq.launches = 0
+# ---------------------------------------------------------------------------
+# K6: fingerprint search with exact limb compare
+# ---------------------------------------------------------------------------
+#
+# The u64 fingerprints live in int64 tensors holding the same bits: int64
+# multiply-adds wrap like u64 ones in two's complement, and flipping the
+# sign bit turns the u64 order into the int64 order that torch.searchsorted
+# and torch.sort use.  The CUDA kernel reads the same buffers as uint64_t.
+
+_SIGN = -(1 << 63)
+MAX_CANDIDATES = 8  # span of an index built on the device (the JAX package's
+# traced build); an index built on the host carries its exact span
+_COEFS: Dict[tuple, torch.Tensor] = {}
+
+
+def _as_i64(u: int) -> int:
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+def fingerprint_coefs(schema: Schema, parts: Sequence[Tuple[str, str]], device) -> torch.Tensor:
+    """``[n_parts, 16]`` int64: coefficient k of part (column, part name) is
+    HORNER[k] * mult mod 2^64, with the JAX package's weights
+    (``_fingerprint``, ``engine.py:109-139``), as the int64 of the same bits."""
+    key = (schema.name, tuple(parts), str(device))
+    t = _COEFS.get(key)
+    if t is None:
+        rows = []
+        for c, part in parts:
+            mult = (schema.weight(c, part) & ((1 << 63) - 1)) | 1
+            rows.append([_as_i64((h * mult) & _MASK64) for h in _HORNER])
+        t = torch.tensor(rows, dtype=torch.int64).to(device)
+        _COEFS[key] = t
+    return t
+
+
+def fingerprint_plain(parts: Sequence[torch.Tensor], coefs: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6's fingerprint: sum_k limb_k * coef_k over every
+    part, wrapping mod 2^64 in int64; ``[rows]`` (``[1]`` when every part is
+    a ``[1, w]`` row)."""
+    acc = None
+    for p, limbs in enumerate(parts):
+        for k in range(limbs.shape[-1]):
+            term = limbs[:, k] * coefs[p, k]
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def _check_parts(parts, name):
+    if not 1 <= len(parts) <= MAX_PARTS:
+        raise ValueError(f"{name}: 1..{MAX_PARTS} parts, got {len(parts)}")
+    for t in parts:
+        L.check_limbs(t, name)
+        if t.shape[1] > 16:
+            raise ValueError(f"{name}: a part holds at most 16 limbs, got {t.shape[1]}")
+
+
+def lookup_fingerprint(parts: Sequence[torch.Tensor], coefs: torch.Tensor) -> torch.Tensor:
+    """K6 wrapper, fingerprint entry: the u64 fingerprint of each row of the
+    parts (``[T, w]`` each), as int64 ``[T]``.  Builds a table's index on
+    the device (``index_for`` under jit, ``engine.py:141-164``)."""
+    _check_parts(parts, "lookup_fingerprint")
+    rows = parts[0].shape[0]
+    if any(t.shape[0] != rows for t in parts) or coefs.shape != (len(parts), 16):
+        raise ValueError("lookup_fingerprint: parts differ in rows, or coefs are not [parts, 16]")
+    if L.on_cpu(*parts, coefs):
+        return fingerprint_plain(parts, coefs)
+    from ..runtime import cuda_build
+
+    n_parts = len(parts)
+    out = torch.empty((rows,), dtype=torch.int64, device=coefs.device)
+    u64, i64, i32 = ctypes.c_uint64 * n_parts, ctypes.c_longlong * n_parts, ctypes.c_int * n_parts
+    ptrs = u64(*(t.data_ptr() for t in parts))
+    strides = i64(*(L.row_stride(t) for t in parts))
+    widths = i32(*(t.shape[1] for t in parts))
+    lib = cuda_build.library("lookup_search_eq")
+    err = lib.lookup_fingerprint_launch(n_parts, ctypes.addressof(ptrs), ctypes.addressof(strides),
+                                        ctypes.addressof(widths), coefs.data_ptr(), out.data_ptr(),
+                                        rows, L.cuda_stream())
+    L.check_launch(err, "lookup_fingerprint")
+    return out
+
+
+def lookup_search_eq_plain(query_cols, table_cols, coefs, fps, order, max_span: int, batch: int):
+    """Plain version of K6 (see ``lookup_search_eq``)."""
+    qfp = fingerprint_plain(query_cols, coefs).expand(batch)
+    T = fps.shape[0]
+    left = torch.searchsorted(fps ^ _SIGN, (qfp ^ _SIGN).contiguous(), side="left")
+    n_match = torch.zeros((batch,), dtype=torch.int32, device=fps.device)
+    first_row = torch.zeros((batch,), dtype=torch.int32, device=fps.device)
+    for k in range(max_span):
+        pos = left + k
+        slot = pos.clamp(max=T - 1)
+        row = order[slot].to(torch.int32)
+        exact = (pos < T) & (fps[slot] == qfp)
+        for t, q in zip(table_cols, query_cols):
+            exact = exact & L.eq(t[row.long()], q)
+        first_row = torch.where(exact & (n_match == 0), row, first_row)
+        n_match = n_match + exact.to(torch.int32)
+    end = left + max_span
+    ok_covered = (end >= T) | (fps[end.clamp(max=T - 1)] != qfp)
+    return first_row, n_match >= 1, n_match <= 1, ok_covered
+
+
+def lookup_search_eq(query_cols: Sequence[torch.Tensor], table_cols: Sequence[torch.Tensor],
+                     coefs: torch.Tensor, fps: torch.Tensor, order: torch.Tensor,
+                     max_span: int, batch: int):
+    """K6 wrapper: the fingerprint lookup of one batched query.
+
+    ``query_cols``: the queried parts, ``[B|1, w_q]`` each; ``table_cols``:
+    the same parts of the table, ``[T, w_t]``; ``coefs``: their fingerprint
+    coefficients (``fingerprint_coefs``); ``fps``: the table's fingerprints
+    sorted in u64 order, ``[T]`` int64 holding the u64 bits; ``order``: the
+    table row of each sorted slot, ``[T]`` int64; ``max_span``: candidates
+    scanned per lane.  For each lane: fingerprint the query, take the lower
+    bound in ``fps``, compare the candidates' parts limb for limb (widths
+    zero-padded, as ``limbs.eq`` pads), and return ``(first_row [B] int32,
+    ok_unsat, ok_unique, ok_covered)`` (bool ``[B]``, before ``enabled``).
+
+    Replaces the non-hinted branch of
+    ``zkevm_specs_tpu/tables/engine.py:Table.lookup`` (``engine.py:227-280``)."""
+    _check_parts(query_cols, "lookup_search_eq query")
+    _check_parts(table_cols, "lookup_search_eq table")
+    n_parts = len(query_cols)
+    T = fps.shape[0]
+    if len(table_cols) != n_parts or coefs.shape != (n_parts, 16):
+        raise ValueError("lookup_search_eq: query, table and coefs disagree in parts")
+    if any(q.shape[0] not in (1, batch) for q in query_cols):
+        raise ValueError(f"lookup_search_eq: query rows must be 1 or {batch}")
+    if any(t.shape[0] != T for t in table_cols) or order.shape != (T,) or T < 1:
+        raise ValueError("lookup_search_eq: table parts, fps and order differ in rows")
+    for name, t in (("fps", fps), ("order", order), ("coefs", coefs)):
+        if t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"lookup_search_eq: {name} must be a contiguous int64 tensor")
+    if max_span < 1:
+        raise ValueError("lookup_search_eq: max_span must be at least 1")
+    if L.on_cpu(*query_cols, *table_cols, coefs, fps, order):
+        return lookup_search_eq_plain(query_cols, table_cols, coefs, fps, order, max_span, batch)
+    from ..runtime import cuda_build
+
+    dev = fps.device
+    first_row = torch.empty((batch,), dtype=torch.int32, device=dev)
+    oks = torch.empty((3, batch), dtype=torch.bool, device=dev)
+    u64, i64, i32 = ctypes.c_uint64 * n_parts, ctypes.c_longlong * n_parts, ctypes.c_int * n_parts
+    q_ptrs = u64(*(q.data_ptr() for q in query_cols))
+    q_strides = i64(*(L.row_stride(q) for q in query_cols))
+    q_ws = i32(*(q.shape[1] for q in query_cols))
+    t_ptrs = u64(*(t.data_ptr() for t in table_cols))
+    t_strides = i64(*(L.row_stride(t) for t in table_cols))
+    t_ws = i32(*(t.shape[1] for t in table_cols))
+    lib = cuda_build.library("lookup_search_eq")
+    err = lib.lookup_search_eq_launch(
+        n_parts, ctypes.addressof(q_ptrs), ctypes.addressof(q_strides), ctypes.addressof(q_ws),
+        ctypes.addressof(t_ptrs), ctypes.addressof(t_strides), ctypes.addressof(t_ws),
+        coefs.data_ptr(), fps.data_ptr(), order.data_ptr(), T, max_span,
+        first_row.data_ptr(), oks.data_ptr(), batch, L.cuda_stream())
+    L.check_launch(err, "lookup_search_eq")
+    return first_row, oks[0], oks[1], oks[2]
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +384,29 @@ class Table:
                 acc = col_acc if acc is None else acc + col_acc
         return acc
 
+    def _part_names(self, subset: Tuple[str, ...]) -> List[Tuple[str, str]]:
+        out = []
+        for c in subset:
+            names = ("lo", "hi") if self.schema.columns[c].kind == "word" else ("f",)
+            out += [(c, p) for p in names]
+        return out
+
     def index_for(self, subset: Tuple[str, ...]):
+        """(sorted fingerprints, row of each slot, span) of a key subset.
+        Built once on the host in the eager pass (numpy ``uint64``, exact
+        span); a device context without a prebuilt index builds it on the
+        device on each check with span ``MAX_CANDIDATES``, as the JAX
+        package builds an index under jit (``engine.py:141-164``)."""
         idx = self._indexes.get(subset)
-        if idx is None:
+        if idx is None and not self.ctx.eager:
+            parts = [getattr(self.data[c], p) if p != "f" else self.data[c]
+                     for c, p in self._part_names(subset)]
+            coefs = fingerprint_coefs(self.schema, self._part_names(subset), self.ctx.device)
+            fps = lookup_fingerprint([v.limbs for v in parts], coefs)
+            order = torch.sort(fps ^ _SIGN, stable=True).indices
+            idx = (fps[order].contiguous(), order, MAX_CANDIDATES)
+            self._indexes[subset] = idx
+        elif idx is None:
             fps = self._fingerprint(subset, self.data)
             order = np.argsort(fps)
             sorted_fps = fps[order]
@@ -266,7 +445,34 @@ class Table:
 
         if cs.hint_replay is not None:
             return self._replay_lookup(cs, query, subset, enabled)
+        if ctx.mode == "device":
+            return self._device_lookup(cs, query, subset, enabled)
         return self._eager_lookup(cs, query, subset, enabled)
+
+    def _device_lookup(self, cs, query, subset, enabled) -> "Row":
+        """No hints on the device: one K6 launch fingerprints each lane's
+        query, searches the sorted index and compares the candidates
+        exactly; the checks, their order and their messages are those of
+        the JAX package's non-eager branch (``engine.py:264-280``)."""
+        sorted_fps, order, max_span = self.index_for(subset)
+        names = self._part_names(subset)
+        pairs = []
+        for c in subset:
+            if self.schema.columns[c].kind == "word":
+                assert isinstance(query[c], Word), (self.schema.name, c)
+            pairs += _parts(self.schema.columns[c], self.data[c], query[c])
+        coefs = fingerprint_coefs(self.schema, names, self.ctx.device)
+        first_row, ok_unsat, ok_unique, ok_covered = lookup_search_eq(
+            [q.limbs for _, q in pairs], [t.limbs for t, _ in pairs], coefs,
+            sorted_fps, order, max_span, self.ctx.batch)
+        if enabled is not None:
+            ok_unsat, ok_unique, ok_covered = (m | ~enabled for m in (ok_unsat, ok_unique, ok_covered))
+        name = self.schema.name
+        cs.check(ok_covered, lambda: f"Lookup {name} candidate span exceeded "
+                                     f"(fingerprint run longer than {max_span})")
+        cs.check(ok_unsat, lambda: f"Lookup {name} unsat")
+        cs.check(ok_unique, lambda: f"Lookup {name} ambiguous")
+        return Row(self, first_row)
 
     def _replay_lookup(self, cs, query, subset, enabled) -> "Row":
         """The eager trace resolved the query to its row: one K4 launch
@@ -294,7 +500,10 @@ class Table:
         return Row(self, row_idx, cols)
 
     def _eager_lookup(self, cs, query, subset, enabled) -> "Row":
+        """The host search of the eager pass (numpy); it reads the limbs
+        back to the host, so only an eager context may reach it."""
         ctx = self.ctx
+        assert ctx.eager, f"host lookup search reached from a {ctx.mode!r} context"
         batch = ctx.batch
         sorted_fps, order, max_span = self.index_for(subset)
         qfp = np.broadcast_to(self._fingerprint(subset, {k: query[k] for k in subset}), (batch,))

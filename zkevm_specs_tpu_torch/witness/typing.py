@@ -1,8 +1,8 @@
-"""Host-side witness builders (the part the compiled group path needs).
+"""Host-side witness rows (the part the ported paths need).
 
-``Block``, ``Bytecode`` and ``RWDictionary`` emit plain row dicts (Python
-ints, words as ints < 2^256) that feed the columnar ``Tables``; they are
-copies of the JAX package's builders of the same names
+``Block``, ``Bytecode``, ``RWDictionary`` and ``KeccakCircuit`` emit plain
+row dicts (Python ints, words as ints < 2^256) that feed the columnar
+``Tables``; they are copies of the JAX package's classes of the same names
 (reference: src/zkevm_specs/evm_circuit/typing.py:64-845).
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import List, Optional, Sequence
 from ..ops.fr import P
 from ..ops.keccak import keccak256
 from ..tables.schemas import RW, BlockContextFieldTag, BytecodeFieldTag, Target
-from .rlc import RLC
+from .rlc import RLC, linear_combine_bytes
 
 
 def _opcode_mod():
@@ -209,3 +209,22 @@ class RWDictionary:
 
     def stack_write(self, call_id, stack_pointer, value) -> "RWDictionary":
         return self._append(RW.Write, Target.Stack, id=call_id, address=stack_pointer, value=value)
+
+
+class KeccakCircuit:
+    """Rows of the keccak table: one finalised hash per input (the JAX
+    package's ``witness/typing.py:485-498``)."""
+
+    def __init__(self) -> None:
+        self.rows: List[dict] = []
+
+    def add(self, data: bytes, r: int) -> "KeccakCircuit":
+        self.rows.append(
+            {
+                "state_tag": 2,  # Finalize
+                "input_rlc": linear_combine_bytes(bytes(reversed(data)), r, range_check=False),
+                "input_len": len(data),
+                "output": int.from_bytes(keccak256(data), "big"),
+            }
+        )
+        return self
