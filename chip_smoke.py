@@ -27,11 +27,23 @@ script exits non-zero):
 5. bytecode: the bytecode circuit (``bytecode_kernel``, a ``CircuitKernel``)
    on the ALU-mix bytecodes at k = 20, the same steps, one corrupted byte,
    and the check at k = 10 held against the CPU;
-6. kernels: each kernel against its plain version on the card at a shape
+6. keccak: the keccak circuit (``keccak_kernel``, a ``CircuitKernel``) on
+   the ALU block's keccak table (8 bytecodes of 66001 bytes) and on the
+   table of a SHA3-heavy block (65536 short preimages): build, pack and
+   upload, one counted check with every row passing, 10 timed checks, two
+   rebuilds that each corrupt one row (a wrong output, a wrong input_rlc)
+   that must fail alone, and the check at a small size held against the
+   CPU;
+7. withdrawal: the withdrawal circuit (``withdrawal_kernel``) at mainnet's
+   16 rows, the same steps with one corrupted amount;
+8. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
-   25 timed launches, the plain version's time and the bound; K1 and K3
-   also at every distinct shape and mode the state and bytecode paths
-   gave them (``path_shapes``), as K6 at both of its lookups.
+   25 timed launches, the plain version's time and the bound; K1, K3 and
+   K8 also at every distinct shape and mode the state, bytecode, keccak and
+   withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
+   K7 at both keccak tables.  K8 at the ALU block's 66001 steps is timed
+   at that shape and held against its plain version on the first 8192
+   steps of the same rows, which the line says.
 
 The last three lines are the kernels line, the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -51,9 +63,12 @@ if not torch.cuda.is_available():
 
 from zkevm_specs_tpu_torch import workloads  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import bytecode as bytecode_circuit  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import keccak as keccak_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import state  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import withdrawal as withdrawal_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E402
 from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
+from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
@@ -72,6 +87,10 @@ SMALL_STATE_ROWS = 512
 CORRUPT_ROW = 77_777
 ALU_TXS, ALU_OPS = workloads.ALU_BLOCK_TXS, workloads.ALU_BLOCK_OPS
 SMALL_K = 10
+SHA3_PREIMAGES = workloads.SHA3_MIX_PREIMAGES
+SMALL_SHA3 = 512
+WITHDRAWALS = workloads.MAX_WITHDRAWALS_PER_PAYLOAD
+K8_HELD_STEPS = 8192      # K8's plain version at the ALU block: the first steps only
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -81,7 +100,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
 KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
-           "lookup_search_eq", "lookup_fingerprint")
+           "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc")
 SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
 REPLACES = {
@@ -98,6 +117,9 @@ REPLACES = {
                         ":227-280)",
     "lookup_fingerprint": "zkevm_specs_tpu/tables/engine.py:109 (_fingerprint inside index_for "
                           ":141-164, built under jit)",
+    "keccak_sponge": "zkevm_specs_tpu/ops/keccak.py:171 (keccak_f_lanes, keccak_round :136, "
+                     "keccak256_batch_fixed_blocks :195; absorb loop circuits/keccak.py:158-179)",
+    "horner_rlc": "zkevm_specs_tpu/circuits/keccak.py:44 (_horner_rlc :44-74)",
 }
 # kernels each path must launch
 PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
@@ -105,7 +127,11 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "state_memory_stack": ("state_order_lt", "limb_addsub"),
                 "state_storage_account": ("state_order_lt", "limb_addsub", "lookup_search_eq",
                                           "lookup_fingerprint"),
-                "bytecode": ("fr_mul", "limb_addsub", "lookup_search_eq")}
+                "bytecode": ("fr_mul", "limb_addsub", "lookup_search_eq"),
+                "keccak_alu_block": ("keccak_sponge", "horner_rlc"),
+                "keccak_sha3_mix": ("keccak_sponge", "horner_rlc"),
+                "withdrawal": ("horner_rlc", "limb_addsub", "lookup_search_eq",
+                               "lookup_fingerprint")}
 
 
 def emit(obj):
@@ -392,7 +418,150 @@ def run_bytecode(card):
     return counts, captured
 
 
-# -- phase 6: the kernels against their plain versions ---------------------------
+# -- phase 6: the keccak circuit --------------------------------------------------
+
+KECCAK_DATA = {
+    # data: (builder, the two corrupted rows (output, input_rlc), the small size)
+    "alu_block": (workloads.build_keccak_alu_block, (2, 5),
+                  lambda **kw: workloads.build_keccak_alu_block(2, 40, seed=1, **kw)),
+    "sha3_mix": (workloads.build_keccak_sha3_mix, (40_000, 54_321),
+                 lambda **kw: workloads.build_keccak_sha3_mix(SMALL_SHA3, seed=1, **kw)),
+}
+
+
+def run_keccak(data, card):
+    path = f"keccak_{data}"
+    build, bad_rows, small_build = KECCAK_DATA[data]
+    out = {"phase": "keccak", "data": data, "card": card}
+    t0 = time.perf_counter()
+    preimages, rows, r = build()
+    t1 = time.perf_counter()
+    kernel = keccak_circuit.keccak_kernel(preimages, rows, r)          # device "cuda"
+    t2 = time.perf_counter()
+    args = kernel.device_args()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n = len(preimages)
+    extra = args[2]
+
+    reset_counts()
+    fail = kernel(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert fail.device.type == "cuda" and fail.dtype == torch.bool and fail.shape == (n,)
+    assert not bool(fail.any()), f"{path}: {int(fail.sum())} rows failed on a valid table"
+    for name in PATH_KERNELS[path]:
+        assert counts[name] > 0, f"{path}: kernel {name} was not launched on the main path"
+
+    torch.cuda.reset_peak_memory_stats()
+    check_ms = []
+    for _ in range(REPLAY_REPEATS):
+        r0 = time.perf_counter()
+        kernel(args)
+        torch.cuda.synchronize()
+        check_ms.append((time.perf_counter() - r0) * 1e3)
+    med = statistics.median(check_ms)
+    n_bytes = sum(len(p) for p in preimages)
+    out.update({
+        "rows": n, "preimage_bytes": n_bytes, "rate_blocks": int(extra["n_blocks"].sum()),
+        "max_blocks": int(extra["blocks"].shape[1]), "max_len": int(extra["byte_cols"].shape[0]),
+        "r_limbs": (r.bit_length() + 15) // 16, "workload_build_s": t1 - t0, "pack_s": t2 - t1,
+        "upload_s": t3 - t2, "launches": counts, "check_ms_median": med,
+        "check_ms_min": min(check_ms), "rows_per_s": n / (med / 1e3),
+        "preimage_bytes_per_s": n_bytes / (med / 1e3),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    with Capture(keccak_circuit, "keccak_sponge") as k7, \
+            Capture(keccak_circuit, "horner_rlc") as k8:
+        kernel(args)
+    captured = {"keccak_sponge": k7.calls[None], "horner_rlc": k8.calls[None]}
+    del kernel, args, extra, fail, rows
+
+    # one rebuild for each of the JAX package's two wrong-table vectors
+    for corrupt, row in zip(("output", "input_rlc"), bad_rows):
+        pre, bad_table, r_bad = build(corrupt_row=row, corrupt=corrupt)
+        fail = keccak_circuit.keccak_kernel(pre, bad_table, r_bad)()
+        bad = torch.nonzero(fail).flatten().tolist()
+        assert bad == [row], f"{path}: corrupted {corrupt} of row {row}, failing rows {bad[:8]}"
+        out[f"corrupt_{corrupt}_row_caught"] = row
+        del pre, bad_table, fail
+
+    # the card's check against the same check on the CPU at a small size
+    for corrupt in (None, 1):
+        pre, table, r_s = small_build(corrupt_row=corrupt, corrupt="input_rlc")
+        f_card = keccak_circuit.keccak_kernel(pre, table, r_s)().cpu()
+        f_cpu = keccak_circuit.keccak_kernel(pre, table, r_s, device="cpu")()
+        assert torch.equal(f_card, f_cpu), f"{path}: card and CPU checks disagree"
+        assert torch.nonzero(f_card).flatten().tolist() == ([] if corrupt is None else [corrupt])
+    out["small_check_matches_cpu"] = len(pre)
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts, captured
+
+
+# -- phase 7: the withdrawal circuit ----------------------------------------------
+
+def run_withdrawal(card):
+    path = "withdrawal"
+    out = {"phase": "withdrawal", "rows": WITHDRAWALS, "card": card}
+    t0 = time.perf_counter()
+    witness, n, r = workloads.build_withdrawals(WITHDRAWALS)
+    t1 = time.perf_counter()
+    kernel = withdrawal_circuit.withdrawal_kernel(witness, n, r)      # device "cuda"
+    t2 = time.perf_counter()
+    args = kernel.device_args()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+
+    reset_counts()
+    fail = kernel(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert fail.device.type == "cuda" and fail.dtype == torch.bool and fail.shape == (n,)
+    assert not bool(fail.any()), f"{path}: {int(fail.sum())} rows failed on a valid witness"
+    for name in PATH_KERNELS[path]:
+        assert counts[name] > 0, f"{path}: kernel {name} was not launched on the main path"
+    assert counts["lookup_search_eq"] == 3 and counts["lookup_fingerprint"] == 1, counts
+
+    check_ms = []
+    for _ in range(REPLAY_REPEATS):
+        r0 = time.perf_counter()
+        kernel(args)
+        torch.cuda.synchronize()
+        check_ms.append((time.perf_counter() - r0) * 1e3)
+    med = statistics.median(check_ms)
+    out.update({
+        "workload_build_s": t1 - t0, "pack_s": t2 - t1, "upload_s": t3 - t2,
+        "rlp_max_len": int(args[2]["byte_cols"].shape[0]), "launches": counts,
+        "check_ms_median": med, "check_ms_min": min(check_ms), "rows_per_s": n / (med / 1e3),
+    })
+    with Capture(withdrawal_circuit, "horner_rlc") as k8, \
+            Capture(L, "limb_addsub", addsub_key) as k3:
+        kernel(args)
+    captured = {"horner_rlc": k8.calls[None], "limb_addsub": k3.calls}
+    del kernel, args, fail
+
+    corrupt = 5
+    witness, n, r = workloads.build_withdrawals(WITHDRAWALS, corrupt_row=corrupt)
+    fail = withdrawal_circuit.withdrawal_kernel(witness, n, r)()
+    bad = torch.nonzero(fail).flatten().tolist()
+    assert bad == [corrupt], f"{path}: corrupted amount of row {corrupt}, failing rows {bad[:8]}"
+    out["corrupt_row_caught"] = corrupt
+
+    # the card's check against the CPU, on a payload with padding rows
+    for corrupt in (None, 7):
+        witness, n, r = workloads.build_withdrawals(WITHDRAWALS, n_real=11, seed=1,
+                                                    corrupt_row=corrupt)
+        f_card = withdrawal_circuit.withdrawal_kernel(witness, n, r)().cpu()
+        f_cpu = withdrawal_circuit.withdrawal_kernel(witness, n, r, device="cpu")()
+        assert torch.equal(f_card, f_cpu), f"{path}: card and CPU checks disagree"
+        assert torch.nonzero(f_card).flatten().tolist() == ([] if corrupt is None else [corrupt])
+    out["small_check_matches_cpu"] = True
+    emit(out)
+    return counts, captured
+
+
+# -- phase 8: the kernels against their plain versions ---------------------------
 
 def seeded_limbs(rng, rows, n, bound_bits, device):
     """[rows, n] canonical limbs of random values below 2^bound_bits (and
@@ -413,14 +582,23 @@ def bound(bytes_moved, int_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note):
+def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
+            kernel_repeats=KERNEL_REPEATS, plain_repeats=5):
     """One call of a kernel held against its plain version on the same
-    inputs (bit-exact), then both timed, and the bound of the work."""
+    inputs (bit-exact), then both timed, and the bound of the work.  With
+    ``plain_repeats`` 0 the plain version's time is that of the one call
+    it was held on (for plain versions that take seconds)."""
     torch.cuda.synchronize()
     before = L.LAUNCHES[name]
-    got, want = kernel_fn(), plain_fn()
+    got = kernel_fn()
     torch.cuda.synchronize()
     assert L.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch its kernel"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain_fn()
+    end.record()
+    end.synchronize()
+    plain_once_ms = start.elapsed_time(end)
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     err = 0
@@ -431,8 +609,9 @@ def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note):
             err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
     assert exact, f"{name} at {shape_note}: kernel disagrees with its plain version " \
                   f"(max abs err {err})"
-    ms = time_on_card_ms(kernel_fn)
-    plain_ms = time_on_card_ms(plain_fn, repeats=5, warmup=1)
+    ms = time_on_card_ms(kernel_fn, repeats=kernel_repeats)
+    plain_ms = (time_on_card_ms(plain_fn, repeats=plain_repeats, warmup=1) if plain_repeats
+                else plain_once_ms)
     b_ms, b_by = bound(bytes_moved, int_ops)
     return {"shape": shape_note, "exact": exact, "tolerance": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
@@ -587,15 +766,16 @@ def slice_kernel_rows(launches, captured):
 
 
 def path_shape_entries(captured):
-    """K1 and K3 at every distinct shape and mode that the state and
-    bytecode paths gave them, each held against its plain version."""
+    """K1 and K3 at every distinct shape and mode that the state, bytecode
+    and withdrawal paths gave them, each held against its plain version."""
     a, b = captured["bytecode"]["fr_mul"]
     k1 = [measure("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
                   *fr_mul_cost(a, b), f"bytecode: {list(a.shape)} x {list(b.shape)} -> [B,16]")]
     seen = {}
-    for path in ("memory_stack", "storage_account", "bytecode"):
+    for path in ("memory_stack", "storage_account", "bytecode", "withdrawal"):
+        label = path if path in ("bytecode", "withdrawal") else f"state_{path}"
         for key, args in captured[path]["limb_addsub"].items():
-            seen.setdefault(key, (path if path == "bytecode" else f"state_{path}", args))
+            seen.setdefault(key, (label, args))
     k3 = []
     for (mode, out_n, sa, sb), (path, args) in seen.items():
         x, y = args[:2]
@@ -603,6 +783,146 @@ def path_shape_entries(captured):
                           lambda: L.addsub_plain(x, y, mode, out_n), *addsub_cost(*args),
                           f"{path}: {MODE_NAMES[mode]} {list(sa)} {list(sb)} out_n {out_n}"))
     return {"fr_mul": k1, "limb_addsub": k3}
+
+
+# K7: the 32-bit instructions one keccak-f round issues, with the card's
+# three-input logic op (LOP3) and a 64-bit rotate as two funnel shifts (SHF;
+# no rotation of the permutation is by 32, which would be a free swap):
+# theta's column parities 5 x 2 halves x 2 LOP3, its five D lanes 2 SHF +
+# 2 LOP3 each, D into the 25 lanes 50 LOP3; rho 24 rotates x 2 SHF; chi
+# 25 lanes x 2 halves x 1 LOP3 (a ^ (~b & c)); iota 2.  A block adds the
+# 17-lane absorb.  K8: one step is K1's arithmetic at 16 x 16 limbs
+# (fr_mul_cost)
+K7_OPS_PER_ROUND = 5 * 2 * 2 + 5 * (2 + 2) + 25 * 2 + 24 * 2 + 25 * 2 + 2
+K7_OPS_PER_BLOCK = 24 * K7_OPS_PER_ROUND + 2 * 17
+K8_PRODUCTS = 16 * 16 + 17 * 17 + 17 * 18 // 2
+K8_OPS_PER_STEP = 2 * K8_PRODUCTS + 3 * (32 + 34 + 17) + 3 * 17 * 3
+# the dependent-issue latency taken for the card's fixed-latency integer
+# instructions (IMAD, IADD3, LOP3, SHF): an assumption, not measured here
+DEP_LATENCY_CYCLES = 4
+
+
+def horner_step_chain():
+    """The longest chain of dependent instructions in one K8 step, walked
+    over the dataflow of ``csrc/fr_arith.cuh``: each ``acc += a * b`` is
+    one IMAD.WIDE on the running 64-bit column sum, each limb mask and each
+    ``acc >>= 16`` one instruction, each borrow step three (subtract, mask,
+    sign test), and each conditional subtraction's select one.  The step
+    starts with every limb of acc ready; returns the chain's length."""
+    t, x = 0, []
+    for k in range(32):                            # x = acc * r + byte
+        for i in range(max(0, k - 15), min(16, k + 1)):
+            t += 1
+        x.append(t + 1)
+        t += 1
+    t, q3 = 0, []
+    for k in range(34):                            # q3 = ((x >> 240) * mu) >> 272
+        for i in range(max(0, k - 16), min(17, k + 1)):
+            t = max(t, x[15 + i]) + 1
+        if k >= 17:
+            q3.append(t + 1)
+        t += 1
+    t, borrow, r = 0, 0, []
+    for k in range(17):                            # r = x - q3 * p mod 2^272
+        for i in range(k + 1):
+            t = max(t, q3[i]) + 1
+        v = max(x[k], t + 1, borrow) + 1
+        r.append(v + 1)
+        borrow = v + 1
+        t += 1
+    for _ in range(2):                             # p subtracted at most twice
+        borrow, d = 0, []
+        for k in range(17):
+            v = max(r[k], borrow) + 1
+            d.append(v + 1)
+            borrow = v + 1
+        r = [max(rk, dk, borrow) + 1 for rk, dk in zip(r, d)]
+    return max(r[:16])
+
+
+K8_CHAIN_OPS = horner_step_chain()
+
+
+def sm_clock_max_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def sponge_cost(blocks, n_blocks):
+    """(bytes, int32 operations) of K7 for this run's data: the blocks each
+    row absorbs (read once), its block count and its digest."""
+    absorbed = int(n_blocks.clamp(0, blocks.shape[1]).sum())
+    n = blocks.shape[0]
+    return absorbed * 34 * 8 + n * 4 + n * 8 * 8, absorbed * K7_OPS_PER_BLOCK
+
+
+def horner_cost(byte_cols, active_cols):
+    """(bytes, int32 operations) of K8 for this run's data: the byte and
+    mask columns (read once), the [n, 16] result, and the active steps."""
+    T, n = byte_cols.shape
+    steps = int(active_cols.sum())
+    return 2 * T * n + n * 16 * 8, steps * K8_OPS_PER_STEP
+
+
+def keccak_kernel_rows(launches, captured):
+    """K7 and K8 at the shapes the keccak and withdrawal paths gave them:
+    the SHA3 mix's for the kernels' rows, the others as path_shapes."""
+    rows = []
+    clock_hz = sm_clock_max_hz()
+    k7 = []
+    for data in ("sha3_mix", "alu_block"):
+        blocks, n_blocks = captured[f"keccak_{data}"]["keccak_sponge"]
+        note = (f"keccak_{data}: {blocks.shape[0]} rows, max {blocks.shape[1]} blocks, "
+                f"{int(n_blocks.sum())} absorbed")
+        k7.append(measure("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
+                          lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks),
+                          *sponge_cost(blocks, n_blocks), note,
+                          plain_repeats=5 if data == "sha3_mix" else 0))
+    rows.append({"name": "keccak_sponge", "route": "cuda", "source": SOURCES["keccak_sponge"],
+                 "replaces": REPLACES["keccak_sponge"], "launches": launches["keccak_sponge"],
+                 **k7[0], "library_ms": None, "path_shapes": k7[1:]})
+
+    k8 = []
+    for path in ("keccak_sha3_mix", "keccak_alu_block", "withdrawal"):
+        byte_cols, active, r = captured[path]["horner_rlc"]
+        T, n = byte_cols.shape
+        note = f"{path}: [{T}, {n}] bytes, {int(active.sum())} active steps"
+        held = (byte_cols, active)
+        if T > K8_HELD_STEPS:           # the plain version on the first steps only
+            held = (byte_cols[:K8_HELD_STEPS].contiguous(), active[:K8_HELD_STEPS].contiguous())
+            note += f"; held against the plain version on the first {K8_HELD_STEPS} steps"
+        entry = measure("horner_rlc", lambda: keccak_circuit.horner_rlc(*held, r),
+                        lambda: keccak_circuit.horner_rlc_plain(*held, r),
+                        *horner_cost(*held), note, kernel_repeats=5,
+                        plain_repeats=5 if path == "withdrawal" else 0)
+        if held[0] is not byte_cols:
+            entry["held_steps"] = K8_HELD_STEPS
+            entry["held_ms"], entry["held_bound_ms"] = entry["ms"], entry["bound_ms"]
+            entry["ms"] = time_on_card_ms(lambda: keccak_circuit.horner_rlc(byte_cols, active, r),
+                                          repeats=5, warmup=1)
+            moved, ops = horner_cost(byte_cols, active)
+            entry["bound_ms"], entry["bound_by"] = bound(moved, ops)
+            entry["bytes"], entry["int_ops"] = moved, ops
+        entry["r_limbs"] = (r.bit_length() + 15) // 16
+        # the latency bound: the longest row's steps, each at least the
+        # step's chain of dependent instructions at the card's top clock
+        steps_max = int(active.sum(dim=0).max())
+        entry["chain_ops_per_step"] = K8_CHAIN_OPS
+        entry["sm_clock_max_mhz"] = clock_hz / 1e6
+        entry["chain_bound_ms"] =(steps_max * K8_CHAIN_OPS * DEP_LATENCY_CYCLES
+                                   / clock_hz * 1e3)
+        # beside it, not a bound: one row's measured time a step, times T
+        one = (byte_cols[:K8_HELD_STEPS, :1].contiguous(), active[:K8_HELD_STEPS, :1].contiguous())
+        one_ms = time_on_card_ms(lambda: keccak_circuit.horner_rlc(*one, r), repeats=5, warmup=1)
+        entry["one_row_step_us"] = one_ms * 1e3 / max(int(one[1].sum()), 1)
+        entry["one_row_step_x_T_ms"] = steps_max * entry["one_row_step_us"] / 1e3
+        k8.append(entry)
+    rows.append({"name": "horner_rlc", "route": "cuda", "source": SOURCES["horner_rlc"],
+                 "replaces": REPLACES["horner_rlc"], "launches": launches["horner_rlc"],
+                 **k8[0], "library_ms": None, "path_shapes": k8[1:]})
+    return rows
 
 
 def main():
@@ -627,9 +947,13 @@ def main():
     for mix in ("memory_stack", "storage_account"):
         by_path[f"state_{mix}"], captured[mix] = run_state(mix, card)
     by_path["bytecode"], captured["bytecode"] = run_bytecode(card)
+    for data in ("alu_block", "sha3_mix"):
+        by_path[f"keccak_{data}"], captured[f"keccak_{data}"] = run_keccak(data, card)
+    by_path["withdrawal"], captured["withdrawal"] = run_withdrawal(card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
-    rows = kernel_phase(launches, mul_inputs) + slice_kernel_rows(launches, captured)
+    rows = (kernel_phase(launches, mul_inputs) + slice_kernel_rows(launches, captured)
+            + keccak_kernel_rows(launches, captured))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
     for r in rows:

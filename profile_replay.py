@@ -7,12 +7,13 @@ under torch.profiler.
 Paths, at the sizes ``chip_smoke.py`` runs them (``workloads.py``): the
 compiled group verifier's replay on the ADD and MUL groups at 131072
 lanes, the state check on both of ``bench.py``'s row mixes at 2^19 rows,
-and the bytecode check on the ALU-mix bytecodes at k = 20.  For each it
-prints one JSON line: the call's host wall time, the device's busy time
-(union of kernel intervals) and idle share within it, the number of device
-kernels, and the device time of the ten costliest kernel names (the port's
-kernels and PyTorch's own).  Needs a CUDA device; the kernels are built on
-first use.
+the bytecode check on the ALU-mix bytecodes at k = 20, the keccak check on
+the ALU block's table and on 65536 short preimages, and the withdrawal
+check at 16 rows.  For each it prints one JSON line: the call's host wall
+time, the device's busy time (union of kernel intervals) and idle share
+within it, the number of device kernels, and the device time of the ten
+costliest kernel names (the port's kernels and PyTorch's own).  Needs a
+CUDA device; the kernels are built on first use.
 """
 import json
 import subprocess
@@ -24,7 +25,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from zkevm_specs_tpu_torch import workloads
-from zkevm_specs_tpu_torch.circuits import bytecode, state
+from zkevm_specs_tpu_torch.circuits import bytecode, keccak, state, withdrawal
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
 from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
@@ -97,6 +98,13 @@ def main():
                                                          workloads.ALU_BLOCK_OPS)
     kernel = bytecode.bytecode_kernel(rows, keccak_rows, r)
     profile_call("bytecode", kernel, card, rows=len(rows))
+    for data, build in (("alu_block", workloads.build_keccak_alu_block),
+                        ("sha3_mix", workloads.build_keccak_sha3_mix)):
+        preimages, keccak_rows, r = build()
+        kernel = keccak.keccak_kernel(preimages, keccak_rows, r)
+        profile_call(f"keccak_{data}", kernel, card, rows=len(preimages))
+    witness, n, r = workloads.build_withdrawals()
+    profile_call("withdrawal", withdrawal.withdrawal_kernel(witness, n, r), card, rows=n)
 
 
 if __name__ == "__main__":

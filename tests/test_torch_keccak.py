@@ -1,0 +1,389 @@
+"""The port's keccak circuit (zkevm_specs_tpu_torch.circuits.keccak) and its
+two kernels' plain versions against the JAX package's, tolerance 0: limbs
+and digest words equal, fail bits equal lane for lane.
+
+* K7's plain version (``ops.keccak``: ``keccak_f_lanes``,
+  ``keccak256_batch_fixed_blocks``, ``keccak_sponge``) against the JAX lane
+  functions under numpy on random states, and against ``keccak256`` on the
+  pad-boundary lengths;
+* K8's plain version (``circuits.keccak.horner_rlc``) against the JAX
+  ``_horner_rlc`` under numpy;
+* the circuit through the port's ``verify_keccak_circuit`` (spec mode) and
+  ``keccak_kernel(..., device="cpu")()`` against the JAX spec run and the
+  JAX ``keccak_kernel(...)()`` jitted on the CPU, on every vector of
+  tests/test_keccak_circuit.py and on the builders at a small size;
+* ``runtime.convert.to_device`` keeps each extra array's type.
+"""
+import numpy as np
+import pytest
+import torch
+
+from zkevm_specs_tpu.circuits import keccak as jk
+from zkevm_specs_tpu.dsl.cs import ConstraintSystem as JConstraintSystem
+from zkevm_specs_tpu.dsl.value import Ctx as JCtx
+from zkevm_specs_tpu.ops import fr as jfr
+from zkevm_specs_tpu.ops import keccak as jops
+from zkevm_specs_tpu.ops import limbs as JL
+from zkevm_specs_tpu.witness.typing import KeccakCircuit as JKeccakCircuit
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.circuits import bytecode as pbc
+from zkevm_specs_tpu_torch.circuits import keccak as pk
+from zkevm_specs_tpu_torch.ops import keccak as pops
+from zkevm_specs_tpu_torch.ops.fr import P
+from zkevm_specs_tpu_torch.runtime.convert import to_device
+from zkevm_specs_tpu_torch.witness.typing import KeccakCircuit
+
+torch.set_num_threads(1)
+
+R = 987654321                      # tests/test_keccak_circuit.py's randomness
+BLOCK_R = 0x64                     # CompiledBlockVerifier's default (config.py)
+EDGE_LENGTHS = [0, 1, 135, 136, 137, 271, 272, 300]
+
+
+def _keccak_rows(datas, r):
+    kc, jkc = KeccakCircuit(), JKeccakCircuit()
+    for d in datas:
+        kc.add(d, r)
+        jkc.add(d, r)
+    assert kc.rows == jkc.rows
+    return kc.rows
+
+
+def _words(digest_bytes):
+    return np.frombuffer(digest_bytes, dtype="<u4").astype(np.int64)
+
+
+# -- to_device: the extra arrays keep their type --------------------------------
+
+@pytest.mark.parametrize("dtype,want", [
+    (np.bool_, torch.bool), (np.uint8, torch.uint8), (np.uint32, torch.int64),
+    (np.int32, torch.int32), (np.int64, torch.int64), (np.uint64, torch.int64),
+])
+def test_to_device_keeps_each_type(dtype, want):
+    rng = np.random.RandomState(3)
+    if dtype is np.bool_:
+        arr = rng.rand(5, 7) < 0.5
+    else:
+        hi = {np.uint8: 256, np.uint32: 1 << 32, np.int32: 1 << 31}.get(dtype, 1 << 62)
+        arr = rng.randint(0, hi, size=(5, 7), dtype=np.int64).astype(dtype)
+    if dtype is np.uint64:
+        arr[0, 0] = np.uint64((1 << 64) - 1)           # the sign bit of the int64 view
+    out = to_device({"a": arr}, "cpu")["a"]
+    assert out.dtype == want and out.shape == arr.shape and out.is_contiguous()
+    if dtype is np.uint64:
+        np.testing.assert_array_equal(out.numpy().view(np.uint64), arr)
+    else:
+        np.testing.assert_array_equal(out.numpy(), arr)
+
+
+# -- K7's plain version ---------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(7, 25), (2, 3, 25)])
+def test_keccak_f_lanes_matches_jax(shape):
+    rng = np.random.RandomState(sum(shape))
+    lo = rng.randint(0, 1 << 32, size=shape, dtype=np.int64).astype(np.uint32)
+    hi = rng.randint(0, 1 << 32, size=shape, dtype=np.int64).astype(np.uint32)
+    lo[..., 0] = 0xFFFF_FFFF
+    want_lo, want_hi = jops.keccak_f_lanes(np, lo, hi)
+    got_lo, got_hi = pops.keccak_f_lanes(torch.from_numpy(lo.astype(np.int64)),
+                                         torch.from_numpy(hi.astype(np.int64)))
+    np.testing.assert_array_equal(got_lo.numpy(), want_lo.astype(np.int64))
+    np.testing.assert_array_equal(got_hi.numpy(), want_hi.astype(np.int64))
+
+
+def test_keccak256_batch_fixed_blocks_matches_jax():
+    rng = np.random.RandomState(11)
+    blocks = rng.randint(0, 1 << 32, size=(5, 3, 34), dtype=np.int64).astype(np.uint32)
+    want = jops.keccak256_batch_fixed_blocks(np, blocks)
+    got = pops.keccak256_batch_fixed_blocks(torch.from_numpy(blocks.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_sponge_and_batch_hash_on_the_pad_boundaries():
+    rng = np.random.RandomState(5)
+    datas = [rng.bytes(n) for n in EDGE_LENGTHS]
+    raw, lens, padded, n_blocks = pops.pad_blocks(datas)
+    for i, d in enumerate(datas):                       # the pad equals the JAX _pad's
+        assert padded[i, :n_blocks[i] * pops.RATE].tobytes() == jk._pad(d)
+        assert not padded[i, n_blocks[i] * pops.RATE:].any()
+        assert raw[i, :len(d)].tobytes() == d and not raw[i, len(d):].any()
+    np.testing.assert_array_equal(n_blocks, [1, 1, 1, 2, 2, 2, 3, 3])
+    blocks = torch.from_numpy(padded.view("<u4").astype(np.int64).reshape(len(datas), -1, 34))
+    digest = pops.keccak_sponge(blocks, torch.from_numpy(n_blocks.astype(np.int32)))
+    hashed = pops.keccak256_batch(datas)
+    for i, d in enumerate(datas):
+        want = pops.keccak256(d)
+        assert want == jops.keccak256(d) == hashed[i]
+        np.testing.assert_array_equal(digest[i].numpy(), _words(want))
+
+
+def test_sponge_stops_each_row_at_its_own_block_count():
+    """Rows of 1, 2 and 3 blocks in one batch: the sponge's digest of each
+    is the one-row hash, and the JAX absorb loop's digest (all rows run
+    through 3 blocks, masked) agrees."""
+    rng = np.random.RandomState(8)
+    datas = [rng.bytes(n) for n in (10, 200, 300, 135, 271, 0)]
+    _, cols, extra = pk.build_keccak_inputs(datas, _keccak_rows(datas, R))
+    ext = to_device(extra, "cpu")
+    digest = pops.keccak_sponge(ext["blocks"], ext["n_blocks"])
+    for i, d in enumerate(datas):
+        np.testing.assert_array_equal(digest[i].numpy(), _words(pops.keccak256(d)))
+    word = pk._digest_to_word(cols["output"].lo.ctx, digest)
+    jctx, jcols, jextra = jk.build_keccak_inputs(datas, _keccak_rows(datas, R))
+    jdigest = np.stack([_words(jops.keccak256(d)) for d in datas]).astype(np.uint32)
+    jword = jk._digest_to_word(jctx, jdigest)
+    np.testing.assert_array_equal(word.lo.limbs.numpy(), jword.lo.limbs)
+    np.testing.assert_array_equal(word.hi.limbs.numpy(), jword.hi.limbs)
+    for k, v in jextra.items():
+        assert v.dtype == extra[k].dtype
+        np.testing.assert_array_equal(extra[k], v)
+
+
+def test_sponge_wrapper_checks_its_inputs():
+    blocks = torch.zeros((2, 1, 34), dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        pops.keccak_sponge(blocks, torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        pops.keccak_sponge(blocks[:, :, :33], torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        pops.keccak_sponge(blocks.to("meta"), torch.ones(2, dtype=torch.int32).to("meta"))
+
+
+# -- K8's plain version ---------------------------------------------------------
+
+def _rlc_case(seed, T, n, prefix=True):
+    rng = np.random.RandomState(seed)
+    byte_cols = rng.randint(0, 256, size=(T, n)).astype(np.uint8)
+    lens = rng.randint(0, T + 1, size=n)
+    lens[:3] = [0, T, 1][:n]
+    active = (np.arange(T)[:, None] < lens[None, :]) if prefix else (rng.rand(T, n) < 0.6)
+    return byte_cols, active
+
+
+def _horner_ints(byte_cols, active, r):
+    T, n = byte_cols.shape
+    out = []
+    for i in range(n):
+        acc = 0
+        for j in range(T):
+            if active[j, i]:
+                acc = (acc * r + int(byte_cols[j, i])) % P
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("r_limbs", [1, 2, 14])
+@pytest.mark.parametrize("prefix", [True, False])
+def test_horner_rlc_matches_jax(r_limbs, prefix):
+    byte_cols, active = _rlc_case(r_limbs * 3 + prefix, 40, 9, prefix)
+    r = (int.from_bytes(np.random.RandomState(r_limbs).bytes(32), "little") % (1 << (16 * r_limbs))
+         ) | (1 << (16 * r_limbs - 1))
+    want = jk._horner_rlc(JCtx(np, 9, "eager"), byte_cols, active, r)
+    got = pk.horner_rlc(torch.from_numpy(byte_cols), torch.from_numpy(active), r)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert JL.limbs_to_ints(want) == _horner_ints(byte_cols, active, r)
+
+
+def test_horner_rlc_at_a_16_limb_r():
+    """At r >= 2^224 the JAX step's sum is wider than reduce_wide's 32-limb
+    input and it asserts (ROADMAP §C); the port caps the widths at 32 limbs
+    (the value is below p^2) and equals the JAX field multiply-add scan and
+    the Python-int Horner."""
+    byte_cols, active = _rlc_case(16, 30, 7)
+    r = (P - 12345) % P
+    with pytest.raises(AssertionError):
+        jk._horner_rlc(JCtx(np, 7, "eager"), byte_cols, active, r)
+    acc = np.zeros((7, 16), dtype=np.uint32)
+    r_row = JL.int_to_limbs(r, 16)[None, :]
+    for j in range(byte_cols.shape[0]):
+        nxt = jfr.add(np, jfr.mul(np, acc, r_row),
+                      JL.pad_limbs(np, byte_cols[j][:, None].astype(np.uint32), 16))
+        acc = np.where(active[j][:, None], nxt, acc)
+    got = pk.horner_rlc(torch.from_numpy(byte_cols), torch.from_numpy(active), r + P)
+    np.testing.assert_array_equal(got.numpy(), acc.astype(np.int64))
+    assert JL.limbs_to_ints(acc) == _horner_ints(byte_cols, active, r)
+
+
+def test_horner_rlc_wrapper_checks_its_inputs():
+    byte_cols = torch.zeros((4, 3), dtype=torch.uint8)
+    active = torch.ones((4, 3), dtype=torch.bool)
+    with pytest.raises(ValueError, match="uint8"):
+        pk.horner_rlc(byte_cols.to(torch.int64), active, 5)
+    with pytest.raises(ValueError, match="bool"):
+        pk.horner_rlc(byte_cols, active[:3], 5)
+    with pytest.raises(ValueError):
+        pk.horner_rlc(byte_cols.to("meta"), active.to("meta"), 5)
+
+
+# -- the circuit ------------------------------------------------------------------
+
+def _vector(name):
+    """(preimages, keccak rows, r, expected to pass) of one vector of
+    tests/test_keccak_circuit.py."""
+    if name == "ok":
+        datas = [b"", b"abc", b"x" * 135, b"y" * 136, b"z" * 300]
+        return datas, _keccak_rows(datas, R), R, True
+    if name == "bad_output":
+        rows = _keccak_rows([b"abc"], R)
+        rows[-1]["output"] ^= 1
+        return [b"abc"], rows, R, False
+    if name == "bad_rlc":
+        rows = _keccak_rows([b"abcdef"], R)
+        rows[-1]["input_rlc"] = rows[-1]["input_rlc"] + 1
+        return [b"abcdef"], rows, R, False
+    if name == "wrong_preimage":
+        return [b"abd"], _keccak_rows([b"abc"], R), R, False
+    # mixed: rows of 1, 2 and 3 blocks in one batch, the 3-block one wrong
+    rng = np.random.RandomState(21)
+    datas = [rng.bytes(n) for n in (10, 200, 300, 136, 272, 0)]
+    rows = _keccak_rows(datas, R)
+    rows[2]["output"] ^= 1 << 200
+    return datas, rows, R, False
+
+
+def _raises(verify, *args):
+    try:
+        verify(*args)
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def _both(datas, rows, r):
+    got = pk.keccak_kernel(datas, rows, r, device="cpu")().numpy()
+    want = np.asarray(jk.keccak_kernel(datas, rows, r)())
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("name", ["ok", "bad_output", "bad_rlc", "wrong_preimage", "mixed"])
+def test_vector_matches_jax(name):
+    datas, rows, r, ok = _vector(name)
+    fail = _both(datas, rows, r)
+    assert (not fail.any()) == ok
+    if name == "mixed":
+        assert np.flatnonzero(fail).tolist() == [2]
+    port_msg = _raises(pk.verify_keccak_circuit, datas, rows, r)
+    jax_msg = _raises(jk.verify_keccak_circuit, datas, rows, r)
+    assert port_msg == jax_msg and (port_msg is None) == ok
+    pk.verify_keccak_circuit(datas, rows, r, success=ok)
+
+
+@pytest.mark.parametrize("corrupt", [None, "output", "input_rlc"])
+def test_sha3_mix_matches_jax(corrupt):
+    datas, rows, r = workloads.build_keccak_sha3_mix(
+        256, seed=2, corrupt_row=None if corrupt is None else 100, corrupt=corrupt or "output",
+        r=BLOCK_R)
+    fail = _both(datas, rows, r)
+    assert np.flatnonzero(fail).tolist() == ([] if corrupt is None else [100])
+    if corrupt is None:
+        jk.verify_keccak_circuit(datas, rows, r)
+        pk.verify_keccak_circuit(datas, rows, r)
+
+
+@pytest.mark.parametrize("corrupt", [None, "input_rlc"])
+def test_alu_block_matches_jax(corrupt):
+    codes, rows, r = workloads.build_keccak_alu_block(
+        2, 12, seed=3, corrupt_row=None if corrupt is None else 1, corrupt=corrupt or "output",
+        r=BLOCK_R)
+    fail = _both(codes, rows, r)
+    assert np.flatnonzero(fail).tolist() == ([] if corrupt is None else [1])
+
+
+def test_builders_at_their_drawn_randomness():
+    """The builders' own r is 16 limbs, past the JAX step's reach: the port
+    passes every row, catches the corrupted one alone, and its table rows
+    are ``assign_keccak_table``'s."""
+    datas, rows, r = workloads.build_keccak_sha3_mix(64, seed=4)
+    assert r == workloads.draw_randomness(np.random.RandomState(4)) and r.bit_length() > 224
+    assert rows == pbc.assign_keccak_table(datas, r)
+    assert not pk.keccak_kernel(datas, rows, r, device="cpu")().any()
+    _, bad, _ = workloads.build_keccak_sha3_mix(64, seed=4, corrupt_row=9, corrupt="input_rlc")
+    assert torch.nonzero(pk.keccak_kernel(datas, bad, r, device="cpu")()).flatten().tolist() == [9]
+    codes, rows, r = workloads.build_keccak_alu_block(1, 30, seed=4, corrupt_row=0)
+    assert r == workloads.draw_randomness(np.random.RandomState(4))
+    assert pk.keccak_kernel(codes, rows, r, device="cpu")().tolist() == [True]
+
+
+def _horner_by_field_ops(ctx, byte_cols, active_cols, r):
+    """The JAX ``_horner_rlc`` scan with the field's own multiply and add
+    (``ops/fr.py`` ``mul``/``add``), which take an r of any width."""
+    acc = np.zeros((byte_cols.shape[1], 16), dtype=np.uint32)
+    r_row = JL.int_to_limbs(r % P, 16)[None, :]
+    for j in range(byte_cols.shape[0]):
+        byte = JL.pad_limbs(np, byte_cols[j][:, None].astype(np.uint32), 16)
+        acc = np.where(active_cols[j][:, None], jfr.add(np, jfr.mul(np, acc, r_row), byte), acc)
+    return acc
+
+
+@pytest.mark.parametrize("builder,corrupt", [
+    ("sha3_mix", None), ("sha3_mix", "output"), ("sha3_mix", "input_rlc"),
+    ("alu_block", None), ("alu_block", "input_rlc"),
+])
+def test_builders_at_their_drawn_randomness_match_the_jax_circuit(monkeypatch, builder, corrupt):
+    """At the builders' own 254-bit r the whole circuit is held lane for
+    lane against the JAX circuit in spec mode, whose Horner scan is done by
+    ``fr.mul``/``fr.add`` there (its ``_horner_rlc`` stops at r < 2^224)."""
+    corrupt_row = None if corrupt is None else 5
+    if builder == "sha3_mix":
+        datas, rows, r = workloads.build_keccak_sha3_mix(
+            48, seed=6, corrupt_row=corrupt_row, corrupt=corrupt or "output")
+    else:
+        datas, rows, r = workloads.build_keccak_alu_block(
+            2, 12, seed=6, corrupt_row=None if corrupt is None else 1, corrupt=corrupt or "output")
+    assert r.bit_length() > 224
+    monkeypatch.setattr(jk, "_horner_rlc", _horner_by_field_ops)
+    jctx, jcols, jextra = jk.build_keccak_inputs(datas, [r_ for r_ in rows if r_["state_tag"] == 2])
+    jcs = JConstraintSystem(jctx)
+    jk.check_keccak(jctx, jcs, jcols, {}, {"r": r}, jextra)
+    want = np.asarray(jcs.fail)
+    got = pk.keccak_kernel(datas, rows, r, device="cpu")().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.flatnonzero(got).tolist() == (
+        [] if corrupt is None else [corrupt_row if builder == "sha3_mix" else 1])
+
+
+def test_sha3_mix_lengths():
+    lengths = workloads.sha3_mix_lengths(1024, np.random.RandomState(0))
+    values, counts = np.unique(lengths, return_counts=True)
+    got = dict(zip(values.tolist(), counts.tolist()))
+    assert got.pop(64) == 512 and got.pop(32) == 256
+    assert sorted(got) == list(workloads.PAD_EDGE_LENGTHS) and sum(got.values()) == 256
+    assert max(got.values()) - min(got.values()) <= 1
+    assert lengths[:8].tolist() != sorted(lengths[:8].tolist())   # drawn order
+    datas, rows, _ = workloads.build_keccak_sha3_mix(48, seed=1)
+    assert [len(d) for d in datas] == [row["input_len"] for row in rows]
+
+
+# -- the device context --------------------------------------------------------------
+
+def test_device_context_reads_nothing_back(monkeypatch):
+    """A device check (here on CPU tensors) never takes a host path: no
+    tensor value is read back while it runs, in the kernels' wrappers or
+    around them."""
+    datas, rows, r, _ = _vector("mixed")
+    kernel = pk.keccak_kernel(datas, rows, r, device="cpu")
+    args = kernel.device_args()
+    assert args[2]["byte_cols"].dtype == torch.uint8
+    assert args[2]["active_cols"].dtype == torch.bool
+    assert args[2]["blocks"].dtype == torch.int64 and args[2]["n_blocks"].dtype == torch.int32
+
+    def host_read(*a, **k):
+        raise AssertionError("a tensor value was read back during a device check")
+
+    for name in ("item", "tolist", "numpy", "__bool__", "__int__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    fail = kernel(args)
+    monkeypatch.undo()
+    assert np.flatnonzero(fail.numpy()).tolist() == [2]
+
+
+def test_default_device_is_the_card_and_never_falls_back():
+    datas, rows, r, _ = _vector("ok")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pk.keccak_kernel(datas, rows, r)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pk.keccak_kernel([], [], r)
+    assert pk.keccak_kernel([], [], r, device="cpu") is None

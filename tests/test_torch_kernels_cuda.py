@@ -231,3 +231,79 @@ def test_lookup_fingerprint(dev):
     got = engine.lookup_fingerprint(table, coefs)
     assert L.LAUNCHES["lookup_fingerprint"] == before + 1
     _equal(got, engine.fingerprint_plain(table, coefs))
+
+
+# -- K1 after its arithmetic moved to csrc/fr_arith.cuh ----------------------------
+
+def test_fr_mul_equals_python_ints(dev):
+    rng = np.random.RandomState(31)
+    a_vals = [int.from_bytes(rng.bytes(32), "little") % fr.P for _ in range(ROWS)]
+    b_vals = [int.from_bytes(rng.bytes(32), "little") % fr.P for _ in range(ROWS)]
+    a_vals[:4] = [0, 1, fr.P - 1, fr.P - 1]
+    b_vals[:4] = [fr.P - 1, fr.P - 1, fr.P - 1, 1]
+    got = fr.fr_mul(fr.from_ints(a_vals, dev), fr.from_ints(b_vals, dev))
+    torch.cuda.synchronize()
+    assert fr.to_ints(got) == [a * b % fr.P for a, b in zip(a_vals, b_vals)]
+
+
+# -- K7: the keccak sponge ----------------------------------------------------------
+
+def _sponge_case(kind):
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    rng = np.random.RandomState(41)
+    if kind == "edges":
+        lengths = [0, 1, 135, 136, 137, 271, 272, 300]
+    else:                               # ROWS rows of 1 to 4 blocks in one batch
+        lengths = rng.randint(0, 4 * 136, size=ROWS).tolist()
+    datas = [rng.bytes(n) for n in lengths]
+    _, _, padded, n_blocks = keccak.pad_blocks(datas)
+    blocks = torch.from_numpy(padded.view("<u4").astype(np.int64).reshape(len(datas), -1, 34))
+    return datas, blocks, torch.from_numpy(n_blocks.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["edges", "mixed"])
+def test_keccak_sponge(dev, kind):
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    datas, blocks, n_blocks = _sponge_case(kind)
+    blocks, n_blocks = blocks.to(dev), n_blocks.to(dev)
+    before = L.LAUNCHES["keccak_sponge"]
+    got = keccak.keccak_sponge(blocks, n_blocks)
+    assert L.LAUNCHES["keccak_sponge"] == before + 1
+    _equal(got, keccak.keccak_sponge_plain(blocks, n_blocks))
+    words = got.cpu().numpy().astype("<u4")
+    assert [w.tobytes() for w in words] == [keccak.keccak256(d) for d in datas]
+
+
+def test_keccak_sponge_clamps_the_block_count(dev):
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    _, blocks, n_blocks = _sponge_case("edges")
+    n_blocks = torch.tensor([0, -3, 1, 2, 9, 3, 100, 1], dtype=torch.int32)
+    blocks, n_blocks = blocks.to(dev), n_blocks.to(dev)
+    _equal(keccak.keccak_sponge(blocks, n_blocks), keccak.keccak_sponge_plain(blocks, n_blocks))
+
+
+# -- K8: the byte-RLC Horner scan ---------------------------------------------------
+
+@pytest.mark.parametrize("mask", ["prefix", "random"])
+@pytest.mark.parametrize("r_limbs", [1, 16])
+def test_horner_rlc(dev, r_limbs, mask):
+    from zkevm_specs_tpu_torch.circuits import keccak
+
+    rng = np.random.RandomState(r_limbs + len(mask))
+    T = 70
+    byte_cols = torch.from_numpy(rng.randint(0, 256, size=(T, ROWS)).astype(np.uint8))
+    if mask == "prefix":
+        lens = rng.randint(0, T + 1, size=ROWS)
+        lens[:2] = [0, T]
+        active = torch.from_numpy(np.arange(T)[:, None] < lens[None, :])
+    else:
+        active = torch.from_numpy(rng.rand(T, ROWS) < 0.7)
+    r = fr.P - 1 - int(rng.randint(1 << 30)) if r_limbs == 16 else 0x64
+    byte_cols, active = byte_cols.to(dev), active.to(dev)
+    before = L.LAUNCHES["horner_rlc"]
+    got = keccak.horner_rlc(byte_cols, active, r)
+    assert L.LAUNCHES["horner_rlc"] == before + 1
+    _equal(got, keccak.horner_rlc_plain(byte_cols, active, r))

@@ -1,2 +1,2 @@
-"""Standalone circuits of the port: the state circuit and the bytecode
-circuit (counterparts of ``zkevm_specs_tpu/circuits/``)."""
+"""Standalone circuits of the port: the state, bytecode, keccak and
+withdrawal circuits (counterparts of ``zkevm_specs_tpu/circuits/``)."""

@@ -6,18 +6,16 @@
 // (ops/pallas_fr.py:90-167 before commit 8a07970).  The result is
 // bit-identical to that Barrett reduction for every input pair: the same
 // 32-limb product, q1 = x >> 240, q3 = (q1 * mu) >> 272,
-// r = (x - q3 * p) mod 2^272, then p subtracted at most twice.
+// r = (x - q3 * p) mod 2^272, then p subtracted at most twice (the shared
+// arithmetic of fr_arith.cuh).
 //
 // What bounds it on the card: integer multiply-adds.  One lane does
 // 256 + 289 + 153 = 698 32x32->64-bit products against 256 bytes read and
 // 128 written, about 2.7 products per byte, above the card's int32
 // rate-to-bandwidth ratio.  The design keeps every limb of a lane in
-// registers (one thread per lane, loops fully unrolled at compile time,
-// the constants p and mu in constant memory read with uniform indices),
-// accumulates columns in 64-bit registers so no carry pass is needed
-// between products, and touches device memory only to read the operands
-// and write the 16 result limbs.
-#include "limb_common.cuh"
+// registers (one thread per lane), and touches device memory only to read
+// the operands and write the 16 result limbs.
+#include "fr_arith.cuh"
 
 namespace {
 
@@ -36,66 +34,9 @@ fr_mul_kernel(const int64_t* __restrict__ a, long long sa, int na,
     av[i] = limb_at(ar, i, na);
     bv[i] = limb_at(br, i, nb);
   }
-
-  // x = a * b, 32 limbs (product scanning; a column holds at most 16
-  // products < 2^32, so a 64-bit accumulator never overflows)
-  uint32_t x[32];
-  uint64_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < 32; ++k) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int j = k - i;
-      if (j >= 0 && j < 16) acc += (uint64_t)av[i] * bv[j];
-    }
-    x[k] = (uint32_t)acc & LIMB_MASK;
-    acc >>= LIMB_BITS;
-  }
-
-  // q3 = ((x >> 240) * mu) >> 272: columns 17..33 of the 34-limb product
-  uint32_t q3[17];
-  acc = 0;
-#pragma unroll
-  for (int k = 0; k < 34; ++k) {
-#pragma unroll
-    for (int i = 0; i < 17; ++i) {
-      const int j = k - i;
-      if (j >= 0 && j < 17) acc += (uint64_t)x[15 + i] * c_mu17[j];
-    }
-    if (k >= 17) q3[k - 17] = (uint32_t)acc & LIMB_MASK;
-    acc >>= LIMB_BITS;
-  }
-
-  // r = (x mod 2^272) - (q3 * p mod 2^272), mod 2^272
-  uint32_t r[17];
-  acc = 0;
-  int borrow = 0;
-#pragma unroll
-  for (int k = 0; k < 17; ++k) {
-#pragma unroll
-    for (int i = 0; i <= k; ++i) acc += (uint64_t)q3[i] * c_p17[k - i];
-    const int v = (int)x[k] - (int)((uint32_t)acc & LIMB_MASK) - borrow;
-    r[k] = (uint32_t)v & LIMB_MASK;
-    borrow = v < 0;
-    acc >>= LIMB_BITS;
-  }
-
-  // subtract p at most twice (r < 3p)
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    uint32_t d[17];
-    borrow = 0;
-#pragma unroll
-    for (int k = 0; k < 17; ++k) {
-      const int v = (int)r[k] - (int)c_p17[k] - borrow;
-      d[k] = (uint32_t)v & LIMB_MASK;
-      borrow = v < 0;
-    }
-    if (!borrow) {
-#pragma unroll
-      for (int k = 0; k < 17; ++k) r[k] = d[k];
-    }
-  }
+  uint32_t x[32], r[16];
+  fr_product(av, bv, 0u, x);
+  fr_barrett(x, r);
 
   int64_t* o = out + lane * 16;
 #pragma unroll

@@ -245,6 +245,12 @@ class F:
             return self
         return F(self.ctx, self.limbs[idx], self.bits)
 
+    def broadcast(self) -> "F":
+        """Materialize a constant row to full batch size (a view)."""
+        if self.limbs.shape[0] == self.ctx.batch:
+            return self
+        return F(self.ctx, self.limbs.expand(self.ctx.batch, self.width), self.bits)
+
     # -- eager-mode host access -------------------------------------------
 
     def to_ints(self) -> list:
@@ -310,6 +316,10 @@ class Word:
     def const(ctx: Ctx, value: int) -> "Word":
         assert 0 <= value < (1 << 256)
         return Word(F.const(ctx, value & ((1 << 128) - 1)), F.const(ctx, value >> 128))
+
+    @staticmethod
+    def from_lo(lo: F) -> "Word":
+        return Word(lo, F.const(lo.ctx, 0))
 
     @staticmethod
     def from_ints(ctx: Ctx, values: Sequence[int]) -> "Word":

@@ -85,12 +85,16 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 # K1: field multiply
 # ---------------------------------------------------------------------------
 
+def reduce_wide_plain(x: torch.Tensor) -> torch.Tensor:
+    """``reduce_wide`` in plain PyTorch ops (the kernels' plain versions)."""
+    return _reduce_wide(x, L.mul_plain, lambda u, v: L.addsub_plain(u, v, L.SUB, 0),
+                        _select_plain)
+
+
 def fr_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: the schoolbook product and Barrett reduction of
     ``fr.mul`` in plain PyTorch ops."""
-    prod = L.mul_plain(a, b, a.shape[-1] + b.shape[-1])
-    return _reduce_wide(prod, L.mul_plain,
-                        lambda u, v: L.addsub_plain(u, v, L.SUB, 0), _select_plain)
+    return reduce_wide_plain(L.mul_plain(a, b, a.shape[-1] + b.shape[-1]))
 
 
 def fr_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                     _I64, _I32, _P, _P, _I64, _P],
         "lookup_fingerprint_launch": [_I32, _P, _P, _P, _P, _P, _I64, _P],
     },
+    "keccak_sponge": {
+        "keccak_sponge_launch": [_P, _I64, _P, _P, _I64, _P],
+    },
+    "horner_rlc": {
+        "horner_rlc_launch": [_P, _P, _I64, _I64, _P, _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

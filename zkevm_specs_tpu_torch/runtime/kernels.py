@@ -81,6 +81,17 @@ def _ctx_of(cols) -> Ctx:
     return (v.lo if isinstance(v, Word) else v).ctx
 
 
+def require_device(device, name: str) -> torch.device:
+    """``device`` as a torch device; raises for "cuda" without a CUDA device
+    (no entry point falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{name}: device 'cuda' requested but no CUDA device is available; "
+            "pass device='cpu' to check on the CPU")
+    return device
+
+
 class CircuitKernel:
     """One standalone circuit check on ``device`` ("cuda" unless the caller
     asks for "cpu"; there is no fallback).
@@ -97,11 +108,7 @@ class CircuitKernel:
                  static: Optional[dict] = None,
                  extra: Optional[dict] = None,
                  device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"CircuitKernel {name}: device 'cuda' requested but no CUDA device is "
-                "available; pass device='cpu' to check on the CPU")
+        self.device = require_device(device, f"CircuitKernel {name}")
         self.name = name
         self.check = check
         self.static = static or {}
@@ -110,7 +117,8 @@ class CircuitKernel:
         tbl_tree, self.tbl_meta = {}, {}
         for tname, t in (tables or {}).items():
             tbl_tree[tname], self.tbl_meta[tname] = pack_table(t)
-        # extra: raw arrays passed through untyped
+        # extra: raw arrays passed through untyped (to_device keeps bool and
+        # uint8 leaves, and carries uint32 ones as int64)
         extra_tree = {k: np.asarray(v) for k, v in (extra or {}).items()}
         self.args = (cols_tree, tbl_tree, extra_tree)
         self._device_args = None
@@ -138,8 +146,8 @@ def run_spec(name: str, check: Callable, cols, tables=None, static=None,
     the reference's verdict semantics (the earliest failing lane raises)."""
     ctx = _ctx_of(cols)
     cs = ConstraintSystem(ctx)
-    extra_np = {k: np.asarray(v) for k, v in (extra or {}).items()}
-    check(ctx, cs, cols, tables or {}, static or {}, extra_np)
+    extra_t = to_device({k: np.asarray(v) for k, v in (extra or {}).items()}, ctx.device)
+    check(ctx, cs, cols, tables or {}, static or {}, extra_t)
     fail = cs.fail.numpy()
     if success:
         if fail.any():

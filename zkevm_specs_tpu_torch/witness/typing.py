@@ -1,9 +1,10 @@
 """Host-side witness rows (the part the ported paths need).
 
-``Block``, ``Bytecode``, ``RWDictionary`` and ``KeccakCircuit`` emit plain
-row dicts (Python ints, words as ints < 2^256) that feed the columnar
-``Tables``; they are copies of the JAX package's classes of the same names
-(reference: src/zkevm_specs/evm_circuit/typing.py:64-845).
+``Block``, ``Withdrawal``, ``Bytecode``, ``RWDictionary`` and
+``KeccakCircuit`` emit plain row dicts (Python ints, words as ints < 2^256)
+that feed the columnar ``Tables``; they are copies of the JAX package's
+classes of the same names (reference:
+src/zkevm_specs/evm_circuit/typing.py:64-845).
 """
 from __future__ import annotations
 
@@ -85,6 +86,15 @@ class Block:
                 }
             )
         return rows
+
+
+class Withdrawal:
+    def __init__(self, id: int = 0, validator_id: int = 0, address: int = 0xCAFE,
+                 amount: int = int(1e9)):
+        self.id = id
+        self.validator_id = validator_id
+        self.address = address
+        self.amount = amount
 
 
 def init_is_code(code: bytearray) -> List[bool]:

@@ -1,5 +1,8 @@
 """Seeded witnesses for the port's paths: EVM step groups, the state
-circuit's two row mixes and the bytecode circuit's ALU-mix bytecodes.
+circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
+keccak circuit's two tables (the ALU block's bytecodes, and the many short
+preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
+payload.
 
 ``build_add_workload`` is the flagship group of the JAX package's entry
 point (``__graft_entry__._build_add_workload``): ADD steps over random
@@ -20,7 +23,7 @@ from .evm.opcode import Opcode, constant_gas_cost
 from .evm.step import StepState
 from .tables.container import Tables
 from .tables.schemas import RW, AccountFieldTag, BytecodeFieldTag
-from .witness.typing import Block, Bytecode, RWDictionary
+from .witness.typing import Block, Bytecode, RWDictionary, Withdrawal
 
 WORD = 1 << 256
 
@@ -31,6 +34,12 @@ WORD = 1 << 256
 GROUP_LANES = 131072
 ALU_BLOCK_TXS, ALU_BLOCK_OPS = 8, 11000
 ALU_BLOCK_STATE_ROWS = 1 << 19
+# the keccak table of a SHA3-heavy block: a 30M-gas block of 64-byte
+# mapping-slot hashes (42 gas each plus a few stack operations) hashes
+# hundreds of thousands of preimages; 65536 sits inside that
+SHA3_MIX_PREIMAGES = 65536
+# mainnet's MAX_WITHDRAWALS_PER_PAYLOAD (EIP-4895)
+MAX_WITHDRAWALS_PER_PAYLOAD = 16
 
 
 def random_word_pairs(n_steps: int, seed: int = 0) -> List[Tuple[int, int]]:
@@ -166,6 +175,14 @@ def bytecode_k(codes: List[bytes], floor: int = 0) -> int:
     return max(floor, n_rows.bit_length())
 
 
+def draw_randomness(rng: np.random.RandomState) -> int:
+    """The keccak randomness of a seeded witness: the next 32 bytes of
+    ``rng``, little-endian, mod p (the first draw of every builder)."""
+    from .ops.fr import P
+
+    return int.from_bytes(rng.bytes(32), "little") % P
+
+
 def build_alu_bytecodes(n_txs: int, ops_per_tx: int, k: Optional[int] = None, seed: int = 0,
                         corrupt_row: Optional[int] = None):
     """(rows, keccak_rows, r) of the bytecode circuit over the ALU-mix
@@ -175,11 +192,10 @@ def build_alu_bytecodes(n_txs: int, ops_per_tx: int, k: Optional[int] = None, se
     ``assign_bytecode_circuit`` cuts them.  ``corrupt_row`` gets its byte
     value changed by one (mod 256), as the JAX package's bad-byte vector."""
     from .circuits.bytecode import assign_bytecode_circuit, assign_keccak_table, unroll
-    from .ops.fr import P
 
     codes = alu_bytecodes(n_txs, ops_per_tx, seed)
     k = bytecode_k(codes) if k is None else k
-    r = int.from_bytes(np.random.RandomState(seed).bytes(32), "little") % P
+    r = draw_randomness(np.random.RandomState(seed))
     unrolled = {c: unroll(c) for c in set(codes)}
     rows = assign_bytecode_circuit(k, [unrolled[c] for c in codes], r)
     keccak_rows = assign_keccak_table(codes, r)
@@ -187,3 +203,113 @@ def build_alu_bytecodes(n_txs: int, ops_per_tx: int, k: Optional[int] = None, se
         assert rows[corrupt_row]["tag"] == int(BytecodeFieldTag.Byte), "corrupt_row must be a Byte row"
         rows[corrupt_row]["value"] = (rows[corrupt_row]["value"] + 1) % 256
     return rows, keccak_rows, r
+
+
+# -- keccak circuit ---------------------------------------------------------------
+#
+# Each returns (preimages, keccak_rows, r) for circuits.keccak.keccak_kernel.
+# r is drawn as build_alu_bytecodes draws it unless given.  ``corrupt_row``
+# makes that row's table entry wrong, as the JAX package's vectors do
+# (tests/test_keccak_circuit.py:24-37): ``corrupt="output"`` flips the
+# digest's low bit, ``corrupt="input_rlc"`` adds one to the RLC; exactly
+# that row must fail.
+
+PAD_EDGE_LENGTHS = (0, 135, 136, 271, 272, 300)
+
+
+def _corrupt_keccak(rows: List[dict], corrupt_row: Optional[int], corrupt: str) -> None:
+    if corrupt_row is None:
+        return
+    if corrupt == "output":
+        rows[corrupt_row]["output"] ^= 1
+    elif corrupt == "input_rlc":
+        rows[corrupt_row]["input_rlc"] += 1
+    else:
+        raise ValueError(f"unknown keccak corruption {corrupt!r}")
+
+
+def keccak_table_rows(preimages: List[bytes], r: int) -> List[dict]:
+    """The rows ``circuits.bytecode.assign_keccak_table`` gives, with the
+    digests hashed in one batch (``ops.keccak.keccak256_batch``)."""
+    from .ops.keccak import keccak256_batch
+    from .witness.rlc import linear_combine_bytes
+
+    return [{"state_tag": 2,
+             "input_rlc": linear_combine_bytes(bytes(reversed(d)), r, range_check=False),
+             "input_len": len(d), "output": int.from_bytes(h, "big")}
+            for d, h in zip(preimages, keccak256_batch(preimages))]
+
+
+def build_keccak_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS,
+                           seed: int = 0, corrupt_row: Optional[int] = None,
+                           corrupt: str = "output", r: Optional[int] = None):
+    """The keccak table ``CompiledBlockVerifier`` builds for the ALU block:
+    its bytecodes (``alu_bytecodes``; 8 of 66001 bytes, 486 rate blocks
+    each, at the default size) with ``assign_keccak_table``."""
+    from .circuits.bytecode import assign_keccak_table
+
+    codes = alu_bytecodes(n_txs, ops_per_tx, seed)
+    r = draw_randomness(np.random.RandomState(seed)) if r is None else r
+    rows = assign_keccak_table(codes, r)
+    _corrupt_keccak(rows, corrupt_row, corrupt)
+    return codes, rows, r
+
+
+def sha3_mix_lengths(n: int, rng: np.random.RandomState) -> np.ndarray:
+    """Preimage lengths of a SHA3-heavy block: half 64 bytes (mapping-slot
+    hashes), a quarter 32 bytes, the rest spread over the pad boundaries
+    ``PAD_EDGE_LENGTHS``, in an order drawn from ``rng``."""
+    n64, n32 = n // 2, n // 4
+    lengths = np.concatenate([np.full(n64, 64), np.full(n32, 32),
+                              np.resize(np.array(PAD_EDGE_LENGTHS), n - n64 - n32)])
+    return rng.permutation(lengths.astype(np.int64))
+
+
+def build_keccak_sha3_mix(n: int = SHA3_MIX_PREIMAGES, seed: int = 0,
+                          corrupt_row: Optional[int] = None, corrupt: str = "output",
+                          r: Optional[int] = None):
+    """The keccak table of a SHA3-heavy block: ``n`` random preimages with
+    ``sha3_mix_lengths``, all from ``numpy.random.RandomState(seed)`` after
+    the randomness's 32 bytes."""
+    rng = np.random.RandomState(seed)
+    drawn = draw_randomness(rng)
+    r = drawn if r is None else r
+    lengths = sha3_mix_lengths(n, rng)
+    data = rng.bytes(int(lengths.sum()))
+    ends = np.cumsum(lengths)
+    preimages = [data[e - l:e] for e, l in zip(ends.tolist(), lengths.tolist())]
+    rows = keccak_table_rows(preimages, r)
+    _corrupt_keccak(rows, corrupt_row, corrupt)
+    return preimages, rows, r
+
+
+# -- withdrawal circuit -----------------------------------------------------------
+
+def build_withdrawals(n: int = MAX_WITHDRAWALS_PER_PAYLOAD, n_real: Optional[int] = None,
+                      seed: int = 0, corrupt_row: Optional[int] = None,
+                      r: Optional[int] = None):
+    """(witness, n, r) of the withdrawal circuit at ``n`` rows: ``n_real``
+    (default all) seeded withdrawals with consecutive ids, the rest padding,
+    chained through ``withdrawals2witness``, and a block table whose
+    ``WithdrawalRoot`` is the final chained root.  ``corrupt_row`` (a real
+    withdrawal) gets its amount raised by one after the witness is built,
+    so its RLP no longer hashes to the row's hash (the JAX package's
+    tests/test_withdrawal_circuit.py:46) and exactly that row fails."""
+    from .circuits.withdrawal import Witness, withdrawals2witness
+
+    n_real = n if n_real is None else n_real
+    assert 0 <= n_real <= n
+    rng = np.random.RandomState(seed)
+    drawn = draw_randomness(rng)
+    r = drawn if r is None else r
+    first_id = int(rng.randint(0, 1 << 30))
+    wds = [Withdrawal(first_id + i, int(rng.randint(0, 1 << 40)),
+                      int.from_bytes(rng.bytes(20), "big"), int(rng.randint(1, 1 << 62)))
+           for i in range(n_real)]
+    witness = withdrawals2witness(wds, n, r, [])
+    block_rows = Block(withdrawal_root=witness.rows[-1].root).table_assignments()
+    rows = list(witness.rows)
+    if corrupt_row is not None:
+        assert 0 <= corrupt_row < n_real, "corrupt_row must be a real withdrawal"
+        rows[corrupt_row] = rows[corrupt_row]._replace(amount=rows[corrupt_row].amount + 1)
+    return Witness(rows, witness.mpt_rows, witness.keccak_rows, block_rows), n, r
