@@ -36,19 +36,43 @@ script exits non-zero):
    CPU;
 7. withdrawal: the withdrawal circuit (``withdrawal_kernel``) at mainnet's
    16 rows, the same steps with one corrupted amount;
-8. kernels: each kernel against its plain version on the card at a shape
+8. block: the whole ALU block (``workloads.build_alu_block(8, 11000)``,
+   ``bench.py:_alu_heavy_txs(8, 11000)`` traced by the port, unsigned)
+   through the port's ``CompiledBlockVerifier``: trace, build, cold and
+   warm ``prepare`` (one upload through K9), then, with every count set to
+   0 just before and read just after, a warm ``prepare`` and the first
+   ``run_device_combined`` (the capture of the whole device pass into one
+   CUDA graph, K10 its last kernel, and a replay), no failure; the
+   per-kernel pass (``run_device``, median of 5, its launches counted on
+   their own, and the graph's recorded launches equal to them kernel for
+   kernel, plus one K10) and the graph replay (median of 10), the graph's
+   device time alone (CUDA events) and the host-scheduled groups' time
+   (they run on the host while the graph runs); the keccak check's share;
+   one more per-kernel pass that records every kernel's arguments at each
+   distinct shape; a rebuild with one ADD step's gas_left + 1 that must
+   fail at that step or its predecessor only; and a 2 x 6 block whose
+   failure dicts on the card and on the CPU must be equal, clean and
+   corrupted.  The pi circuit is not ported (``not_ported``);
+9. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
    25 timed launches, the plain version's time and the bound; K1, K3 and
    K8 also at every distinct shape and mode the state, bytecode, keccak and
    withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
-   K7 at both keccak tables.  K8 at the ALU block's 66001 steps is timed
-   at that shape and held against its plain version on the first 8192
-   steps of the same rows, which the line says.
+   K7 at both keccak tables, and every kernel at each distinct shape the
+   block verifier's device pass gave it (``path_shapes`` entries labelled
+   "block", 10 timed launches each).  K8 at the ALU block's 66001 steps is
+   timed at that shape and held against its plain version on the first
+   8192 steps of the same rows (1024 at the block verifier's table), which
+   the line says.  K9 and K10 at the ALU block's upload and verdict
+   vectors, beside the pinned host-to-device copy rate of the same bytes;
+   K9 is held on the leaves and timed on its arena alone, the host's
+   building of the leaf views timed on its own.
 
 The last three lines are the kernels line, the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing anything.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -70,7 +94,9 @@ from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E4
 from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
+from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
+from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
@@ -91,6 +117,10 @@ SHA3_PREIMAGES = workloads.SHA3_MIX_PREIMAGES
 SMALL_SHA3 = 512
 WITHDRAWALS = workloads.MAX_WITHDRAWALS_PER_PAYLOAD
 K8_HELD_STEPS = 8192      # K8's plain version at the ALU block: the first steps only
+K8_BLOCK_HELD_STEPS = 1024  # ... and at the block verifier's keccak table (another r)
+BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
+BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
+SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -100,7 +130,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
 KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
-           "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc")
+           "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc",
+           "leaf_unpack", "verdict_pack")
 SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
 REPLACES = {
@@ -120,6 +151,10 @@ REPLACES = {
     "keccak_sponge": "zkevm_specs_tpu/ops/keccak.py:171 (keccak_f_lanes, keccak_round :136, "
                      "keccak256_batch_fixed_blocks :195; absorb loop circuits/keccak.py:158-179)",
     "horner_rlc": "zkevm_specs_tpu/circuits/keccak.py:44 (_horner_rlc :44-74)",
+    "leaf_unpack": "zkevm_specs_tpu/runtime/block.py:61 (_ship_leaves :61-115, its jitted "
+                   "unpacker :99-115)",
+    "verdict_pack": "zkevm_specs_tpu/runtime/block.py:468 (make_combined's verdict "
+                    "concatenation :514-519, read in run_device_combined's order :536-553)",
 }
 # kernels each path must launch
 PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
@@ -131,7 +166,10 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "keccak_alu_block": ("keccak_sponge", "horner_rlc"),
                 "keccak_sha3_mix": ("keccak_sponge", "horner_rlc"),
                 "withdrawal": ("horner_rlc", "limb_addsub", "lookup_search_eq",
-                               "lookup_fingerprint")}
+                               "lookup_fingerprint"),
+                "block": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_addsub",
+                          "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                          "lookup_fingerprint", "keccak_sponge", "horner_rlc")}
 
 
 def emit(obj):
@@ -241,17 +279,20 @@ def run_group(name, exec_state, build, card):
 class Capture:
     """Records the arguments of calls of ``module.name`` while active: the
     first call for each value of ``key(args)`` (by default the first call
-    only).  Used on a run outside the counted main path, to hold and time
-    the kernels at the path's own shapes."""
+    only), its positional arguments in ``calls`` and its keyword arguments
+    in ``kwargs``.  Used on a run outside the counted main path, to hold and
+    time the kernels at the path's own shapes."""
 
     def __init__(self, module, name, key=lambda args: None):
-        self.module, self.name, self.key, self.calls = module, name, key, {}
+        self.module, self.name, self.key, self.calls, self.kwargs = module, name, key, {}, {}
         self.orig = getattr(module, name)
 
     def __enter__(self):
-        def record(*args):
-            self.calls.setdefault(self.key(args), args)
-            return self.orig(*args)
+        def record(*args, **kw):
+            key = self.key(args)
+            if key not in self.calls:
+                self.calls[key], self.kwargs[key] = args, kw
+            return self.orig(*args, **kw)
 
         setattr(self.module, self.name, record)
         return self
@@ -264,6 +305,39 @@ def addsub_key(args):
     """K3's (mode, out_n, operand shapes): one capture for each."""
     a, b, mode = args[:3]
     return (mode, args[3] if len(args) > 3 else 0, tuple(a.shape), tuple(b.shape))
+
+
+def shapes(ts):
+    return tuple(None if t is None else tuple(t.shape) for t in ts)
+
+
+def gather_key(args):
+    """K4's table, query (None for a part only gathered), lane and enabled
+    shapes."""
+    table, query, idx = args[:3]
+    enabled = args[3] if len(args) > 3 else None
+    return shapes(table), shapes(query), tuple(idx.shape), shapes([enabled])
+
+
+def search_key(args):
+    query, table, _coefs, fps, _order, max_span, batch = args
+    return shapes(query), shapes(table), fps.shape[0], max_span, batch
+
+
+# the kernel wrappers the block verifier's device pass calls, as (kernel,
+# module, attribute, key of a distinct shape)
+BLOCK_CAPTURES = (
+    ("fr_mul", fr, "fr_mul", lambda a: shapes(a)),
+    ("limb_mul", L, "limb_mul", lambda a: (shapes(a[:2]), a[2])),
+    ("limb_addsub", L, "limb_addsub", addsub_key),
+    ("lookup_gather_eq", engine, "lookup_gather_eq", gather_key),
+    ("state_order_lt", state, "state_order_lt", lambda a: shapes(a)),
+    ("lookup_search_eq", engine, "lookup_search_eq", search_key),
+    ("lookup_fingerprint", engine, "lookup_fingerprint", lambda a: (shapes(a[0]), shapes(a[1:]))),
+    ("keccak_sponge", keccak_circuit, "keccak_sponge", lambda a: shapes(a)),
+    ("horner_rlc", keccak_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
+    ("horner_rlc", withdrawal_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
+)
 
 
 def state_inputs(mix, n_rows, corrupt_row=None, seed=0):
@@ -561,7 +635,263 @@ def run_withdrawal(card):
     return counts, captured
 
 
-# -- phase 8: the kernels against their plain versions ---------------------------
+# -- phase 8: the ALU block through the block verifier ------------------------------
+
+def host_ms(fn, repeats):
+    """Median host wall time of ``fn()`` ending in a synchronise, and its
+    last result."""
+    times, out = [], None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), out
+
+
+def run_block(card):
+    CBV = block_runtime.CompiledBlockVerifier
+    out = {"phase": "block", "txs": ALU_TXS, "ops_per_tx": ALU_OPS, "sign": False,
+           "not_ported": list(CBV.not_ported), "card": card}
+    t0 = time.perf_counter()
+    witness = workloads.build_alu_block(ALU_TXS, ALU_OPS)
+    t_trace = time.perf_counter() - t0
+    gas = workloads.receipt_gas_used(witness)
+    n_steps = len(witness.steps)
+    t0 = time.perf_counter()
+    bv = CBV(witness)                                          # device "cuda"
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bv.prepare()
+    t_prepare_cold = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before a warm prepare (K9) and the
+    # first combined call (the capture of the device pass with K10 last,
+    # then a replay), read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    prepared = bv.prepare()
+    t_prepare = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    failures = bv.run_device_combined(prepared)
+    t_capture = time.perf_counter() - t0
+    counts = read_counts()
+    assert not failures, f"block: the clean block failed at {sorted(failures, key=str)[:8]}"
+    for name in PATH_KERNELS["block"]:
+        assert counts[name] > 0, f"block: kernel {name} was not launched on the main path"
+    assert counts["leaf_unpack"] == 1, counts
+
+    # the per-kernel pass, its launches counted on their own
+    reset_counts()
+    assert not bv.run_device(prepared), "block: the per-kernel pass failed the clean block"
+    torch.cuda.synchronize()
+    pass_counts = read_counts()
+    # the graph holds the per-kernel pass's launches, kernel for kernel, and K10
+    graph_counts = prepared["graph"]["launches"]
+    for name in KERNELS:
+        want = 1 if name == "verdict_pack" else 0 if name == "leaf_unpack" else pass_counts[name]
+        assert graph_counts.get(name, 0) == want, \
+            f"block: the graph recorded {graph_counts.get(name, 0)} {name} launches, " \
+            f"the per-kernel pass {want}"
+        assert name not in PATH_KERNELS["block"] or name == "leaf_unpack" or want > 0, \
+            f"block: kernel {name} is not in the captured graph"
+    per_kernel_ms, per_kernel_min, failures = host_ms(lambda: bv.run_device(prepared),
+                                                      BLOCK_PASS_REPEATS)
+    assert not failures
+    reset_counts()
+    graph_ms, graph_min, failures = host_ms(lambda: bv.run_device_combined(prepared),
+                                            REPLAY_REPEATS)
+    assert not failures
+    assert sum(read_counts().values()) == 0, "block: a graph replay went through a wrapper"
+    # the parts of a replay: the graph on the card alone (CUDA events), the
+    # host-scheduled groups (run on the host while the graph runs), and the
+    # keccak check alone
+    graph_device_ms = time_on_card_ms(prepared["graph"]["graph"].replay, repeats=5, warmup=1)
+    host_groups_ms, _, _ = host_ms(bv.host_group_fails, 3)
+    keccak_k, keccak_args = next((k, a) for n, k, a in prepared["circuits"] if n == "keccak")
+    keccak_ms, _, _ = host_ms(lambda: keccak_k(keccak_args), 3)
+    groups_card = sum(g["verifier"] is not None for g in bv.groups)
+    device_s = graph_ms / 1e3
+    out.update({
+        "steps": n_steps, "rw_rows": len(witness.rw.rws), "gas_used": gas,
+        "groups_on_card": groups_card, "groups_on_host": len(bv.groups) - groups_card,
+        "trace_s": t_trace, "build_s": t_build, "prepare_cold_s": t_prepare_cold,
+        "prepare_s": t_prepare, "upload": bv.upload_stats,
+        "per_kernel_pass_ms_median": per_kernel_ms, "per_kernel_pass_ms_min": per_kernel_min,
+        "per_kernel_pass_launches": pass_counts,
+        "per_kernel_pass_launches_total": sum(pass_counts.values()),
+        "graph_replay_ms_median": graph_ms, "graph_replay_ms_min": graph_min,
+        "capture_s": t_capture, "graph_device_ms": graph_device_ms,
+        "host_groups_ms": host_groups_ms, "graph_host_launches": 1,
+        "graph_captured_launches": prepared["graph"]["launches"],
+        "main_path_launches": counts,
+        "keccak_check_ms": keccak_ms, "keccak_share_of_graph_replay": keccak_ms / graph_ms,
+        "keccak_share_of_graph_device": keccak_ms / graph_device_ms,
+        "keccak_share_of_per_kernel_pass": keccak_ms / per_kernel_ms,
+        # bench.py:_bench_block_mix's terms (:550-580): repeat-verify over a warm
+        # prepare and the combined pass; fresh-block over trace, build, a cold
+        # prepare and the first combined call (its capture included)
+        "gas_per_s": gas / (t_prepare + device_s), "steps_per_s": n_steps / (t_prepare + device_s),
+        "device_gas_per_s": gas / device_s,
+        "fresh_block_s": t_trace + t_build + t_prepare_cold + t_capture,
+        "fresh_block_gas_per_s": gas / (t_trace + t_build + t_prepare_cold + t_capture),
+        "fresh_block_steps_per_s": n_steps / (t_trace + t_build + t_prepare_cold + t_capture),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+
+    # every kernel's arguments at the block's shapes, outside the counted
+    # runs: K9's from a prepare, the others' (and K10's fail vectors) from
+    # one per-kernel pass, the first call of each distinct shape
+    with Capture(block_runtime, "upload") as up:
+        bv.prepare()
+    leaves, _ = up.calls[None]
+    with contextlib.ExitStack() as stack:
+        caps = [(name, stack.enter_context(Capture(module, attr, key)))
+                for name, module, attr, key in BLOCK_CAPTURES]
+        fails = bv._device_pass(prepared)
+    torch.cuda.synchronize()
+    calls = {}
+    for name, c in caps:
+        calls.setdefault(name, []).extend((args, c.kwargs[k]) for k, args in c.calls.items())
+    captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls}
+    out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
+    del bv, prepared, up, leaves, keccak_args, caps, fails
+    torch.cuda.empty_cache()
+
+    # one ADD step's gas_left + 1: that step or its predecessor fails, nothing else
+    adds = [i for i, s in enumerate(witness.steps) if s.execution_state == ExecutionState.ADD]
+    bad_step = adds[len(adds) // 2]
+    witness.steps[bad_step].gas_left += 1
+    bv = CBV(witness)
+    failures = bv.run_device_combined(bv.prepare())
+    assert failures and set(failures) <= {bad_step - 1, bad_step}, \
+        f"block: gas_left of step {bad_step} corrupted, failures {sorted(failures, key=str)[:8]}"
+    out["corrupt_step"], out["failing_keys"] = bad_step, sorted(failures)
+    del bv, witness
+    torch.cuda.empty_cache()
+
+    # the card's failure dicts against the CPU's on a small block
+    for corrupt in (False, True):
+        small = workloads.build_alu_block(*SMALL_BLOCK)
+        if corrupt:
+            next(s for s in small.steps if s.execution_state == ExecutionState.ADD).gas_left += 1
+        on_card = CBV(small)
+        p = on_card.prepare()
+        f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
+        on_cpu = CBV(small, device="cpu")
+        f_cpu = on_cpu.run_device(on_cpu.prepare())
+        assert f_card == f_graph == f_cpu, f"block: card {f_card}, graph {f_graph}, CPU {f_cpu}"
+        assert bool(f_cpu) == corrupt
+    out["small_block_matches_cpu"] = list(SMALL_BLOCK)
+    emit(out)
+    return counts, captured
+
+
+def block_kernel_rows(launches, captured):
+    """K9 at the ALU block's upload and K10 at its verdict vectors, with the
+    pinned host-to-device copy rate of the same staged bytes."""
+    dev = torch.device("cuda")
+    plan = captured["plan"]
+    staged = transfer.stage(plan, dev)
+    args = (staged[:4], staged[4], len(plan.segs), plan.arena_bytes)
+    read = sum(t.numel() * t.element_size() for t in staged)
+    # held on the leaves (the arena's alignment gaps are never written);
+    # timed on the arena alone: building the views is host work after the
+    # launch, timed on its own
+    k9 = compare("leaf_unpack",
+                 lambda: transfer.leaf_views(transfer.leaf_unpack(*args), plan),
+                 lambda: transfer.leaf_views(transfer.leaf_unpack_plain(*args), plan),
+                 read + plan.wide_bytes, 0,
+                 f"ALU block: {len(plan.segs)} leaves, {plan.n_chunks} chunks, "
+                 f"{read} bytes staged, {plan.wide_bytes} written", launches["leaf_unpack"],
+                 timed=(lambda: transfer.leaf_unpack(*args),
+                        lambda: transfer.leaf_unpack_plain(*args)))
+    arena = transfer.leaf_unpack(*args)
+    k9["leaf_views_host_ms"], _, _ = host_ms(lambda: transfer.leaf_views(arena, plan), 5)
+    del arena
+    pinned = torch.empty(plan.narrow_bytes, dtype=torch.uint8, pin_memory=True)
+    on_card = torch.empty(plan.narrow_bytes, dtype=torch.uint8, device=dev)
+    h2d_ms = time_on_card_ms(lambda: on_card.copy_(pinned, non_blocking=True), repeats=10)
+    k9.update({"narrow_bytes": plan.narrow_bytes, "wide_bytes": plan.wide_bytes,
+               "pinned_h2d_ms": h2d_ms, "pinned_h2d_gb_per_s": plan.narrow_bytes / h2d_ms / 1e6})
+    del pinned, on_card
+
+    fails = captured["fails"]
+    total = sum(f.numel() for f in fails)
+    table = transfer.verdict_table(fails).to(dev)
+    k10 = compare("verdict_pack", lambda: transfer.verdict_pack(fails, table),
+                  lambda: transfer.verdict_pack_plain(fails), 2 * total + table.numel() * 8, 0,
+                  f"ALU block: {len(fails)} vectors, {total} verdicts", launches["verdict_pack"])
+    k10["library_ms"] = time_on_card_ms(lambda: torch.cat(fails))   # bool out, not uint8
+    return [k9, k10]
+
+
+def block_path_shapes(calls):
+    """Every kernel at each distinct shape the block verifier's device pass
+    gave it (``run_block``'s captures), held against its plain version,
+    labelled "block"."""
+    out = {}
+    clock_hz = sm_clock_max_hz()
+
+    def add(name, kernel_fn, plain_fn, cost, note, plain_repeats=3):
+        out.setdefault(name, []).append(measure(
+            name, kernel_fn, plain_fn, *cost, f"block: {note}",
+            kernel_repeats=BLOCK_SHAPE_REPEATS, plain_repeats=plain_repeats))
+
+    def ok_and_rows(want_ok):
+        return lambda ok_g: ([ok_g[0]] if want_ok else []) + list(ok_g[1])
+
+    for args, _ in calls.get("fr_mul", []):
+        a, b = args
+        add("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b), fr_mul_cost(a, b),
+            f"{list(a.shape)} x {list(b.shape)} -> [B,16]")
+    for args, _ in calls.get("limb_mul", []):
+        a, b, out_n = args
+        rows_n = max(a.shape[0], b.shape[0])
+        add("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
+            (nbytes(a, b) + rows_n * out_n * 8, rows_n * (2 * a.shape[1] * b.shape[1] + 3 * out_n)),
+            f"{list(a.shape)} x {list(b.shape)} -> {out_n} limbs")
+    for args, _ in calls.get("limb_addsub", []):
+        x, y, mode = args[:3]
+        out_n = args[3] if len(args) > 3 else 0
+        add("limb_addsub", lambda: L.limb_addsub(*args), lambda: L.addsub_plain(x, y, mode, out_n),
+            addsub_cost(*args), f"{MODE_NAMES[mode]} {list(x.shape)} {list(y.shape)} out_n {out_n}")
+    for args, kw in calls.get("lookup_gather_eq", []):
+        pick = ok_and_rows(kw.get("want_ok", True))
+        table, query = args[:2]
+        add("lookup_gather_eq", lambda: pick(engine.lookup_gather_eq(*args, **kw)),
+            lambda: pick(engine.lookup_gather_eq_plain(*args)), gather_cost(*args),
+            f"{table[0].shape[0]}-row table, {len(table)} parts "
+            f"({sum(q is not None for q in query)} queried), {args[2].shape[0]} lanes")
+    for args, _ in calls.get("state_order_lt", []):
+        add("state_order_lt", lambda: state.state_order_lt(*args),
+            lambda: state.state_order_lt_plain(*args), order_cost(args),
+            f"{args[0].shape[0]} rw rows, 7 key columns")
+    for args, _ in calls.get("lookup_search_eq", []):
+        query, _, _, fps, _, max_span, batch = args
+        moved, ops, scanned, _ = search_cost(args)
+        add("lookup_search_eq", lambda: list(engine.lookup_search_eq(*args)),
+            lambda: list(engine.lookup_search_eq_plain(*args)), (moved, ops),
+            f"{batch} lanes, {len(query)} parts, {fps.shape[0]}-row index, span {max_span}, "
+            f"{scanned} candidates")
+    for args, _ in calls.get("lookup_fingerprint", []):
+        parts, coefs = args
+        add("lookup_fingerprint", lambda: engine.lookup_fingerprint(parts, coefs),
+            lambda: engine.fingerprint_plain(parts, coefs), fingerprint_cost(parts, coefs),
+            f"{parts[0].shape[0]} rows, {len(parts)} parts")
+    for args, _ in calls.get("keccak_sponge", []):
+        blocks, n_blocks = args
+        add("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
+            lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks), sponge_cost(blocks, n_blocks),
+            f"{blocks.shape[0]} rows, max {blocks.shape[1]} blocks, {int(n_blocks.sum())} absorbed",
+            plain_repeats=0)
+    for args, _ in calls.get("horner_rlc", []):
+        out.setdefault("horner_rlc", []).append(
+            horner_entry("block", *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3))
+    return out
+
+
+# -- phase 9: the kernels against their plain versions ---------------------------
 
 def seeded_limbs(rng, rows, n, bound_bits, device):
     """[rows, n] canonical limbs of random values below 2^bound_bits (and
@@ -583,11 +913,13 @@ def bound(bytes_moved, int_ops):
 
 
 def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
-            kernel_repeats=KERNEL_REPEATS, plain_repeats=5):
+            kernel_repeats=KERNEL_REPEATS, plain_repeats=5, timed=None):
     """One call of a kernel held against its plain version on the same
     inputs (bit-exact), then both timed, and the bound of the work.  With
     ``plain_repeats`` 0 the plain version's time is that of the one call
-    it was held on (for plain versions that take seconds)."""
+    it was held on (for plain versions that take seconds).  ``timed``: the
+    (kernel, plain) calls to time instead of the held ones, where those
+    add host work after the launch that the events would count."""
     torch.cuda.synchronize()
     before = L.LAUNCHES[name]
     got = kernel_fn()
@@ -609,8 +941,9 @@ def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
             err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
     assert exact, f"{name} at {shape_note}: kernel disagrees with its plain version " \
                   f"(max abs err {err})"
-    ms = time_on_card_ms(kernel_fn, repeats=kernel_repeats)
-    plain_ms = (time_on_card_ms(plain_fn, repeats=plain_repeats, warmup=1) if plain_repeats
+    time_kernel, time_plain = timed or (kernel_fn, plain_fn)
+    ms = time_on_card_ms(time_kernel, repeats=kernel_repeats)
+    plain_ms = (time_on_card_ms(time_plain, repeats=plain_repeats, warmup=1) if plain_repeats
                 else plain_once_ms)
     b_ms, b_by = bound(bytes_moved, int_ops)
     return {"shape": shape_note, "exact": exact, "tolerance": 0, "max_abs_err": err, "ms": ms,
@@ -618,11 +951,11 @@ def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
             "int_ops": int_ops}
 
 
-def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launches):
+def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launches, **kw):
     """A kernel's row of the kernels line, at one shape of a path."""
     return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches,
-            **measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note),
+            **measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, **kw),
             "library_ms": None}
 
 
@@ -644,6 +977,35 @@ def addsub_cost(a, b, mode, out_n=0):
     moved = nbytes(a, b) + rows * out_limbs * 8 + (rows * 8 if mode == L.SUB else 0)
     per_row = 3 * max(n, out_limbs) if mode in (L.ADD, L.SUB) else 3 * 17 + 3 * 17 + 16
     return moved, rows * per_row
+
+
+def gather_cost(table, query, idx, enabled=None):
+    """(bytes, int32 operations) of K4: each lane's hinted row of every part
+    read and written once, the queries, idx and enabled read, the ok bits
+    written where a part is queried, and two per compared limb."""
+    B = idx.shape[0]
+    gathered = B * 8 * sum(t.shape[1] for t in table)
+    pairs = [(t, q) for t, q in zip(table, query) if q is not None]
+    moved = (nbytes(idx) + sum(nbytes(q) for _, q in pairs) + 2 * gathered
+             + (B if pairs else 0) + (nbytes(enabled) if enabled is not None else 0))
+    return moved, 2 * B * sum(max(t.shape[1], q.shape[1]) for t, q in pairs)
+
+
+# K5 reads the ordering key's limbs of a row (tag 1, id 2, address 10,
+# field_tag 1, storage key 8 + 8, rw_counter 2) and compares row i with i-1
+ORDER_KEY_LIMBS = 1 + 2 + 10 + 1 + 8 + 8 + 2
+
+
+def order_cost(cols):
+    n = cols[0].shape[0]
+    return n * ORDER_KEY_LIMBS * 8 + n, n * 2 * (3 * 17 + 4 + 19)
+
+
+def fingerprint_cost(parts, coefs):
+    """(bytes, int32 operations) of K6's fingerprint entry: every limb read
+    once, one u64 fingerprint written, a 64-bit multiply-add per limb."""
+    T = parts[0].shape[0]
+    return sum(nbytes(t) for t in parts) + T * 8, T * sum(t.shape[1] for t in parts) * 8
 
 
 MODE_NAMES = {L.ADD: "ADD", L.SUB: "SUB", L.FR_ADD: "FR_ADD", L.FR_SUB: "FR_SUB"}
@@ -686,15 +1048,12 @@ def kernel_phase(launches, mul_inputs):
     idx = hints[1]["idx"]
     ok_k, _ = engine.lookup_gather_eq(table, query, idx)
     assert bool(ok_k.all()), "lookup_gather_eq: the path's own stack lookup did not match"
-    gathered_bytes = B * 8 * sum(t.shape[1] for t in table)
-    moved = nbytes(idx) + sum(nbytes(q) for q in query) + 2 * gathered_bytes + B
-    compares = B * sum(max(t.shape[1], q.shape[1]) for t, q in zip(table, query))
     rows.append(compare(
         "lookup_gather_eq",
         lambda: (lambda ok_g: [ok_g[0], *ok_g[1]])(engine.lookup_gather_eq(table, query, idx)),
         lambda: (lambda ok_g: [ok_g[0], *ok_g[1]])(
             engine.lookup_gather_eq_plain(table, query, idx)),
-        moved, 2 * compares, f"rw table {table[0].shape[0]} rows, 5 parts, B lanes",
+        *gather_cost(table, query, idx), f"rw table {table[0].shape[0]} rows, 5 parts, B lanes",
         launches["lookup_gather_eq"]))
     return rows
 
@@ -725,12 +1084,10 @@ def slice_kernel_rows(launches, captured):
 
     # K5: the ordering check over the Memory/Stack mix's 2^19 uploaded rows
     cols = captured["memory_stack"]["state_order_lt"]
-    n = cols[0].shape[0]
-    limbs_needed = 1 + 2 + 10 + 1 + 8 + 8 + 2               # the key's limbs of a row
     rows.append(compare("state_order_lt", lambda: state.state_order_lt(*cols),
-                        lambda: state.state_order_lt_plain(*cols),
-                        n * limbs_needed * 8 + n, n * 2 * (3 * 17 + 4 + 19),
-                        f"state_memory_stack: {n} rows, 7 key columns", launches["state_order_lt"]))
+                        lambda: state.state_order_lt_plain(*cols), *order_cost(cols),
+                        f"state_memory_stack: {cols[0].shape[0]} rows, 7 key columns",
+                        launches["state_order_lt"]))
 
     # K6: the Storage lookup of the Storage/Account mix (the kernel's row)
     # and the keccak lookup of the bytecode circuit (its path_shapes); the
@@ -755,12 +1112,10 @@ def slice_kernel_rows(launches, captured):
 
     # K6's fingerprint entry: the MPT index build of the Storage/Account mix
     parts, coefs = captured["storage_account"]["lookup_fingerprint"]
-    T = parts[0].shape[0]
-    width = sum(t.shape[1] for t in parts)
     rows.append(compare("lookup_fingerprint", lambda: engine.lookup_fingerprint(parts, coefs),
-                        lambda: engine.fingerprint_plain(parts, coefs),
-                        sum(nbytes(t) for t in parts) + T * 8, T * width * 8,
-                        f"state_storage_account: MPT table, {T} rows, {len(parts)} parts",
+                        lambda: engine.fingerprint_plain(parts, coefs), *fingerprint_cost(parts, coefs),
+                        f"state_storage_account: MPT table, {parts[0].shape[0]} rows, "
+                        f"{len(parts)} parts",
                         launches["lookup_fingerprint"]))
     return rows
 
@@ -866,6 +1221,43 @@ def horner_cost(byte_cols, active_cols):
     return 2 * T * n + n * 16 * 8, steps * K8_OPS_PER_STEP
 
 
+def horner_entry(path, byte_cols, active, r, held_steps, clock_hz, plain_repeats):
+    """K8 at one path's shape, held against its plain version on the first
+    ``held_steps`` steps of the same rows where it has more, and timed at
+    its whole shape; with its latency bound."""
+    T, n = byte_cols.shape
+    note = f"{path}: [{T}, {n}] bytes, {int(active.sum())} active steps"
+    held = (byte_cols, active)
+    if T > held_steps:              # the plain version on the first steps only
+        held = (byte_cols[:held_steps].contiguous(), active[:held_steps].contiguous())
+        note += f"; held against the plain version on the first {held_steps} steps"
+    entry = measure("horner_rlc", lambda: keccak_circuit.horner_rlc(*held, r),
+                    lambda: keccak_circuit.horner_rlc_plain(*held, r),
+                    *horner_cost(*held), note, kernel_repeats=5,
+                    plain_repeats=0 if held[0] is not byte_cols else plain_repeats)
+    if held[0] is not byte_cols:
+        entry["held_steps"] = held_steps
+        entry["held_ms"], entry["held_bound_ms"] = entry["ms"], entry["bound_ms"]
+        entry["ms"] = time_on_card_ms(lambda: keccak_circuit.horner_rlc(byte_cols, active, r),
+                                      repeats=5, warmup=1)
+        moved, ops = horner_cost(byte_cols, active)
+        entry["bound_ms"], entry["bound_by"] = bound(moved, ops)
+        entry["bytes"], entry["int_ops"] = moved, ops
+    entry["r_limbs"] = (r.bit_length() + 15) // 16
+    # the latency bound: the longest row's steps, each at least the
+    # step's chain of dependent instructions at the card's top clock
+    steps_max = int(active.sum(dim=0).max())
+    entry["chain_ops_per_step"] = K8_CHAIN_OPS
+    entry["sm_clock_max_mhz"] = clock_hz / 1e6
+    entry["chain_bound_ms"] = steps_max * K8_CHAIN_OPS * DEP_LATENCY_CYCLES / clock_hz * 1e3
+    # beside it, not a bound: one row's measured time a step, times T
+    one = (byte_cols[:K8_HELD_STEPS, :1].contiguous(), active[:K8_HELD_STEPS, :1].contiguous())
+    one_ms = time_on_card_ms(lambda: keccak_circuit.horner_rlc(*one, r), repeats=5, warmup=1)
+    entry["one_row_step_us"] = one_ms * 1e3 / max(int(one[1].sum()), 1)
+    entry["one_row_step_x_T_ms"] = steps_max * entry["one_row_step_us"] / 1e3
+    return entry
+
+
 def keccak_kernel_rows(launches, captured):
     """K7 and K8 at the shapes the keccak and withdrawal paths gave them:
     the SHA3 mix's for the kernels' rows, the others as path_shapes."""
@@ -884,41 +1276,9 @@ def keccak_kernel_rows(launches, captured):
                  "replaces": REPLACES["keccak_sponge"], "launches": launches["keccak_sponge"],
                  **k7[0], "library_ms": None, "path_shapes": k7[1:]})
 
-    k8 = []
-    for path in ("keccak_sha3_mix", "keccak_alu_block", "withdrawal"):
-        byte_cols, active, r = captured[path]["horner_rlc"]
-        T, n = byte_cols.shape
-        note = f"{path}: [{T}, {n}] bytes, {int(active.sum())} active steps"
-        held = (byte_cols, active)
-        if T > K8_HELD_STEPS:           # the plain version on the first steps only
-            held = (byte_cols[:K8_HELD_STEPS].contiguous(), active[:K8_HELD_STEPS].contiguous())
-            note += f"; held against the plain version on the first {K8_HELD_STEPS} steps"
-        entry = measure("horner_rlc", lambda: keccak_circuit.horner_rlc(*held, r),
-                        lambda: keccak_circuit.horner_rlc_plain(*held, r),
-                        *horner_cost(*held), note, kernel_repeats=5,
-                        plain_repeats=5 if path == "withdrawal" else 0)
-        if held[0] is not byte_cols:
-            entry["held_steps"] = K8_HELD_STEPS
-            entry["held_ms"], entry["held_bound_ms"] = entry["ms"], entry["bound_ms"]
-            entry["ms"] = time_on_card_ms(lambda: keccak_circuit.horner_rlc(byte_cols, active, r),
-                                          repeats=5, warmup=1)
-            moved, ops = horner_cost(byte_cols, active)
-            entry["bound_ms"], entry["bound_by"] = bound(moved, ops)
-            entry["bytes"], entry["int_ops"] = moved, ops
-        entry["r_limbs"] = (r.bit_length() + 15) // 16
-        # the latency bound: the longest row's steps, each at least the
-        # step's chain of dependent instructions at the card's top clock
-        steps_max = int(active.sum(dim=0).max())
-        entry["chain_ops_per_step"] = K8_CHAIN_OPS
-        entry["sm_clock_max_mhz"] = clock_hz / 1e6
-        entry["chain_bound_ms"] =(steps_max * K8_CHAIN_OPS * DEP_LATENCY_CYCLES
-                                   / clock_hz * 1e3)
-        # beside it, not a bound: one row's measured time a step, times T
-        one = (byte_cols[:K8_HELD_STEPS, :1].contiguous(), active[:K8_HELD_STEPS, :1].contiguous())
-        one_ms = time_on_card_ms(lambda: keccak_circuit.horner_rlc(*one, r), repeats=5, warmup=1)
-        entry["one_row_step_us"] = one_ms * 1e3 / max(int(one[1].sum()), 1)
-        entry["one_row_step_x_T_ms"] = steps_max * entry["one_row_step_us"] / 1e3
-        k8.append(entry)
+    k8 = [horner_entry(path, *captured[path]["horner_rlc"], K8_HELD_STEPS, clock_hz,
+                       plain_repeats=5 if path == "withdrawal" else 0)
+          for path in ("keccak_sha3_mix", "keccak_alu_block", "withdrawal")]
     rows.append({"name": "horner_rlc", "route": "cuda", "source": SOURCES["horner_rlc"],
                  "replaces": REPLACES["horner_rlc"], "launches": launches["horner_rlc"],
                  **k8[0], "library_ms": None, "path_shapes": k8[1:]})
@@ -950,12 +1310,17 @@ def main():
     for data in ("alu_block", "sha3_mix"):
         by_path[f"keccak_{data}"], captured[f"keccak_{data}"] = run_keccak(data, card)
     by_path["withdrawal"], captured["withdrawal"] = run_withdrawal(card)
+    by_path["block"], captured["block"] = run_block(card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
     rows = (kernel_phase(launches, mul_inputs) + slice_kernel_rows(launches, captured)
-            + keccak_kernel_rows(launches, captured))
+            + keccak_kernel_rows(launches, captured)
+            + block_kernel_rows(launches, captured["block"]))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
+    for name, entries in block_path_shapes(captured["block"]["calls"]).items():
+        row = next(r for r in rows if r["name"] == name)
+        row["path_shapes"] = row.get("path_shapes", []) + entries
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["card"] = card

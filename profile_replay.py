@@ -9,7 +9,10 @@ compiled group verifier's replay on the ADD and MUL groups at 131072
 lanes, the state check on both of ``bench.py``'s row mixes at 2^19 rows,
 the bytecode check on the ALU-mix bytecodes at k = 20, the keccak check on
 the ALU block's table and on 65536 short preimages, and the withdrawal
-check at 16 rows.  For each it prints one JSON line: the call's host wall
+check at 16 rows; then the whole ALU block through the block verifier
+(``workloads.build_alu_block``), once as the per-kernel pass
+(``run_device``) and once as the CUDA-graph replay
+(``run_device_combined``).  For each it prints one JSON line: the call's host wall
 time, the device's busy time (union of kernel intervals) and idle share
 within it, the number of device kernels, and the device time of the ten
 costliest kernel names (the port's kernels and PyTorch's own).  Needs a
@@ -27,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from zkevm_specs_tpu_torch import workloads
 from zkevm_specs_tpu_torch.circuits import bytecode, keccak, state, withdrawal
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload
@@ -105,6 +109,13 @@ def main():
         profile_call(f"keccak_{data}", kernel, card, rows=len(preimages))
     witness, n, r = workloads.build_withdrawals()
     profile_call("withdrawal", withdrawal.withdrawal_kernel(witness, n, r), card, rows=n)
+    block = workloads.build_alu_block()
+    bv = CompiledBlockVerifier(block)
+    prepared = bv.prepare()
+    for label, run in (("block_per_kernel", bv.run_device),
+                       ("block_graph", bv.run_device_combined)):
+        profile_call(label, lambda: run(prepared), card, steps=len(block.steps),
+                     rw_rows=len(block.rw.rws))
 
 
 if __name__ == "__main__":

@@ -307,3 +307,88 @@ def test_horner_rlc(dev, r_limbs, mask):
     got = keccak.horner_rlc(byte_cols, active, r)
     assert L.LAUNCHES["horner_rlc"] == before + 1
     _equal(got, keccak.horner_rlc_plain(byte_cols, active, r))
+
+
+# -- K9 and K10: the block verifier's upload and verdict gather -----------------------
+
+def _leaves(kind, seed=0):
+    """Host leaves of the block verifier's kinds: 16-bit limb tensors and
+    numpy uint32 columns (narrowed to u8/u16 by their maximum, or kept at
+    int64 past 2^16), u64 fingerprints, int32 and int64 columns, bool and
+    uint8 columns; with empty and one-element leaves."""
+    rng = np.random.RandomState(seed)
+    sizes = [0, 1, 7, 4096, 4097, 10_000]
+    out = []
+    for i, n in enumerate(sizes):
+        if kind == "u8":
+            out.append(torch.from_numpy(rng.randint(0, 256, size=(n, 1)).astype(np.int64)))
+        elif kind == "u16":
+            out.append(rng.randint(0, 1 << 16, size=n).astype(np.uint32))
+        else:
+            out += [torch.from_numpy(rng.randint(0, 1 << 16, size=(n, 2)).astype(np.int64)),
+                    rng.randint(0, 200, size=n).astype(np.uint32),
+                    torch.from_numpy(rng.randint(-2**62, 2**62, size=n, dtype=np.int64)),
+                    rng.randint(0, 2**63, size=n, dtype=np.uint64) * np.uint64(2) + np.uint64(i % 2),
+                    rng.randint(-2**31, 2**31, size=n).astype(np.int32),
+                    rng.rand(n) < 0.5,
+                    torch.from_numpy(rng.randint(0, 256, size=n).astype(np.uint8))]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["u8", "u16", "mixed"])
+def test_leaf_unpack(dev, kind):
+    from zkevm_specs_tpu_torch.runtime import transfer
+    from zkevm_specs_tpu_torch.runtime.convert import to_device
+
+    leaves = _leaves(kind, seed=len(kind))
+    before = L.LAUNCHES["leaf_unpack"]
+    got, plan = transfer.upload(leaves, dev)
+    assert L.LAUNCHES["leaf_unpack"] == before + 1
+    torch.cuda.synchronize()
+    for g, leaf in zip(got, leaves):
+        want = to_device(leaf, dev)
+        assert g.dtype == want.dtype and g.shape == want.shape and torch.equal(g, want)
+    # every leaf of the arena against K9's plain version on the same staged buffers
+    staged = transfer.stage(plan, dev)
+    args = (staged[:4], staged[4], len(plan.segs), plan.arena_bytes)
+    _equal(transfer.leaf_views(transfer.leaf_unpack(*args), plan),
+           transfer.leaf_views(transfer.leaf_unpack_plain(*args), plan))
+
+
+@pytest.mark.parametrize("lengths", [[1], [0, 1, 5], [1000, 1, 1 << 20, 3, 4097]])
+def test_verdict_pack(dev, lengths):
+    from zkevm_specs_tpu_torch.runtime import transfer
+
+    rng = np.random.RandomState(len(lengths))
+    fails = [torch.from_numpy(rng.rand(n) < 0.3).to(dev) for n in lengths]
+    before = L.LAUNCHES["verdict_pack"]
+    got = transfer.verdict_pack(fails)
+    assert L.LAUNCHES["verdict_pack"] == before + 1
+    _equal(got, transfer.verdict_pack_plain(fails))
+
+
+def _small_block(n_txs=2, n_ops=6):
+    from zkevm_specs_tpu_torch import workloads
+
+    return workloads.build_alu_block(n_txs, n_ops)
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt):
+    from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+
+    w = _small_block()
+    if corrupt:
+        next(s for s in w.steps if s.execution_state.name == "ADD").gas_left += 1
+    bv = CompiledBlockVerifier(w)                       # device "cuda"
+    prepared = bv.prepare()
+    per_kernel = bv.run_device(prepared)
+    assert bv.run_device_combined(prepared) == per_kernel       # captures, then replays
+    captured = prepared["graph"]["launches"]
+    assert captured["verdict_pack"] == 1 and "leaf_unpack" not in captured
+    before = L.LAUNCHES.copy()
+    assert bv.run_device_combined(prepared) == per_kernel       # a replay alone
+    assert L.LAUNCHES == before, "a graph replay goes through no kernel wrapper"
+    on_cpu = CompiledBlockVerifier(w, device="cpu")
+    assert on_cpu.run_device(on_cpu.prepare()) == per_kernel
+    assert bool(per_kernel) == corrupt

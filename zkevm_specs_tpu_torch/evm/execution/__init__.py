@@ -6,9 +6,21 @@ from typing import Callable, Dict
 
 from ..execution_state import ExecutionState
 from .add_sub import add_sub
+from .begin_tx import begin_tx
+from .end_block import end_block
+from .end_tx import end_tx
 from .mul_div_mod import mul_div_mod
+from .pop import pop
+from .push import push
+from .stop import stop
 
 EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
+    ExecutionState.BeginTx: begin_tx,
+    ExecutionState.EndTx: end_tx,
+    ExecutionState.EndBlock: end_block,
     ExecutionState.ADD: add_sub,
     ExecutionState.MUL: mul_div_mod,
+    ExecutionState.PUSH: push,
+    ExecutionState.POP: pop,
+    ExecutionState.STOP: stop,
 }

@@ -1,4 +1,5 @@
-"""The batched EVM-step constraint builder (the part the ported gadgets use).
+"""The batched EVM-step constraint builder (the part the ported gadgets use:
+ADD/SUB, MUL/DIV/MOD, PUSH, POP, STOP, BeginTx, EndTx, EndBlock).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -12,16 +13,27 @@ static per control path, exactly as in the reference.
 from __future__ import annotations
 
 from enum import IntEnum, auto
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..dsl.cs import ConstraintSystem
-from ..dsl.value import Ctx, F, Word
-from ..utils.param import MAX_N_BYTES, N_BYTES_GAS
+from ..dsl.value import Ctx, F, Word, WordOrValue, trim, width_for_bits
+from ..ops import limbs as L
+from ..utils.param import MAX_N_BYTES, N_BYTES_ACCOUNT_ADDRESS, N_BYTES_GAS
 from ..tables.container import Tables
-from ..tables.schemas import RW, BytecodeFieldTag, FixedTableTag, Target
+from ..tables.schemas import (
+    RW,
+    AccountFieldTag,
+    BlockContextFieldTag,
+    BytecodeFieldTag,
+    CallContextFieldTag,
+    FixedTableTag,
+    Target,
+    TxContextFieldTag,
+    TxReceiptFieldTag,
+)
 from .execution_state import ExecutionState
 from .opcode import constant_gas_cost, valid_opcodes
 from .step import StepStateBatch
@@ -122,6 +134,19 @@ class Transition:
         return Transition(TransitionKind.ToWord, to)
 
 
+class ReversionInfo:
+    def __init__(self, rw_counter_end_of_reversion: F, is_persistent: F,
+                 reversible_write_counter: F):
+        self.rw_counter_end_of_reversion = rw_counter_end_of_reversion
+        self.is_persistent = is_persistent
+        self.reversible_write_counter = reversible_write_counter
+
+    def rw_counter_of_reversion(self) -> F:
+        out = self.rw_counter_end_of_reversion - self.reversible_write_counter
+        self.reversible_write_counter = self.reversible_write_counter + 1
+        return out
+
+
 # host gas table for the per-lane constant-gas gather
 _GAS_TABLE = np.zeros((256,), dtype=np.int64)
 for _op in valid_opcodes():
@@ -210,6 +235,43 @@ class Instruction:
         mask = cond if not isinstance(cond, F) else ~cond.is_zero_mask()
         return self.cs.branch(mask)
 
+    def table_scalar(self, compute: Callable[[], int]) -> int:
+        """A group-uniform host int derived from the lookup tables (EndBlock's
+        tx and withdrawal counts, reference end_block.py:72-105): computed
+        and recorded in the control signature by the eager trace, taken
+        from the signature in the replay, which is fed the same tables."""
+        cs = self.cs
+        if cs._decision_idx < len(cs.decisions):
+            decided = cs.decisions[cs._decision_idx]
+            cs._decision_idx += 1
+            return int(decided)
+        assert self.ctx.eager, "the replay requires a full control signature"
+        val = int(compute())
+        cs.decisions.append(val)
+        cs._decision_idx += 1
+        return val
+
+    def masked(self, mask):
+        """Context manager: constraints and lookups inside are enforced only
+        on lanes where ``mask`` holds (the body must not change the offset
+        bookkeeping; use branch() for that)."""
+        inst = self
+
+        class _Masked:
+            def __enter__(self_inner):
+                self_inner.prev = inst.cs.push_mask(mask)
+                return self_inner
+
+            def __exit__(self_inner, *exc):
+                inst.cs.pop_mask(self_inner.prev)
+                return False
+
+        return _Masked()
+
+    def mask_of(self, condition: F):
+        """Bool mask of a 0/1 condition value."""
+        return ~self._f(condition).is_zero_mask()
+
     # -- host witness hints (two-phase hint protocol) ----------------------
 
     def ints_of(self, v: Union[F, Word]) -> list:
@@ -236,7 +298,7 @@ class Instruction:
             return Word(F(self.ctx, entry["lo"], bits[0]), F(self.ctx, entry["hi"], bits[1]))
         w = Word.from_ints(self.ctx, [v % (1 << 256) for v in values])
         if cs.hint_record is not None:
-            cs.hint_record.append({"lo": w.lo.limbs.numpy(), "hi": w.hi.limbs.numpy()})
+            cs.hint_record.append({"lo": w.lo.limbs, "hi": w.hi.limbs})
             cs.hint_bits.append((w.lo.bits, w.hi.bits))
         return w
 
@@ -250,7 +312,7 @@ class Instruction:
             return F(self.ctx, entry["f"], b)
         f = F.from_ints(self.ctx, values, bits)
         if cs.hint_record is not None:
-            cs.hint_record.append({"f": f.limbs.numpy()})
+            cs.hint_record.append({"f": f.limbs})
             cs.hint_bits.append(f.bits)
         return f
 
@@ -300,6 +362,24 @@ class Instruction:
                 self.cs.constrain_equal_word(next, transition.value, name=f"state {key} (to)")
             else:
                 raise ValueError("Unreachable")
+
+    def step_state_transition_to_new_context(
+        self, rw_counter, call_id, is_root, is_create, code_hash, gas_left,
+        reversible_write_counter, log_id,
+    ):
+        self.constrain_step_state_transition(
+            rw_counter=rw_counter,
+            call_id=call_id,
+            is_root=is_root,
+            is_create=is_create,
+            code_hash=code_hash,
+            gas_left=gas_left,
+            reversible_write_counter=reversible_write_counter,
+            log_id=log_id,
+            program_counter=Transition.to(0),
+            stack_pointer=Transition.to(1024),
+            memory_word_size=Transition.to(0),
+        )
 
     def step_state_transition_in_same_context(
         self,
@@ -357,6 +437,10 @@ class Instruction:
     def is_equal_word(self, lhs: Word, rhs: Word) -> F:
         return F.from_bool(self.ctx, lhs.eq_mask(rhs))
 
+    def continuous_selectors(self, value: F, n: int) -> List[F]:
+        return [F.from_bool(self.ctx, F.const(self.ctx, i).lt_mask(self._f(value)))
+                for i in range(n)]
+
     def select(self, condition: F, when_true, when_false):
         mask = ~condition.is_zero_mask()
         if isinstance(when_true, Word):
@@ -377,6 +461,44 @@ class Instruction:
         self.cs.check(rhs.le_bits_mask(8 * n_bytes), lambda: f"rhs {rhs!r} exceeds {n_bytes} bytes")
         return (F.from_bool(self.ctx, lhs.lt_mask(rhs)), F.from_bool(self.ctx, lhs.eq_mask(rhs)))
 
+    def constant_divmod(self, numerator: IntOrF, denominator: int, n_bytes: int) -> Tuple[F, F]:
+        """(numerator // d, numerator % d) for a static d, the quotient
+        range-checked to n_bytes (reference instruction.py:466-477)."""
+        num = self._f(numerator)
+        q_arr, r_arr = L.divmod_small(num.limbs, int(denominator))
+        q = F(self.ctx, q_arr, num.bits)
+        r = F(self.ctx, r_arr[..., None], 16)
+        self.range_check(q, n_bytes)
+        return q, r
+
+    def min(self, lhs: F, rhs: F, n_bytes: int) -> F:
+        lt, _ = self.compare(lhs, rhs, n_bytes)
+        return self.select(lt, lhs, rhs)
+
+    def word_to_fq(self, word: Word, n_bytes: int) -> F:
+        """Constrain the word to fit n_bytes and return its value
+        (reference instruction.py:480-484)."""
+        if n_bytes <= 16:
+            ok = word.hi.is_zero_mask() & word.lo.le_bits_mask(8 * n_bytes)
+            self.cs.check(ok, lambda: f"Word {word!r} has too many bytes to fit {n_bytes} bytes")
+            return F(self.ctx, trim(word.lo.limbs, width_for_bits(8 * n_bytes)),
+                     min(8 * n_bytes, word.lo.bits))
+        ok = word.hi.le_bits_mask(8 * (n_bytes - 16))
+        self.cs.check(ok, lambda: f"Word {word!r} has too many bytes to fit {n_bytes} bytes")
+        full = word.lo + word.hi * F.const(self.ctx, 1 << 128)
+        return F(self.ctx, trim(full.widen(16).limbs, width_for_bits(8 * n_bytes)), 8 * n_bytes)
+
+    def word_to_address(self, word: Word) -> F:
+        return self.word_to_fq(word, N_BYTES_ACCOUNT_ADDRESS)
+
+    def address_to_word(self, addr: F) -> Word:
+        """Verify 160 bits and split into lo/hi (reference instruction.py:509-513)."""
+        addr = self._f(addr)
+        self.cs.check(addr.le_bits_mask(8 * N_BYTES_ACCOUNT_ADDRESS),
+                      lambda: f"address {addr!r} exceeds 160 bits")
+        hi, lo = addr.split_pow2(128, 32)
+        return Word(lo, hi)
+
     def compare_word(self, lhs: Word, rhs: Word) -> Tuple[F, F]:
         hi_lt, hi_eq = self.compare(lhs.hi, rhs.hi, 16)
         lo_lt, lo_eq = self.compare(lhs.lo, rhs.lo, 16)
@@ -389,6 +511,24 @@ class Instruction:
         hi_sum = self.sum([w.hi for w in addends]) + carry_lo
         carry_hi, sum_hi = hi_sum.split_pow2(128, 8)
         return Word(sum_lo, sum_hi), carry_hi
+
+    def sub_word(self, minuend: Word, subtrahend: Word) -> Tuple[Word, F]:
+        borrow_lo = minuend.lo.lt_mask(subtrahend.lo)
+        diff_lo = (minuend.lo - subtrahend.lo
+                   + F.from_bool(self.ctx, borrow_lo) * F.const(self.ctx, 1 << 128))
+        min_hi_adj = subtrahend.hi + F.from_bool(self.ctx, borrow_lo)
+        borrow_hi = minuend.hi.lt_mask(min_hi_adj)
+        diff_hi = (minuend.hi - min_hi_adj
+                   + F.from_bool(self.ctx, borrow_hi) * F.const(self.ctx, 1 << 128))
+        return Word(diff_lo, diff_hi), F.from_bool(self.ctx, borrow_hi)
+
+    def mul_word_by_u64(self, multiplicand: Word, multiplier: F) -> Word:
+        prod_lo_full = multiplicand.lo * self._f(multiplier)  # <=192 bits exact
+        quotient_lo, product_lo = prod_lo_full.split_pow2(128, 64)
+        prod_hi_full = multiplicand.hi * self._f(multiplier) + quotient_lo
+        quotient_hi, product_hi = prod_hi_full.split_pow2(128, 64)
+        self.constrain_zero(quotient_hi)
+        return Word(product_lo, product_hi)
 
     def _mul_512_terms(self, a: Word, b: Word):
         a64s = a.to_64s()
@@ -428,11 +568,46 @@ class Instruction:
                                  None if value1 is None else self._f(value1),
                                  None if value2 is None else self._f(value2))
 
+    def block_context_lookup(self, field_tag: BlockContextFieldTag, block_number: IntOrF = 0) -> F:
+        return self.block_context_lookup_word(field_tag, block_number).value()
+
+    def block_context_lookup_word(self, field_tag: BlockContextFieldTag,
+                                  block_number: IntOrF = 0) -> WordOrValue:
+        row = self.tables.block_lookup(self.cs, self.fq(field_tag), self._f(block_number))
+        return WordOrValue(row.value)
+
+    def tx_context_lookup(self, tx_id: F, field_tag: TxContextFieldTag) -> F:
+        return self.tx_context_lookup_word(tx_id, field_tag).value()
+
+    def tx_context_lookup_word(self, tx_id: F, field_tag: TxContextFieldTag) -> WordOrValue:
+        row = self.tables.tx_lookup(self.cs, self._f(tx_id), self.fq(field_tag), self.fq(0))
+        return WordOrValue(row.value)
+
+    def tx_gas_price(self, tx_id: F) -> Word:
+        return self.tx_context_lookup_word(tx_id, TxContextFieldTag.GasPrice)
+
+    def tx_receipt_read(self, tx_id: F, field_tag: TxReceiptFieldTag,
+                        rw_counter: Optional[F] = None) -> F:
+        row = self.rw_lookup(RW.Read, Target.TxReceipt, id=self._f(tx_id), address=self.fq(0),
+                             field_tag=self.fq(field_tag), storage_key=self.word(0),
+                             rw_counter=rw_counter)
+        return WordOrValue(row.value).value()
+
+    def tx_receipt_write(self, tx_id: F, field_tag: TxReceiptFieldTag) -> F:
+        row = self.rw_lookup(RW.Write, Target.TxReceipt, id=self._f(tx_id), address=self.fq(0),
+                             field_tag=self.fq(field_tag), storage_key=self.word(0))
+        return WordOrValue(row.value).value()
+
     def bytecode_lookup(self, bytecode_hash: Word, index: F, is_code: Optional[F] = None) -> F:
         row = self.tables.bytecode_lookup(
             self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Byte), self._f(index),
             None if is_code is None else self._f(is_code),
         )
+        return row.value
+
+    def bytecode_length(self, bytecode_hash: Word) -> F:
+        row = self.tables.bytecode_lookup(
+            self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Header), self.fq(0), self.fq(0))
         return row.value
 
     def responsible_opcode_lookup(self, opcode: F, aux: IntOrF = 0):
@@ -474,6 +649,107 @@ class Instruction:
             aux0=aux0,
         )
 
+    def state_write(self, tag: Target, id=None, address=None, field_tag=None,
+                    storage_key=None, value=None, value_prev=None, aux0=None,
+                    reversion_info: Optional[ReversionInfo] = None):
+        assert tag.write_with_reversion()
+        row = self.rw_lookup(RW.Write, tag, id, address, field_tag, storage_key, value,
+                             value_prev, aux0)
+        if reversion_info is not None and self.branch(self.is_zero(reversion_info.is_persistent)):
+            self.tables.rw_lookup(
+                self.cs,
+                rw_counter=reversion_info.rw_counter_of_reversion(),
+                rw=self.fq(RW.Write),
+                tag=self.fq(tag),
+                id=row.id,
+                address=row.address,
+                field_tag=row.field_tag,
+                storage_key=row.storage_key,
+                value=row.value_prev,
+                value_prev=row.value,
+                aux0=row.aux0,
+            )
+        return row
+
+    def call_context_lookup(self, field_tag: CallContextFieldTag, rw: RW = RW.Read,
+                            call_id: Optional[F] = None) -> F:
+        return self.call_context_lookup_word(field_tag, rw, call_id).value()
+
+    def call_context_lookup_word(self, field_tag: CallContextFieldTag, rw: RW = RW.Read,
+                                 call_id: Optional[F] = None) -> WordOrValue:
+        if call_id is None:
+            call_id = self.curr.call_id
+        row = self.rw_lookup(rw, Target.CallContext, self._f(call_id), self.fq(field_tag))
+        return WordOrValue(row.value)
+
+    def rw_table_start_lookup(self, counter: IntOrF):
+        self.rw_lookup(RW.Read, Target.Start, rw_counter=self._f(counter))
+
+    def reversion_info(self, call_id: Optional[F] = None) -> ReversionInfo:
+        rw_counter_end_of_reversion, is_persistent = [
+            self.call_context_lookup(tag, call_id=call_id)
+            for tag in (CallContextFieldTag.RwCounterEndOfReversion,
+                        CallContextFieldTag.IsPersistent)
+        ]
+        return ReversionInfo(
+            rw_counter_end_of_reversion,
+            is_persistent,
+            self.curr.reversible_write_counter if call_id is None else self.fq(0),
+        )
+
+    def tx_refund_read(self, tx_id: F) -> F:
+        row = self.rw_lookup(RW.Read, Target.TxRefund, self._f(tx_id))
+        return WordOrValue(row.value).value()
+
+    def account_read_word(self, account_address: F,
+                          account_field_tag: AccountFieldTag) -> WordOrValue:
+        row = self.rw_lookup(RW.Read, Target.Account, address=self._f(account_address),
+                             field_tag=self.fq(account_field_tag))
+        return WordOrValue(row.value)
+
+    def account_write(self, account_address: F, account_field_tag: AccountFieldTag,
+                      reversion_info: Optional[ReversionInfo] = None) -> Tuple[F, F]:
+        pair = self.account_write_word(account_address, account_field_tag, reversion_info)
+        return pair[0].value(), pair[1].value()
+
+    def account_write_word(self, account_address: F, account_field_tag: AccountFieldTag,
+                           reversion_info: Optional[ReversionInfo] = None):
+        row = self.state_write(Target.Account, address=self._f(account_address),
+                               field_tag=self.fq(account_field_tag),
+                               reversion_info=reversion_info)
+        return WordOrValue(row.value), WordOrValue(row.value_prev)
+
+    def add_balance(self, account_address: F, values: Sequence[Word],
+                    reversion_info: Optional[ReversionInfo] = None) -> Tuple[Word, Word]:
+        balance, balance_prev = self.account_write_word(
+            account_address, AccountFieldTag.Balance, reversion_info)
+        result, carry = self.add_words([balance_prev, *values])
+        self.constrain_equal_word(balance, result)
+        self.constrain_zero(carry)
+        return balance, balance_prev
+
+    def sub_balance(self, account_address: F, values: Sequence[Word],
+                    reversion_info: Optional[ReversionInfo] = None) -> Tuple[Word, Word]:
+        balance, balance_prev = self.account_write_word(
+            account_address, AccountFieldTag.Balance, reversion_info)
+        result, carry = self.add_words([balance, *values])
+        self.constrain_equal_word(balance_prev, result)
+        self.constrain_zero(carry)
+        return balance, balance_prev
+
+    def add_account_to_access_list(self, tx_id: F, account_address: F,
+                                   reversion_info: Optional[ReversionInfo] = None) -> F:
+        row = self.state_write(Target.TxAccessListAccount, self._f(tx_id),
+                               self._f(account_address), value=self.fq(1),
+                               reversion_info=reversion_info)
+        return WordOrValue(row.value_prev).value()
+
+    def transfer_with_gas_fee(self, sender_address: F, receiver_address: F, value: Word,
+                              gas_fee: Word, reversion_info: Optional[ReversionInfo] = None):
+        sender = self.sub_balance(sender_address, [value, gas_fee], reversion_info)
+        receiver = self.add_balance(receiver_address, [value], reversion_info)
+        return sender, receiver
+
     def stack_pop(self) -> Word:
         offset = self.stack_pointer_offset
         self.stack_pointer_offset += 1
@@ -487,3 +763,22 @@ class Instruction:
         stack_pointer = self.curr.stack_pointer + self._f(stack_pointer_offset)
         row = self.rw_lookup(rw, Target.Stack, self.curr.call_id, stack_pointer)
         return row.value
+
+    # -- CREATE address derivation (host hint) ------------------------------
+
+    def generate_contract_address(self, address: F, nonce: F) -> F:
+        """keccak(rlp([address, nonce]))[-20:] per lane, a 160-bit hint built
+        on the host by the eager trace (numpy keccak) and replayed from the
+        hint stream (reference instruction.py:1356-1371)."""
+        addrs = self.ints_of(self._f(address))
+        nonces = self.ints_of(self._f(nonce))
+        if self.ctx.eager:
+            from ..ops.keccak import keccak256_batch
+            from ..witness.rlp import rlp_encode
+
+            digests = keccak256_batch([rlp_encode([a.to_bytes(20, "big"), n])
+                                       for a, n in zip(addrs, nonces)])
+            outs = [int.from_bytes(d[-20:], "big") for d in digests]
+        else:
+            outs = addrs  # dummies; f_hint replays the recorded stream
+        return self.f_hint(outs, 160)

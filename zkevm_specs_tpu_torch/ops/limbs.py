@@ -422,6 +422,22 @@ def divmod_pow2(a: torch.Tensor, bits: int, out_n: int = None):
     return q, r
 
 
+def divmod_small(a: torch.Tensor, d: int):
+    """(a // d, a % d) for a constant 0 < d < 2^16: schoolbook long division
+    from the top limb down (the running remainder r < d keeps r * 2^16 +
+    limb below 2^32); the quotient keeps a's width, the remainder is
+    ``[...]``."""
+    assert 0 < d < LIMB_BASE
+    r = torch.zeros(a.shape[:-1], dtype=DTYPE, device=a.device)
+    q = []
+    for k in range(a.shape[-1] - 1, -1, -1):
+        cur = (r << LIMB_BITS) | a[..., k]
+        q.append(cur // d)
+        r = cur % d
+    q.reverse()
+    return torch.stack(q, dim=-1), r
+
+
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise limb select: cond ? a : b.  cond: bool[...]."""
     n = max(a.shape[-1], b.shape[-1])

@@ -57,6 +57,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "horner_rlc": {
         "horner_rlc_launch": [_P, _P, _I64, _I64, _P, _P, _P],
     },
+    "leaf_unpack": {
+        "leaf_unpack_launch": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    },
+    "verdict_pack": {
+        "verdict_pack_launch": [_P, _I32, _I64, _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

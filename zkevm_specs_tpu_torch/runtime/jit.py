@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..dsl.cs import ConstraintSystem
@@ -73,6 +74,18 @@ def tables_from_pytree(ctx: Ctx, tree, meta) -> Tables:
     return out
 
 
+def _slice_lanes(tree, lane_idx: np.ndarray):
+    """Gather the leading (lane) axis of every array leaf (CPU tensors and
+    numpy arrays alike, each keeping its type)."""
+    if isinstance(tree, dict):
+        return {k: _slice_lanes(v, lane_idx) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_slice_lanes(v, lane_idx) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree[torch.from_numpy(lane_idx)]
+    return np.asarray(tree)[lane_idx]
+
+
 # -- compiled group verifier --------------------------------------------------
 
 class CompiledGroupVerifier:
@@ -114,13 +127,49 @@ class CompiledGroupVerifier:
         self.n_constraints = len(cs.records)
         self.n_hints = len(self.hint_bits)
 
+    @classmethod
+    def from_trace(cls, tables: Tables, state, steps: List[StepState],
+                   next_steps: List[StepState], is_first, is_last, signature,
+                   trace: dict, lane_idx, device="cuda") -> "CompiledGroupVerifier":
+        """Build without running the gadget eagerly again: slice the columns
+        and the hint stream that an earlier pass over the whole group
+        captured (the block verifier's partition pass) down to this chunk's
+        lanes; ``lane_idx`` indexes the traced group's lanes, padding
+        repeats a lane (the JAX package's ``from_trace``, jit.py:153-180)."""
+        self = object.__new__(cls)
+        self.device = torch.device(device)
+        self.state = state
+        self.is_first = is_first
+        self.is_last = is_last
+        self._tables = tables
+        self.signature = list(signature)
+        self.hint_bits = list(trace["hint_bits"])
+        self.curr_bits = trace["curr_bits"]
+        self.next_bits = trace["next_bits"]
+        self.tables_tree = trace["tables_tree"]
+        self.meta = trace["meta"]
+        lane_idx = np.asarray(lane_idx, dtype=np.int64)
+        self._built_inputs = (steps, next_steps,
+                              (_slice_lanes(trace["curr_cols"], lane_idx),
+                               _slice_lanes(trace["next_cols"], lane_idx),
+                               self.tables_tree,
+                               _slice_lanes(trace["hint_record"], lane_idx)))
+        self.n_constraints = trace["n_constraints"]
+        self.n_hints = len(self.hint_bits)
+        return self
+
     def prepare_inputs(self, steps: List[StepState], next_steps: List[StepState]):
-        """Host hint pass for the batch, then the inputs on the device.  For
-        the steps the verifier was traced on, the trace's columns and hints
-        are reused instead of running the gadget eagerly a second time."""
+        """Host hint pass for the batch, then the inputs on the device."""
+        return to_device(self.host_inputs(steps, next_steps), self.device)
+
+    def host_inputs(self, steps: List[StepState], next_steps: List[StepState]):
+        """Host hint pass for the batch: the replay's inputs as a host tree
+        (CPU limb tensors, numpy hint indexes).  For the steps the verifier
+        was traced on, the trace's columns and hints are reused instead of
+        running the gadget eagerly a second time."""
         built_steps, built_next, built = self._built_inputs
         if steps is built_steps and next_steps is built_next:
-            return to_device(built, self.device)
+            return built
         ctx = Ctx("cpu", len(steps), "eager")
         cs = ConstraintSystem(ctx)
         cs.decisions = list(self.signature)
@@ -135,8 +184,7 @@ class CompiledGroupVerifier:
         assert cs.hint_bits == self.hint_bits, (
             "hint magnitude bounds diverged from the traced group "
             "(malformed witness? verify it in spec mode instead)")
-        return to_device((curr.to_columns(), nxt.to_columns(), self.tables_tree,
-                          cs.hint_record), self.device)
+        return curr.to_columns(), nxt.to_columns(), self.tables_tree, cs.hint_record
 
     def __call__(self, curr_cols, next_cols, tables_tree, hints) -> torch.Tensor:
         """Replay the group on the inputs' device; returns the per-lane

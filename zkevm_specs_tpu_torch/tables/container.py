@@ -4,7 +4,7 @@ Counterpart of ``zkevm_specs_tpu/tables/container.py`` (reference:
 src/zkevm_specs/evm_circuit/table.py:578-858): tables are built once from
 host-side witness rows (dicts of ints) on the CPU; the fixed tables are
 computed predicates (see fixed.py).  Only the typed lookups of the ported
-gadgets are here (fixed, block, bytecode, rw).
+gadgets are here (fixed, block, tx, bytecode, rw).
 """
 from __future__ import annotations
 
@@ -104,6 +104,11 @@ class Tables:
     def block_lookup(self, cs, field_tag: F, block_number: F, enabled=None) -> Row:
         return self.block.lookup(
             cs, {"field_tag": field_tag, "block_number_or_zero": block_number}, enabled=enabled)
+
+    def tx_lookup(self, cs, tx_id: F, field_tag: F, call_data_index: F, enabled=None) -> Row:
+        return self.tx.lookup(
+            cs, {"tx_id": tx_id, "field_tag": field_tag,
+                 "call_data_index_or_zero": call_data_index}, enabled=enabled)
 
     def bytecode_lookup(self, cs, bytecode_hash: Word, field_tag: F, index: F,
                         is_code: Optional[F] = None, enabled=None) -> Row:

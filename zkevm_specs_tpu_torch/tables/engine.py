@@ -361,6 +361,14 @@ class Table:
                 data[c] = F.from_ints(row_ctx, vals, spec.bits)
         return cls(ctx, schema, data, len(uniq))
 
+    def to_backend(self, ctx: Ctx) -> "Table":
+        """The same columns and built indexes bound to another batch context
+        (the JAX package's ``Table.to_backend``, :300-311; here the data
+        stays where it is, and only the queries' context changes)."""
+        out = Table(ctx, self.schema, self.data, self.n_rows)
+        out._indexes = dict(self._indexes)
+        return out
+
     # -- fingerprint index (host, numpy uint64) -----------------------------
 
     def _fingerprint(self, subset: Tuple[str, ...], values: Mapping[str, Union[F, Word]]):

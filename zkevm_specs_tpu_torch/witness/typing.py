@@ -1,18 +1,33 @@
 """Host-side witness rows (the part the ported paths need).
 
-``Block``, ``Withdrawal``, ``Bytecode``, ``RWDictionary`` and
-``KeccakCircuit`` emit plain row dicts (Python ints, words as ints < 2^256)
-that feed the columnar ``Tables``; they are copies of the JAX package's
-classes of the same names (reference:
+``Block``, ``Transaction``, ``Withdrawal``, ``Bytecode``, ``Account``,
+``RWDictionary`` and ``KeccakCircuit`` emit plain row dicts (Python ints,
+words as ints < 2^256) that feed the columnar ``Tables``; they are copies
+of the JAX package's classes of the same names (reference:
 src/zkevm_specs/evm_circuit/typing.py:64-845).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..ops.fr import P
-from ..ops.keccak import keccak256
-from ..tables.schemas import RW, BlockContextFieldTag, BytecodeFieldTag, Target
+from ..ops.keccak import EMPTY_HASH, keccak256
+from ..tables.schemas import (
+    RW,
+    AccountFieldTag,
+    BlockContextFieldTag,
+    BytecodeFieldTag,
+    CallContextFieldTag,
+    Target,
+    TxContextFieldTag,
+    TxReceiptFieldTag,
+)
+from ..utils.param import (
+    GAS_COST_ACCESS_LIST_ADDRESS,
+    GAS_COST_ACCESS_LIST_STORAGE,
+    GAS_COST_TX_CALL_DATA_PER_NON_ZERO_BYTE,
+    GAS_COST_TX_CALL_DATA_PER_ZERO_BYTE,
+)
 from .rlc import RLC, linear_combine_bytes
 
 
@@ -86,6 +101,73 @@ class Block:
                 }
             )
         return rows
+
+
+class AccessTuple:
+    def __init__(self, address: int, storage_keys: List[int]):
+        self.address = address
+        self.storage_keys = storage_keys
+
+
+class Transaction:
+    def __init__(
+        self,
+        id: int = 1,
+        nonce: int = 0,
+        gas: int = 21000,
+        gas_price: int = int(2e9),
+        caller_address: int = 0xCAFE,
+        callee_address: Optional[int] = None,
+        value: int = 0,
+        call_data: bytes = bytes(),
+        invalid_tx: int = 0,
+        access_list: Optional[List[AccessTuple]] = None,
+    ):
+        self.id = id
+        self.nonce = nonce
+        self.gas = gas
+        self.gas_price = gas_price
+        self.caller_address = caller_address
+        self.callee_address = callee_address
+        self.value = value
+        self.call_data = call_data
+        self.invalid_tx = invalid_tx
+        self.access_list = access_list or []
+
+    def call_data_gas_cost(self) -> int:
+        return sum(
+            GAS_COST_TX_CALL_DATA_PER_ZERO_BYTE if b == 0
+            else GAS_COST_TX_CALL_DATA_PER_NON_ZERO_BYTE
+            for b in self.call_data
+        )
+
+    def access_list_gas_cost(self) -> int:
+        return sum(
+            GAS_COST_ACCESS_LIST_ADDRESS + len(a.storage_keys) * GAS_COST_ACCESS_LIST_STORAGE
+            for a in self.access_list
+        )
+
+    def table_assignments(self) -> List[dict]:
+        T = TxContextFieldTag
+
+        def row(tag, value, index=0):
+            return {"tx_id": self.id, "field_tag": tag,
+                    "call_data_index_or_zero": index, "value": _to_int(value)}
+
+        return [
+            row(T.Nonce, self.nonce),
+            row(T.Gas, self.gas),
+            row(T.GasPrice, self.gas_price),
+            row(T.CallerAddress, self.caller_address),
+            row(T.CalleeAddress, 0 if self.callee_address is None else self.callee_address),
+            row(T.IsCreate, int(self.callee_address is None)),
+            row(T.Value, self.value),
+            row(T.CallDataLength, len(self.call_data)),
+            row(T.CallDataGasCost, self.call_data_gas_cost()),
+            row(T.TxInvalid, self.invalid_tx),
+            row(T.AccessListGasCost, self.access_list_gas_cost()),
+            row(T.TxSignHash, 1234),  # mock, as in reference typing.py:265
+        ] + [row(T.CallData, byte, idx) for idx, byte in enumerate(self.call_data)]
 
 
 class Withdrawal:
@@ -184,6 +266,22 @@ class Bytecode:
         return rows
 
 
+class Account:
+    def __init__(self, address: int = 0, nonce: int = 0, balance: int = 0,
+                 code: Optional["Bytecode"] = None, storage: Optional[Dict[int, int]] = None):
+        self.address = address
+        self.nonce = nonce
+        self.balance = balance
+        self.code = Bytecode() if code is None else code
+        self.storage = storage or {}
+
+    def code_hash(self) -> int:
+        return self.code.hash()
+
+    def is_empty(self) -> bool:
+        return self.nonce == 0 and self.balance == 0 and self.code_hash() == EMPTY_HASH
+
+
 class RWDictionary:
     """Fluent builder of rw-table rows with auto rw_counter
     (reference typing.py:464-845)."""
@@ -214,11 +312,55 @@ class RWDictionary:
         )
         return self
 
+    def _state_write(self, tag: Target, id=0, address=0, field_tag=0, storage_key=0,
+                     value=0, value_prev=0, aux0=0,
+                     rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
+        self._append(RW.Write, tag, id, address, field_tag, storage_key, value, value_prev, aux0)
+        if rw_counter_of_reversion is None:
+            return self
+        return self._append(RW.Write, tag, id, address, field_tag, storage_key,
+                            value_prev, value, aux0, rw_counter=rw_counter_of_reversion)
+
     def stack_read(self, call_id, stack_pointer, value) -> "RWDictionary":
         return self._append(RW.Read, Target.Stack, id=call_id, address=stack_pointer, value=value)
 
     def stack_write(self, call_id, stack_pointer, value) -> "RWDictionary":
         return self._append(RW.Write, Target.Stack, id=call_id, address=stack_pointer, value=value)
+
+    def call_context_read(self, call_id, field_tag: CallContextFieldTag, value) -> "RWDictionary":
+        return self._append(RW.Read, Target.CallContext, id=call_id, address=int(field_tag),
+                            value=value)
+
+    def call_context_write(self, call_id, field_tag: CallContextFieldTag, value) -> "RWDictionary":
+        return self._append(RW.Write, Target.CallContext, id=call_id, address=int(field_tag),
+                            value=value)
+
+    def tx_receipt_read(self, tx_id, field_tag: TxReceiptFieldTag, value) -> "RWDictionary":
+        return self._append(RW.Read, Target.TxReceipt, id=tx_id, field_tag=int(field_tag),
+                            value=value)
+
+    def tx_receipt_write(self, tx_id, field_tag: TxReceiptFieldTag, value) -> "RWDictionary":
+        return self._append(RW.Write, Target.TxReceipt, id=tx_id, field_tag=int(field_tag),
+                            value=value)
+
+    def tx_refund_read(self, tx_id, refund) -> "RWDictionary":
+        return self._append(RW.Read, Target.TxRefund, id=tx_id, value=refund, value_prev=refund)
+
+    def tx_access_list_account_write(self, tx_id, account_address, value: bool, value_prev: bool,
+                                     rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
+        return self._state_write(Target.TxAccessListAccount, id=tx_id, address=account_address,
+                                 value=int(value), value_prev=int(value_prev),
+                                 rw_counter_of_reversion=rw_counter_of_reversion)
+
+    def account_read(self, account_address, field_tag: AccountFieldTag, value) -> "RWDictionary":
+        return self._append(RW.Read, Target.Account, address=account_address,
+                            field_tag=int(field_tag), value=value, value_prev=value)
+
+    def account_write(self, account_address, field_tag: AccountFieldTag, value, value_prev,
+                      rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
+        return self._state_write(Target.Account, address=account_address,
+                                 field_tag=int(field_tag), value=value, value_prev=value_prev,
+                                 rw_counter_of_reversion=rw_counter_of_reversion)
 
 
 class KeccakCircuit:

@@ -2,7 +2,8 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload.
+payload; and the ALU block itself (``build_alu_block``), traced by the
+port's tracer for the block verifier.
 
 ``build_add_workload`` is the flagship group of the JAX package's entry
 point (``__graft_entry__._build_add_workload``): ADD steps over random
@@ -23,7 +24,7 @@ from .evm.opcode import Opcode, constant_gas_cost
 from .evm.step import StepState
 from .tables.container import Tables
 from .tables.schemas import RW, AccountFieldTag, BytecodeFieldTag
-from .witness.typing import Block, Bytecode, RWDictionary, Withdrawal
+from .witness.typing import Block, Bytecode, RWDictionary, Transaction, Withdrawal
 
 WORD = 1 << 256
 
@@ -203,6 +204,47 @@ def build_alu_bytecodes(n_txs: int, ops_per_tx: int, k: Optional[int] = None, se
         assert rows[corrupt_row]["tag"] == int(BytecodeFieldTag.Byte), "corrupt_row must be a Byte row"
         rows[corrupt_row]["value"] = (rows[corrupt_row]["value"] + 1) % 256
     return rows, keccak_rows, r
+
+
+# -- the ALU block -----------------------------------------------------------------
+
+def alu_block_txs(n_txs: int, ops_per_tx: int) -> List[Tuple[Transaction, Bytecode]]:
+    """``bench.py:_alu_heavy_txs`` (:474-490): per tx, ``ops_per_tx`` rounds
+    of PUSH1 j, PUSH1 j+1, ADD, POP, then STOP, with 21000 + 11 gas a round
+    + 1000.  bench.py traces them signed, which gives every tx the address
+    of its own key as caller; traced unsigned, each tx here has its own
+    caller address (0xFE + 0x100 i) instead, so that every tx's nonce 0 is
+    valid (with one shared caller, txs 2.. fail BeginTx's nonce check)."""
+    txs = []
+    for i in range(n_txs):
+        bc = Bytecode()
+        for j in range(ops_per_tx):
+            bc.push1(j & 0xFF).push1((j + 1) & 0xFF).add().pop()
+        bc.stop()
+        txs.append((Transaction(id=i + 1, gas=21000 + 11 * ops_per_tx + 1000,
+                                gas_price=int(2e9), caller_address=0xFE + 0x100 * i,
+                                callee_address=0xFF + i), bc))
+    return txs
+
+
+def build_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS):
+    """The ALU block's witness, as bench.py's ``_run_block_once`` traces it
+    (``Block(base_fee=10**9, gas_limit=30 * 10**6)``), unsigned: the port
+    does not have the tx and sig circuits a signed block feeds."""
+    from .witness.tracer import trace_block
+
+    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
+                       alu_block_txs(n_txs, ops_per_tx), sign=False)
+
+
+def receipt_gas_used(witness) -> int:
+    """Gas used by the block, from its receipt rows (``bench.py:445-451``)."""
+    from .tables.schemas import Target, TxReceiptFieldTag
+
+    vals = [r["value"] for r in witness.rw.rws
+            if r["key0"] == int(Target.TxReceipt)
+            and r["field_tag"] == int(TxReceiptFieldTag.CumulativeGasUsed)]
+    return max(vals) if vals else 0
 
 
 # -- keccak circuit ---------------------------------------------------------------
