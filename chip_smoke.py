@@ -18,7 +18,8 @@ script exits non-zero):
    it and read just after, every lane passing, then the replay timed, then
    a rebuild with one corrupted lane that must fail alone; plus the replay
    at 256 lanes held against the same replay on the CPU (the plain
-   versions, which the CPU tests hold against the JAX package);
+   versions, which the CPU tests hold against the JAX package); the MUL
+   group's word product runs as one K11 launch;
 4. state: the state circuit (``make_state_check_fn``) on both of
    ``bench.py``'s row mixes at 2^19 rows: build, pack and upload, one
    counted check with every row passing, 10 timed checks, a rebuild with
@@ -53,14 +54,26 @@ script exits non-zero):
    fail at that step or its predecessor only; and a 2 x 6 block whose
    failure dicts on the card and on the CPU must be equal, clean and
    corrupted.  The pi circuit is not ported (``not_ported``);
-9. kernels: each kernel against its plain version on the card at a shape
+9. arith: the arithmetic block (``workloads.build_arith_block(40, 37)``:
+   1110840 gas of MUL, DIV, MOD, SDIV, SMOD, ADDMOD, MULMOD, EXP, SHL and
+   SHR on seeded words, 1480 EXP events in the exp circuit) through the
+   same steps, the exp circuit's share beside the keccak check's, and two
+   corruptions each on its own rebuild (one MULMOD step's pushed result
+   + 1; one exp-circuit row's d + 1) that must fail exactly where the JAX
+   verifier fails on the same edit of the 4 x 1 block (the CPU tests
+   show those keys); and the 4 x 1 block's failure dicts on the card and
+   on the CPU, clean and with the MULMOD edit;
+10. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
    25 timed launches, the plain version's time and the bound; K1, K3 and
    K8 also at every distinct shape and mode the state, bytecode, keccak and
    withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", 10 timed launches each).  K8 at the ALU block's 66001 steps is
+   "block", 10 timed launches each, and "arith": K11 at each of its
+   variants and shapes there, the exp circuit's included, 25 launches
+   each; K2 has its row at the arithmetic block's widest shape, since the
+   MUL group no longer launches it).  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    8192 steps of the same rows (1024 at the block verifier's table), which
    the line says.  K9 and K10 at the ALU block's upload and verdict
@@ -94,13 +107,14 @@ from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E4
 from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
+from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
-from zkevm_specs_tpu_torch.tables.schemas import BytecodeFieldTag, Target  # noqa: E402
+from zkevm_specs_tpu_torch.tables.schemas import RW, BytecodeFieldTag, Target  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
 LANES = workloads.GROUP_LANES
@@ -121,6 +135,8 @@ K8_BLOCK_HELD_STEPS = 1024  # ... and at the block verifier's keccak table (anot
 BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
 BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
+ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS, workloads.ARITH_BLOCK_CYCLES
+SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -131,7 +147,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
 KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
            "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc",
-           "leaf_unpack", "verdict_pack")
+           "leaf_unpack", "verdict_pack", "mul_add_words")
 SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
 REPLACES = {
@@ -155,10 +171,13 @@ REPLACES = {
                    "unpacker :99-115)",
     "verdict_pack": "zkevm_specs_tpu/runtime/block.py:468 (make_combined's verdict "
                     "concatenation :514-519, read in run_device_combined's order :536-553)",
+    "mul_add_words": "zkevm_specs_tpu/evm/instruction.py:812 (_mul_512_terms, with "
+                     "mul_add_words :827 and mul_add_words_512 :845; circuits/exp.py:"
+                     "_mul_add_words :19)",
 }
 # kernels each path must launch
 PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
-                "MUL": ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq"),
+                "MUL": ("fr_mul", "limb_addsub", "lookup_gather_eq", "mul_add_words"),
                 "state_memory_stack": ("state_order_lt", "limb_addsub"),
                 "state_storage_account": ("state_order_lt", "limb_addsub", "lookup_search_eq",
                                           "lookup_fingerprint"),
@@ -169,7 +188,10 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                                "lookup_fingerprint"),
                 "block": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_addsub",
                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
-                          "lookup_fingerprint", "keccak_sponge", "horner_rlc")}
+                          "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
+                "arith": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
+                          "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                          "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words")}
 
 
 def emit(obj):
@@ -248,7 +270,12 @@ def run_group(name, exec_state, build, card):
         "constraint_evals_per_s": LANES * verifier.n_constraints / (med / 1e3),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
-    keep = inputs if name == "MUL" else None
+    keep = None
+    if name == "MUL":
+        # K11's arguments at the group's shape, from one more replay
+        with Capture(word_mul, "mul_add_words", word_mul_key) as k11:
+            verifier(*inputs)
+        keep = (inputs, k11.calls)
     del tables, steps, nexts, verifier, inputs, fail
 
     tables, steps, nexts = build(LANES, corrupt_lane=CORRUPT_LANE)
@@ -324,6 +351,11 @@ def search_key(args):
     return shapes(query), shapes(table), fps.shape[0], max_span, batch
 
 
+def word_mul_key(args):
+    """K11's (variant, row shapes): one capture for each."""
+    return (len(args) > 1 and bool(args[1]), shapes(args[0]))
+
+
 # the kernel wrappers the block verifier's device pass calls, as (kernel,
 # module, attribute, key of a distinct shape)
 BLOCK_CAPTURES = (
@@ -337,6 +369,7 @@ BLOCK_CAPTURES = (
     ("keccak_sponge", keccak_circuit, "keccak_sponge", lambda a: shapes(a)),
     ("horner_rlc", keccak_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
     ("horner_rlc", withdrawal_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
+    ("mul_add_words", word_mul, "mul_add_words", word_mul_key),
 )
 
 
@@ -635,7 +668,7 @@ def run_withdrawal(card):
     return counts, captured
 
 
-# -- phase 8: the ALU block through the block verifier ------------------------------
+# -- phases 8 and 9: the ALU block and the arithmetic block through the block verifier
 
 def host_ms(fn, repeats):
     """Median host wall time of ``fn()`` ending in a synchronise, and its
@@ -649,12 +682,85 @@ def host_ms(fn, repeats):
     return statistics.median(times), min(times), out
 
 
-def run_block(card):
+def corrupt_gas_left(w):
+    """One ADD step's gas_left + 1: that step or its predecessor fails,
+    nothing else."""
+    adds = [i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.ADD]
+    bad = adds[len(adds) // 2]
+    w.steps[bad].gas_left += 1
+
+    def undo():
+        w.steps[bad].gas_left -= 1
+
+    return {"corrupt_step": bad}, lambda bv, f: bool(f) and set(f) <= {bad - 1, bad}, undo
+
+
+def corrupt_mulmod_push(w):
+    """The pushed result of the middle MULMOD step + 1: exactly that step
+    and the state row of the POP that reads the result fail, as the JAX
+    verifier's keys on the same edit of the 4 x 1 block
+    (tests/test_torch_block.py, arith_mulmod_push)."""
+    mulmods = [i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.MULMOD]
+    bad = mulmods[len(mulmods) // 2]
+    rwc = w.steps[bad].rw_counter + 3
+    row = next(r for r in w.rw.rws if r["rw_counter"] == rwc)
+    assert row["key0"] == int(Target.Stack) and row["rw"] == int(RW.Write)
+    old = row["value"]
+    row["value"] = (old + 1) % (1 << 256)
+
+    def expected(bv, f):
+        pop_read = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == rwc + 1]
+        return set(f) == {bad, ("state", pop_read[0])}
+
+    def undo():
+        row["value"] = old
+
+    return {"corrupt_mulmod_step": bad}, expected, undo
+
+
+def corrupt_exp_row_d(w):
+    """One exp-circuit row's d + 1, a row in the middle of the table that is
+    not the first of its event: exactly it and its predecessor (whose
+    ``a`` no longer equals the next ``d``) fail, as the JAX verifier's keys
+    on the same edit (tests/test_torch_block.py, arith_exp_row_d)."""
+    rows = w.exp_circuit.rows
+    k = next(k for k in range(len(rows) // 2, len(rows))
+             if rows[k]["identifier"] == rows[k - 1]["identifier"])
+    old = rows[k]["d"]
+    rows[k]["d"] = (old + 1) % (1 << 256)
+
+    def undo():
+        rows[k]["d"] = old
+
+    return {"corrupt_exp_row": k}, lambda bv, f: set(f) == {("exp", k - 1), ("exp", k)}, undo
+
+
+# the block phases: the witness builder and its sizes, the circuit checks
+# whose share of the device time is reported, the corruptions, and the
+# small block held against the CPU with the corruption it gets there
+BLOCK_PHASES = {
+    "block": dict(build=lambda: workloads.build_alu_block(ALU_TXS, ALU_OPS),
+                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS}, shares=("keccak",),
+                  corruptions=(corrupt_gas_left,),
+                  small=lambda: workloads.build_alu_block(*SMALL_BLOCK), small_size=SMALL_BLOCK,
+                  small_corruption=corrupt_gas_left),
+    "arith": dict(build=lambda: workloads.build_arith_block(ARITH_TXS, ARITH_CYCLES),
+                  sizes={"txs": ARITH_TXS, "cycles_per_tx": ARITH_CYCLES}, shares=("exp", "keccak"),
+                  corruptions=(corrupt_mulmod_push, corrupt_exp_row_d),
+                  small=lambda: workloads.build_arith_block(*SMALL_ARITH), small_size=SMALL_ARITH,
+                  small_corruption=corrupt_mulmod_push),
+}
+
+
+def run_block(path, card):
+    """One block through the port's ``CompiledBlockVerifier`` (see phases 8
+    and 9 of the module docstring)."""
+    spec = BLOCK_PHASES[path]
     CBV = block_runtime.CompiledBlockVerifier
-    out = {"phase": "block", "txs": ALU_TXS, "ops_per_tx": ALU_OPS, "sign": False,
-           "not_ported": list(CBV.not_ported), "card": card}
+    out = {"phase": path, **spec["sizes"], "sign": False, "not_ported": list(CBV.not_ported),
+           "card": card}
     t0 = time.perf_counter()
-    witness = workloads.build_alu_block(ALU_TXS, ALU_OPS)
+    witness = spec["build"]()
     t_trace = time.perf_counter() - t0
     gas = workloads.receipt_gas_used(witness)
     n_steps = len(witness.steps)
@@ -676,14 +782,14 @@ def run_block(card):
     failures = bv.run_device_combined(prepared)
     t_capture = time.perf_counter() - t0
     counts = read_counts()
-    assert not failures, f"block: the clean block failed at {sorted(failures, key=str)[:8]}"
-    for name in PATH_KERNELS["block"]:
-        assert counts[name] > 0, f"block: kernel {name} was not launched on the main path"
+    assert not failures, f"{path}: the clean block failed at {sorted(failures, key=str)[:8]}"
+    for name in PATH_KERNELS[path]:
+        assert counts[name] > 0, f"{path}: kernel {name} was not launched on the main path"
     assert counts["leaf_unpack"] == 1, counts
 
     # the per-kernel pass, its launches counted on their own
     reset_counts()
-    assert not bv.run_device(prepared), "block: the per-kernel pass failed the clean block"
+    assert not bv.run_device(prepared), f"{path}: the per-kernel pass failed the clean block"
     torch.cuda.synchronize()
     pass_counts = read_counts()
     # the graph holds the per-kernel pass's launches, kernel for kernel, and K10
@@ -691,10 +797,10 @@ def run_block(card):
     for name in KERNELS:
         want = 1 if name == "verdict_pack" else 0 if name == "leaf_unpack" else pass_counts[name]
         assert graph_counts.get(name, 0) == want, \
-            f"block: the graph recorded {graph_counts.get(name, 0)} {name} launches, " \
+            f"{path}: the graph recorded {graph_counts.get(name, 0)} {name} launches, " \
             f"the per-kernel pass {want}"
-        assert name not in PATH_KERNELS["block"] or name == "leaf_unpack" or want > 0, \
-            f"block: kernel {name} is not in the captured graph"
+        assert name not in PATH_KERNELS[path] or name == "leaf_unpack" or want > 0, \
+            f"{path}: kernel {name} is not in the captured graph"
     per_kernel_ms, per_kernel_min, failures = host_ms(lambda: bv.run_device(prepared),
                                                       BLOCK_PASS_REPEATS)
     assert not failures
@@ -702,14 +808,12 @@ def run_block(card):
     graph_ms, graph_min, failures = host_ms(lambda: bv.run_device_combined(prepared),
                                             REPLAY_REPEATS)
     assert not failures
-    assert sum(read_counts().values()) == 0, "block: a graph replay went through a wrapper"
+    assert sum(read_counts().values()) == 0, f"{path}: a graph replay went through a wrapper"
     # the parts of a replay: the graph on the card alone (CUDA events), the
     # host-scheduled groups (run on the host while the graph runs), and the
-    # keccak check alone
+    # named circuit checks alone
     graph_device_ms = time_on_card_ms(prepared["graph"]["graph"].replay, repeats=5, warmup=1)
     host_groups_ms, _, _ = host_ms(bv.host_group_fails, 3)
-    keccak_k, keccak_args = next((k, a) for n, k, a in prepared["circuits"] if n == "keccak")
-    keccak_ms, _, _ = host_ms(lambda: keccak_k(keccak_args), 3)
     groups_card = sum(g["verifier"] is not None for g in bv.groups)
     device_s = graph_ms / 1e3
     out.update({
@@ -725,9 +829,15 @@ def run_block(card):
         "host_groups_ms": host_groups_ms, "graph_host_launches": 1,
         "graph_captured_launches": prepared["graph"]["launches"],
         "main_path_launches": counts,
-        "keccak_check_ms": keccak_ms, "keccak_share_of_graph_replay": keccak_ms / graph_ms,
-        "keccak_share_of_graph_device": keccak_ms / graph_device_ms,
-        "keccak_share_of_per_kernel_pass": keccak_ms / per_kernel_ms,
+    })
+    for name in spec["shares"]:
+        k, args = next((k, a) for n, k, a in prepared["circuits"] if n == name)
+        check_ms, _, _ = host_ms(lambda: k(args), 3)
+        out.update({f"{name}_check_ms": check_ms, f"{name}_rows": k.n,
+                    f"{name}_share_of_graph_replay": check_ms / graph_ms,
+                    f"{name}_share_of_graph_device": check_ms / graph_device_ms,
+                    f"{name}_share_of_per_kernel_pass": check_ms / per_kernel_ms})
+    out.update({
         # bench.py:_bench_block_mix's terms (:550-580): repeat-verify over a warm
         # prepare and the combined pass; fresh-block over trace, build, a cold
         # prepare and the first combined call (its capture included)
@@ -755,34 +865,36 @@ def run_block(card):
         calls.setdefault(name, []).extend((args, c.kwargs[k]) for k, args in c.calls.items())
     captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls}
     out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
-    del bv, prepared, up, leaves, keccak_args, caps, fails
+    del bv, prepared, up, leaves, caps, fails
     torch.cuda.empty_cache()
 
-    # one ADD step's gas_left + 1: that step or its predecessor fails, nothing else
-    adds = [i for i, s in enumerate(witness.steps) if s.execution_state == ExecutionState.ADD]
-    bad_step = adds[len(adds) // 2]
-    witness.steps[bad_step].gas_left += 1
-    bv = CBV(witness)
-    failures = bv.run_device_combined(bv.prepare())
-    assert failures and set(failures) <= {bad_step - 1, bad_step}, \
-        f"block: gas_left of step {bad_step} corrupted, failures {sorted(failures, key=str)[:8]}"
-    out["corrupt_step"], out["failing_keys"] = bad_step, sorted(failures)
-    del bv, witness
-    torch.cuda.empty_cache()
+    # each corruption on its own rebuild: it fails where it must, nothing else
+    out["corruptions"] = []
+    for corrupt in spec["corruptions"]:
+        info, expected, undo = corrupt(witness)
+        bv = CBV(witness)
+        failures = bv.run_device_combined(bv.prepare())
+        assert expected(bv, failures), \
+            f"{path}: {info}, failures {sorted(failures, key=str)[:8]}"
+        out["corruptions"].append({**info, "failing_keys": sorted(failures, key=str)})
+        undo()
+        del bv
+        torch.cuda.empty_cache()
+    del witness
 
     # the card's failure dicts against the CPU's on a small block
     for corrupt in (False, True):
-        small = workloads.build_alu_block(*SMALL_BLOCK)
+        small = spec["small"]()
         if corrupt:
-            next(s for s in small.steps if s.execution_state == ExecutionState.ADD).gas_left += 1
+            spec["small_corruption"](small)
         on_card = CBV(small)
         p = on_card.prepare()
         f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
         on_cpu = CBV(small, device="cpu")
         f_cpu = on_cpu.run_device(on_cpu.prepare())
-        assert f_card == f_graph == f_cpu, f"block: card {f_card}, graph {f_graph}, CPU {f_cpu}"
+        assert f_card == f_graph == f_cpu, f"{path}: card {f_card}, graph {f_graph}, CPU {f_cpu}"
         assert bool(f_cpu) == corrupt
-    out["small_block_matches_cpu"] = list(SMALL_BLOCK)
+    out["small_block_matches_cpu"] = list(spec["small_size"])
     emit(out)
     return counts, captured
 
@@ -826,17 +938,19 @@ def block_kernel_rows(launches, captured):
     return [k9, k10]
 
 
-def block_path_shapes(calls):
-    """Every kernel at each distinct shape the block verifier's device pass
+def block_path_shapes(calls, label):
+    """Every kernel at each distinct shape a block verifier's device pass
     gave it (``run_block``'s captures), held against its plain version,
-    labelled "block"."""
+    labelled with the block phase ("block" or "arith"); K11 timed over
+    KERNEL_REPEATS launches, the others over BLOCK_SHAPE_REPEATS."""
     out = {}
     clock_hz = sm_clock_max_hz()
 
-    def add(name, kernel_fn, plain_fn, cost, note, plain_repeats=3):
+    def add(name, kernel_fn, plain_fn, cost, note, plain_repeats=3,
+            kernel_repeats=BLOCK_SHAPE_REPEATS):
         out.setdefault(name, []).append(measure(
-            name, kernel_fn, plain_fn, *cost, f"block: {note}",
-            kernel_repeats=BLOCK_SHAPE_REPEATS, plain_repeats=plain_repeats))
+            name, kernel_fn, plain_fn, *cost, f"{label}: {note}",
+            kernel_repeats=kernel_repeats, plain_repeats=plain_repeats))
 
     def ok_and_rows(want_ok):
         return lambda ok_g: ([ok_g[0]] if want_ok else []) + list(ok_g[1])
@@ -887,11 +1001,33 @@ def block_path_shapes(calls):
             plain_repeats=0)
     for args, _ in calls.get("horner_rlc", []):
         out.setdefault("horner_rlc", []).append(
-            horner_entry("block", *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3))
+            horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3))
+    for args, _ in calls.get("mul_add_words", []):
+        add("mul_add_words", *word_mul_entry(args), kernel_repeats=KERNEL_REPEATS)
     return out
 
 
-# -- phase 9: the kernels against their plain versions ---------------------------
+def word_mul_entry(args):
+    """K11's (kernel call, plain call, cost, note) at captured arguments:
+    the verdicts and, for the 256 variant, the overflow limbs."""
+    rows = args[0]
+    wide = len(args) > 1 and bool(args[1])
+    batch = max(r.shape[0] for r in rows)
+
+    def kernel():
+        ok, over = word_mul.mul_add_words(rows, wide)
+        return [ok] if over is None else [ok, over]
+
+    def plain():
+        ok, over = word_mul.mul_add_words_plain(rows, wide)
+        ok = ok.expand(ok.shape[0], batch)
+        return [ok] if over is None else [ok, over.expand(batch, 16)]
+
+    return (kernel, plain, word_mul_cost(rows, wide),
+            f"variant {512 if wide else 256}, {batch} lanes, rows {[list(r.shape) for r in rows]}")
+
+
+# -- phase 10: the kernels against their plain versions ---------------------------
 
 def seeded_limbs(rng, rows, n, bound_bits, device):
     """[rows, n] canonical limbs of random values below 2^bound_bits (and
@@ -968,6 +1104,35 @@ def fr_mul_cost(a, b):
             rows * (2 * products + 3 * (32 + 34 + 17) + 3 * 17 * 3))
 
 
+# K11's field steps (csrc/mul_add_words.cu): a product by 2^-128 is
+# K1's 16 x 16-limb product and Barrett reduction; an Fr add two 17-limb
+# chains and a select; an Fr sub two 16-limb chains; a ripple one 16-limb
+# chain; three operations a limb of each chain, two a product (multiply, add)
+K1_PRODUCTS = 16 * 16 + 17 * 17 + 17 * 18 // 2
+K1_CHAIN_OPS = 3 * (32 + 34 + 17) + 3 * 17 * 3
+FR_ADD_OPS = 3 * 17 + 3 * 17 + 16
+FR_SUB_OPS = 2 * 3 * 16
+RIPPLE_OPS = 3 * 16
+
+
+def word_mul_cost(rows, wide):
+    """(bytes, int32 operations) of K11: every row read once (a [1, w]
+    constant row once in all), the verdict bytes and the 256 variant's
+    overflow written once; per lane the 256 limb products of t0..t6 and
+    the field steps the function needs (256: two products by 2^-128, four
+    Fr adds, two Fr subs, three ripples; 512: three, five, three, four)
+    and a 16-limb compare per check.  The equalities' product by 2^128 and
+    its Fr add are not counted: in the field they hold for every canonical
+    input, so the least work writes them as true."""
+    batch = max(r.shape[0] for r in rows)
+    n_checks = 7 if wide else 4
+    n_mul, n_add, n_sub, n_ripple = (3, 5, 3, 4) if wide else (2, 4, 2, 3)
+    per_lane = (2 * (256 + n_mul * K1_PRODUCTS) + n_mul * K1_CHAIN_OPS + n_add * FR_ADD_OPS
+                + n_sub * FR_SUB_OPS + n_ripple * RIPPLE_OPS + n_checks * 16)
+    moved = nbytes(*rows) + batch * n_checks + (0 if wide else batch * 16 * 8)
+    return moved, batch * per_lane
+
+
 def addsub_cost(a, b, mode, out_n=0):
     """(bytes, int32 operations) of K3: three per limb of a chain (add,
     mask, carry shift), two chains and a select in the Fr modes."""
@@ -1011,11 +1176,12 @@ def fingerprint_cost(parts, coefs):
 MODE_NAMES = {L.ADD: "ADD", L.SUB: "SUB", L.FR_ADD: "FR_ADD", L.FR_SUB: "FR_SUB"}
 
 
-def kernel_phase(launches, mul_inputs):
+def kernel_phase(launches, mul_inputs, arith_calls):
     dev = torch.device("cuda")
     rng = np.random.RandomState(2024)
     B = LANES
     rows = []
+    mul_inputs, mul_k11 = mul_inputs
 
     # K1: the fdiv_const shape, [B, 16] x constant [1, 16]
     a = seeded_limbs(rng, B, 16, 254, dev)
@@ -1023,12 +1189,15 @@ def kernel_phase(launches, mul_inputs):
     rows.append(compare("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
                         *fr_mul_cost(a, b), "MUL: [B,16] x [1,16] -> [B,16]", launches["fr_mul"]))
 
-    # K2: the 64x64-bit products of _mul_512_terms, [B, 4] x [B, 4] -> 8
-    a4 = seeded_limbs(rng, B, 4, 64, dev)
-    b4 = seeded_limbs(rng, B, 4, 64, dev)
-    rows.append(compare("limb_mul", lambda: L.limb_mul(a4, b4, 8), lambda: L.mul_plain(a4, b4, 8),
-                        nbytes(a4, b4) + B * 8 * 8, B * (2 * 16 + 3 * 8),
-                        "[B,4] x [B,4] -> [B,8]", launches["limb_mul"]))
+    # K2: the MUL group no longer reaches it (K11 took _mul_512_terms'
+    # products); its row is its widest shape on the arithmetic block's pass
+    a, b, out_n = max((args for args, _ in arith_calls["limb_mul"]),
+                      key=lambda args: max(args[0].shape[0], args[1].shape[0]) * args[2])
+    n = max(a.shape[0], b.shape[0])
+    rows.append(compare("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
+                        nbytes(a, b) + n * out_n * 8, n * (2 * a.shape[1] * b.shape[1] + 3 * out_n),
+                        f"arith: {list(a.shape)} x {list(b.shape)} -> {out_n} limbs",
+                        launches["limb_mul"]))
 
     # K3: the Fr add of two full-width values (F.__add__ past 253 bits)
     x = seeded_limbs(rng, B, 16, 254, dev)
@@ -1055,6 +1224,13 @@ def kernel_phase(launches, mul_inputs):
             engine.lookup_gather_eq_plain(table, query, idx)),
         *gather_cost(table, query, idx), f"rw table {table[0].shape[0]} rows, 5 parts, B lanes",
         launches["lookup_gather_eq"]))
+
+    # K11: the MUL group's word product, variant 256 at B lanes
+    (args,) = mul_k11.values()
+    k11_kernel, k11_plain, k11_cost, k11_note = word_mul_entry(args)
+    rows.append(compare("mul_add_words", k11_kernel, k11_plain, *k11_cost, f"MUL: {k11_note}",
+                        launches["mul_add_words"]))
+    rows[-1]["library"] = "none: no PyTorch call computes the word product and its carry checks"
     return rows
 
 
@@ -1310,17 +1486,19 @@ def main():
     for data in ("alu_block", "sha3_mix"):
         by_path[f"keccak_{data}"], captured[f"keccak_{data}"] = run_keccak(data, card)
     by_path["withdrawal"], captured["withdrawal"] = run_withdrawal(card)
-    by_path["block"], captured["block"] = run_block(card)
+    for path in BLOCK_PHASES:
+        by_path[path], captured[path] = run_block(path, card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
-    rows = (kernel_phase(launches, mul_inputs) + slice_kernel_rows(launches, captured)
-            + keccak_kernel_rows(launches, captured)
+    rows = (kernel_phase(launches, mul_inputs, captured["arith"]["calls"])
+            + slice_kernel_rows(launches, captured) + keccak_kernel_rows(launches, captured)
             + block_kernel_rows(launches, captured["block"]))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
-    for name, entries in block_path_shapes(captured["block"]["calls"]).items():
-        row = next(r for r in rows if r["name"] == name)
-        row["path_shapes"] = row.get("path_shapes", []) + entries
+    for path in BLOCK_PHASES:
+        for name, entries in block_path_shapes(captured[path]["calls"], path).items():
+            row = next(r for r in rows if r["name"] == name)
+            row["path_shapes"] = row.get("path_shapes", []) + entries
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["card"] = card

@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
 """Where the time goes on the card: one call of each of the port's paths
-under torch.profiler.
+under torch.profiler; or the MUL group's replay in several checkouts.
 
     python3 profile_replay.py
+    python3 profile_replay.py --compare ROOT_A ROOT_B [ROOT ...]
 
 Paths, at the sizes ``chip_smoke.py`` runs them (``workloads.py``): the
 compiled group verifier's replay on the ADD and MUL groups at 131072
 lanes, the state check on both of ``bench.py``'s row mixes at 2^19 rows,
 the bytecode check on the ALU-mix bytecodes at k = 20, the keccak check on
 the ALU block's table and on 65536 short preimages, and the withdrawal
-check at 16 rows; then the whole ALU block through the block verifier
-(``workloads.build_alu_block``), once as the per-kernel pass
-(``run_device``) and once as the CUDA-graph replay
-(``run_device_combined``).  For each it prints one JSON line: the call's host wall
+check at 16 rows; then the whole ALU block (``workloads.build_alu_block``)
+and the arithmetic block (``workloads.build_arith_block``) through the
+block verifier, each once as the per-kernel pass (``run_device``) and once
+as the CUDA-graph replay (``run_device_combined``).  For each it prints one JSON line: the call's host wall
 time, the device's busy time (union of kernel intervals) and idle share
 within it, the number of device kernels, and the device time of the ten
 costliest kernel names (the port's kernels and PyTorch's own).  Needs a
 CUDA device; the kernels are built on first use.
+
+With ``--compare``, for each checkout root in the order given (pass
+parent, change, change, parent to alternate), a fresh process imports
+``zkevm_specs_tpu_torch`` from that root, builds the MUL group at
+``workloads.GROUP_LANES`` lanes, uploads it, counts each kernel's
+launches over one replay and times ten more: the host wall of each replay
+ending in a synchronise, and the card's time for it from CUDA events.  One
+JSON line per root, then the card's name and power limit; each checkout
+builds its kernels into its own ``build/kernels/``.
 """
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -81,11 +92,61 @@ def profile_call(label, call, card, **info):
     }), flush=True)
 
 
+COMPARE_CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
+
+tables, steps, nexts = workloads.build_mul_workload(workloads.GROUP_LANES)
+v = CompiledGroupVerifier(tables, ExecutionState.MUL, steps, nexts)
+inputs = v.prepare_inputs(steps, nexts)
+for _ in range(3):
+    assert not bool(v(*inputs).any())
+torch.cuda.synchronize()
+L.LAUNCHES.clear()
+v(*inputs)
+torch.cuda.synchronize()
+launches = {k: n for k, n in L.LAUNCHES.items() if n}
+wall, card = [], []
+for _ in range(10):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    v(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    wall.append((time.perf_counter() - t0) * 1e3)
+    card.append(start.elapsed_time(end))
+print(json.dumps({"root": sys.argv[1], "lanes": workloads.GROUP_LANES, "launches": launches,
+                  "replay_ms_median": statistics.median(wall), "replay_ms_min": min(wall),
+                  "card_ms_median": statistics.median(card)}))
+"""
+
+
+def compare(roots, card):
+    """The MUL group's replay in each checkout of ``roots``, one process each."""
+    for root in roots:
+        out = subprocess.run([sys.executable, "-c", COMPARE_CHILD, root],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise SystemExit(f"profile_replay: {root} failed:\n{out.stderr[-4000:]}")
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    print(card)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_replay: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    if sys.argv[1:2] == ["--compare"]:
+        if len(sys.argv) < 4:
+            raise SystemExit(__doc__)
+        return compare(sys.argv[2:], card)
     for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
                                     ("MUL", ExecutionState.MUL, build_mul_workload)):
         tables, steps, nexts = build(workloads.GROUP_LANES)
@@ -109,13 +170,17 @@ def main():
         profile_call(f"keccak_{data}", kernel, card, rows=len(preimages))
     witness, n, r = workloads.build_withdrawals()
     profile_call("withdrawal", withdrawal.withdrawal_kernel(witness, n, r), card, rows=n)
-    block = workloads.build_alu_block()
-    bv = CompiledBlockVerifier(block)
-    prepared = bv.prepare()
-    for label, run in (("block_per_kernel", bv.run_device),
-                       ("block_graph", bv.run_device_combined)):
-        profile_call(label, lambda: run(prepared), card, steps=len(block.steps),
-                     rw_rows=len(block.rw.rws))
+    for path, build in (("block", workloads.build_alu_block),
+                        ("arith", workloads.build_arith_block)):
+        block = build()
+        bv = CompiledBlockVerifier(block)
+        prepared = bv.prepare()
+        for label, run in ((f"{path}_per_kernel", bv.run_device),
+                           (f"{path}_graph", bv.run_device_combined)):
+            profile_call(label, lambda: run(prepared), card, steps=len(block.steps),
+                         rw_rows=len(block.rw.rws))
+        del bv, prepared, block
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

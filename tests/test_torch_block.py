@@ -4,15 +4,18 @@ the JAX package's, on the CPU, tolerance 0.
 The same unsigned 2 x 6 block (tests/test_block_jit.py:15-26, a caller
 per tx) is traced by both packages and corrupted alike: clean, an ADD
 step's ``gas_left``, a stack write's ``value`` (tests/test_block_jit.py:
-47-61), an EndTx coinbase balance row, a prologue row's value; and three
-more blocks: other opcodes, one shared caller, three withdrawals.  On each, the port's ``CompiledBlockVerifier(w,
+47-61), an EndTx coinbase balance row, a prologue row's value; three more
+blocks: other opcodes, one shared caller, three withdrawals; and the
+arithmetic block at 4 txs x 1 cycle (``workloads.build_arith_block``),
+clean, with one MULMOD step's pushed result + 1 and with one exp-circuit
+row's ``d`` + 1.  On each, the port's ``CompiledBlockVerifier(w,
 device="cpu")`` (the kernels' plain versions) is held against
 ``CompiledBlockVerifier(w, min_jit_lanes=1 << 30)`` of the JAX package,
 which needs no XLA compile:
 
 * the group partition (state, flags, lane indexes, signature);
 * every group's per-lane fail bits, against JAX ``_run_eager_group``;
-* the state, prologue, bytecode, keccak and withdrawal rows, against the
+* the state, prologue, bytecode, keccak, exp and withdrawal rows, against the
   JAX checks in spec mode (the JAX ``CircuitKernel``'s inputs, recorded
   as it is built, run eagerly);
 * the failure dicts of ``run_device`` and ``run_device_combined``, against
@@ -40,7 +43,9 @@ from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.witness import tracer as PT
 from zkevm_specs_tpu_torch.witness import typing as PY
 
-from test_torch_tracer import txs_of
+from zkevm_specs_tpu_torch import workloads
+
+from test_torch_tracer import _jax_txs, txs_of
 
 torch.set_num_threads(1)
 
@@ -66,9 +71,24 @@ def _corrupt(w, kind):
                    if r["rw_counter"] == 6 and r["key0"] == int(js.Target.CallContext))
         assert row["address"] == int(js.CallContextFieldTag.CallerAddress)
         row["value"] += 1
+    elif kind == "mulmod_push":
+        # the pushed result of the second MULMOD step (its fourth rw row) + 1
+        step = [s for s in w.steps if s.execution_state.name == "MULMOD"][1]
+        row = next(r for r in w.rw.rws if r["rw_counter"] == step.rw_counter + 3)
+        assert row["key0"] == int(js.Target.Stack) and row["rw"] == int(js.RW.Write)
+        row["value"] = (row["value"] + 1) % (1 << 256)
+    elif kind == "exp_row_d":
+        row = w.exp_circuit.rows[4]
+        row["d"] = (row["d"] + 1) % (1 << 256)
 
 
-BLOCKS = {   # kind: (txs_of arguments, corruption, withdrawals)
+def _arith_txs(Y, n_txs=4, cycles=1):
+    """``workloads.arith_block_txs`` in the package ``Y``'s classes."""
+    txs = workloads.arith_block_txs(n_txs, cycles)
+    return txs if Y is PY else _jax_txs(txs)
+
+
+BLOCKS = {   # kind: (txs_of arguments or a txs builder, corruption, withdrawals)
     "clean": (dict(), None, 0),
     "gas_left": (dict(), "gas_left", 0),
     "stack_value": (dict(), "stack_value", 0),
@@ -77,9 +97,15 @@ BLOCKS = {   # kind: (txs_of arguments, corruption, withdrawals)
     "sub_mul_div_mod": (dict(n_ops=8, ops=("add", "sub", "mul", "div", "mod")), None, 0),
     "shared_caller": (dict(shared_caller=True), None, 0),
     "withdrawals": (dict(), None, 3),
+    # the arithmetic block (4 txs x 1 cycle), clean and with chip_smoke.py's
+    # two corruptions
+    "arith": (_arith_txs, None, 0),
+    "arith_mulmod_push": (_arith_txs, "mulmod_push", 0),
+    "arith_exp_row_d": (_arith_txs, "exp_row_d", 0),
 }
 # the blocks whose verdict must hold a failure
-MUST_FAIL = {"gas_left", "stack_value", "coinbase_balance", "prologue_value", "shared_caller"}
+MUST_FAIL = {"gas_left", "stack_value", "coinbase_balance", "prologue_value", "shared_caller",
+             "arith_mulmod_push", "arith_exp_row_d"}
 
 _CACHE = {}
 
@@ -129,7 +155,8 @@ class JaxSide:
 def _sides(kind, monkeypatch):
     if kind not in _CACHE:
         kw, corruption, n_wd = BLOCKS[kind]
-        jw, pw = (T.trace_block(Y.Block(base_fee=int(1e9)), txs_of(Y, **kw), sign=False,
+        jw, pw = (T.trace_block(Y.Block(base_fee=int(1e9)),
+                                kw(Y) if callable(kw) else txs_of(Y, **kw), sign=False,
                                 withdrawals=[Y.Withdrawal(id=i, validator_id=i, address=0xCAFE + i,
                                                           amount=10 + i) for i in range(n_wd)])
                   for T, Y in ((JT, JY), (PT, PY)))
@@ -172,9 +199,23 @@ def test_group_lane_bits_match_jax(kind, monkeypatch):
 def test_circuit_rows_match_jax(kind, circuit, monkeypatch):
     jax_side, pbv, _, outs = _sides(kind, monkeypatch)
     names = ["state"] + [name for name, _ in pbv.circuit_kernels]
-    assert names == ["state", *CIRCUITS]
+    assert [n for n in names if n != "exp"] == ["state", *CIRCUITS]
+    assert ("exp" in names) == kind.startswith("arith")
     got = outs[len(outs) - len(names) + names.index(circuit)]
     np.testing.assert_array_equal(got.numpy(), jax_side.rows[circuit])
+
+
+@pytest.mark.parametrize("kind", [k for k in sorted(BLOCKS) if k.startswith("arith")])
+def test_exp_circuit_rows_match_jax(kind, monkeypatch):
+    """The exp circuit runs after the keccak circuit, as in the JAX
+    verifier, and its rows' verdicts are the JAX check's."""
+    jax_side, pbv, _, outs = _sides(kind, monkeypatch)
+    names = ["state"] + [name for name, _ in pbv.circuit_kernels]
+    assert names.index("exp") == names.index("keccak") + 1
+    got = outs[len(outs) - len(names) + names.index("exp")].numpy()
+    np.testing.assert_array_equal(got, jax_side.rows["exp"])
+    assert got.shape == (len(pbv.witness.exp_circuit.rows),)
+    assert got.any() == (kind == "arith_exp_row_d")
 
 
 @pytest.mark.parametrize("kind", sorted(BLOCKS))
@@ -292,8 +333,7 @@ def test_default_device_is_the_card_and_never_falls_back():
 
 
 @pytest.mark.parametrize("field,value", [("signed_txs", []), ("copy_circuit", object()),
-                                         ("exp_circuit", object()), ("ecc_circuit", object()),
-                                         ("sig_rows", [object()])])
+                                         ("ecc_circuit", object()), ("sig_rows", [object()])])
 def test_unported_circuits_raise(field, value):
     w = PT.trace_block(PY.Block(), txs_of(PY, n_txs=1, n_ops=1), sign=False)
     setattr(w, field, value)

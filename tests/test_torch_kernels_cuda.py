@@ -14,7 +14,11 @@ import torch
 
 from zkevm_specs_tpu_torch.ops import fr
 from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.ops import word_mul
 from zkevm_specs_tpu_torch.tables import engine
+
+from word_mul_cases import CASES as WORD_MUL_CASES
+from word_mul_cases import make_case
 
 torch.set_num_threads(1)
 
@@ -367,19 +371,50 @@ def test_verdict_pack(dev, lengths):
     _equal(got, transfer.verdict_pack_plain(fails))
 
 
-def _small_block(n_txs=2, n_ops=6):
+@pytest.mark.parametrize("wide", [False, True], ids=["256", "512"])
+@pytest.mark.parametrize("case", WORD_MUL_CASES)
+def test_mul_add_words(dev, case, wide):
+    rows, _, _ = make_case(case, wide, n=ROWS)
+    rows = [r.to(dev) for r in rows]
+    before = L.LAUNCHES["mul_add_words"]
+    ok, overflow = word_mul.mul_add_words(rows, wide)
+    assert L.LAUNCHES["mul_add_words"] == before + 1
+    want_ok, want_over = word_mul.mul_add_words_plain(rows, wide)
+    _equal(ok, want_ok.expand(ok.shape))
+    if wide:
+        assert overflow is None
+    else:
+        _equal(overflow, want_over.expand(overflow.shape))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["256", "512"])
+@pytest.mark.parametrize("case", ["random_valid", "random_fields", "constants"])
+def test_mul_add_words_at_group_lanes(dev, case, wide):
+    """At the MUL group's 131072 lanes."""
+    rows, _, _ = make_case(case, wide, n=131072, seed=1)
+    rows = [r.to(dev) for r in rows]
+    ok, overflow = word_mul.mul_add_words(rows, wide)
+    want_ok, want_over = word_mul.mul_add_words_plain(rows, wide)
+    _equal(ok, want_ok.expand(ok.shape))
+    if not wide:
+        _equal(overflow, want_over.expand(overflow.shape))
+
+
+def _small_block(kind="alu"):
     from zkevm_specs_tpu_torch import workloads
 
-    return workloads.build_alu_block(n_txs, n_ops)
+    return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
+@pytest.mark.parametrize("kind", ["alu", "arith"])
 @pytest.mark.parametrize("corrupt", [False, True])
-def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt):
+def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 
-    w = _small_block()
+    w = _small_block(kind)
     if corrupt:
-        next(s for s in w.steps if s.execution_state.name == "ADD").gas_left += 1
+        name = "ADD" if kind == "alu" else "MULMOD"
+        next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()
     per_kernel = bv.run_device(prepared)

@@ -1,7 +1,8 @@
-"""The port's tracer (zkevm_specs_tpu_torch.witness.tracer, the ALU subset)
-against the JAX package's ``trace_block(..., sign=False)``, tolerance 0:
-every field of every step, every rw row, the tables' rows and the per-tx
-outcome bookkeeping are equal on the same transactions.  Also the host
+"""The port's tracer (zkevm_specs_tpu_torch.witness.tracer, the ALU subset
+with ADDMOD, MULMOD and EXP) against the JAX package's ``trace_block(...,
+sign=False)``, tolerance 0: every field of every step, every rw row, the
+tables' rows, the exp circuit's rows and the per-tx outcome bookkeeping are
+equal on the same transactions.  Also the host
 witness classes it emits through (``Transaction``, ``Account``,
 ``RWDictionary``'s call-context, account, access-list, refund and receipt
 rows), the ALU block's builder, and what the subset refuses to trace."""
@@ -95,6 +96,56 @@ def test_alu_block_builder_is_bench_mix_traced_unsigned():
     pw = workloads.build_alu_block(n_txs, n_ops)
     assert_same_witness(jw, pw)
     assert workloads.receipt_gas_used(pw) == n_txs * (21000 + 11 * n_ops) > 0
+
+
+def _jax_txs(ptxs):
+    """The JAX package's classes carrying the port's txs and codes."""
+    return [(JY.Transaction(id=t.id, gas=t.gas, gas_price=t.gas_price,
+                            caller_address=t.caller_address, callee_address=t.callee_address),
+             JY.Bytecode(bytearray(bytes(bc.code)))) for t, bc in ptxs]
+
+
+@pytest.mark.parametrize("n_txs,cycles,seed", [(2, 2, 0), (3, 1, 5)])
+def test_arith_block_matches_jax(n_txs, cycles, seed):
+    """``workloads.build_arith_block`` traced by both tracers: the same
+    steps, rw rows and tables, and the same exp circuit row for row (one
+    event per EXP, its identifier the EXP step's rw counter + 3)."""
+    jw = JT.trace_block(JY.Block(base_fee=10**9, gas_limit=30 * 10**6),
+                        _jax_txs(workloads.arith_block_txs(n_txs, cycles, seed)), sign=False)
+    pw = workloads.build_arith_block(n_txs, cycles, seed)
+    assert_same_witness(jw, pw)
+    assert pw.exp_circuit.rows == jw.exp_circuit.rows
+    exps = [s for s in pw.steps if s.execution_state.name == "EXP"]
+    assert len(exps) == n_txs * cycles
+    assert {r["identifier"] for r in pw.exp_circuit.rows} == {s.rw_counter + 3 for s in exps}
+    names = {s.execution_state.name for s in pw.steps}
+    assert {"MUL", "SDIV_SMOD", "ADDMOD", "MULMOD", "EXP", "SHL_SHR"} <= names
+    assert workloads.receipt_gas_used(pw) == n_txs * (21000 + workloads.ARITH_CYCLE_GAS * cycles)
+
+
+def test_arith_block_size():
+    """One cycle is 653 code bytes and 42 steps; 37 cycles fit under
+    EIP-170's 24576-byte code limit."""
+    (_, bc), = workloads.arith_block_txs(1, 1)
+    assert len(bc.code) == 653 + 1
+    (_, bc), = workloads.arith_block_txs(1, workloads.ARITH_BLOCK_CYCLES)
+    assert len(bc.code) == 653 * 37 + 1 <= 24576 < 653 * 38 + 1
+    w = workloads.build_arith_block(1, 1)
+    assert len(w.steps) == 42 + 1 + 3          # the cycle, STOP, BeginTx, EndTx, EndBlock
+
+
+def test_exp_without_an_event_leaves_no_exp_circuit():
+    bc = PY.Bytecode().push1(1).push1(5).exp().pop().push1(0).push1(5).exp().pop().stop()
+    tx = PY.Transaction(id=1, gas=100000, caller_address=0xFE, callee_address=0xFF)
+    assert PT.trace_block(PY.Block(), [(tx, bc)], sign=False).exp_circuit is None
+
+
+def test_exp_out_of_gas_raises():
+    # 21000 + two PUSHes (6) leave 49 gas, under EXP's 50 for a 1-byte exponent
+    bc = PY.Bytecode().push1(3).push1(2).exp().stop()
+    tx = PY.Transaction(id=1, gas=21000 + 6 + 49, caller_address=0xFE, callee_address=0xFF)
+    with pytest.raises(NotImplementedError, match="ErrorOutOfGasEXP"):
+        PT.trace_block(PY.Block(), [(tx, bc)], sign=False)
 
 
 def test_signed_block_is_not_ported():

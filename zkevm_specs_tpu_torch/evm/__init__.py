@@ -1,5 +1,5 @@
 """Public EVM-circuit API of the port (the ported part of the JAX
-package's ``zkevm_specs_tpu.evm``)."""
+package's ``zkevm_specs_tpu/evm/__init__.py``)."""
 from ..tables.container import Tables
 from ..tables.schemas import RW, BytecodeFieldTag, CallContextFieldTag, FixedTableTag, Target
 from ..witness.typing import Block, Bytecode, RWDictionary

@@ -1,5 +1,6 @@
 """The batched EVM-step constraint builder (the part the ported gadgets use:
-ADD/SUB, MUL/DIV/MOD, PUSH, POP, STOP, BeginTx, EndTx, EndBlock).
+ADD/SUB, MUL/DIV/MOD, SDIV/SMOD, ADDMOD, MULMOD, EXP, SHL/SHR, PUSH, POP,
+STOP, BeginTx, EndTx, EndBlock).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -21,6 +22,7 @@ import torch
 from ..dsl.cs import ConstraintSystem
 from ..dsl.value import Ctx, F, Word, WordOrValue, trim, width_for_bits
 from ..ops import limbs as L
+from ..ops import word_mul
 from ..utils.param import MAX_N_BYTES, N_BYTES_ACCOUNT_ADDRESS, N_BYTES_GAS
 from ..tables.container import Tables
 from ..tables.schemas import (
@@ -530,36 +532,82 @@ class Instruction:
         self.constrain_zero(quotient_hi)
         return Word(product_lo, product_hi)
 
-    def _mul_512_terms(self, a: Word, b: Word):
-        a64s = a.to_64s()
-        b64s = b.to_64s()
-        t0 = a64s[0] * b64s[0]
-        t1 = a64s[0] * b64s[1] + a64s[1] * b64s[0]
-        t2 = a64s[0] * b64s[2] + a64s[1] * b64s[1] + a64s[2] * b64s[0]
-        t3 = (a64s[0] * b64s[3] + a64s[1] * b64s[2] + a64s[2] * b64s[1]
-              + a64s[3] * b64s[0])
-        t4 = a64s[1] * b64s[3] + a64s[2] * b64s[2] + a64s[3] * b64s[1]
-        t5 = a64s[2] * b64s[3] + a64s[3] * b64s[2]
-        t6 = a64s[3] * b64s[3]
-        return a64s, b64s, (t0, t1, t2, t3, t4, t5, t6)
+    def _word_product(self, words: Sequence[Word], wide: bool):
+        """One K11 launch over the words' lo/hi rows; records the chain's
+        checks in its order (the carries' 9-byte range checks, then the
+        equalities) with its messages, whose values the eager pass
+        recomputes only for a failing lane.  Returns the overflow limbs
+        (variant 256) or None."""
+        rows = [p.limbs for w in words for p in (w.lo, w.hi)]
+        ok, overflow = word_mul.mul_add_words(rows, wide)
+        steps = {}
+
+        def value(name: str) -> F:
+            if not steps:
+                steps.update(word_mul.chain_values(rows, wide))
+            return F(self.ctx, steps[name], 254)
+
+        n_carries = 3 if wide else 2
+        for h in range(n_carries):
+            self.cs.check(ok[h], lambda h=h: f"Value {value(f'carry{h}')!r} has too many "
+                                             f"bytes to fit 9 bytes")
+        for h in range(ok.shape[0] - n_carries):
+            self.cs.check(ok[n_carries + h],
+                          lambda h=h: f"Expected values to be equal, but got "
+                                      f"{value(f'lhs{h}')!r} and {value(f'rhs{h}')!r}")
+        return overflow
 
     def mul_add_words(self, a: Word, b: Word, c: Word, d: Word) -> F:
-        """Constrain a*b + c == d (mod 2^256); returns overflow
-        (reference instruction.py:599-632)."""
-        _, _, (t0, t1, t2, t3, t4, t5, t6) = self._mul_512_terms(a, b)
-        c_lo, c_hi = c.to_lo_hi()
-        d_lo, d_hi = d.to_lo_hi()
-        pow64 = F.const(self.ctx, 1 << 64)
-        pow128 = F.const(self.ctx, 1 << 128)
-        carry_lo = (t0 + t1 * pow64 + c_lo - d_lo).fdiv_const(1 << 128)
-        carry_hi = (t2 + t3 * pow64 + c_hi + carry_lo - d_hi).fdiv_const(1 << 128)
-        overflow = carry_hi + t4 + t5 + t6
+        """Constrain a*b + c == d (mod 2^256); returns overflow, a field
+        value (reference instruction.py:599-632; kernel K11)."""
+        return F(self.ctx, self._word_product((a, b, c, d), wide=False), 254)
 
-        self.range_check(carry_lo, 9)
-        self.range_check(carry_hi, 9)
-        self.constrain_equal(t0 + t1 * pow64 + c_lo, d_lo + carry_lo * pow128)
-        self.constrain_equal(t2 + t3 * pow64 + c_hi + carry_lo, d_hi + carry_hi * pow128)
-        return overflow
+    def mul_add_words_512(self, a: Word, b: Word, c: Word, d: Word, e: Word):
+        """Constrain a*b + c == d*2^256 + e (reference instruction.py:634-665;
+        kernel K11)."""
+        self._word_product((a, b, c, d, e), wide=True)
+
+    def is_neg_word(self, word: Word) -> F:
+        return self.compare(self.fq(0x7FFFFFFFFFFFFFFFFFFFFFFFFFFFFFFF), word.hi, 16)[0]
+
+    def byte_size(self, word: Word) -> F:
+        """Witness: number of significant bytes (reference instruction.py:492-494)."""
+        size = None
+        for i, b in enumerate(word.to_le_bytes()):
+            nz = (~b.is_zero_mask()).to(L.DTYPE) * (i + 1)
+            size = nz if size is None else torch.maximum(size, nz)
+        return F(self.ctx, size[..., None], 8)
+
+    def abs_word(self, x: Word) -> Tuple[Word, F]:
+        """(abs(x), x_is_neg) as in reference instruction.py:539-571."""
+        is_neg = self.is_neg_word(x)
+        # witness: 2^256 - x (two's complement over 256 bits; 0 stays 0)
+        zero = self.word(0)
+        neg_lo_arr, borrow_lo = L.sub(zero.lo.widen(8).limbs, x.lo.widen(8).limbs)
+        neg_hi_base, _ = L.sub(zero.hi.widen(8).limbs, x.hi.widen(8).limbs)
+        neg_hi_arr, _ = L.sub(neg_hi_base, borrow_lo[..., None])
+        x_neg = Word(F(self.ctx, neg_lo_arr, 128), F(self.ctx, neg_hi_arr, 128))
+        x_abs = self.select_word(is_neg, x_neg, x)
+
+        x_abs_lo, x_abs_hi = x_abs.to_lo_hi()
+        x_lo, x_hi = x.to_lo_hi()
+        one_minus_neg = 1 - is_neg
+        self.constrain_zero((x_abs_lo - x_lo) * one_minus_neg)
+        self.constrain_zero((x_abs_hi - x_hi) * one_minus_neg)
+
+        # witness carries of x + x_abs
+        s_lo = x_lo + x_abs_lo
+        carry_lo, sum_lo = s_lo.split_pow2(128, 2)
+        s_hi = x_hi + x_abs_hi + carry_lo
+        carry_hi, sum_hi = s_hi.split_pow2(128, 2)
+
+        self.constrain_zero(sum_lo + carry_lo * F.const(self.ctx, 1 << 128)
+                            - self.sum([x_lo, x_abs_lo]))
+        self.constrain_zero(sum_hi + carry_hi * F.const(self.ctx, 1 << 128) - carry_lo
+                            - self.sum([x_hi, x_abs_hi]))
+        self.constrain_zero((sum_lo + sum_hi) * is_neg)
+        self.constrain_zero((1 - carry_hi) * is_neg)
+        return x_abs, is_neg
 
     # -- typed lookups -----------------------------------------------------
 
@@ -609,6 +657,14 @@ class Instruction:
         row = self.tables.bytecode_lookup(
             self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Header), self.fq(0), self.fq(0))
         return row.value
+
+    def exp_lookup(self, identifier: F, is_last: F, base_limbs, exponent: Word) -> Word:
+        row = self.tables.exp_lookup(self.cs, self._f(identifier), self._f(is_last), base_limbs,
+                                     exponent)
+        return row.exponentiation
+
+    def pow2_lookup(self, value: F, pow_lo128: F, pow_hi128: F):
+        self.fixed_lookup(FixedTableTag.Pow2, value, pow_lo128, pow_hi128)
 
     def responsible_opcode_lookup(self, opcode: F, aux: IntOrF = 0):
         self.fixed_lookup(

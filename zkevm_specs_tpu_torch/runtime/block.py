@@ -10,7 +10,8 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    repeated) to powers of two; a chunk of fewer than ``min_jit_lanes``
    lanes is verified on the host, as the JAX package does;
 3. the state circuit proves the rw table, and the prologue, bytecode,
-   keccak and withdrawal circuits run as ``CircuitKernel`` checks;
+   keccak, exp (when the block ran an EXP) and withdrawal circuits run as
+   ``CircuitKernel`` checks;
 4. ``prepare`` uploads every input leaf once (kernel K9, ``transfer.py``);
    ``run_device`` runs the checks one by one and reads each verdict back;
    ``run_device_combined`` replays the whole device pass as one CUDA graph,
@@ -18,7 +19,7 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    verdict into one buffer fetched by one copy.
 
 Not ported: the pi circuit (``not_ported``), which the JAX verifier runs on
-every block, and the tx, sig, copy, exp and ecc circuits; a witness that
+every block, and the tx, sig, copy and ecc circuits; a witness that
 carries one of the latter raises ``NotImplementedError``.  The verdicts
 are the JAX verifier's, key for key, without its ``("pi", row)`` keys.
 """
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..circuits.bytecode import assign_bytecode_circuit, assign_keccak_table, bytecode_kernel, unroll
+from ..circuits.exp import exp_kernel
 from ..circuits.keccak import keccak_kernel
 from ..circuits.state import (
     assign_state_circuit,
@@ -50,6 +52,7 @@ from ..evm.step import StepState, StepStateBatch
 from ..ops import limbs as L
 from ..tables.container import Tables
 from ..witness.tracer import BlockWitness
+from ..witness.typing import exp_circuit_to_table
 from .jit import CompiledGroupVerifier, tables_meta, tables_to_pytree
 from .kernels import require_device
 from .transfer import upload, verdict_pack, verdict_table
@@ -121,8 +124,8 @@ def _remap(tree, by_id: Dict[int, torch.Tensor]):
 class CompiledBlockVerifier:
     """Whole-block witness verification on ``device`` ("cuda" unless the
     caller asks for "cpu"; there is no fallback): every EVM step group, the
-    state circuit over the rw table, and the prologue, bytecode, keccak and
-    withdrawal circuits.  The pi circuit is not ported (``not_ported``)."""
+    state circuit over the rw table, and the prologue, bytecode, keccak, exp
+    and withdrawal circuits.  The pi circuit is not ported (``not_ported``)."""
 
     not_ported = ("pi",)
 
@@ -131,7 +134,6 @@ class CompiledBlockVerifier:
         self.device = require_device(device, "CompiledBlockVerifier")
         for name, present in (("tx and sig", witness.signed_txs is not None),
                               ("copy", witness.copy_circuit is not None),
-                              ("exp", witness.exp_circuit is not None),
                               ("ecc", witness.ecc_circuit is not None),
                               ("sig (ecRecover)", bool(witness.sig_rows))):
             if present:
@@ -148,11 +150,14 @@ class CompiledBlockVerifier:
         keccak_data = codes + list(witness.sha3_preimages)
         keccak_rows = assign_keccak_table(keccak_data, r)
         kwargs = witness.tables_kwargs()
+        if witness.exp_circuit is not None:
+            kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
         kwargs["keccak_table"] = keccak_rows
         self.tables = Tables(**kwargs)
 
         # in-circuit prologue, then the producer circuits of the tables the
-        # EVM circuit reads, then the withdrawal circuit (run on every block)
+        # EVM circuit reads (the JAX verifier's order), then the withdrawal
+        # circuit (run on every block)
         self.circuit_kernels: List[Tuple[str, object]] = [
             ("prologue", prologue_kernel(witness, self.tables, device=self.device))]
         bc_rows = assign_bytecode_circuit(k_bytecode, [unroll(c) for c in codes], r)
@@ -161,6 +166,9 @@ class CompiledBlockVerifier:
         kk = keccak_kernel(keccak_data, keccak_rows, r, device=self.device)
         if kk is not None:
             self.circuit_kernels.append(("keccak", kk))
+        if witness.exp_circuit is not None:
+            self.circuit_kernels.append(("exp", exp_kernel(witness.exp_circuit,
+                                                           device=self.device)))
         n_wd = max(1, len(witness.withdrawals))
         wd_witness = withdrawals2witness(witness.withdrawals, n_wd, r, kwargs["block_table"])
         self.circuit_kernels.append(("withdrawal", withdrawal_kernel(wd_witness, n_wd, r,

@@ -63,6 +63,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "verdict_pack": {
         "verdict_pack_launch": [_P, _I32, _I64, _P, _P],
     },
+    "mul_add_words": {
+        "mul_add_words_launch": [_I32, ctypes.POINTER(_I64), _P, _P, _I64, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

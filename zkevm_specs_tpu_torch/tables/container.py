@@ -4,7 +4,7 @@ Counterpart of ``zkevm_specs_tpu/tables/container.py`` (reference:
 src/zkevm_specs/evm_circuit/table.py:578-858): tables are built once from
 host-side witness rows (dicts of ints) on the CPU; the fixed tables are
 computed predicates (see fixed.py).  Only the typed lookups of the ported
-gadgets are here (fixed, block, tx, bytecode, rw).
+gadgets are here (fixed, block, tx, bytecode, rw, exp).
 """
 from __future__ import annotations
 
@@ -153,5 +153,17 @@ class Tables:
                 "value_prev": wv(value_prev),
                 "aux0": aux0,
             },
+            enabled=enabled,
+        )
+
+    def exp_lookup(self, cs, identifier: F, is_last: F, base_limbs, exponent: Word,
+                   enabled=None) -> Row:
+        ctx = identifier.ctx
+        return self.exp.lookup(
+            cs,
+            {"is_step": F.const(ctx, 1), "identifier": identifier, "is_last": is_last,
+             "base_limb0": base_limbs[0], "base_limb1": base_limbs[1],
+             "base_limb2": base_limbs[2], "base_limb3": base_limbs[3],
+             "exponent": exponent},
             enabled=enabled,
         )

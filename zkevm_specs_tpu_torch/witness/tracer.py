@@ -1,17 +1,18 @@
 """Mini EVM tracer, the ALU subset: builds a coherent block witness (steps
-and rw rows) for blocks of PUSH / ALU / POP / STOP bytecodes.
+and rw rows, and the exp circuit's squaring trace) for blocks of PUSH /
+ALU / ADDMOD / MULMOD / EXP / POP / STOP bytecodes.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer.run_tx`` :374-548,
-``step_op`` :721-749, the handlers :1861-1909 and ``trace_block``
+``step_op`` :721-749, the handlers :1861-1928 and ``trace_block``
 :2629-2754).  Each executed opcode emits exactly the rw rows its gadget
 looks up, with the JAX tracer's rw_counter / gas / stack-pointer
 bookkeeping, so the witness equals the JAX tracer's row for row.
 
 Not ported, and raising ``NotImplementedError`` where a block reaches
-them: the error states (invalid opcode, stack under/overflow, out of gas),
-every opcode without a handler here, and signed blocks (``sign=True``:
-the tx and sig circuits).
+them: the error states (invalid opcode, stack under/overflow, out of gas,
+EXP's dynamic out of gas), every opcode without a handler here, and signed
+blocks (``sign=True``: the tx and sig circuits).
 """
 from __future__ import annotations
 
@@ -28,8 +29,13 @@ from ..evm.opcode import (
 )
 from ..evm.step import StepState
 from ..tables.schemas import AccountFieldTag, CallContextFieldTag, Target, TxReceiptFieldTag
-from ..utils.param import GAS_COST_TX, MAX_REFUND_QUOTIENT_OF_GAS_USED
-from .typing import Account, Block, Bytecode, RWDictionary, Transaction
+from ..utils.param import (
+    GAS_COST_EXP_PER_BYTE,
+    GAS_COST_SLOW,
+    GAS_COST_TX,
+    MAX_REFUND_QUOTIENT_OF_GAS_USED,
+)
+from .typing import Account, Block, Bytecode, ExpCircuit, RWDictionary, Transaction
 
 U256M = (1 << 256) - 1
 U255 = 1 << 255
@@ -43,10 +49,10 @@ class BlockWitness:
         self.txs: List[Transaction] = []
         self.bytecodes: List[Bytecode] = []
         self.withdrawals: List = []        # EIP-4895 withdrawals (withdrawal circuit)
+        self.exp_circuit: Optional[ExpCircuit] = None  # EXP events (None: none)
         # sub-circuit witnesses of the JAX tracer that the ALU subset never
         # fills; the block verifier refuses a witness that carries one
         self.copy_circuit = None
-        self.exp_circuit = None
         self.ecc_circuit = None
         self.signed_txs = None
         self.sig_rows: List = []
@@ -94,6 +100,10 @@ def _signed(v: int) -> int:
     return v - (1 << 256) if v >= U255 else v
 
 
+def _byte_size(v: int) -> int:
+    return (v.bit_length() + 7) // 8
+
+
 class _Tracer:
     """Single-block interpreter emitting gadget-exact witness rows."""
 
@@ -103,6 +113,7 @@ class _Tracer:
         self.w = BlockWitness()
         self.w.block = block
         self.w.rw = RWDictionary(start_counter)
+        self.w.exp_circuit = ExpCircuit()
         self.rw = self.w.rw
         self.block = block
         self.cumulative_gas = 0
@@ -302,8 +313,9 @@ class _Tracer:
     def _detect_error(self, raw: int) -> Optional[ExecutionState]:
         """The pre-dispatch error classes an opcode with a ported handler can
         hit, in geth's order: invalid opcode, stack validation, constant
-        gas.  (Write protection needs a static frame and the dynamic-gas
-        checks belong to opcodes without a handler here.)"""
+        gas, then EXP's dynamic gas.  (Write protection needs a static frame
+        and the other dynamic-gas checks belong to opcodes without a handler
+        here.)"""
         E = ExecutionState
         if _OP_BY_RAW[raw] is None:
             return E.ErrorInvalidOpcode
@@ -312,6 +324,9 @@ class _Tracer:
             return E.ErrorStack
         if self.gas_left < _CONST_GAS[raw]:
             return E.ErrorOutOfGasConstant
+        if (raw == Opcode.EXP and self.gas_left
+                < GAS_COST_SLOW + GAS_COST_EXP_PER_BYTE * _byte_size(self.stack[-2])):
+            return E.ErrorOutOfGasEXP
         return None
 
     def step_op(self):
@@ -373,6 +388,26 @@ class _Tracer:
         self.spush(out)
         self.pc += 1
 
+    def op_mod3(self, op):
+        a, b, n = self.spop(), self.spop(), self.spop()
+        if n == 0:
+            out = 0
+        elif op == Opcode.ADDMOD:
+            out = (a + b) % n
+        else:
+            out = (a * b) % n
+        self.spush(out)
+        self.pc += 1
+
+    def op_exp(self, op):
+        base, exponent = self.spop(), self.spop()
+        self.spush(pow(base, exponent, 1 << 256))
+        if exponent > 1:
+            identifier = self.w.steps[-1].rw_counter + 3
+            self.w.exp_circuit.add_event(base, exponent, identifier)
+        self.gas_left -= GAS_COST_EXP_PER_BYTE * _byte_size(exponent)
+        self.pc += 1
+
 
 _ALU_BINARY = {
     Opcode.ADD: lambda a, b: (a + b) & U256M,
@@ -408,6 +443,7 @@ _STATE_BY_OPCODE = {
     Opcode.ADD: _ES.ADD, Opcode.SUB: _ES.ADD,
     Opcode.MUL: _ES.MUL, Opcode.DIV: _ES.MUL, Opcode.MOD: _ES.MUL,
     Opcode.SDIV: _ES.SDIV_SMOD, Opcode.SMOD: _ES.SDIV_SMOD,
+    Opcode.ADDMOD: _ES.ADDMOD, Opcode.MULMOD: _ES.MULMOD, Opcode.EXP: _ES.EXP,
     Opcode.LT: _ES.CMP, Opcode.GT: _ES.CMP, Opcode.EQ: _ES.CMP,
     Opcode.SLT: _ES.SCMP, Opcode.SGT: _ES.SCMP,
     Opcode.ISZERO: _ES.ISZERO, Opcode.NOT: _ES.NOT,
@@ -433,8 +469,9 @@ for _o in Opcode:
         _STATE[_raw], _HANDLER[_raw] = _ES.PUSH, _Tracer.op_push
     elif _o in _STATE_BY_OPCODE:
         _STATE[_raw] = _STATE_BY_OPCODE[_o]
-        _HANDLER[_raw] = {Opcode.STOP: _Tracer.op_stop,
-                          Opcode.POP: _Tracer.op_pop}.get(_o, _Tracer.op_alu)
+        _HANDLER[_raw] = {Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
+                          Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
+                          Opcode.EXP: _Tracer.op_exp}.get(_o, _Tracer.op_alu)
 
 
 def trace_block(
@@ -528,4 +565,6 @@ def trace_block(
     w.rw.rws = start_rows + prologue.rws + w.rw.rws
 
     w.withdrawals = list(withdrawals or [])
+    if not w.exp_circuit.rows:
+        w.exp_circuit = None
     return w

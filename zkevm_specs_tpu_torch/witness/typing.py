@@ -1,14 +1,14 @@
 """Host-side witness rows (the part the ported paths need).
 
 ``Block``, ``Transaction``, ``Withdrawal``, ``Bytecode``, ``Account``,
-``RWDictionary`` and ``KeccakCircuit`` emit plain row dicts (Python ints,
+``RWDictionary``, ``KeccakCircuit`` and ``ExpCircuit`` emit plain row dicts (Python ints,
 words as ints < 2^256) that feed the columnar ``Tables``; they are copies
 of the JAX package's classes of the same names (reference:
 src/zkevm_specs/evm_circuit/typing.py:64-845).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..ops.fr import P
 from ..ops.keccak import EMPTY_HASH, keccak256
@@ -29,6 +29,8 @@ from ..utils.param import (
     GAS_COST_TX_CALL_DATA_PER_ZERO_BYTE,
 )
 from .rlc import RLC, linear_combine_bytes
+
+POW2 = 2**256
 
 
 def _opcode_mod():
@@ -380,3 +382,79 @@ class KeccakCircuit:
             }
         )
         return self
+
+
+class ExpCircuit:
+    """Exponentiation-by-squaring witness trace (the JAX package's
+    ``witness/typing.py:501-574``; reference typing.py:868-994): one row per
+    squaring or multiplying step of each EXP event, the event's last step
+    (exponent 2) marked ``is_last``."""
+
+    OFFSET_INCREMENT = 7
+
+    def __init__(self, max_exp_steps: int = 100) -> None:
+        self.rows: List[dict] = []
+        self.max_exp_steps = max_exp_steps
+
+    def table(self) -> List[dict]:
+        return self.rows
+
+    def add_event(self, base: int, exponent: int, identifier: int) -> "ExpCircuit":
+        steps: List[Tuple[int, int, int]] = []
+        self._exp_by_squaring(base, exponent, steps)
+        steps.reverse()
+        self._append_steps(base, exponent, steps, identifier)
+        return self
+
+    def _exp_by_squaring(self, base: int, exponent: int, steps):
+        if exponent == 0:
+            return 1
+        if exponent == 1:
+            return base
+        exp1 = self._exp_by_squaring(base, exponent // 2, steps)
+        exp2 = (exp1 * exp1) % POW2
+        steps.append((exp1, exp1, exp2))
+        if exponent % 2 == 0:
+            return exp2
+        exp = (base * exp2) % POW2
+        steps.append((exp2, base, exp))
+        return exp
+
+    def _append_steps(self, base: int, exponent: int, steps, identifier: int):
+        for i, (a, b, d) in enumerate(steps):
+            quotient, is_odd = divmod(exponent, 2)
+            self.rows.append({
+                "q_usable": 1, "is_step": 1, "identifier": _to_int(identifier),
+                "is_last": 1 if i == len(steps) - 1 else 0,
+                "base": base, "exponent": exponent, "exponentiation": d,
+                "a": a, "b": b, "c": 0, "d": d, "q": quotient, "r": is_odd,
+            })
+            exponent = exponent // 2 if is_odd == 0 else exponent - 1
+
+    def fill_dummy_events(self) -> "ExpCircuit":
+        """Pad to ``max_exp_steps * OFFSET_INCREMENT`` rows with disabled
+        (``is_step`` 0) rows."""
+        for _ in range(self.max_exp_steps * self.OFFSET_INCREMENT - len(self.rows)):
+            self.rows.append({
+                "q_usable": 1, "is_step": 0, "identifier": 0, "is_last": 0,
+                "base": 1, "exponent": 1, "exponentiation": 1,
+                "a": 1, "b": 1, "c": 0, "d": 1, "q": 0, "r": 1,
+            })
+        return self
+
+
+def exp_circuit_to_table(exp_circuit: ExpCircuit) -> List[dict]:
+    """The exp-table rows of an exp circuit (the JAX package's
+    ``witness/typing.py:694-712``; reference table.py:654-671)."""
+    out = []
+    for row in exp_circuit.table():
+        base = row["base"]
+        out.append({
+            "is_step": 1, "identifier": row["identifier"], "is_last": row["is_last"],
+            "base_limb0": base & ((1 << 64) - 1),
+            "base_limb1": (base >> 64) & ((1 << 64) - 1),
+            "base_limb2": (base >> 128) & ((1 << 64) - 1),
+            "base_limb3": (base >> 192) & ((1 << 64) - 1),
+            "exponent": row["exponent"], "exponentiation": row["exponentiation"],
+        })
+    return out

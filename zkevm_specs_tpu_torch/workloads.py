@@ -2,8 +2,9 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload; and the ALU block itself (``build_alu_block``), traced by the
-port's tracer for the block verifier.
+payload; and two blocks traced by the port's tracer for the block
+verifier, the ALU block (``build_alu_block``) and the arithmetic block
+(``build_arith_block``).
 
 ``build_add_workload`` is the flagship group of the JAX package's entry
 point (``__graft_entry__._build_add_workload``): ADD steps over random
@@ -235,6 +236,65 @@ def build_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS)
 
     return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
                        alu_block_txs(n_txs, ops_per_tx), sign=False)
+
+
+# -- the arithmetic block --------------------------------------------------------------
+#
+# A ~1 M-gas block (bench.py:bench_super_jit_1m's unit) of fixed-point and
+# DeFi math: each tx calls its own contract, whose code is as many cycles as
+# fit under EIP-170's 24576-byte code limit, then STOP.  One cycle runs each
+# opcode of the 512-bit word product once on fresh operands and pops the
+# result: MUL, DIV, MOD, SDIV, SMOD (two PUSH32), ADDMOD, MULMOD (three
+# PUSH32), EXP (PUSH32 base, PUSH1 exponent in [2, 255]), SHL, SHR (PUSH32
+# value, PUSH1 shift): 653 code bytes, 42 steps and 183 gas a cycle (the
+# opcode table charges EXP only its 50 gas a byte of exponent, not the
+# EVM's 10 on top; ROADMAP.md §C).
+
+ARITH_BLOCK_TXS, ARITH_BLOCK_CYCLES = 40, 37
+ARITH_CYCLE_GAS = 183
+ARITH_EDGE_WORDS = (0, 1, 1 << 255, WORD - 1)
+
+
+def _arith_operand(rng: np.random.RandomState) -> int:
+    """A full 256-bit word; one in eight an edge value (0, which makes a
+    zero divisor or modulus, 1, 2^255 or 2^256 - 1)."""
+    if rng.randint(8) == 0:
+        return ARITH_EDGE_WORDS[rng.randint(len(ARITH_EDGE_WORDS))]
+    return int.from_bytes(rng.bytes(32), "little")
+
+
+def arith_block_txs(n_txs: int, cycles: int, seed: int = 0) -> List[Tuple[Transaction, Bytecode]]:
+    """The arithmetic block's txs, operands from ``numpy.random.RandomState
+    (seed)``; a caller per tx (0xFE + 0x100 i, unsigned, as the ALU block)
+    and the tx's gas for its cycles plus 1000."""
+    rng = np.random.RandomState(seed)
+    txs = []
+    for i in range(n_txs):
+        bc = Bytecode()
+        for _ in range(cycles):
+            for op in ("mul", "div", "mod", "sdiv", "smod"):
+                getattr(bc, op)(_arith_operand(rng), _arith_operand(rng)).pop()
+            for op in ("addmod", "mulmod"):
+                getattr(bc, op)(*(_arith_operand(rng) for _ in range(3))).pop()
+            bc.push1(int(rng.randint(2, 256))).push32(_arith_operand(rng)).exp().pop()
+            for op in ("shl", "shr"):
+                getattr(bc.push32(_arith_operand(rng)).push1(int(rng.randint(256))), op)().pop()
+        bc.stop()
+        txs.append((Transaction(id=i + 1, gas=21000 + ARITH_CYCLE_GAS * cycles + 1000,
+                                gas_price=int(2e9), caller_address=0xFE + 0x100 * i,
+                                callee_address=0xFF + i), bc))
+    return txs
+
+
+def build_arith_block(n_txs: int = ARITH_BLOCK_TXS, cycles: int = ARITH_BLOCK_CYCLES,
+                      seed: int = 0):
+    """The arithmetic block's witness, traced unsigned by the port's tracer
+    under ``Block(base_fee=10**9, gas_limit=30 * 10**6)`` (the ALU block's
+    header)."""
+    from .witness.tracer import trace_block
+
+    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
+                       arith_block_txs(n_txs, cycles, seed), sign=False)
 
 
 def receipt_gas_used(witness) -> int:
