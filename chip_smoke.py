@@ -11,7 +11,8 @@ script exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: the kernels of ``zkevm_specs_tpu_torch/csrc``, one nvcc per
-   source, all started together;
+   source, all started together, with each kernel's registers and spill
+   bytes as ptxas reports them;
 3. slice: the compiled EVM group verifier on the ADD and MUL groups at
    131072 lanes (``bench.py``'s ``BENCH_STEPS``): host trace, upload, one
    replay on the card with every kernel launch count set to 0 just before
@@ -63,6 +64,16 @@ script exits non-zero):
    verifier fails on the same edit of the 4 x 1 block (the CPU tests
    show those keys); and the 4 x 1 block's failure dicts on the card and
    on the CPU, clean and with the MULMOD edit;
+   after the timed passes of each block, its logUp lookup argument (a
+   ``logup`` line, ``run_logup``): from the verifier's partition-pass log
+   and the table columns ``prepare`` uploaded, every family the JAX
+   package's ShardedBlockVerifier names (rw, bytecode, tx, block, exp, ...)
+   with the counts set to 0 just before and read just after, each family's
+   rows, queries, host seconds and check time, true on the clean block;
+   false with an over-counted multiplicity and with a corrupted rw value;
+   an alpha equal to a table fingerprint giving a zero partial sum on the
+   card and in the plain version; and on the small block the same
+   verdicts and lhs/rhs limbs on the card and on the CPU;
 10. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
    25 timed launches, the plain version's time and the bound; K1, K3 and
@@ -75,11 +86,17 @@ script exits non-zero):
    each; K2 has its row at the arithmetic block's widest shape, since the
    MUL group no longer launches it).  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
-   8192 steps of the same rows (1024 at the block verifier's table), which
+   2048 steps of the same rows (1024 at the block verifier's table), which
    the line says.  K9 and K10 at the ALU block's upload and verdict
    vectors, beside the pinned host-to-device copy rate of the same bytes;
    K9 is held on the leaves and timed on its arena alone, the host's
-   building of the leaf views timed on its own.
+   building of the leaf views timed on its own.  K12 at the logUp checks'
+   one-lane inversion and at 131072 lanes, with its bounds from the least
+   sliding-window chain for p - 2 (the kernel runs the binary ladder);
+   K13 at every partial sum of every family of both blocks (table and
+   query side, up to the ALU block's 6160016 bytecode queries), and K1-K4
+   at each distinct shape of every family's check (``path_shapes``
+   labelled "logup_block <family>"/"logup_arith <family>").
 
 The last three lines are the kernels line, the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -108,12 +125,14 @@ from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
+from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
+from zkevm_specs_tpu_torch.tables import logup  # noqa: E402
 from zkevm_specs_tpu_torch.tables.schemas import RW, BytecodeFieldTag, Target  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
@@ -130,13 +149,14 @@ SMALL_K = 10
 SHA3_PREIMAGES = workloads.SHA3_MIX_PREIMAGES
 SMALL_SHA3 = 512
 WITHDRAWALS = workloads.MAX_WITHDRAWALS_PER_PAYLOAD
-K8_HELD_STEPS = 8192      # K8's plain version at the ALU block: the first steps only
+K8_HELD_STEPS = 2048      # K8's plain version at the ALU block: the first steps only
 K8_BLOCK_HELD_STEPS = 1024  # ... and at the block verifier's keccak table (another r)
 BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
 BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
+FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -147,7 +167,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
 KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
            "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc",
-           "leaf_unpack", "verdict_pack", "mul_add_words")
+           "leaf_unpack", "verdict_pack", "mul_add_words", "fr_inv", "logup_sum")
 SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
 REPLACES = {
@@ -174,6 +194,10 @@ REPLACES = {
     "mul_add_words": "zkevm_specs_tpu/evm/instruction.py:812 (_mul_512_terms, with "
                      "mul_add_words :827 and mul_add_words_512 :845; circuits/exp.py:"
                      "_mul_add_words :19)",
+    "fr_inv": "zkevm_specs_tpu/ops/fr.py:134 (inv :134-158, its lax.scan ladder; numpy "
+              "pow_const :112-127)",
+    "logup_sum": "zkevm_specs_tpu/tables/logup.py:87 (logup_partial_sum :87-106 with "
+                 "batch_inverse :49-84)",
 }
 # kernels each path must launch
 PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
@@ -191,7 +215,9 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                           "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
                 "arith": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
-                          "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words")}
+                          "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words"),
+                "logup": ("lookup_gather_eq", "fr_mul", "limb_mul", "limb_addsub", "fr_inv",
+                          "logup_sum")}
 
 
 def emit(obj):
@@ -865,6 +891,7 @@ def run_block(path, card):
         calls.setdefault(name, []).extend((args, c.kwargs[k]) for k, args in c.calls.items())
     captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls}
     out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
+    logup_counts, logup_captured = run_logup(path, bv, prepared, card)
     del bv, prepared, up, leaves, caps, fails
     torch.cuda.empty_cache()
 
@@ -894,9 +921,146 @@ def run_block(path, card):
         f_cpu = on_cpu.run_device(on_cpu.prepare())
         assert f_card == f_graph == f_cpu, f"{path}: card {f_card}, graph {f_graph}, CPU {f_cpu}"
         assert bool(f_cpu) == corrupt
+        if not corrupt:
+            # the logUp argument of the clean small block: the same verdicts
+            # and the same lhs and rhs limbs on the card and on the CPU
+            lu_card, lu_cpu = logup_limbs(on_card, p), logup_limbs(on_cpu, on_cpu.prepare())
+            assert lu_card == lu_cpu, f"{path}: logUp on the card {lu_card}, on the CPU {lu_cpu}"
+            assert all(ok for ok, _, _ in lu_cpu.values()), lu_cpu
+            out["small_block_logup_matches_cpu"] = sorted(lu_cpu)
     out["small_block_matches_cpu"] = list(spec["small_size"])
     emit(out)
-    return counts, captured
+    return counts, captured, logup_counts, logup_captured
+
+
+def logup_families(bv):
+    """The families of the block's lookup log that the JAX package's
+    ShardedBlockVerifier proves, in its order."""
+    return [n for n in logup_shard.LOGUP_TABLES if n in bv.lookup_log]
+
+
+def logup_limbs(bv, prepared):
+    """{family: (ok, lhs limbs, rhs limbs)} of a block verifier's logUp
+    argument on its device."""
+    sums = logup_shard.block_logup_sums(
+        bv.tables, bv.lookup_log, logup_shard.LOGUP_TABLES, bv.device,
+        parts_of=lambda name: bv.table_parts_on_device(prepared, name))
+    return {name: (bool(L.eq(lhs, rhs).item()), lhs.cpu().flatten().tolist(),
+                   rhs.cpu().flatten().tolist()) for name, (lhs, rhs) in sums.items()}
+
+
+# the kernel wrappers the logUp check calls, as BLOCK_CAPTURES (the gather
+# and the partial sum as logup_shard calls them)
+LOGUP_CAPTURES = (
+    ("fr_mul", fr, "fr_mul", lambda a: shapes(a)),
+    ("limb_mul", L, "limb_mul", lambda a: (shapes(a[:2]), a[2])),
+    ("limb_addsub", L, "limb_addsub", addsub_key),
+    ("lookup_gather_eq", logup_shard, "lookup_gather_eq", gather_key),
+    ("fr_inv", fr, "inv", lambda a: shapes(a)),
+    ("logup_sum", logup_shard, "logup_partial_sum",
+     lambda a: shapes([a[0], a[2] if len(a) > 2 else None])),
+)
+
+
+def logup_shape_calls(bv, prepared, families):
+    """Every kernel's arguments at each distinct shape of every family's
+    check, from runs outside the counted one: ``{family: {kernel: [(args,
+    kwargs), ...]}}``, a shape under the family that first gave it."""
+    calls = {}
+    seen = set()
+    with contextlib.ExitStack() as stack:
+        caps = [(name, stack.enter_context(Capture(module, attr, key)))
+                for name, module, attr, key in LOGUP_CAPTURES]
+        for family in families:
+            bv.verify_lookups(prepared, tables_names=(family,))
+            for name, c in caps:
+                for k, a in c.calls.items():
+                    if (name, k) not in seen:
+                        seen.add((name, k))
+                        calls.setdefault(family, {}).setdefault(name, []).append(
+                            (a, c.kwargs[k]))
+    return calls
+
+
+def run_logup(path, bv, prepared, card):
+    """The block's logUp lookup argument from the verifier's partition-pass
+    log, with the table sides taken from the columns ``prepare`` uploaded
+    (no block is built again): the main path (every family at once) with
+    the counts set to 0 just before and read just after; per family the
+    rows T, queries Q, the host seconds (log concatenation and the
+    multiplicity count), the card time of the check (median of 10, CUDA
+    events around the whole call, its host-issued launch gaps and one bool
+    read back included) and its verdict; on the rw family an over-counted
+    multiplicity and a corrupted value (``corrupt_table``) that must fail,
+    and an alpha equal to one table fingerprint, whose partial sum must be
+    0 on the card and in the plain version.  Returns the counts and, per
+    family, every kernel's arguments at each distinct shape of its check."""
+    out = {"phase": "logup", "block": path, "alpha": logup_shard.ALPHA, "card": card}
+    families = logup_families(bv)
+    reset_counts()
+    t0 = time.perf_counter()
+    verdict = bv.verify_lookups(prepared)
+    torch.cuda.synchronize()
+    out["all_families_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    assert verdict == {n: True for n in families}, f"{path}: logUp on the clean block {verdict}"
+    for name in PATH_KERNELS["logup"]:
+        assert counts[name] > 0, f"logup_{path}: kernel {name} was not launched on the main path"
+    out["launches"] = counts
+
+    out["families"] = {}
+    for name in families:
+        table = getattr(bv.tables, name)
+        parts = bv.table_parts_on_device(prepared, name)
+        t0 = time.perf_counter()
+        inp = logup_shard.family_inputs(table, bv.lookup_log[name], "cuda", parts)
+        torch.cuda.synchronize()
+        inputs_s = time.perf_counter() - t0
+        args = (inp["query_fps"], inp["query_en"], inp["parts"], inp["multiplicities"], logup_shard.ALPHA)
+        ok = logup_shard.sharded_logup_check(*args)
+        assert ok, f"{path}: logUp of {name} failed on the clean block"
+        check_ms = time_on_card_ms(lambda: logup_shard.sharded_logup_check(*args), repeats=10,
+                                   warmup=1)
+        out["families"][name] = {
+            "rows": inp["n_rows"], "queries": inp["n_queries"],
+            "enabled_queries": int(inp["query_en"].sum()), "host_s": inp["host_s"],
+            "inputs_s": inputs_s, "parts_from_prepare": parts is not None,
+            "check_ms_median": check_ms, "ok": ok}
+        if name == "rw":
+            rw = inp
+
+    # the rw family's negatives, on a row that the block queries
+    busy = np.flatnonzero(rw["counts"])
+    row = int(busy[len(busy) // 2])
+    over = rw["counts"].copy()
+    over[row] += 1
+    bad_mult = logup_shard.sharded_logup_check(
+        rw["query_fps"], rw["query_en"], rw["parts"], logup_shard.multiplicities(over, "cuda"),
+        logup_shard.ALPHA)
+    assert bad_mult is False, f"{path}: an over-counted multiplicity passed"
+    value_lo = logup_shard.part_names(bv.tables.rw.schema).index(("value", "lo"))
+
+    def corrupt(name, parts):
+        parts[value_lo][1][row, 0] ^= 1
+
+    bad_value = bv.verify_lookups(prepared, tables_names=("rw",), corrupt_table=corrupt)
+    assert bad_value == {"rw": False}, f"{path}: a corrupted rw value gave {bad_value}"
+    t_fps = logup_shard.fingerprint_parts(rw["parts"])
+    at = t_fps[row].clone()
+    zero_card = logup.logup_partial_sum(t_fps, at, rw["multiplicities"])
+    zero_plain = logup.logup_partial_sum_plain(t_fps, at, rw["multiplicities"])
+    assert not bool(zero_card.any()) and not bool(zero_plain.any()), \
+        f"{path}: alpha equal to a table fingerprint left a nonzero partial sum"
+    out.update({"overcounted_row": row, "overcounted_ok": bad_mult, "corrupt_value_row": row,
+                "corrupt_value_ok": bad_value["rw"], "alpha_at_fingerprint_sum_is_zero": True})
+    del rw, t_fps, at, zero_card, zero_plain
+
+    calls = logup_shape_calls(bv, prepared, families)
+    out["distinct_kernel_shapes"] = {
+        family: {name: len(c) for name, c in by_name.items()} for family, by_name in calls.items()}
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts, {"calls": calls}
 
 
 def block_kernel_rows(launches, captured):
@@ -1049,7 +1213,7 @@ def bound(bytes_moved, int_ops):
 
 
 def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
-            kernel_repeats=KERNEL_REPEATS, plain_repeats=5, timed=None):
+            kernel_repeats=KERNEL_REPEATS, plain_repeats=5, timed=None, launches_per_call=1):
     """One call of a kernel held against its plain version on the same
     inputs (bit-exact), then both timed, and the bound of the work.  With
     ``plain_repeats`` 0 the plain version's time is that of the one call
@@ -1060,7 +1224,8 @@ def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
     before = L.LAUNCHES[name]
     got = kernel_fn()
     torch.cuda.synchronize()
-    assert L.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch its kernel"
+    assert L.LAUNCHES[name] == before + launches_per_call, \
+        f"{name}: the wrapper did not launch its kernel"
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = plain_fn()
@@ -1333,17 +1498,20 @@ K8_OPS_PER_STEP = 2 * K8_PRODUCTS + 3 * (32 + 34 + 17) + 3 * 17 * 3
 DEP_LATENCY_CYCLES = 4
 
 
-def horner_step_chain():
-    """The longest chain of dependent instructions in one K8 step, walked
+def fr_product_chain(square=False):
+    """The longest chain of dependent instructions in one field product (a
+    K8 step, a K12 multiply) or, with ``square``, one field squaring, walked
     over the dataflow of ``csrc/fr_arith.cuh``: each ``acc += a * b`` is
     one IMAD.WIDE on the running 64-bit column sum, each limb mask and each
     ``acc >>= 16`` one instruction, each borrow step three (subtract, mask,
-    sign test), and each conditional subtraction's select one.  The step
-    starts with every limb of acc ready; returns the chain's length."""
+    sign test), and each conditional subtraction's select one.  A squaring
+    sums a column's cross products once, doubles them (one shift) and adds
+    the diagonal product.  The product starts with every limb ready;
+    returns the chain's length."""
     t, x = 0, []
     for k in range(32):                            # x = acc * r + byte
-        for i in range(max(0, k - 15), min(16, k + 1)):
-            t += 1
+        n = min(16, k + 1) - max(0, k - 15)
+        t += (n // 2 + (n > 1) + n % 2) if square else n
         x.append(t + 1)
         t += 1
     t, q3 = 0, []
@@ -1371,7 +1539,8 @@ def horner_step_chain():
     return max(r[:16])
 
 
-K8_CHAIN_OPS = horner_step_chain()
+K8_CHAIN_OPS = fr_product_chain()
+FR_SQUARE_CHAIN_OPS = fr_product_chain(square=True)
 
 
 def sm_clock_max_hz():
@@ -1461,6 +1630,125 @@ def keccak_kernel_rows(launches, captured):
     return rows
 
 
+# the least work of one field product and one squaring: K1's product (a
+# squaring sums each cross product once: 16 * 17 / 2 limb products, and
+# doubles the 29 columns that have cross terms) and its Barrett reduction
+FR_PRODUCT_OPS = 2 * K1_PRODUCTS + K1_CHAIN_OPS
+FR_SQUARE_OPS = FR_PRODUCT_OPS - 2 * (16 * 16 - 16 * 17 // 2) + 29
+
+
+def sliding_window_chain(e, w):
+    """(squarings, multiplies, dependent products) of the left-to-right
+    sliding-window chain for a^e with window width w: the table a^2, a^3,
+    a^5, ..., a^(2^w - 1) (one squaring, 2^(w-1) - 1 multiplies, off the
+    main chain but for the entries the first window needs), then per bit a
+    squaring and per window a multiply by its table entry."""
+    bits = bin(e)[2:]
+    squares, muls, first, i = 0, 0, None, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            squares += first is not None
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if first is None:
+            first = int(bits[i:j], 2)
+        else:
+            squares, muls = squares + j - i, muls + 1
+        i = j
+    table_sq, table_mul = (1, (1 << (w - 1)) - 1) if w > 1 else (0, 0)
+    before_first = (1 + (first - 1) // 2) if first > 1 else 0
+    return (table_sq + squares, table_mul + muls,
+            (before_first, squares, muls))
+
+
+# K12's function, a^(p-2) mod p, at its least work and least dependent
+# length over sliding-window chains of width 1 to 8 (the kernel runs the
+# width-1 binary ladder: 253 squarings and 126 multiplies)
+FR_INV_CHAINS = {w: sliding_window_chain(fr.P - 2, w) for w in range(1, 9)}
+FR_INV_OPS = min(sq * FR_SQUARE_OPS + mul * FR_PRODUCT_OPS
+                 for sq, mul, _ in FR_INV_CHAINS.values())
+FR_INV_CHAIN_LEN = min(head * K8_CHAIN_OPS + sq * FR_SQUARE_CHAIN_OPS + mul * K8_CHAIN_OPS
+                       for _, _, (head, sq, mul) in FR_INV_CHAINS.values())
+FR_INV_LEAST = min(FR_INV_CHAINS.values(),
+                   key=lambda c: c[0] * FR_SQUARE_OPS + c[1] * FR_PRODUCT_OPS)
+
+
+def fr_inv_cost(a):
+    """(bytes, int32 operations) of K12: each lane read and written once, the
+    least chain's squarings and multiplies."""
+    rows = a.shape[0]
+    return nbytes(a) + rows * 16 * 8, rows * FR_INV_OPS
+
+
+def logup_sum_cost(fps, m):
+    """(bytes, int32 operations) of K13's partial sum for n elements: fps
+    and m read once, alpha read and the sum written once; the least work of
+    the function: n subtractions from alpha, Montgomery's 3(n - 1) products
+    and one inverse (K12's least chain), a product by m_i unless m is 0/1
+    (one limb: a select), and n - 1 additions."""
+    n = fps.shape[0]
+    products = 3 * (n - 1) + (n if m is not None and m.shape[1] > 1 else 0)
+    moved = nbytes(fps) + (nbytes(m) if m is not None else 0) + 2 * 16 * 8
+    return moved, (n * FR_SUB_OPS + products * FR_PRODUCT_OPS + FR_INV_OPS
+                   + (n - 1) * FR_ADD_OPS)
+
+
+def fr_inv_entry(label, a, clock_hz, plain_repeats):
+    """K12 at one shape, with its latency bound: the least sliding-window
+    chain's dependent squarings and products, each at least its chain of
+    dependent instructions at the card's top clock."""
+    entry = measure("fr_inv", lambda: fr.inv(a), lambda: fr.inv_plain(a), *fr_inv_cost(a),
+                    f"{label}: {a.shape[0]} lanes x {a.shape[1]} limbs",
+                    plain_repeats=plain_repeats)
+    entry.update({"kernel_squares_multiplies": [253, bin(fr.P - 2).count("1") - 1],
+                  "least_squares_multiplies": list(FR_INV_LEAST[:2]),
+                  "ops_per_square_product": [FR_SQUARE_OPS, FR_PRODUCT_OPS],
+                  "chain_ops_per_square_product": [FR_SQUARE_CHAIN_OPS, K8_CHAIN_OPS],
+                  "chain_ops": FR_INV_CHAIN_LEN, "sm_clock_max_mhz": clock_hz / 1e6,
+                  "chain_bound_ms": FR_INV_CHAIN_LEN * DEP_LATENCY_CYCLES / clock_hz * 1e3})
+    return entry
+
+
+def logup_kernel_rows(launches, captured):
+    """K12 at the one-lane inversion of each block's logUp checks and at
+    FR_INV_LANES lanes; K13 at every partial sum of every family (table and
+    query side of both blocks), each held against its plain version, whose
+    time is that of the one call (a plain ladder of 379 launch-bound
+    products takes seconds)."""
+    clock_hz = sm_clock_max_hz()
+    k12, k13 = [], []
+    for path in BLOCK_PHASES:
+        for family, calls in captured[f"logup_{path}"]["calls"].items():
+            for (a,), _ in calls.get("fr_inv", []):
+                k12.append(fr_inv_entry(f"logup_{path}: the {family} check's total", a,
+                                        clock_hz, 0))
+            for args, _ in calls.get("logup_sum", []):
+                fps, alpha = args[:2]
+                m = args[2] if len(args) > 2 else None
+                side = "query side (m = en)" if m is not None and m.shape[1] == 1 else "table side"
+                k13.append(measure(
+                    "logup_sum", lambda: logup.logup_partial_sum(fps, alpha, m),
+                    lambda: logup.logup_partial_sum_plain(fps, alpha, m),
+                    *logup_sum_cost(fps, m),
+                    f"logup_{path}: {family} {side}, {fps.shape[0]} elements, m "
+                    f"{None if m is None else list(m.shape)}",
+                    kernel_repeats=10, plain_repeats=0, launches_per_call=2))
+    rng = np.random.RandomState(6)
+    wide = seeded_limbs(rng, FR_INV_LANES, 16, 254, torch.device("cuda"))
+    k12.append(fr_inv_entry("seeded", wide, clock_hz, 0))
+    rows = []
+    for name, entries, library in (("fr_inv", k12, "none: no PyTorch call inverts mod p"),
+                                   ("logup_sum", k13, "none: no PyTorch call computes a batch "
+                                                      "inverse or a sum of inverses mod p")):
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": launches[name], **entries[0],
+                     "library_ms": None, "library": library, "path_shapes": entries[1:]})
+    return rows
+
+
 def main():
     card = card_line()
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
@@ -1470,7 +1758,9 @@ def main():
     t0 = time.perf_counter()
     per_kernel = cuda_build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": per_kernel,
-          "flags": cuda_build.NVCC_FLAGS})
+          "flags": cuda_build.NVCC_FLAGS,
+          "resource_usage": {name: cuda_build.resource_usage(name)
+                             for name in cuda_build.SIGNATURES}})
 
     by_path = {}
     mul_inputs = None
@@ -1487,16 +1777,21 @@ def main():
         by_path[f"keccak_{data}"], captured[f"keccak_{data}"] = run_keccak(data, card)
     by_path["withdrawal"], captured["withdrawal"] = run_withdrawal(card)
     for path in BLOCK_PHASES:
-        by_path[path], captured[path] = run_block(path, card)
+        (by_path[path], captured[path], by_path[f"logup_{path}"],
+         captured[f"logup_{path}"]) = run_block(path, card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
     rows = (kernel_phase(launches, mul_inputs, captured["arith"]["calls"])
             + slice_kernel_rows(launches, captured) + keccak_kernel_rows(launches, captured)
-            + block_kernel_rows(launches, captured["block"]))
+            + block_kernel_rows(launches, captured["block"])
+            + logup_kernel_rows(launches, captured))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
-    for path in BLOCK_PHASES:
-        for name, entries in block_path_shapes(captured[path]["calls"], path).items():
+    shape_calls = [(path, captured[path]["calls"]) for path in BLOCK_PHASES]
+    shape_calls += [(f"logup_{path} {family}", calls) for path in BLOCK_PHASES
+                    for family, calls in captured[f"logup_{path}"]["calls"].items()]
+    for label, calls in shape_calls:
+        for name, entries in block_path_shapes(calls, label).items():
             row = next(r for r in rows if r["name"] == name)
             row["path_shapes"] = row.get("path_shapes", []) + entries
     for r in rows:

@@ -16,6 +16,7 @@ from zkevm_specs_tpu_torch.ops import fr
 from zkevm_specs_tpu_torch.ops import limbs as L
 from zkevm_specs_tpu_torch.ops import word_mul
 from zkevm_specs_tpu_torch.tables import engine
+from zkevm_specs_tpu_torch.tables import logup
 
 from word_mul_cases import CASES as WORD_MUL_CASES
 from word_mul_cases import make_case
@@ -427,3 +428,61 @@ def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     on_cpu = CompiledBlockVerifier(w, device="cpu")
     assert on_cpu.run_device(on_cpu.prepare()) == per_kernel
     assert bool(per_kernel) == corrupt
+
+
+# -- K12 (field inverse) and K13 (batch inverse, logUp partial sum) ------------------
+
+def _fr_values(rng, n, zero_at=None):
+    vals = [int.from_bytes(rng.bytes(32), "little") % fr.P for _ in range(n)]
+    edges = [1, 2, fr.P - 1, fr.P - 2, 1 << 128]
+    vals[:min(n, len(edges))] = edges[:n]
+    vals = [v or 1 for v in vals]
+    if zero_at is not None:
+        vals[{"first": 0, "middle": n // 2, "last": n - 1}[zero_at]] = 0
+    return vals
+
+
+@pytest.mark.parametrize("rows,width", [(1, 16), (1000, 16), (1000, 4), (300, 1)])
+def test_fr_inv(dev, rows, width):
+    rng = np.random.RandomState(rows + width)
+    vals = [v % (1 << (16 * width)) for v in _fr_values(rng, rows)]
+    vals[rows // 2] = 0
+    a = L.ints_to_limbs(vals, width).to(dev)
+    before = L.LAUNCHES["fr_inv"]
+    got = fr.inv(a)
+    assert L.LAUNCHES["fr_inv"] == before + 1
+    _equal(got, fr.inv_plain(a))
+    assert fr.to_ints(got.cpu()) == [pow(v, fr.P - 2, fr.P) for v in vals]
+
+
+# n = 1, a chunk (16), past it, and sizes that are no multiple of a chunk or
+# of a 128-thread block
+@pytest.mark.parametrize("zero_at", [None, "first", "middle", "last"])
+@pytest.mark.parametrize("n", [1, 16, 17, 1000, 4097])
+def test_batch_inverse(dev, n, zero_at):
+    vals = _fr_values(np.random.RandomState(n), n, zero_at)
+    x = L.ints_to_limbs(vals, 16).to(dev)
+    before = L.LAUNCHES["logup_sum"], L.LAUNCHES["fr_inv"]
+    got = logup.batch_inverse(x)
+    assert (L.LAUNCHES["logup_sum"], L.LAUNCHES["fr_inv"]) == (before[0] + 2, before[1] + 1)
+    _equal(got, logup.batch_inverse_plain(x))
+    want = ([0] * n if zero_at else [pow(v, fr.P - 2, fr.P) for v in vals])
+    assert fr.to_ints(got.cpu()) == want
+
+
+@pytest.mark.parametrize("mult", [None, "en", "counts"])
+@pytest.mark.parametrize("n", [1, 17, 1000, 4097])
+def test_logup_partial_sum(dev, n, mult):
+    rng = np.random.RandomState(n + 7)
+    fps = L.ints_to_limbs(_fr_values(rng, n), 16).to(dev)
+    alpha = L.int_to_limbs(0xA1FA, 16).to(dev)
+    m = {None: None, "en": torch.from_numpy(rng.randint(0, 2, size=(n, 1))),
+         "counts": torch.from_numpy(rng.randint(0, 1 << 16, size=(n, 4)))}[mult]
+    m = None if m is None else m.to(dev)
+    got = logup.logup_partial_sum(fps, alpha, m)
+    _equal(got, logup.logup_partial_sum_plain(fps, alpha, m))
+    # alpha equal to one fingerprint: a zero denominator zeroes the sum
+    at = fps[n // 2].clone()
+    zero = logup.logup_partial_sum(fps, at, m)
+    _equal(zero, logup.logup_partial_sum_plain(fps, at, m))
+    assert not bool(zero.any())

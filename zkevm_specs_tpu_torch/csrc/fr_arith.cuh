@@ -78,3 +78,56 @@ __device__ __forceinline__ void fr_barrett(const uint32_t x[32], uint32_t out[16
 #pragma unroll
   for (int k = 0; k < 16; ++k) out[k] = r[k];
 }
+
+// out = (a * b) mod p for canonical a, b; out may alias a or b (the
+// product is formed in its own registers first)
+__device__ __forceinline__ void fr_mul16(const uint32_t a[16], const uint32_t b[16],
+                                         uint32_t out[16]) {
+  uint32_t x[32];
+  fr_product(a, b, 0u, x);
+  fr_barrett(x, out);
+}
+
+// out = (a - b) mod p for canonical a, b: the 16-limb borrow chain, then p
+// added back mod 2^256 under a borrow (zkevm_specs_tpu/ops/fr.py:sub)
+__device__ __forceinline__ void fr_sub16(const uint32_t a[16], const uint32_t b[16],
+                                         uint32_t out[16]) {
+  uint32_t d[16];
+  int borrow = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int v = (int)a[k] - (int)b[k] - borrow;
+    d[k] = (uint32_t)v & LIMB_MASK;
+    borrow = v < 0;
+  }
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t s = d[k] + (borrow ? c_p17[k] : 0u) + carry;
+    out[k] = s & LIMB_MASK;
+    carry = s >> LIMB_BITS;
+  }
+}
+
+// out = (a + b) mod p for canonical a, b (a + b < 2p < 2^255 fits 16 limbs;
+// p subtracted unless that borrows: zkevm_specs_tpu/ops/fr.py:add)
+__device__ __forceinline__ void fr_add16(const uint32_t a[16], const uint32_t b[16],
+                                         uint32_t out[16]) {
+  uint32_t s[16], d[16];
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint32_t v = a[k] + b[k] + carry;
+    s[k] = v & LIMB_MASK;
+    carry = v >> LIMB_BITS;
+  }
+  int borrow = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int v = (int)s[k] - (int)c_p17[k] - borrow;
+    d[k] = (uint32_t)v & LIMB_MASK;
+    borrow = v < 0;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) out[k] = borrow ? s[k] : d[k];
+}

@@ -73,6 +73,9 @@ class ConstraintSystem:
         self.hint_bits: Optional[List] = None
         self.hint_replay: Optional[List] = None
         self._hint_idx = 0
+        # the logUp query log of an eager pass: (table, row index, enabled)
+        # for each lookup (tables/engine.py, parallel/logup_shard.py)
+        self.lookup_log: Optional[List] = None
 
     # -- condition masks ---------------------------------------------------
 

@@ -5,11 +5,13 @@ src/zkevm_specs/evm_circuit/main.py:14-63).  Steps are grouped by
 execution state (plus first/last-step flags) and each group is evaluated
 as one batched constraint pass; data-dependent control paths split groups
 lane-uniformly (see dsl/cs.py).  ``verify_steps`` is the eager spec run on
-host tensors.
+host tensors; given a ``lookup_log`` list, every lookup of the run appends
+its (table, row index, enable bit) there, those of a pass that a lane split
+cuts short included (the logUp query side, parallel/logup_shard.py).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..dsl.cs import ConstraintSystem, LaneSplit
 from ..dsl.value import Ctx
@@ -30,6 +32,7 @@ def verify_steps(
     begin_with_first_step: bool = False,
     end_with_last_step: bool = False,
     success: bool = True,
+    lookup_log: Optional[List] = None,
 ):
     steps = list(steps)
     if end_with_last_step:
@@ -51,7 +54,8 @@ def verify_steps(
     for (state, is_first, is_last), idxs in groups.items():
         if state not in EXECUTION_STATE_IMPL:
             raise NotImplementedError(f"no gadget for {state!r}")
-        _run_group(tables, steps, state, is_first, is_last, idxs, [], failures)
+        _run_group(tables, steps, state, is_first, is_last, idxs, [], failures,
+                   lookup_log=lookup_log)
 
     if success:
         if failures:
@@ -71,11 +75,13 @@ def _run_group(
     decisions: List,
     failures: Dict[int, str],
     depth: int = 0,
+    lookup_log: Optional[List] = None,
 ):
     assert depth <= MAX_LANE_SPLITS, "lane-split recursion exceeded bound"
     ctx = Ctx("cpu", len(idxs), "eager")
     cs = ConstraintSystem(ctx)
     cs.decisions = list(decisions)
+    cs.lookup_log = lookup_log
     curr = StepStateBatch(ctx, [steps[i] for i in idxs], state)
     nxt = StepStateBatch(ctx, [steps[i + 1] for i in idxs])
     inst = Instruction(ctx, cs, tables.with_ctx(ctx), curr, nxt, is_first, is_last)
@@ -85,8 +91,9 @@ def _run_group(
         taken = [i for i, m in zip(idxs, split.mask) if m]
         not_taken = [i for i, m in zip(idxs, split.mask) if not m]
         prefix = list(cs.decisions[: cs._decision_idx])
-        _run_group(tables, steps, state, is_first, is_last, taken, prefix, failures, depth + 1)
-        _run_group(tables, steps, state, is_first, is_last, not_taken, prefix, failures, depth + 1)
+        for sub in (taken, not_taken):
+            _run_group(tables, steps, state, is_first, is_last, sub, prefix, failures, depth + 1,
+                       lookup_log)
         return
     fail = cs.fail.numpy()
     if fail.any():

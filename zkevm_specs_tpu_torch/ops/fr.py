@@ -4,7 +4,8 @@ Counterpart of ``zkevm_specs_tpu/ops/fr.py``.  A field element batch is
 ``[B or 1, 16] int64`` (sixteen 16-bit limbs, little-endian), canonical
 (< p).  The field multiply is kernel K1 (``fr_mul``, ``csrc/fr_mul.cu``);
 add, sub, neg and reduce_once are the Fr modes of kernel K3
-(``limbs.limb_addsub``).
+(``limbs.limb_addsub``); the inverse is kernel K12 (``inv``,
+``csrc/fr_inv.cu``).
 """
 from __future__ import annotations
 
@@ -125,6 +126,61 @@ def fr_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a * b) mod p for canonical inputs of any limb width <= 16."""
     return fr_mul(a, b)
+
+
+def _pow(a: torch.Tensor, e: int, mul) -> torch.Tensor:
+    """a ** e mod p for a static Python-int exponent by right-to-left square
+    and multiply over ``mul`` (the JAX package's ``pow_const``, fr.py:112-127,
+    step for step)."""
+    result = None
+    base = a
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    if result is None:
+        one = torch.zeros((a.shape[0], NL), dtype=L.DTYPE, device=a.device)
+        one[:, 0] = 1
+        return one
+    return L.pad_limbs(result, NL)
+
+
+def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a ** e mod p for a static exponent, every product through K1."""
+    return _pow(a, e, mul)
+
+
+# ---------------------------------------------------------------------------
+# K12: field inverse
+# ---------------------------------------------------------------------------
+
+def inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12: ``pow_const(a, p - 2)`` over ``fr_mul_plain``."""
+    return _pow(a, P - 2, fr_mul_plain)
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """K12 wrapper: a^(p-2) mod p (0 maps to 0) for ``a [B, <=16]`` as
+    ``[B, 16]`` canonical limbs.
+
+    Replaces ``zkevm_specs_tpu/ops/fr.py:inv`` (:134-158): any exact ladder
+    gives the one canonical value, so the kernel's left-to-right ladder
+    equals the JAX scan and its numpy ``pow_const``."""
+    L.check_limbs(a, "fr.inv a")
+    if not 1 <= a.shape[-1] <= NL:
+        raise ValueError(f"fr.inv: the operand takes at most {NL} limbs, got {a.shape[-1]}")
+    if L.on_cpu(a):
+        return inv_plain(a)
+    from ..runtime import cuda_build
+
+    out = torch.empty((a.shape[0], NL), dtype=L.DTYPE, device=a.device)
+    lib = cuda_build.library("fr_inv")
+    err = lib.fr_inv_launch(a.data_ptr(), L.row_stride(a), a.shape[-1], out.data_ptr(),
+                            a.shape[0], L.cuda_stream())
+    L.check_launch(err, "fr_inv")
+    return out
 
 
 def from_ints(values, device="cpu") -> torch.Tensor:

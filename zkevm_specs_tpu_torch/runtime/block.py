@@ -16,7 +16,10 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    ``run_device`` runs the checks one by one and reads each verdict back;
    ``run_device_combined`` replays the whole device pass as one CUDA graph,
    captured once per prepared block, whose last kernel (K10) gathers every
-   verdict into one buffer fetched by one copy.
+   verdict into one buffer fetched by one copy;
+5. ``verify_lookups`` proves every lookup family by the logUp argument
+   (``parallel/logup_shard.py``) from the lookups that step 2's eager pass
+   logged (``lookup_log``) and the table columns ``prepare`` uploaded.
 
 Not ported: the pi circuit (``not_ported``), which the JAX verifier runs on
 every block, and the tx, sig, copy and ecc circuits; a witness that
@@ -67,16 +70,20 @@ def _next_pow2(n: int) -> int:
 
 def _partition_by_signature(tables: Tables, steps: List[StepState], state, is_first: bool,
                             is_last: bool, idxs: List[int], decisions: List,
-                            out: List[Tuple[List[int], List, dict]], depth: int = 0) -> None:
+                            out: List[Tuple[List[int], List, dict]], lookup_log: List,
+                            depth: int = 0) -> None:
     """Split a (state, flags) group into signature-uniform lane subsets by
     the eager trace, recursing on LaneSplit (evm/main._run_group's control
     flow); the pass over each uniform subset is captured (columns, hint
-    stream, bounds), so the chunks' verifiers never run the gadget again."""
+    stream, bounds), so the chunks' verifiers never run the gadget again.
+    Every lookup appends to ``lookup_log``, those of a pass cut short by a
+    LaneSplit included, as in the JAX package's ``block_lookup_log``."""
     assert depth <= 64, "lane-split recursion exceeded bound"
     ctx = Ctx("cpu", len(idxs), "eager")
     cs = ConstraintSystem(ctx)
     cs.decisions = list(decisions)
     cs.hint_record, cs.hint_bits = [], []
+    cs.lookup_log = lookup_log
     curr = StepStateBatch(ctx, [steps[i] for i in idxs], state)
     nxt = StepStateBatch(ctx, [steps[i + 1] for i in idxs])
     inst = Instruction(ctx, cs, tables.with_ctx(ctx), curr, nxt, is_first, is_last)
@@ -86,10 +93,9 @@ def _partition_by_signature(tables: Tables, steps: List[StepState], state, is_fi
         taken = [i for i, m in zip(idxs, split.mask) if m]
         not_taken = [i for i, m in zip(idxs, split.mask) if not m]
         prefix = list(cs.decisions[: cs._decision_idx])
-        _partition_by_signature(tables, steps, state, is_first, is_last, taken, prefix, out,
-                                depth + 1)
-        _partition_by_signature(tables, steps, state, is_first, is_last, not_taken, prefix,
-                                out, depth + 1)
+        for sub in (taken, not_taken):
+            _partition_by_signature(tables, steps, state, is_first, is_last, sub, prefix, out,
+                                    lookup_log, depth + 1)
         return
     out.append((idxs, list(cs.decisions), {
         "hint_record": list(cs.hint_record),
@@ -183,11 +189,13 @@ class CompiledBlockVerifier:
 
         tables_tree = tables_meta_ = None
         self.groups: List[dict] = []
+        log: List[tuple] = []
         for (state, is_first, is_last), idxs in groups.items():
             if state not in EXECUTION_STATE_IMPL:
                 raise NotImplementedError(f"no gadget for {state!r} is ported")
             parts: List[Tuple[List[int], List, dict]] = []
-            _partition_by_signature(self.tables, steps, state, is_first, is_last, idxs, [], parts)
+            _partition_by_signature(self.tables, steps, state, is_first, is_last, idxs, [], parts,
+                                    log)
             for sub_idxs, signature, trace in parts:
                 for local0 in range(0, len(sub_idxs), max_group_lanes):
                     chunk = sub_idxs[local0:local0 + max_group_lanes]
@@ -214,6 +222,12 @@ class CompiledBlockVerifier:
                     g["verifier"] = CompiledGroupVerifier.from_trace(
                         self.tables, state, g["curr"], g["next"], is_first, is_last,
                         signature, trace, lane_idx, device=self.device)
+
+        # the partition pass's lookups, per table: the logUp query side
+        # ([(row index, enabled)], parallel/logup_shard.py)
+        self.lookup_log: Dict[str, List[Tuple[np.ndarray, np.ndarray]]] = {}
+        for name, idx, en in log:
+            self.lookup_log.setdefault(name, []).append((idx, en))
 
         # state circuit over the rw table
         ops = rw_rows_to_state_ops(witness.rw.rws)
@@ -349,6 +363,35 @@ class CompiledBlockVerifier:
         return {"graph": graph, "outs": outs, "flat": flat, "table": table,
                 "host": torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True),
                 "launches": {k: v for k, v in launches.items() if v}}
+
+    def table_parts_on_device(self, prepared, name: str):
+        """Table ``name``'s column parts as ``prepare`` uploaded them (the
+        device-scheduled groups share one table tree), in
+        ``logup_shard.table_parts`` order; None when no group runs on the
+        device."""
+        from ..parallel.logup_shard import part_names
+
+        tree = next((args[2] for args in prepared["groups"] if args is not None), None)
+        if tree is None:
+            return None
+        table = getattr(self.tables, name)
+        cols = tree[name]["cols"]
+        return [(int(table.schema.weight(c, p)), cols[c][p]) for c, p in part_names(table.schema)]
+
+    def verify_lookups(self, prepared=None, tables_names: Optional[Tuple[str, ...]] = None,
+                       corrupt_table=None) -> Dict[str, bool]:
+        """The logUp lookup argument of every family the block looks up
+        (``parallel/logup_shard.py``), from the partition pass's log, with
+        no second eager pass; with ``prepared``, the table sides come from
+        the columns already on the device.  ``{table: ok}``."""
+        from ..parallel.logup_shard import LOGUP_TABLES, verify_block_lookups_logup
+
+        parts_of = None if prepared is None else (
+            lambda name: self.table_parts_on_device(prepared, name))
+        return verify_block_lookups_logup(
+            self.witness, tables_names=tables_names or LOGUP_TABLES,
+            corrupt_table=corrupt_table, device=self.device,
+            log=(self.tables, self.lookup_log), parts_of=parts_of)
 
     def verify(self) -> None:
         failures = self.run_device(self.prepare())

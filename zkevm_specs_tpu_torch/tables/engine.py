@@ -553,6 +553,15 @@ class Table:
             # replay does this lookup as a single gather
             cs.hint_record.append({"idx": first_row.astype(np.int32)})
             cs.hint_bits.append("lookup_idx")
+        if cs.lookup_log is not None:
+            # the logUp query side (parallel/logup_shard.py): the resolved
+            # row of each lane and its enable bit.  The JAX package logs the
+            # gathered row itself (engine.py:287-297); those values are the
+            # host table's row at the index, so the query side is
+            # fingerprinted from the table's rows at these indexes
+            en = (np.ones((batch,), dtype=bool) if enabled is None
+                  else np.broadcast_to(enabled.numpy(), (batch,)).copy())
+            cs.lookup_log.append((self.schema.name, first_row.astype(np.int64), en))
         return Row(self, torch.from_numpy(first_row.astype(np.int64)))
 
     def gather_column(self, name: str, row_idx: torch.Tensor) -> Union[F, Word]:
