@@ -87,8 +87,15 @@ script exits non-zero):
    MUL group no longer launches it).  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    2048 steps of the same rows (1024 at the block verifier's table), which
-   the line says.  K9 and K10 at the ALU block's upload and verdict
-   vectors, beside the pinned host-to-device copy rate of the same bytes;
+   the line says; at every K8 shape of every path the whole output is
+   also held against the Python-int Horner, and the entry gives the
+   chunked schedule (``horner_schedule``: chunk, work items, launches,
+   the kernels' resident blocks an SM) and its chain bound; K8's
+   ``bound_ms`` counts the least work (``K8_OPS_PER_STEP``), not the
+   kernel's own.  K9 at the
+   ALU block's upload, beside the pinned host-to-device copy rate of the
+   same bytes, and K10 at both blocks' verdict vectors (``torch.cat`` of
+   the same vectors as its library call);
    K9 is held on the leaves and timed on its arena alone, the host's
    building of the leaf views timed on its own.  K12 at the logUp checks'
    one-lane inversion and at 131072 lanes, with its bounds from the least
@@ -103,6 +110,7 @@ The last three lines are the kernels line, the card's nvidia-smi line and
 package beside it, the script exits non-zero before printing anything.
 """
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -1063,9 +1071,10 @@ def run_logup(path, bv, prepared, card):
     return counts, {"calls": calls}
 
 
-def block_kernel_rows(launches, captured):
-    """K9 at the ALU block's upload and K10 at its verdict vectors, with the
-    pinned host-to-device copy rate of the same staged bytes."""
+def block_kernel_rows(launches, captured, arith_captured):
+    """K9 at the ALU block's upload and K10 at the verdict vectors of both
+    blocks, with the pinned host-to-device copy rate of the same staged
+    bytes."""
     dev = torch.device("cuda")
     plan = captured["plan"]
     staged = transfer.stage(plan, dev)
@@ -1092,14 +1101,26 @@ def block_kernel_rows(launches, captured):
                "pinned_h2d_ms": h2d_ms, "pinned_h2d_gb_per_s": plan.narrow_bytes / h2d_ms / 1e6})
     del pinned, on_card
 
-    fails = captured["fails"]
-    total = sum(f.numel() for f in fails)
-    table = transfer.verdict_table(fails).to(dev)
-    k10 = compare("verdict_pack", lambda: transfer.verdict_pack(fails, table),
-                  lambda: transfer.verdict_pack_plain(fails), 2 * total + table.numel() * 8, 0,
-                  f"ALU block: {len(fails)} vectors, {total} verdicts", launches["verdict_pack"])
-    k10["library_ms"] = time_on_card_ms(lambda: torch.cat(fails))   # bool out, not uint8
+    k10 = {"name": "verdict_pack", "route": "cuda", "source": SOURCES["verdict_pack"],
+           "replaces": REPLACES["verdict_pack"], "launches": launches["verdict_pack"],
+           **verdict_entry("ALU block", captured["fails"]),
+           "path_shapes": [verdict_entry("arithmetic block", arith_captured["fails"])]}
     return [k9, k10]
+
+
+def verdict_entry(label, fails):
+    """K10 at one block's fail vectors against its plain version, with
+    ``torch.cat`` of the same vectors as the library call."""
+    total = sum(f.numel() for f in fails)
+    table = transfer.verdict_table(fails).to(fails[0].device)
+    out_bytes = transfer.verdict_offsets([f.numel() for f in fails])[-1]
+    entry = measure("verdict_pack", lambda: transfer.verdict_pack(fails, table),
+                    lambda: transfer.verdict_pack_plain(fails),
+                    total + out_bytes + table.numel() * 8, 0,
+                    f"{label}: {len(fails)} vectors, {total} verdicts, {out_bytes} bytes packed, "
+                    f"{transfer.verdict_blocks([f.numel() for f in fails])[-1]} blocks")
+    entry["library_ms"] = time_on_card_ms(lambda: torch.cat(fails))   # bool out, not uint8
+    return entry
 
 
 def block_path_shapes(calls, label):
@@ -1487,12 +1508,23 @@ def path_shape_entries(captured):
 # theta's column parities 5 x 2 halves x 2 LOP3, its five D lanes 2 SHF +
 # 2 LOP3 each, D into the 25 lanes 50 LOP3; rho 24 rotates x 2 SHF; chi
 # 25 lanes x 2 halves x 1 LOP3 (a ^ (~b & c)); iota 2.  A block adds the
-# 17-lane absorb.  K8: one step is K1's arithmetic at 16 x 16 limbs
-# (fr_mul_cost)
+# 17-lane absorb.
 K7_OPS_PER_ROUND = 5 * 2 * 2 + 5 * (2 + 2) + 25 * 2 + 24 * 2 + 25 * 2 + 2
 K7_OPS_PER_BLOCK = 24 * K7_OPS_PER_ROUND + 2 * 17
-K8_PRODUCTS = 16 * 16 + 17 * 17 + 17 * 18 // 2
-K8_OPS_PER_STEP = 2 * K8_PRODUCTS + 3 * (32 + 34 + 17) + 3 * 17 * 3
+# K8's least work, not the kernel's own arithmetic (a 16-bit-limb field
+# product and its Barrett reduction a step, about 1800 instructions): a
+# row's value is the sum over active j of byte_j * r^e_j, e_j its active
+# steps after j.  With a table of r^0 .. r^(c - 1), c the most active
+# steps of a row (read once, 32 bytes an entry: cheaper than the c field
+# products that would make it), an active step is one byte times r^e_j's
+# eight 32-bit limbs, 8 mad.lo and 8 mad.hi in carry chains and 2 carries
+# into a 9-limb accumulator (the sum of 2^17 terms < 2^262 fits 279
+# bits); a row then reduces its accumulator once (a 32-bit-limb
+# reduction: 8 x 8 limb products as mad.lo/mad.hi pairs and 8 carries).
+# A Horner step at 32-bit limbs (8 x 8 products and a Montgomery
+# reduction, about 300 instructions) needs no table but 16x the operations
+K8_OPS_PER_STEP = 2 * 8 + 2
+K8_OPS_PER_ROW = 2 * 8 * 8 + 8
 # the dependent-issue latency taken for the card's fixed-latency integer
 # instructions (IMAD, IADD3, LOP3, SHF): an assumption, not measured here
 DEP_LATENCY_CYCLES = 4
@@ -1559,48 +1591,103 @@ def sponge_cost(blocks, n_blocks):
 
 
 def horner_cost(byte_cols, active_cols):
-    """(bytes, int32 operations) of K8 for this run's data: the byte and
-    mask columns (read once), the [n, 16] result, and the active steps."""
+    """(bytes, int32 operations) of K8's least work for this run's data
+    (K8_OPS_PER_STEP): the byte and mask columns and the power table up to
+    the longest row's active count (read once), the [n, 16] result; the
+    active steps and each row's one reduction."""
     T, n = byte_cols.shape
-    steps = int(active_cols.sum())
-    return 2 * T * n + n * 16 * 8, steps * K8_OPS_PER_STEP
+    counts = active_cols.sum(dim=0)
+    steps, longest = int(counts.sum()), int(counts.max()) if n else 0
+    return (2 * T * n + n * 16 * 8 + longest * 32,
+            steps * K8_OPS_PER_STEP + n * K8_OPS_PER_ROW)
+
+
+def horner_ints(byte_cols, active, r):
+    """Each row's byte RLC by the Python-int Horner (exact, independent of
+    the limb code), over its active steps in order."""
+    b, a = byte_cols.cpu().numpy().T.copy(), active.cpu().numpy().T.copy()
+    out = []
+    for row, mask in zip(b, a):
+        acc = 0
+        for v in row[mask].tolist():
+            acc = (acc * r + v) % fr.P
+        out.append(acc)
+    return out
+
+
+def horner_chain_products(s, T):
+    """Dependent field products on K8's longest chain under schedule ``s``:
+    a chunk's steps, then one product pair a level of the block's tree and,
+    with more than one chunk group, the combine kernel's fold and tree
+    (the pair's two products are independent)."""
+    levels = (min(s.chunks_per_block, s.chunks) - 1).bit_length() if s.chunks > 1 else 0
+    if s.groups > 1:
+        per = -(-s.groups // s.combine_threads)
+        levels += per - 1 + (-(-s.groups // per) - 1).bit_length()
+    return min(s.chunk, max(T, 1)) + levels
 
 
 def horner_entry(path, byte_cols, active, r, held_steps, clock_hz, plain_repeats):
     """K8 at one path's shape, held against its plain version on the first
-    ``held_steps`` steps of the same rows where it has more, and timed at
-    its whole shape; with its latency bound."""
+    ``held_steps`` steps of the same rows where it has more, and against
+    the Python-int Horner at the whole shape; timed at its whole shape;
+    with its schedule, its operation bound and its latency bounds."""
     T, n = byte_cols.shape
     note = f"{path}: [{T}, {n}] bytes, {int(active.sum())} active steps"
     held = (byte_cols, active)
     if T > held_steps:              # the plain version on the first steps only
         held = (byte_cols[:held_steps].contiguous(), active[:held_steps].contiguous())
         note += f"; held against the plain version on the first {held_steps} steps"
+    held_s = keccak_circuit.horner_schedule(*held[0].shape)
     entry = measure("horner_rlc", lambda: keccak_circuit.horner_rlc(*held, r),
                     lambda: keccak_circuit.horner_rlc_plain(*held, r),
                     *horner_cost(*held), note, kernel_repeats=5,
-                    plain_repeats=0 if held[0] is not byte_cols else plain_repeats)
+                    plain_repeats=0 if held[0] is not byte_cols else plain_repeats,
+                    launches_per_call=held_s.launches)
     if held[0] is not byte_cols:
         entry["held_steps"] = held_steps
+        entry["held_chunk"], entry["held_chunks"] = held_s.chunk, held_s.chunks
         entry["held_ms"], entry["held_bound_ms"] = entry["ms"], entry["bound_ms"]
         entry["ms"] = time_on_card_ms(lambda: keccak_circuit.horner_rlc(byte_cols, active, r),
                                       repeats=5, warmup=1)
         moved, ops = horner_cost(byte_cols, active)
         entry["bound_ms"], entry["bound_by"] = bound(moved, ops)
         entry["bytes"], entry["int_ops"] = moved, ops
+    # the whole shape against the Python-int Horner
+    t0 = time.perf_counter()
+    got = L.limbs_to_ints(keccak_circuit.horner_rlc(byte_cols, active, r).cpu())
+    assert got == horner_ints(byte_cols, active, r), \
+        f"horner_rlc at {note}: disagrees with the Python-int Horner"
+    entry["whole_shape_equals_python_ints"] = True
+    entry["python_ints_s"] = time.perf_counter() - t0
     entry["r_limbs"] = (r.bit_length() + 15) // 16
-    # the latency bound: the longest row's steps, each at least the
-    # step's chain of dependent instructions at the card's top clock
-    steps_max = int(active.sum(dim=0).max())
+    s = keccak_circuit.horner_schedule(T, n)
+    entry["schedule"] = {"chunk": s.chunk, "chunks_per_row": s.chunks,
+                         "work_items": n * s.chunks, "rows_per_block": s.rows_per_block,
+                         "chunks_per_block": s.chunks_per_block, "stage": s.stage,
+                         "groups": s.groups, "combine_threads": s.combine_threads,
+                         "launches": s.launches,
+                         "target_items": keccak_circuit.HORNER_TARGET_ITEMS,
+                         "blocks_per_sm": horner_blocks_per_sm()}
+    # the design's latency bound: its chain of dependent products (a
+    # chunk, then the combine levels) at K8_CHAIN_OPS instructions a
+    # product and the card's top clock
     entry["chain_ops_per_step"] = K8_CHAIN_OPS
     entry["sm_clock_max_mhz"] = clock_hz / 1e6
-    entry["chain_bound_ms"] = steps_max * K8_CHAIN_OPS * DEP_LATENCY_CYCLES / clock_hz * 1e3
-    # beside it, not a bound: one row's measured time a step, times T
-    one = (byte_cols[:K8_HELD_STEPS, :1].contiguous(), active[:K8_HELD_STEPS, :1].contiguous())
-    one_ms = time_on_card_ms(lambda: keccak_circuit.horner_rlc(*one, r), repeats=5, warmup=1)
-    entry["one_row_step_us"] = one_ms * 1e3 / max(int(one[1].sum()), 1)
-    entry["one_row_step_x_T_ms"] = steps_max * entry["one_row_step_us"] / 1e3
+    entry["chain_products"] = horner_chain_products(s, T)
+    entry["chain_bound_ms"] = (entry["chain_products"] * K8_CHAIN_OPS * DEP_LATENCY_CYCLES
+                               / clock_hz * 1e3)
     return entry
+
+
+def horner_blocks_per_sm():
+    """Resident 256-thread blocks an SM of K8's chunk and combine kernels,
+    from the CUDA occupancy calculator on the built kernels."""
+    chunk, combine = ctypes.c_int(), ctypes.c_int()
+    err = cuda_build.library("horner_rlc").horner_blocks_per_sm(ctypes.byref(chunk),
+                                                                ctypes.byref(combine))
+    assert err == 0, f"horner_blocks_per_sm: CUDA error {err}"
+    return {"chunk": chunk.value, "combine": combine.value}
 
 
 def keccak_kernel_rows(launches, captured):
@@ -1783,7 +1870,7 @@ def main():
 
     rows = (kernel_phase(launches, mul_inputs, captured["arith"]["calls"])
             + slice_kernel_rows(launches, captured) + keccak_kernel_rows(launches, captured)
-            + block_kernel_rows(launches, captured["block"])
+            + block_kernel_rows(launches, captured["block"], captured["arith"])
             + logup_kernel_rows(launches, captured))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries

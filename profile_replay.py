@@ -19,6 +19,21 @@ within it, the number of device kernels, and the device time of the ten
 costliest kernel names (the port's kernels and PyTorch's own).  Needs a
 CUDA device; the kernels are built on first use.
 
+With ``--horner``, for each checkout root in the order given (``.`` when
+none), a fresh process times K8 (``circuits/keccak.py:horner_rlc``) at the
+block verifier's keccak table ``[66001, 1]``, the ALU block's
+``[66001, 8]``, the arithmetic block's ``[24162, 40]``, ``[1024, 1]`` and
+the SHA3 mix's ``[300, 65536]``,
+on seeded bytes with every step active, at ``HORNER_TARGET_ITEMS`` of
+132 x 256 x {1, 2, 4}: the call's time from CUDA events (median of 10),
+each of its two kernels' device time under torch.profiler (mean of 5
+calls), and the chunk kernel's again with no step active (its staging,
+power loads and tree without the scan's products).  One JSON line per
+shape and target, with the schedule and the kernels' resident blocks an
+SM; every target's output must equal the first's.
+
+    python3 profile_replay.py --horner [ROOT ...]
+
 With ``--compare``, for each checkout root in the order given (pass
 parent, change, change, parent to alternate), a fresh process imports
 ``zkevm_specs_tpu_torch`` from that root, builds the MUL group at
@@ -127,14 +142,87 @@ print(json.dumps({"root": sys.argv[1], "lanes": workloads.GROUP_LANES, "launches
 """
 
 
-def compare(roots, card):
-    """The MUL group's replay in each checkout of ``roots``, one process each."""
+HORNER_CHILD = r"""
+import ctypes, json, statistics, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from zkevm_specs_tpu_torch.circuits import keccak
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.runtime import cuda_build
+
+lib, blocks = cuda_build.library("horner_rlc"), [ctypes.c_int(), ctypes.c_int()]
+per_sm = None
+if hasattr(lib, "horner_blocks_per_sm"):  # a checkout from before it has none
+    assert lib.horner_blocks_per_sm(*map(ctypes.byref, blocks)) == 0
+    per_sm = {"chunk": blocks[0].value, "combine": blocks[1].value}
+rng = np.random.RandomState(0)
+r = int.from_bytes(rng.bytes(32), "little") % fr.P
+
+
+def events_ms(call):
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernels_us(call):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "horner" in e.name:
+            key = "chunk_us" if "chunk" in e.name else "combine_us"
+            out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 5
+    return out
+
+
+for T, n in ((66001, 1), (66001, 8), (24162, 40), (1024, 1), (300, 65536)):
+    byte_cols = torch.from_numpy(rng.randint(0, 256, (T, n), dtype=np.uint8)).cuda()
+    active = torch.ones((T, n), dtype=torch.bool, device="cuda")
+    idle = torch.zeros_like(active)
+    first = None
+    for mult in (1, 2, 4):
+        keccak.HORNER_TARGET_ITEMS = 132 * 256 * mult
+        s = keccak.horner_schedule(T, n)
+        call = lambda: keccak.horner_rlc(byte_cols, active, r)
+        out = call()
+        first = out if first is None else first
+        assert torch.equal(out, first), (T, n, mult)
+        ms = events_ms(call)
+        split = kernels_us(call)
+        idle_split = kernels_us(lambda: keccak.horner_rlc(byte_cols, idle, r))
+        print(json.dumps({"root": sys.argv[1], "shape": [T, n], "target_items": 132 * 256 * mult,
+                          "chunk": s.chunk, "chunks_per_row": s.chunks,
+                          "rows_per_block": s.rows_per_block,
+                          "chunks_per_block": s.chunks_per_block, "groups": s.groups,
+                          "combine_threads": s.combine_threads,
+                          "blocks_per_sm": per_sm,
+                          "ms": ms, **split,
+                          "chunk_us_no_step_active": idle_split.get("chunk_us")}), flush=True)
+"""
+
+
+def run_roots(child, roots, card):
+    """``child`` in a fresh process for each checkout of ``roots``, its
+    JSON lines printed as they are."""
     for root in roots:
-        out = subprocess.run([sys.executable, "-c", COMPARE_CHILD, root],
+        out = subprocess.run([sys.executable, "-c", child, root],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"profile_replay: {root} failed:\n{out.stderr[-4000:]}")
-        print(out.stdout.strip().splitlines()[-1], flush=True)
+        print("\n".join(l for l in out.stdout.splitlines() if l.startswith("{")), flush=True)
     print(card)
 
 
@@ -146,7 +234,9 @@ def main():
     if sys.argv[1:2] == ["--compare"]:
         if len(sys.argv) < 4:
             raise SystemExit(__doc__)
-        return compare(sys.argv[2:], card)
+        return run_roots(COMPARE_CHILD, sys.argv[2:], card)
+    if sys.argv[1:2] == ["--horner"]:
+        return run_roots(HORNER_CHILD, sys.argv[2:] or ["."], card)
     for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
                                     ("MUL", ExecutionState.MUL, build_mul_workload)):
         tables, steps, nexts = build(workloads.GROUP_LANES)

@@ -24,6 +24,8 @@ which needs no XLA compile:
 Also K9's and K10's plain versions against the per-leaf upload and
 ``torch.cat``, the narrowing against the JAX ``_ship_leaves``, and what the
 verifier refuses."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -304,15 +306,39 @@ def test_narrowing_matches_jax_ship_leaves():
                                       j.astype(np.int64) if j.dtype != np.uint64 else j)
 
 
-@pytest.mark.parametrize("lengths", [[1], [0, 1, 5], [1000, 1, 70000, 3]])
+@pytest.mark.parametrize("lengths", [[1], [0, 1, 5], [1000, 1, 70000, 3],
+                                     [15, 16, 17, 0, 32, 4095, 4096, 4097]])
 def test_verdict_pack_plain_equals_cat(lengths):
+    """The packed buffer is the concatenation of the vectors, each padded
+    with zeros to a multiple of 16 bytes: its unpacked vectors equal
+    ``torch.cat``'s pieces (the JAX ``make_combined`` concatenation), and
+    the table's lengths, offsets and first blocks follow the padding."""
     rng = np.random.RandomState(len(lengths))
     fails = [torch.from_numpy(rng.rand(n) < 0.3) for n in lengths]
     got = transfer.verdict_pack(fails)
     assert got.dtype == torch.uint8
-    assert torch.equal(got, torch.cat([f.ravel().to(torch.uint8) for f in fails]))
+    padded = [torch.cat([f.to(torch.uint8), torch.zeros(-n % 16, dtype=torch.uint8)])
+              for f, n in zip(fails, lengths)]
+    assert torch.equal(got, torch.cat(padded))
+    cat = torch.cat([f.ravel().to(torch.uint8) for f in fails]).numpy()
+    np.testing.assert_array_equal(np.concatenate(transfer.verdict_unpack(got.numpy(), lengths)),
+                                  cat)
     table = transfer.verdict_table(fails)
-    assert table[len(fails):].tolist() == lengths + np.cumsum([0] + lengths[:-1]).tolist()
+    m = len(fails)
+    offsets = np.cumsum([0] + [-(-n // 16) * 16 for n in lengths[:-1]]).tolist()
+    firsts = np.cumsum([0] + [-(-n // 4096) for n in lengths[:-1]]).tolist()
+    assert table[m:].tolist() == lengths + offsets + firsts
+    assert all(o % 16 == 0 for o in offsets)
+
+
+def test_verdict_block_bytes_match_the_kernel_source():
+    """K10's grid (``verdict_blocks``) is cut at the kernel's block size:
+    16 bytes a thread of a THREADS_PER_BLOCK block."""
+    csrc = Path(transfer.__file__).parents[1] / "csrc"
+    assert "constexpr int BLOCK_BYTES = THREADS_PER_BLOCK * 16;" in \
+        (csrc / "verdict_pack.cu").read_text()
+    assert f"#define THREADS_PER_BLOCK {transfer.VERDICT_BLOCK_BYTES // 16}" in \
+        (csrc / "limb_common.cuh").read_text()
 
 
 def test_verdict_pack_checks_its_inputs():

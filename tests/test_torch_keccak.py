@@ -8,12 +8,19 @@ and digest words equal, fail bits equal lane for lane.
   pad-boundary lengths;
 * K8's plain version (``circuits.keccak.horner_rlc``) against the JAX
   ``_horner_rlc`` under numpy;
+* K8's chunked schedule: its plain twin ``horner_rlc_chunked_plain``
+  against the JAX ``_horner_rlc`` and the Python-int Horner at chunk
+  lengths around T and on non-prefix masks; ``horner_schedule``'s cover of
+  every step at the paths' shapes; and the kernels' indexing (stages, the
+  block's tree, the combine kernel's folds) replayed on Python ints;
 * the circuit through the port's ``verify_keccak_circuit`` (spec mode) and
   ``keccak_kernel(..., device="cpu")()`` against the JAX spec run and the
   JAX ``keccak_kernel(...)()`` jitted on the CPU, on every vector of
   tests/test_keccak_circuit.py and on the builders at a small size;
 * ``runtime.convert.to_device`` keeps each extra array's type.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +220,192 @@ def test_horner_rlc_wrapper_checks_its_inputs():
         pk.horner_rlc(byte_cols, active[:3], 5)
     with pytest.raises(ValueError):
         pk.horner_rlc(byte_cols.to("meta"), active.to("meta"), 5)
+
+
+# -- K8's chunked schedule ------------------------------------------------------------
+
+def _mask_case(seed, T, n, kind):
+    """Bytes and a mask: "random" (non-prefix, with an all-inactive and an
+    all-active row) or "prefix"."""
+    byte_cols, active = _rlc_case(seed, T, n, prefix=kind == "prefix")
+    if kind == "random":
+        active[:, 1] = False
+        active[:, 2] = True
+    return byte_cols, active
+
+
+@pytest.mark.parametrize("kind", ["random", "prefix"])
+@pytest.mark.parametrize("chunk", [1, 3, 7, "T-1", "T", "T+1"])
+def test_horner_rlc_chunked_plain_matches_jax(chunk, kind):
+    """The chunked schedule's plain twin (chunk scans, counts, r^c from the
+    power table, in-order combines) equals the JAX ``_horner_rlc`` limb for
+    limb and the Python-int Horner, at every chunk length around T."""
+    T, n = 23, 6
+    byte_cols, active = _mask_case(len(kind), T, n, kind)
+    c = {"T-1": T - 1, "T": T, "T+1": T + 1}.get(chunk, chunk)
+    r = 0x1234_5678_9ABC_DEF0_1357
+    want = jk._horner_rlc(JCtx(np, n, "eager"), byte_cols, active, r)
+    got = pk.horner_rlc_chunked_plain(torch.from_numpy(byte_cols), torch.from_numpy(active), r, c)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert JL.limbs_to_ints(want) == _horner_ints(byte_cols, active, r)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7, 29, 30, 31])
+def test_horner_rlc_chunked_plain_at_a_16_limb_r(chunk):
+    """The twin at r >= 2^224 (the case of ``test_horner_rlc_at_a_16_limb_r``)
+    equals the JAX field multiply-add scan and the Python-int Horner."""
+    byte_cols, active = _mask_case(16, 30, 7, "random")
+    r = (P - 12345) % P
+    acc = np.zeros((7, 16), dtype=np.uint32)
+    r_row = JL.int_to_limbs(r, 16)[None, :]
+    for j in range(byte_cols.shape[0]):
+        nxt = jfr.add(np, jfr.mul(np, acc, r_row),
+                      JL.pad_limbs(np, byte_cols[j][:, None].astype(np.uint32), 16))
+        acc = np.where(active[j][:, None], nxt, acc)
+    got = pk.horner_rlc_chunked_plain(torch.from_numpy(byte_cols), torch.from_numpy(active),
+                                      r + P, chunk)
+    np.testing.assert_array_equal(got.numpy(), acc.astype(np.int64))
+    assert JL.limbs_to_ints(acc) == _horner_ints(byte_cols, active, r)
+
+
+def _stage_reads(T, n, s, rg, cg, stage):
+    """The (step, row, thread) triples that block (rg, cg) of K8's chunk
+    kernel stages in stage ``stage``, by the kernel's element order
+    (csrc/horner_rlc.cu): element e = (chunk in block, line, row in block)."""
+    R, Kb, S = s.rows_per_block, s.chunks_per_block, s.stage
+    e = np.arange(S * R * Kb)
+    er, q = e % R, e // R
+    line, ekb = q % S, q // S
+    step = stage * S + line
+    ch = cg * Kb + ekb
+    j = ch * s.chunk + step
+    row = rg * R + er
+    ok = (step < s.chunk) & (ch < s.chunks) & (j < T) & (row < n)
+    return j[ok], row[ok], (ekb * R + er)[ok]
+
+
+# the K8 shapes of the paths: the ALU block's keccak table, the arithmetic
+# block's, the SHA3 mix, the withdrawal circuit; and edges
+SCHEDULE_SHAPES = [(66001, 8), (24162, 40), (300, 65536), (42, 16), (0, 3), (1, 1), (70000, 1),
+                   (1025, 40000)]
+
+
+@pytest.mark.parametrize("T,n", SCHEDULE_SHAPES)
+def test_horner_schedule_covers_every_step(T, n):
+    """``horner_schedule`` gives a valid cut: chunks cover [0, T) and C
+    fits the power table; blocks fit 256 threads and cover every (row,
+    chunk); the chunk kernel's stages read every step of every row exactly
+    once, into the thread that owns its row and chunk; and the work fills
+    at least half the card unless the steps run out."""
+    s = pk.horner_schedule(T, n)
+    threads = s.rows_per_block * s.chunks_per_block
+    assert 1 <= s.chunk <= pk.HORNER_MAX_CHUNK and (s.chunks - 1) * s.chunk < max(T, 1)
+    assert s.chunks * s.chunk >= T
+    assert 1 <= threads <= pk.HORNER_BLOCK and 1 <= s.stage <= pk.HORNER_MAX_STAGE
+    assert s.groups == -(-s.chunks // s.chunks_per_block)
+    assert s.launches == (1 if s.groups == 1 else 2)
+    assert s.groups <= s.combine_threads <= pk.HORNER_BLOCK
+    assert 2 * n * s.chunks >= min(pk.HORNER_TARGET_ITEMS, n * T) \
+        or s.chunk == pk.HORNER_MAX_CHUNK
+    if n >= pk.HORNER_TARGET_ITEMS and T <= pk.HORNER_MAX_CHUNK:
+        assert (s.chunk, s.chunks) == (max(T, 1), 1)       # one thread a row
+    reads = np.zeros((T, n), dtype=np.int64)
+    row_groups = -(-n // s.rows_per_block)
+    for rg in range(row_groups):
+        for cg in range(s.groups):
+            for stage in range(-(-s.chunk // s.stage)):
+                j, row, t = _stage_reads(T, n, s, rg, cg, stage)
+                np.add.at(reads, (j, row), 1)
+                assert np.array_equal(rg * s.rows_per_block + t % s.rows_per_block, row)
+                assert np.array_equal((cg * s.chunks_per_block + t // s.rows_per_block)
+                                      * s.chunk, j - (j % s.chunk))
+    assert (reads == 1).all()
+
+
+def _combine_ints(a, b):
+    return (a[0] * b[1] + b[0]) % P, a[1] * b[1] % P
+
+
+def _tree_ints(pairs):
+    """The kernels' in-order tree: each level halves the sequence, position
+    i taking the pairs at 2i and 2i + 1 (or the lone last one)."""
+    pairs = list(pairs)
+    while len(pairs) > 1:
+        pairs = [_combine_ints(*pairs[i:i + 2]) if i + 1 < len(pairs) else pairs[i]
+                 for i in range(0, len(pairs), 2)]
+    return pairs[0]
+
+
+def _kernel_on_ints(byte_cols, active, r, s, combine_threads=None):
+    """K8's two kernels step by step on Python ints: each block's staged
+    elements, its threads' chunk scans and counts, its tree, then (with
+    more than one group) the combine kernel's per-thread folds and tree,
+    at ``combine_threads`` threads (the launch's ``s.combine_threads``
+    unless given: fewer fold several groups a thread, as more than 256
+    groups do on the card)."""
+    T, n = byte_cols.shape
+    R, Kb = s.rows_per_block, s.chunks_per_block
+    pairs = {}
+    for rg in range(-(-n // R)):
+        for cg in range(s.groups):
+            acc = [[0, 0] for _ in range(R * Kb)]          # (h, c) of each thread
+            for stage in range(-(-s.chunk // s.stage)):
+                for j, row, t in zip(*_stage_reads(T, n, s, rg, cg, stage)):
+                    if active[j, row]:
+                        acc[t] = [(acc[t][0] * r + int(byte_cols[j, row])) % P, acc[t][1] + 1]
+            for rr in range(R):
+                row = rg * R + rr
+                count = min(Kb, s.chunks - cg * Kb)
+                if row < n:
+                    pairs[row, cg] = _tree_ints([(acc[kb * R + rr][0], pow(r, acc[kb * R + rr][1], P))
+                                                 for kb in range(count)])
+    out = []
+    for row in range(n):
+        g = [pairs[row, cg] for cg in range(s.groups)]
+        per = -(-s.groups // (combine_threads or s.combine_threads))
+        runs = [g[i:i + per] for i in range(0, s.groups, per)]
+        folded = []
+        for run in runs:
+            x = run[0]
+            for y in run[1:]:
+                x = _combine_ints(x, y)
+            folded.append(x)
+        out.append(_tree_ints(folded)[0])
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    "scheduled", "groups_folded", "stages", "rows_and_chunks"])
+def test_horner_kernel_schedule_on_python_ints(case):
+    """The kernels' indexing, stage by stage and tree by tree, on Python
+    ints at small shapes: the schedule ``horner_schedule`` gives, and cuts
+    that exercise what the card's shapes do at full size (several chunk
+    groups folded per combine thread, partial stages, several rows and
+    chunks in a block with a ragged last chunk) equal the Python-int
+    Horner on a non-prefix mask."""
+    T, n = {"scheduled": (40, 5), "groups_folded": (61, 3), "stages": (150, 3),
+            "rows_and_chunks": (29, 7)}[case]
+    byte_cols, active = _mask_case(T, T, n, "random")
+    r = (P - 987654321) % P
+    combine = None
+    if case == "scheduled":
+        s = pk.horner_schedule(T, n)
+    else:
+        chunk, R, Kb = {"groups_folded": (2, 1, 4), "stages": (70, 2, 2),
+                        "rows_and_chunks": (4, 3, 3)}[case]
+        s = pk.HornerSchedule(chunk, -(-T // chunk), R, Kb)
+        combine = 2 if case == "groups_folded" else None
+    if case == "stages":
+        assert s.chunk % s.stage and s.chunk > 2 * s.stage     # a partial last stage
+    assert _kernel_on_ints(byte_cols, active, r, s, combine) == _horner_ints(byte_cols, active, r)
+
+
+def test_horner_constants_match_the_kernel_source():
+    """The schedule's block and stage sizes are the kernel's, which
+    derives stage, groups and combine threads from them itself."""
+    src = (Path(pk.__file__).parents[1] / "csrc" / "horner_rlc.cu").read_text()
+    assert f"constexpr int MAX_THREADS = {pk.HORNER_BLOCK};" in src
+    assert f"constexpr int MAX_STAGE = {pk.HORNER_MAX_STAGE};" in src
 
 
 # -- the circuit ------------------------------------------------------------------

@@ -310,8 +310,80 @@ def test_horner_rlc(dev, r_limbs, mask):
     byte_cols, active = byte_cols.to(dev), active.to(dev)
     before = L.LAUNCHES["horner_rlc"]
     got = keccak.horner_rlc(byte_cols, active, r)
-    assert L.LAUNCHES["horner_rlc"] == before + 1
+    assert L.LAUNCHES["horner_rlc"] == before + keccak.horner_schedule(T, ROWS).launches
     _equal(got, keccak.horner_rlc_plain(byte_cols, active, r))
+
+
+def _horner_ints(byte_cols, active, r):
+    """The Python-int Horner of every row (exact, independent of the limb
+    code)."""
+    b, a = byte_cols.cpu().numpy(), active.cpu().numpy()
+    out = []
+    for i in range(b.shape[1]):
+        acc = 0
+        for v in b[a[:, i], i].tolist():
+            acc = (acc * r + v) % fr.P
+        out.append(acc)
+    return out
+
+
+# (T, n): ragged T against the schedule's chunk at one to eight rows (two
+# launches, several chunk groups), the arithmetic table's row count, the
+# withdrawal shape (one launch, a tree in the block), and n past the card's
+# fill (one thread a row, several stages, a ragged last stage)
+HORNER_SHAPES = [(2049, 1), (66001, 8), (3001, 3), (24162, 40), (42, 16), (300, 70000),
+                 (70, 33792), (1, 5), (0, 7)]
+
+
+@pytest.mark.parametrize("mask", ["prefix", "random"])
+@pytest.mark.parametrize("T,n", HORNER_SHAPES)
+def test_horner_rlc_chunked_schedules(dev, T, n, mask):
+    """K8 at the shapes that exercise each branch of its schedule, with a
+    non-prefix mask or a prefix one, a row with no active step and an
+    all-active row, against the Python-int Horner (and its schedule's launch
+    count)."""
+    from zkevm_specs_tpu_torch.circuits import keccak
+
+    rng = np.random.RandomState(T + n)
+    byte_cols = rng.randint(0, 256, size=(T, n)).astype(np.uint8)
+    if mask == "prefix":
+        lens = rng.randint(0, T + 1, size=n)
+        lens[:2] = [0, T][:n]
+        active = np.arange(T)[:, None] < lens[None, :]
+    else:
+        active = rng.rand(T, n) < 0.6
+        active[:, 0] = False
+        if n > 1:
+            active[:, 1] = True
+    byte_cols = torch.from_numpy(byte_cols).to(dev)
+    active = torch.from_numpy(active).to(dev)
+    r = fr.P - 1 - int(rng.randint(1 << 30))
+    s = keccak.horner_schedule(T, n)
+    before = L.LAUNCHES["horner_rlc"]
+    got = keccak.horner_rlc(byte_cols, active, r)
+    torch.cuda.synchronize()
+    assert L.LAUNCHES["horner_rlc"] == before + s.launches
+    want = _horner_ints(byte_cols, active, r)
+    assert L.limbs_to_ints(got.cpu()) == want, s
+
+
+def test_horner_rlc_replays_in_a_graph(dev):
+    """K8's two launches captured in a CUDA graph give the same limbs on
+    every replay (the power table is uploaded by the warm-up call)."""
+    from zkevm_specs_tpu_torch.circuits import keccak
+
+    rng = np.random.RandomState(9)
+    byte_cols = torch.from_numpy(rng.randint(0, 256, size=(5000, 4)).astype(np.uint8)).to(dev)
+    active = torch.from_numpy(rng.rand(5000, 4) < 0.8).to(dev)
+    want = keccak.horner_rlc(byte_cols, active, 0x64)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = keccak.horner_rlc(byte_cols, active, 0x64)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        _equal(out, want)
 
 
 # -- K9 and K10: the block verifier's upload and verdict gather -----------------------
@@ -360,7 +432,8 @@ def test_leaf_unpack(dev, kind):
            transfer.leaf_views(transfer.leaf_unpack_plain(*args), plan))
 
 
-@pytest.mark.parametrize("lengths", [[1], [0, 1, 5], [1000, 1, 1 << 20, 3, 4097]])
+@pytest.mark.parametrize("lengths", [[1], [0, 1, 5], [1000, 1, 1 << 20, 3, 4097],
+                                     list(range(18)), [0, 0, 4095, 4096, 4097, 0]])
 def test_verdict_pack(dev, lengths):
     from zkevm_specs_tpu_torch.runtime import transfer
 
@@ -370,6 +443,28 @@ def test_verdict_pack(dev, lengths):
     got = transfer.verdict_pack(fails)
     assert L.LAUNCHES["verdict_pack"] == before + 1
     _equal(got, transfer.verdict_pack_plain(fails))
+
+
+@pytest.mark.parametrize("shift", [1, 3, 8, 15])
+def test_verdict_pack_misaligned_sources(dev, shift):
+    """Vectors that are slices of a larger bool buffer at every distance
+    from a 16-byte edge (lengths 0 to 17 and longer), with bytes that are
+    not 0/1 in their bool storage: the kernel reads them byte by byte,
+    normalises them and equals its plain version; padding bytes are 0."""
+    from zkevm_specs_tpu_torch.runtime import transfer
+
+    rng = np.random.RandomState(shift)
+    raw = torch.from_numpy(rng.randint(0, 4, size=200_000).astype(np.uint8)).to(dev)
+    buf = raw.view(torch.bool)
+    lengths = list(range(18)) + [4096 + 5, 70_000]
+    fails, at = [], shift
+    for n in lengths:
+        fails.append(buf[at:at + n])
+        at += n + shift
+    got = transfer.verdict_pack(fails)
+    want = transfer.verdict_pack_plain([f.to(torch.uint8) != 0 for f in fails])
+    _equal(got, want)
+    assert int(got.max()) <= 1
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["256", "512"])

@@ -18,7 +18,7 @@ longest and masks; the verdicts are the same.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -63,11 +63,126 @@ def horner_rlc_plain(byte_cols: torch.Tensor, active_cols: torch.Tensor, r: int)
     return acc
 
 
+class HornerSchedule(NamedTuple):
+    """K8's cut of a ``[T, n]`` scan: ``chunk`` steps a work item,
+    ``chunks`` items a row; a block of the chunk phase holds
+    ``chunks_per_block`` consecutive chunks of ``rows_per_block`` rows.
+    The rest follows, as ``horner_chunk_launch`` derives it: each chunk
+    stages ``stage`` steps at a time; ``groups`` blocks cover a row's
+    chunks, and with more than one a second launch (``combine_threads``
+    threads a row) combines their pairs."""
+    chunk: int
+    chunks: int
+    rows_per_block: int
+    chunks_per_block: int
+
+    @property
+    def stage(self) -> int:
+        return min(self.chunk, HORNER_MAX_STAGE)
+
+    @property
+    def groups(self) -> int:
+        return -(-self.chunks // self.chunks_per_block)
+
+    @property
+    def combine_threads(self) -> int:
+        return 1 << (min(self.groups, HORNER_BLOCK) - 1).bit_length()
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.groups == 1 else 2
+
+
+# the card's 132 SMs x the 2 resident blocks of 256 threads that K8's
+# kernels are built for (csrc/horner_rlc.cu's MIN_BLOCKS; read back by
+# horner_blocks_per_sm)
+HORNER_TARGET_ITEMS = 132 * 2 * 256
+HORNER_MAX_CHUNK = 1024           # bounds the table of r^0 .. r^C
+HORNER_BLOCK = 256                # threads of a block, both kernels
+HORNER_MAX_STAGE = 32             # steps of each chunk in shared memory at a time
+
+
+def horner_schedule(T: int, n: int) -> HornerSchedule:
+    """K8's schedule for ``T`` steps and ``n`` rows: the chunk length C that
+    makes n * ceil(T / C) work items fill the card (C = T when n alone
+    does; 1 <= C <= HORNER_MAX_CHUNK), then blocks of at most 256 threads,
+    a row's chunks first.  Pure: the wrapper and the tests share it."""
+    want = -(-HORNER_TARGET_ITEMS // max(n, 1))
+    chunk = min(max(-(-T // want), 1), HORNER_MAX_CHUNK)
+    chunks = max(-(-T // chunk), 1)
+    per_block = min(chunks, HORNER_BLOCK)
+    return HornerSchedule(chunk, chunks, max(min(n, HORNER_BLOCK // per_block), 1), per_block)
+
+
+def _powers_host(r: int, count: int) -> np.ndarray:
+    """r^0 .. r^(count - 1) mod p as ``[count, 16]`` uint32 limbs."""
+    out = np.zeros((count, fr.NL), dtype=np.uint32)
+    v = 1
+    for i in range(count):
+        out[i] = [(v >> (16 * k)) & 0xFFFF for k in range(fr.NL)]
+        v = v * r % fr.P
+    return out
+
+
+_POWERS: dict = {}
+
+
+def _powers_on(r: int, chunk: int, device) -> torch.Tensor:
+    """K8's table of r^0 .. r^chunk on ``device``, built once per (r, C,
+    device): the first call at a shape (a CUDA graph's warm-up pass)
+    uploads it, and a capture finds it there."""
+    key = (r, chunk, str(device))
+    t = _POWERS.get(key)
+    if t is None:
+        t = torch.from_numpy(_powers_host(r, chunk + 1).view(np.int32)).to(device)
+        _POWERS[key] = t
+    return t
+
+
+def _combine_plain(h_a, p_a, h_b, p_b):
+    """(h_a * p_b + h_b, p_a * p_b) mod p: K8's combine step (the product
+    and the addend summed wide, one Barrett reduction)."""
+    x = L.addsub_plain(L.mul_plain(h_a, p_b, 32), h_b, L.ADD, 32)
+    return fr.reduce_wide_plain(x), fr.fr_mul_plain(p_a, p_b)
+
+
+def horner_rlc_chunked_plain(byte_cols: torch.Tensor, active_cols: torch.Tensor, r: int,
+                             chunk: int) -> torch.Tensor:
+    """K8's chunked schedule in plain PyTorch (for the tests): each chunk of
+    ``chunk`` steps scanned from 0 by ``horner_rlc_plain``, with its count
+    c of active steps and r^c from the power table, then the (h, r^c)
+    pairs combined in order, neighbours first, level by level."""
+    T, n = byte_cols.shape
+    r = r % fr.P
+    chunks = max(-(-T // chunk), 1)
+    pad = chunks * chunk - T
+    b = torch.cat([byte_cols, byte_cols.new_zeros((pad, n))])
+    a = torch.cat([active_cols, active_cols.new_zeros((pad, n))])
+    # [chunks * chunk, n] -> [chunk, chunks * n]: step i of chunk k of row j
+    # in column k * n + j
+    b = b.reshape(chunks, chunk, n).transpose(0, 1).reshape(chunk, chunks * n)
+    a = a.reshape(chunks, chunk, n).transpose(0, 1).reshape(chunk, chunks * n)
+    h = horner_rlc_plain(b.contiguous(), a.contiguous(), r).reshape(chunks, n, fr.NL)
+    powers = torch.from_numpy(_powers_host(r, chunk + 1).astype(np.int64)).to(byte_cols.device)
+    pw = powers[a.sum(dim=0)].reshape(chunks, n, fr.NL)
+    while h.shape[0] > 1:
+        m = h.shape[0] // 2
+        flat = [v[s:2 * m:2].reshape(m * n, fr.NL) for v in (h, pw) for s in (0, 1)]
+        h_ab, pw_ab = _combine_plain(flat[0], flat[2], flat[1], flat[3])
+        h = torch.cat([h_ab.reshape(m, n, fr.NL), h[2 * m:]])
+        pw = torch.cat([pw_ab.reshape(m, n, fr.NL), pw[2 * m:]])
+    return h[0]
+
+
 def horner_rlc(byte_cols: torch.Tensor, active_cols: torch.Tensor, r: int) -> torch.Tensor:
     """K8 wrapper: acc <- (acc * r + byte) mod p down the ``[T, n]`` uint8
     byte columns, over the steps where the ``[T, n]`` bool ``active_cols``
-    holds (a prefix of each column in every caller), from acc = 0; returns
-    the ``[n, 16]`` canonical int64 limbs.  ``r`` is static and taken mod p.
+    holds (any mask; a prefix of each column in every caller), from
+    acc = 0; returns the ``[n, 16]`` canonical int64 limbs.  ``r`` is
+    static and taken mod p.  On the card it is the chunked Horner of
+    ``horner_schedule(T, n)``: one launch where a block holds all of a
+    row's chunks, else two (the chunk phase, then the combine), each
+    counted.
 
     Replaces ``zkevm_specs_tpu/circuits/keccak.py:_horner_rlc`` (:44-74)."""
     if byte_cols.dtype != torch.uint8 or byte_cols.dim() != 2 or not byte_cols.is_contiguous():
@@ -82,12 +197,23 @@ def horner_rlc(byte_cols: torch.Tensor, active_cols: torch.Tensor, r: int) -> to
 
     T, n = byte_cols.shape
     r = r % fr.P
+    s = horner_schedule(T, n)
+    dev = byte_cols.device
     r_host = np.array([(r >> (16 * k)) & 0xFFFF for k in range(fr.NL)], dtype=np.uint32)
-    out = torch.empty((n, fr.NL), dtype=L.DTYPE, device=byte_cols.device)
+    out = torch.empty((n, fr.NL), dtype=L.DTYPE, device=dev)
+    powers = _powers_on(r, s.chunk, dev) if s.chunks > 1 else None
+    partial = (torch.empty((n * s.groups * 32,), dtype=torch.int32, device=dev)
+               if s.groups > 1 else None)
     lib = cuda_build.library("horner_rlc")
-    err = lib.horner_rlc_launch(byte_cols.data_ptr(), active_cols.data_ptr(), T, n,
-                                r_host.ctypes.data, out.data_ptr(), L.cuda_stream())
+    err = lib.horner_chunk_launch(
+        byte_cols.data_ptr(), active_cols.data_ptr(), T, n, s.chunk, s.rows_per_block,
+        s.chunks_per_block, r_host.ctypes.data, None if powers is None else powers.data_ptr(),
+        out.data_ptr(), None if partial is None else partial.data_ptr(), L.cuda_stream())
     L.check_launch(err, "horner_rlc")
+    if s.groups > 1:
+        err = lib.horner_combine_launch(partial.data_ptr(), n, s.groups, out.data_ptr(),
+                                        L.cuda_stream())
+        L.check_launch(err, "horner_rlc")
     return out
 
 

@@ -58,7 +58,7 @@ from ..witness.tracer import BlockWitness
 from ..witness.typing import exp_circuit_to_table
 from .jit import CompiledGroupVerifier, tables_meta, tables_to_pytree
 from .kernels import require_device
-from .transfer import upload, verdict_pack, verdict_table
+from .transfer import upload, verdict_pack, verdict_table, verdict_unpack
 
 
 def _next_pow2(n: int) -> int:
@@ -333,7 +333,7 @@ class CompiledBlockVerifier:
             flat = cap["host"].numpy()
         sizes = [len(g["curr"]) for g in self.groups if g["verifier"] is not None]
         sizes += [len(self._state_rows)] + [k.n for _n, k in self.circuit_kernels]
-        return self._failures(np.split(flat, np.cumsum(sizes)[:-1]), host_fails)
+        return self._failures(verdict_unpack(flat, sizes), host_fails)
 
     def _capture(self, prepared) -> dict:
         """Capture the device pass and K10 into one CUDA graph.  A warm-up
@@ -350,7 +350,7 @@ class CompiledBlockVerifier:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         n_vectors = sum(g["verifier"] is not None for g in self.groups) + 1 + len(self.circuit_kernels)
-        table = torch.empty(3 * n_vectors, dtype=torch.int64, device=self.device)
+        table = torch.empty(4 * n_vectors, dtype=torch.int64, device=self.device)
         graph = torch.cuda.CUDAGraph()
         before = Counter(L.LAUNCHES)
         with torch.cuda.graph(graph):

@@ -58,7 +58,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "keccak_sponge_launch": [_P, _I64, _P, _P, _I64, _P],
     },
     "horner_rlc": {
-        "horner_rlc_launch": [_P, _P, _I64, _I64, _P, _P, _P],
+        "horner_chunk_launch": [_P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+        "horner_combine_launch": [_P, _I64, _I64, _P, _P],
+        "horner_blocks_per_sm": [_P, _P],
     },
     "leaf_unpack": {
         "leaf_unpack_launch": [_P, _P, _P, _P, _P, _P, _I64, _P, _P],

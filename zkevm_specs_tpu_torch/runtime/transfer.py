@@ -10,8 +10,9 @@ kernels:
   non-blocking copy each, and one launch writes every leaf, widened to its
   port type, into one device arena; the leaves are views of the arena;
 * K10 ``verdict_pack`` (``csrc/verdict_pack.cu``): the fail vectors of a
-  device pass gathered into one flat ``uint8`` buffer, by a device table of
-  addresses, lengths and offsets.
+  device pass gathered into one flat ``uint8`` buffer, each at a 16-byte
+  aligned offset, by a device table of addresses, lengths, offsets and
+  first blocks.
 
 Narrowing follows ``_ship_leaves`` (:84-89) by one rule on the port type:
 every leaf that lands as int64 (limbs and words, whether int64 tensors or
@@ -26,6 +27,7 @@ equals ``to_device(leaves[i])`` element for element.
 from __future__ import annotations
 
 import ctypes
+from itertools import accumulate
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -192,42 +194,73 @@ def upload(leaves: Sequence[object], device) -> Tuple[List[torch.Tensor], Upload
 # K10: verdict_pack
 # ---------------------------------------------------------------------------
 
+VERDICT_ALIGN = 16                 # each vector's offset in the packed buffer
+VERDICT_BLOCK_BYTES = 256 * 16     # the bytes one block of K10 writes (its BLOCK_BYTES)
+VERDICT_MAX_VECTORS = 1024         # K10 stages its first-block column in shared memory
+
+
+def verdict_offsets(lengths: Sequence[int]) -> List[int]:
+    """Each vector's offset in the packed buffer, and the buffer's size
+    last: the lengths rounded up to 16 bytes, summed in order."""
+    return list(accumulate((-(-n // VERDICT_ALIGN) * VERDICT_ALIGN for n in lengths), initial=0))
+
+
+def verdict_blocks(lengths: Sequence[int]) -> List[int]:
+    """Each vector's first block in K10's grid, and the grid's size last."""
+    return list(accumulate((-(-n // VERDICT_BLOCK_BYTES) for n in lengths), initial=0))
+
+
 def verdict_table(fails: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The host int64 table K10 reads: addresses, lengths, output offsets."""
+    """The host int64 table K10 reads: addresses, lengths, output offsets,
+    first blocks."""
     lens = [f.numel() for f in fails]
-    offs = np.cumsum([0] + lens[:-1]).tolist()
-    return torch.tensor([f.data_ptr() for f in fails] + lens + offs, dtype=torch.int64)
+    return torch.tensor([f.data_ptr() for f in fails] + lens + verdict_offsets(lens)[:-1]
+                        + verdict_blocks(lens)[:-1], dtype=torch.int64)
+
+
+def verdict_unpack(flat: np.ndarray, lengths: Sequence[int]) -> List[np.ndarray]:
+    """The vectors of a packed buffer, in order."""
+    return [flat[o:o + n] for o, n in zip(verdict_offsets(lengths), lengths)]
 
 
 def verdict_pack_plain(fails: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain version of K10."""
-    return torch.cat([f.ravel().to(torch.uint8) for f in fails])
+    """Plain version of K10: the vectors as 0/1 bytes, each from a 16-byte
+    aligned offset, zeros between."""
+    offs = verdict_offsets([f.numel() for f in fails])
+    out = torch.zeros(offs[-1], dtype=torch.uint8, device=fails[0].device)
+    for f, o in zip(fails, offs):
+        out[o:o + f.numel()] = f.ravel().to(torch.uint8)
+    return out
 
 
 def verdict_pack(fails: Sequence[torch.Tensor], table: torch.Tensor = None) -> torch.Tensor:
-    """K10 wrapper: the bool fail vectors concatenated as one ``uint8``
-    buffer.  ``table``: the device copy of ``verdict_table(fails)``; when
-    None it is uploaded here.  A CUDA-graph capture passes a table it
-    fills after the capture, when the captured vectors' addresses are
-    fixed.  Replaces ``make_combined``'s ``jnp.concatenate``
+    """K10 wrapper: the bool fail vectors packed into one ``uint8`` buffer,
+    each at its 16-byte aligned ``verdict_offsets`` offset (read back with
+    ``verdict_unpack``).  ``table``: the device copy of
+    ``verdict_table(fails)``; when None it is uploaded here.  A CUDA-graph
+    capture passes a table it fills after the capture, when the captured
+    vectors' addresses are fixed; the grid depends on the lengths alone.
+    Replaces ``make_combined``'s ``jnp.concatenate``
     (``runtime/block.py:518``)."""
     if not fails or any(f.dtype != torch.bool or f.dim() != 1 or not f.is_contiguous()
                         for f in fails):
         raise ValueError("verdict_pack: fails must be contiguous 1-D bool tensors")
     if L.on_cpu(*fails):
         return verdict_pack_plain(fails)
+    if len(fails) > VERDICT_MAX_VECTORS:
+        raise ValueError(f"verdict_pack: at most {VERDICT_MAX_VECTORS} vectors on the card")
     from . import cuda_build
 
     dev = fails[0].device
     if table is None:
         table = verdict_table(fails).to(dev)
-    if table.dtype != torch.int64 or table.shape != (3 * len(fails),) or table.device != dev:
-        raise ValueError("verdict_pack: table must be an int64 [3 * len(fails)] tensor on "
+    if table.dtype != torch.int64 or table.shape != (4 * len(fails),) or table.device != dev:
+        raise ValueError("verdict_pack: table must be an int64 [4 * len(fails)] tensor on "
                          "the fails' device")
-    total = sum(f.numel() for f in fails)
-    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    lens = [f.numel() for f in fails]
+    out = torch.empty(verdict_offsets(lens)[-1], dtype=torch.uint8, device=dev)
     lib = cuda_build.library("verdict_pack")
-    err = lib.verdict_pack_launch(table.data_ptr(), len(fails), max(f.numel() for f in fails),
+    err = lib.verdict_pack_launch(table.data_ptr(), len(fails), verdict_blocks(lens)[-1],
                                   out.data_ptr(), L.cuda_stream())
     L.check_launch(err, "verdict_pack")
     return out
