@@ -99,11 +99,16 @@ script exits non-zero):
    K9 is held on the leaves and timed on its arena alone, the host's
    building of the leaf views timed on its own.  K12 at the logUp checks'
    one-lane inversion and at 131072 lanes, with its bounds from the least
-   sliding-window chain for p - 2 (the kernel runs the binary ladder);
+   sliding-window chain for p - 2 (the kernel runs the width-4 chain);
    K13 at every partial sum of every family of both blocks (table and
-   query side, up to the ALU block's 6160016 bytecode queries), and K1-K4
-   at each distinct shape of every family's check (``path_shapes``
-   labelled "logup_block <family>"/"logup_arith <family>").
+   query side, up to the ALU block's 6160016 bytecode queries), with its
+   plan (levels, tile, resident blocks) and the device launches of one
+   call by entry, counted where each kernel is launched and held against
+   the plan, and K1-K4 at each distinct shape of every family's check
+   (``path_shapes`` labelled "logup_block <family>"/"logup_arith
+   <family>").  The bounds of K1, K8 (its chain), K12 and K13 count a
+   field product at its least work on 32-bit words (``FR_PRODUCT_OPS``,
+   ``fr_product_chain``: an 8 x 32-bit-limb Montgomery product).
 
 The last three lines are the kernels line, the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1282,16 +1287,15 @@ def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launche
 
 
 def fr_mul_cost(a, b):
-    """(bytes, int32 operations) of K1: the product, Barrett's two products
-    and its three carry and borrow chains."""
+    """(bytes, int32 operations) of K1 at the least work of a field product
+    (``fr_product_ops``) of its operands' 32-bit words."""
     rows = max(a.shape[0], b.shape[0])
-    products = a.shape[1] * b.shape[1] + 17 * 17 + 17 * 18 // 2
     return (nbytes(a, b) + rows * 16 * 8,
-            rows * (2 * products + 3 * (32 + 34 + 17) + 3 * 17 * 3))
+            rows * fr_product_ops(-(-a.shape[1] // 2), -(-b.shape[1] // 2)))
 
 
-# K11's field steps (csrc/mul_add_words.cu): a product by 2^-128 is
-# K1's 16 x 16-limb product and Barrett reduction; an Fr add two 17-limb
+# K11's field steps (csrc/mul_add_words.cu, its own 16-bit-limb design): a
+# product by 2^-128 is a 16 x 16-limb product and Barrett reduction; an Fr add two 17-limb
 # chains and a select; an Fr sub two 16-limb chains; a ripple one 16-limb
 # chain; three operations a limb of each chain, two a product (multiply, add)
 K1_PRODUCTS = 16 * 16 + 17 * 17 + 17 * 18 // 2
@@ -1530,45 +1534,87 @@ K8_OPS_PER_ROW = 2 * 8 * 8 + 8
 DEP_LATENCY_CYCLES = 4
 
 
+# The least work of one BN254-Fr product on the card's 32-bit integer
+# units, independent of any kernel: an 8 x 32-bit-limb Montgomery product.
+# a * b takes 64 limb products, each a mad.lo and a mad.hi (128
+# instructions), and two carry words a row (16); the reduction takes the 64
+# products m_i * p_j (128), the 8 words m_i = t_i * (-p^-1) mod 2^32 (one
+# mul.lo each) and two carry words a row (16); p is subtracted at most once
+# (8 subtractions, 8 selects): 312 instructions.  A squaring forms 36 limb
+# products in place of 64 (the 28 cross products once and the 8 squares),
+# and doubles the cross products (16 shifts): 272.
+FR_REDC_OPS = 2 * 64 + 8 + 2 * 8
+FR_FINAL_OPS = 2 * 8
+
+
+def fr_product_ops(wa=8, wb=8):
+    """int32 instructions of a field product of a wa-word by a wb-word
+    operand (32-bit words, 8 for a full element): the limb products' low
+    and high words and two carry words a row of a * b, the reduction and
+    the final subtraction."""
+    return 2 * wa * wb + 2 * wb + FR_REDC_OPS + FR_FINAL_OPS
+
+
+FR_PRODUCT_OPS = fr_product_ops()
+FR_SQUARE_OPS = FR_PRODUCT_OPS - 2 * (64 - 36) + 16
+# an add or a subtraction mod p on eight words: a carry chain, p
+# subtracted (added under a borrow) on a second chain, and a select
+FR_ADD32_OPS = FR_SUB32_OPS = 3 * 8
+
+
 def fr_product_chain(square=False):
-    """The longest chain of dependent instructions in one field product (a
-    K8 step, a K12 multiply) or, with ``square``, one field squaring, walked
-    over the dataflow of ``csrc/fr_arith.cuh``: each ``acc += a * b`` is
-    one IMAD.WIDE on the running 64-bit column sum, each limb mask and each
-    ``acc >>= 16`` one instruction, each borrow step three (subtract, mask,
-    sign test), and each conditional subtraction's select one.  A squaring
-    sums a column's cross products once, doubles them (one shift) and adds
-    the diagonal product.  The product starts with every limb ready;
-    returns the chain's length."""
-    t, x = 0, []
-    for k in range(32):                            # x = acc * r + byte
-        n = min(16, k + 1) - max(0, k - 15)
-        t += (n // 2 + (n > 1) + n % 2) if square else n
-        x.append(t + 1)
-        t += 1
-    t, q3 = 0, []
-    for k in range(34):                            # q3 = ((x >> 240) * mu) >> 272
-        for i in range(max(0, k - 16), min(17, k + 1)):
-            t = max(t, x[15 + i]) + 1
-        if k >= 17:
-            q3.append(t + 1)
-        t += 1
-    t, borrow, r = 0, 0, []
-    for k in range(17):                            # r = x - q3 * p mod 2^272
-        for i in range(k + 1):
-            t = max(t, q3[i]) + 1
-        v = max(x[k], t + 1, borrow) + 1
-        r.append(v + 1)
-        borrow = v + 1
-        t += 1
-    for _ in range(2):                             # p subtracted at most twice
-        borrow, d = 0, []
-        for k in range(17):
-            v = max(r[k], borrow) + 1
-            d.append(v + 1)
-            borrow = v + 1
-        r = [max(rk, dk, borrow) + 1 for rk, dk in zip(r, d)]
-    return max(r[:16])
+    """The longest chain of dependent instructions in one 8 x 32-bit-limb
+    Montgomery product (or, with ``square``, squaring) by separated operand
+    scanning, each instruction issued one step after its last operand and
+    its carry-in: the rows of a * b as two carry chains each (the limb
+    products' low words into one accumulator, their high words into
+    another; a squaring's rows hold only the cross products, doubled by
+    one shift a word, then the squares in one chain), the accumulators
+    added; the reduction of the low half a word at a time (m_i from the
+    lowest word, then the chain of m_i * p's low words and the chain of
+    its high words); the high half added; p subtracted and a select.
+    Every input word is ready at step 0; returns the chain's length."""
+    x, y = [0] * 17, [0] * 17              # ready step of each accumulator word
+
+    def row(acc, cols):
+        c = 0
+        for k in cols:
+            acc[k] = c = max(acc[k], c) + 1
+        acc[cols[-1] + 1] = c + 1
+
+    for i in range(8):
+        first = i + 1 if square else 0
+        if first < 8:
+            row(x, [i + j for j in range(first, 8)])
+            row(y, [i + j + 1 for j in range(first, 8)])
+    t, c = [], 0
+    for k in range(16):
+        c = max(x[k], y[k], c) + 1
+        t.append(c)
+    if square:
+        t = [max(t[k], t[k - 1] if k else 0) + 1 for k in range(16)]
+        c = 0
+        for k in range(16):
+            t[k] = c = max(t[k], c) + 1
+    u = t[:8] + [0]
+    for _ in range(8):
+        m = u[0] + 1
+        c = 0
+        for j in range(8):                 # low words of m * p
+            u[j] = c = max(u[j], m, c) + 1
+        u[8] = c + 1
+        c = 0
+        for j in range(8):                 # high words of m * p
+            u[j + 1] = c = max(u[j + 1], m, c) + 1
+        u = u[1:] + [0]
+    r, c = [], 0
+    for k in range(8):                     # the high half added
+        c = max(u[k], t[8 + k], c) + 1
+        r.append(c)
+    c = 0
+    for k in range(8):                     # p subtracted, then the select
+        c = max(r[k], c) + 1
+    return max(max(r), c) + 1
 
 
 K8_CHAIN_OPS = fr_product_chain()
@@ -1717,13 +1763,6 @@ def keccak_kernel_rows(launches, captured):
     return rows
 
 
-# the least work of one field product and one squaring: K1's product (a
-# squaring sums each cross product once: 16 * 17 / 2 limb products, and
-# doubles the 29 columns that have cross terms) and its Barrett reduction
-FR_PRODUCT_OPS = 2 * K1_PRODUCTS + K1_CHAIN_OPS
-FR_SQUARE_OPS = FR_PRODUCT_OPS - 2 * (16 * 16 - 16 * 17 // 2) + 29
-
-
 def sliding_window_chain(e, w):
     """(squarings, multiplies, dependent products) of the left-to-right
     sliding-window chain for a^e with window width w: the table a^2, a^3,
@@ -1753,7 +1792,7 @@ def sliding_window_chain(e, w):
 
 # K12's function, a^(p-2) mod p, at its least work and least dependent
 # length over sliding-window chains of width 1 to 8 (the kernel runs the
-# width-1 binary ladder: 253 squarings and 126 multiplies)
+# width-4 chain, fr.INV_SCHEDULE: 253 squarings and 56 multiplies)
 FR_INV_CHAINS = {w: sliding_window_chain(fr.P - 2, w) for w in range(1, 9)}
 FR_INV_OPS = min(sq * FR_SQUARE_OPS + mul * FR_PRODUCT_OPS
                  for sq, mul, _ in FR_INV_CHAINS.values())
@@ -1773,24 +1812,53 @@ def fr_inv_cost(a):
 def logup_sum_cost(fps, m):
     """(bytes, int32 operations) of K13's partial sum for n elements: fps
     and m read once, alpha read and the sum written once; the least work of
-    the function: n subtractions from alpha, Montgomery's 3(n - 1) products
-    and one inverse (K12's least chain), a product by m_i unless m is 0/1
-    (one limb: a select), and n - 1 additions."""
+    the function on 32-bit words: n subtractions from alpha, Montgomery's
+    3(n - 1) products and one inverse (K12's least chain), a product by m_i
+    (of m's words) unless m is 0/1 (one limb: a select), and n - 1
+    additions."""
     n = fps.shape[0]
-    products = 3 * (n - 1) + (n if m is not None and m.shape[1] > 1 else 0)
+    by_m = fr_product_ops(8, -(-m.shape[1] // 2)) if m is not None and m.shape[1] > 1 else 0
     moved = nbytes(fps) + (nbytes(m) if m is not None else 0) + 2 * 16 * 8
-    return moved, (n * FR_SUB_OPS + products * FR_PRODUCT_OPS + FR_INV_OPS
-                   + (n - 1) * FR_ADD_OPS)
+    return moved, (n * FR_SUB32_OPS + 3 * (n - 1) * FR_PRODUCT_OPS + n * by_m + FR_INV_OPS
+                   + (n - 1) * FR_ADD32_OPS)
+
+
+def rows_to_ints(t):
+    """Each row of 16-bit limbs (int64 [n, w]) as a Python int, through the
+    rows' little-endian bytes (a few seconds for millions of rows)."""
+    raw = t.cpu().numpy().astype("<u2").tobytes()
+    width = 2 * t.shape[1]
+    return [int.from_bytes(raw[i:i + width], "little") for i in range(0, len(raw), width)]
+
+
+def logup_sum_ints(fps, alpha, m):
+    """sum_i m_i / (alpha - fp_i) mod p on Python ints."""
+    return logup.logup_partial_sum_ints(rows_to_ints(fps), rows_to_ints(alpha.reshape(1, -1))[0],
+                                        None if m is None else rows_to_ints(m))
+
+
+def python_ints_check(entry, note, got, want_fn):
+    """Hold a kernel's whole output against Python ints, timing the ints."""
+    t0 = time.perf_counter()
+    assert got == want_fn(), f"{note}: the kernel disagrees with Python ints"
+    entry["equals_python_ints"] = True
+    entry["python_ints_s"] = time.perf_counter() - t0
 
 
 def fr_inv_entry(label, a, clock_hz, plain_repeats):
-    """K12 at one shape, with its latency bound: the least sliding-window
+    """K12 at one shape, held against its plain version and every lane
+    against Python ints, with its latency bound: the least sliding-window
     chain's dependent squarings and products, each at least its chain of
     dependent instructions at the card's top clock."""
+    note = f"{label}: {a.shape[0]} lanes x {a.shape[1]} limbs"
     entry = measure("fr_inv", lambda: fr.inv(a), lambda: fr.inv_plain(a), *fr_inv_cost(a),
-                    f"{label}: {a.shape[0]} lanes x {a.shape[1]} limbs",
-                    plain_repeats=plain_repeats)
-    entry.update({"kernel_squares_multiplies": [253, bin(fr.P - 2).count("1") - 1],
+                    note, plain_repeats=plain_repeats)
+    python_ints_check(entry, note, rows_to_ints(fr.inv(a)),
+                      lambda: [pow(v, fr.P - 2, fr.P) for v in rows_to_ints(a)])
+    _, windows, _ = fr.INV_SCHEDULE
+    table_multiplies = (1 << (fr.INV_WINDOW - 1)) - 1
+    entry.update({"kernel_squares_multiplies": [1 + sum(sq for sq, _ in windows),
+                                                table_multiplies + len(windows)],
                   "least_squares_multiplies": list(FR_INV_LEAST[:2]),
                   "ops_per_square_product": [FR_SQUARE_OPS, FR_PRODUCT_OPS],
                   "chain_ops_per_square_product": [FR_SQUARE_CHAIN_OPS, K8_CHAIN_OPS],
@@ -1799,12 +1867,41 @@ def fr_inv_entry(label, a, clock_hz, plain_repeats):
     return entry
 
 
+def logup_plan_entry(fps, alpha, m):
+    """K13's plan at a side's n elements (levels, tile, workspace, the up
+    and down kernels' resident blocks an SM) and the device launches of one
+    call at that side, counted where each entry launches a kernel
+    (``logup.device_launches``), K12's under ``fr_inv``; they must be the
+    plan's."""
+    plan = logup.logup_plan(fps.shape[0])
+    blocks = [ctypes.c_int(), ctypes.c_int()]
+    err = cuda_build.library("logup_sum").logup_blocks_per_sm(*map(ctypes.byref, blocks))
+    assert err == 0, f"logup_blocks_per_sm: CUDA error {err}"
+    torch.cuda.synchronize()
+    k12, (up, down) = L.LAUNCHES["fr_inv"], logup.device_launches()
+    logup.logup_partial_sum(fps, alpha, m)
+    torch.cuda.synchronize()
+    after = logup.device_launches()
+    counted = {"up_entry": after[0] - up, "fr_inv": L.LAUNCHES["fr_inv"] - k12,
+               "down_entry": after[1] - down}
+    counted["call"] = sum(counted.values())
+    planned = plan.launches(sum_mode=True)
+    assert (counted["up_entry"], counted["fr_inv"], counted["down_entry"]) == \
+        (planned[0], 1, planned[1]), f"logup_sum at {plan.levels[0]}: {counted} against the plan"
+    return {"plan": {"levels": list(plan.levels), "threads": plan.threads, "run": plan.run,
+                     "tile": plan.tile, "workspace_words": plan.words,
+                     "launches_up_down": list(planned),
+                     "blocks_per_sm": {"up": blocks[0].value, "down": blocks[1].value}},
+            "device_launches": counted}
+
+
 def logup_kernel_rows(launches, captured):
     """K12 at the one-lane inversion of each block's logUp checks and at
     FR_INV_LANES lanes; K13 at every partial sum of every family (table and
     query side of both blocks), each held against its plain version, whose
-    time is that of the one call (a plain ladder of 379 launch-bound
-    products takes seconds)."""
+    time is that of the one call (a plain chain of 309 launch-bound
+    products takes seconds), with the plan of its tiles and the device
+    launches of one call, counted (``logup_plan_entry``)."""
     clock_hz = sm_clock_max_hz()
     k12, k13 = [], []
     for path in BLOCK_PHASES:
@@ -1816,13 +1913,25 @@ def logup_kernel_rows(launches, captured):
                 fps, alpha = args[:2]
                 m = args[2] if len(args) > 2 else None
                 side = "query side (m = en)" if m is not None and m.shape[1] == 1 else "table side"
-                k13.append(measure(
+                note = (f"logup_{path}: {family} {side}, {fps.shape[0]} elements, m "
+                        f"{None if m is None else list(m.shape)}")
+                entry = measure(
                     "logup_sum", lambda: logup.logup_partial_sum(fps, alpha, m),
                     lambda: logup.logup_partial_sum_plain(fps, alpha, m),
-                    *logup_sum_cost(fps, m),
-                    f"logup_{path}: {family} {side}, {fps.shape[0]} elements, m "
-                    f"{None if m is None else list(m.shape)}",
-                    kernel_repeats=10, plain_repeats=0, launches_per_call=2))
+                    *logup_sum_cost(fps, m), note,
+                    kernel_repeats=10, plain_repeats=0, launches_per_call=2)
+                python_ints_check(entry, note,
+                                  rows_to_ints(logup.logup_partial_sum(fps, alpha, m)[None])[0],
+                                  lambda: logup_sum_ints(fps, alpha, m))
+                k13.append({**entry, **logup_plan_entry(fps, alpha, m)})
+    sides = sorted((f"{'ALU' if path == 'block' else 'arith'} {family} "
+                    f"{'query' if args[2].shape[1] == 1 else 'table'}",
+                    args[0].shape[0], args[2].shape[1])
+                   for path in BLOCK_PHASES
+                   for family, calls in captured[f"logup_{path}"]["calls"].items()
+                   for args, _ in calls.get("logup_sum", []))
+    assert sides == sorted(workloads.LOGUP_SIDES), \
+        f"the blocks' logUp sides are not workloads.LOGUP_SIDES: {sides}"
     rng = np.random.RandomState(6)
     wide = seeded_limbs(rng, FR_INV_LANES, 16, 254, torch.device("cuda"))
     k12.append(fr_inv_entry("seeded", wide, clock_hz, 0))

@@ -34,6 +34,33 @@ SM; every target's output must equal the first's.
 
     python3 profile_replay.py --horner [ROOT ...]
 
+With ``--logup``, for each checkout root in the order given (``.`` when
+none; pass parent, change, change, parent to alternate), a fresh process
+times K12 (``ops/fr.py:inv``) at one lane (the logUp total) and at 131072
+lanes, and K13's partial sum (``tables/logup.py:logup_partial_sum``, K12
+inside it) at every side of every logUp family of both blocks
+(``workloads.LOGUP_SIDES``: the element counts and m widths
+``chip_smoke.py``'s ``logup`` phases give it) on seeded canonical
+elements, alpha 0xA1FA: the call's time from CUDA events (median of 10),
+its device launches and each kernel's device time under torch.profiler (a
+mean over 5 calls), and the sum's value, which must agree across roots.
+A root whose ``tables/logup.py`` has ``logup_plan`` is run at each tile
+of ``LOGUP_TILES`` (threads a block, elements a thread;
+``csrc/logup_sum.cu`` is built once more with ``-DLOGUP_THREADS`` and
+``-DLOGUP_RUN`` for each tile but the first, its own), with the plan and
+the kernels' resident blocks an SM; one JSON line per shape and tile,
+then the kernels' registers and spills from ptxas (of the first tile).
+
+    python3 profile_replay.py --logup [ROOT ...]
+
+With ``--sass NAME ...``, each named kernel library is built and its SASS
+read with ``cuobjdump -sass``: one JSON line per kernel with its
+instruction count, the count of each of its ten commonest opcodes, and
+the instructions of each loop body (from a backward branch to its
+target).
+
+    python3 profile_replay.py --sass fr_inv logup_sum
+
 With ``--compare``, for each checkout root in the order given (pass
 parent, change, change, parent to alternate), a fresh process imports
 ``zkevm_specs_tpu_torch`` from that root, builds the MUL group at
@@ -44,10 +71,12 @@ JSON line per root, then the card's name and power limit; each checkout
 builds its kernels into its own ``build/kernels/``.
 """
 import json
+import re
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -214,16 +243,167 @@ for T, n in ((66001, 1), (66001, 8), (24162, 40), (1024, 1), (300, 65536)):
 """
 
 
-def run_roots(child, roots, card):
+# (threads, run) tiles of K13 swept at each shape; the first is the default
+LOGUP_TILES = [(256, 4), (128, 8), (256, 8), (128, 4)]
+
+LOGUP_CHILD = r"""
+import ctypes, json, re, statistics, subprocess, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.runtime import cuda_build
+from zkevm_specs_tpu_torch.tables import logup
+
+shapes, tiles = json.loads(sys.argv[2]), json.loads(sys.argv[3])
+planned = hasattr(logup, "logup_plan")   # a checkout from before it has none
+rng = np.random.RandomState(0)
+
+
+def elements(n, width=16, below=1 << 16):
+    limbs = rng.randint(0, below, size=(n, width)).astype(np.int64)
+    if width == 16:
+        limbs[:, 15] %= fr.P >> 240
+    return torch.from_numpy(limbs).cuda()
+
+
+def events_ms(call):
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernels(call, calls=5):
+    # device launches a call and device us a call by kernel, over five
+    # calls (the profiler may drop a session's first few kernels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    us = {}
+    count = 0
+    for e in prof.events():
+        name = re.search(r"\w+_kernel(<\d+>)?", e.name) if e.device_type == DeviceType.CUDA else None
+        if name:
+            count += 1
+            us[name.group()] = (us.get(name.group(), 0.0)
+                                + (e.time_range.end - e.time_range.start) / calls)
+    return round(count / calls), us
+
+
+def emit(**kw):
+    print(json.dumps({"root": sys.argv[1], **kw}), flush=True)
+
+
+def tile_libraries():
+    # K13 at each tile: the default library, and logup_sum.cu built with
+    # -DLOGUP_THREADS and -DLOGUP_RUN for the others (one nvcc each, all
+    # at once) into this process's own files
+    src = cuda_build.CSRC / "logup_sum.cu"
+    libs, procs = {tuple(tiles[0]): cuda_build.library("logup_sum")}, {}
+    for threads, run in tiles[1:]:
+        so = cuda_build.BUILD_DIR / f"liblogup_sum-tile{threads}x{run}.so"
+        procs[threads, run] = so, subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-DLOGUP_THREADS={threads}",
+             f"-DLOGUP_RUN={run}", "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for tile, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, out
+        lib = libs[tile] = ctypes.CDLL(str(so))
+        for fn, argtypes in cuda_build.SIGNATURES["logup_sum"].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+    return libs
+
+
+for lanes in (1, 131072):
+    a = elements(lanes)
+    call = lambda: fr.inv(a)
+    got = call()
+    assert fr.to_ints(got.cpu()[:4]) == [pow(v, fr.P - 2, fr.P) for v in fr.to_ints(a.cpu()[:4])]
+    count, us = kernels(call)
+    emit(kernel="fr_inv", lanes=lanes, ms=events_ms(call), device_launches=count, kernel_us=us)
+
+alpha = L.int_to_limbs(0xA1FA, 16).cuda()
+libs = tile_libraries() if planned else {(None, None): None}
+for label, n, m_width in shapes:
+    fps = elements(n)
+    m = elements(n, m_width, 2 if m_width == 1 else 1 << 16)
+    first = None
+    for (threads, run), lib in libs.items():
+        info = {}
+        if planned:   # the wrapper plans at this tile and launches its library
+            logup.LOGUP_THREADS, logup.LOGUP_RUN = threads, run
+            cuda_build._LIBS["logup_sum"] = lib
+            plan = logup.logup_plan(n)
+            blocks = [ctypes.c_int(), ctypes.c_int()]
+            assert lib.logup_blocks_per_sm(*map(ctypes.byref, blocks)) == 0
+            info = {"threads": threads, "run": run, "levels": list(plan.levels),
+                    "planned_launches": sum(plan.launches(True)) + 1,
+                    "blocks_per_sm": [blocks[0].value, blocks[1].value]}
+        call = lambda: logup.logup_partial_sum(fps, alpha, m)
+        out = call()
+        first = out if first is None else first
+        assert torch.equal(out, first), (label, threads, run)
+        count, us = kernels(call)
+        emit(kernel="logup_sum", side=label, n=n, m_limbs=m_width, **info, ms=events_ms(call),
+             device_launches=count, kernel_us=us, sum=hex(L.limbs_to_int(out.cpu())))
+emit(resource_usage={k: cuda_build.resource_usage(k) for k in ("fr_inv", "logup_sum")})
+"""
+
+
+def run_roots(child, roots, card, *args):
     """``child`` in a fresh process for each checkout of ``roots``, its
     JSON lines printed as they are."""
     for root in roots:
-        out = subprocess.run([sys.executable, "-c", child, root],
+        out = subprocess.run([sys.executable, "-c", child, root, *args],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"profile_replay: {root} failed:\n{out.stderr[-4000:]}")
         print("\n".join(l for l in out.stdout.splitlines() if l.startswith("{")), flush=True)
     print(card)
+
+
+def sass_summary(name):
+    """Per kernel of library ``name``: SASS instructions, the commonest
+    opcodes, and the instructions of each loop body."""
+    from zkevm_specs_tpu_torch.runtime import cuda_build
+
+    cuda_build.build_all([name])
+    cuobjdump = str(Path(cuda_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(cuda_build._so_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = kernels.setdefault(cuda_build._kernel_name(m.group(1)), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    for kernel, ins in kernels.items():
+        loops = []
+        for addr, op, rest in ins:
+            target = re.match(r"\s+(0x[0-9a-f]+)", rest)
+            if op == "BRA" and target and int(target.group(1), 16) < addr:
+                loops.append((addr - int(target.group(1), 16)) // 16 + 1)
+        ops = defaultdict(int)
+        for _, op, _ in ins:
+            ops[op.split(".")[0]] += 1
+        print(json.dumps({"library": name, "kernel": kernel, "instructions": len(ins),
+                          "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10]),
+                          "loop_bodies": loops}), flush=True)
 
 
 def main():
@@ -237,6 +417,13 @@ def main():
         return run_roots(COMPARE_CHILD, sys.argv[2:], card)
     if sys.argv[1:2] == ["--horner"]:
         return run_roots(HORNER_CHILD, sys.argv[2:] or ["."], card)
+    if sys.argv[1:2] == ["--sass"]:
+        for name in sys.argv[2:]:
+            sass_summary(name)
+        return print(card)
+    if sys.argv[1:2] == ["--logup"]:
+        return run_roots(LOGUP_CHILD, sys.argv[2:] or ["."], card,
+                         json.dumps(workloads.LOGUP_SIDES), json.dumps(LOGUP_TILES))
     for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
                                     ("MUL", ExecutionState.MUL, build_mul_workload)):
         tables, steps, nexts = build(workloads.GROUP_LANES)

@@ -1,5 +1,8 @@
 """The kernel build's resource-usage report, read from a ptxas log (no
-nvcc needed: the log is written here as nvcc would write it)."""
+nvcc needed: the log is written here as nvcc would write it), and the
+ctypes signatures against the sources' C entries."""
+import re
+
 import pytest
 import torch
 
@@ -49,3 +52,16 @@ def test_resource_usage_reads_the_ptxas_log(tmp_path, monkeypatch):
 
 def test_build_asks_ptxas_for_its_report():
     assert cuda_build.NVCC_FLAGS[-2:] == ["-Xptxas", "-v"]
+
+
+ENTRIES = [(lib, fn) for lib, fns in cuda_build.SIGNATURES.items() for fn in fns]
+
+
+@pytest.mark.parametrize("lib,fn", ENTRIES)
+def test_signature_matches_the_source(lib, fn):
+    """Each C entry's parameters in its source, one ctypes type each."""
+    source = (cuda_build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", source)
+    assert m, f"{fn} is not an extern \"C\" int entry of {lib}.cu"
+    params = [p for p in m.group(1).split(",") if p.strip()]
+    assert len(params) == len(cuda_build.SIGNATURES[lib][fn])

@@ -1,0 +1,415 @@
+"""The design of K12 and K13 on the CPU, tolerance 0: the 32-bit-limb
+Montgomery arithmetic of ``csrc/fr_mont.cuh`` and the window chain of
+``csrc/fr_inv.cu``, read from the sources and walked on Python ints, and
+K13's plan (``tables/logup.py:logup_plan``).
+
+The model below runs the header's functions instruction by instruction in
+the header's carry order (one carry flag, as in PTX), and asserts that
+every carry a chain drops is zero, so the bounds the header states are
+checked on every value the tests feed it."""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.tables import logup
+
+torch.set_num_threads(1)
+
+CSRC = Path(fr.__file__).resolve().parents[1] / "csrc"
+P = fr.P
+R = 1 << 256
+M32 = (1 << 32) - 1
+
+
+def _words(v):
+    return [(v >> (32 * k)) & M32 for k in range(8)]
+
+
+def _value(words):
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def _c_array(source, name):
+    """The integers of ``name[...] = {...}`` in a CUDA source."""
+    m = re.search(re.escape(name) + r"\[[^\]]*\]\s*=\s*\{([^}]*)\}", source)
+    assert m, f"{name} not found"
+    return [int(t, 0) for t in m.group(1).replace("\n", " ").split(",") if t.strip()]
+
+
+class Ptx:
+    """The PTX integer instructions fr_mont.cuh uses, on one carry flag."""
+
+    def __init__(self):
+        self.cc = 0
+
+    def _set(self, r, cc_out=True):
+        if cc_out:
+            self.cc = r >> 32
+        else:
+            assert r >> 32 == 0, "a chain dropped a nonzero carry"
+        return r & M32
+
+    def mad_lo_cc(self, a, b, c):
+        return self._set(((a * b) & M32) + c)
+
+    def madc_lo_cc(self, a, b, c):
+        return self._set(((a * b) & M32) + c + self.cc)
+
+    def mad_hi_cc(self, a, b, c):
+        return self._set((a * b >> 32) + c)
+
+    def madc_hi_cc(self, a, b, c):
+        return self._set((a * b >> 32) + c + self.cc)
+
+    def madc_hi(self, a, b, c):
+        return self._set((a * b >> 32) + c + self.cc, cc_out=False)
+
+    def add_cc(self, a, b):
+        return self._set(a + b)
+
+    def addc_cc(self, a, b):
+        return self._set(a + b + self.cc)
+
+    def addc(self, a, b):
+        return self._set(a + b + self.cc, cc_out=False)
+
+    def sub_cc(self, a, b):
+        r = a - b
+        self.cc = int(r < 0)
+        return r & M32
+
+    def subc_cc(self, a, b):
+        r = a - b - self.cc
+        self.cc = int(r < 0)
+        return r & M32
+
+    def subc(self, a, b):
+        return (a - b - self.cc) & M32
+
+
+HEADER = (CSRC / "fr_mont.cuh").read_text()
+C_P = _c_array(HEADER, "c_mont_p")
+C_R2 = _c_array(HEADER, "c_mont_r2")
+C_ONE = _c_array(HEADER, "c_mont_one")
+C_PINV = int(re.search(r"c_mont_pinv\s*=\s*(0x[0-9a-fA-F]+)", HEADER).group(1), 16)
+
+
+def mont_merge(ptx, x, y):
+    t = [0] * 16
+    t[0] = x[0]
+    t[1] = ptx.add_cc(x[1], y[1])
+    for k in range(2, 15):
+        t[k] = ptx.addc_cc(x[k], y[k])
+    t[15] = ptx.addc(x[15], y[15])
+    return t
+
+
+def mont_wide_mul(ptx, a, b):
+    x, y = [0] * 16, [0] * 16
+    for j in range(8):
+        x[j] = (a[j] * b[0]) & M32
+        y[j + 1] = (a[j] * b[0]) >> 32
+    for i in range(1, 8):
+        x[i] = ptx.mad_lo_cc(a[0], b[i], x[i])
+        for j in range(1, 8):
+            x[i + j] = ptx.madc_lo_cc(a[j], b[i], x[i + j])
+        assert x[i + 8] == 0
+        x[i + 8] = ptx.addc(0, 0)
+        y[i + 1] = ptx.mad_hi_cc(a[0], b[i], y[i + 1])
+        if i < 7:
+            for j in range(1, 8):
+                y[i + j + 1] = ptx.madc_hi_cc(a[j], b[i], y[i + j + 1])
+            assert y[i + 9] == 0
+            y[i + 9] = ptx.addc(0, 0)
+        else:
+            for j in range(1, 7):
+                y[i + j + 1] = ptx.madc_hi_cc(a[j], b[i], y[i + j + 1])
+            y[15] = ptx.madc_hi(a[7], b[i], y[15])
+    return mont_merge(ptx, x, y)
+
+
+def mont_wide_sqr(ptx, a):
+    x, y = [0] * 16, [0] * 16
+    for j in range(1, 8):
+        x[j] = (a[j] * a[0]) & M32
+        y[j + 1] = (a[j] * a[0]) >> 32
+    for i in range(1, 7):
+        x[2 * i + 1] = ptx.mad_lo_cc(a[i + 1], a[i], x[2 * i + 1])
+        for j in range(i + 2, 8):
+            x[i + j] = ptx.madc_lo_cc(a[j], a[i], x[i + j])
+        assert x[i + 8] == 0
+        x[i + 8] = ptx.addc(0, 0)
+        y[2 * i + 2] = ptx.mad_hi_cc(a[i + 1], a[i], y[2 * i + 2])
+        for j in range(i + 2, 8):
+            y[i + j + 1] = ptx.madc_hi_cc(a[j], a[i], y[i + j + 1])
+        assert y[i + 9] == 0
+        y[i + 9] = ptx.addc(0, 0)
+    c = mont_merge(ptx, x, y)
+    assert c[15] >> 31 == 0, "the cross products exceed 2^511"
+    t = [(c[0] << 1) & M32] + [((c[k] << 1) | (c[k - 1] >> 31)) & M32 for k in range(1, 16)]
+    t[0] = ptx.mad_lo_cc(a[0], a[0], t[0])
+    t[1] = ptx.madc_hi_cc(a[0], a[0], t[1])
+    for i in range(1, 7):
+        t[2 * i] = ptx.madc_lo_cc(a[i], a[i], t[2 * i])
+        t[2 * i + 1] = ptx.madc_hi_cc(a[i], a[i], t[2 * i + 1])
+    t[14] = ptx.madc_lo_cc(a[7], a[7], t[14])
+    t[15] = ptx.madc_hi(a[7], a[7], t[15])
+    return t
+
+
+def mont_reduce_once(ptx, r):
+    d = [ptx.sub_cc(r[0], C_P[0])] + [0] * 7
+    for k in range(1, 8):
+        d[k] = ptx.subc_cc(r[k], C_P[k])
+    borrow = ptx.subc(0, 0)
+    return [r[k] if borrow else d[k] for k in range(8)]
+
+
+def mont_reduce(ptx, t):
+    u = list(t[:8]) + [0]
+    for _ in range(8):
+        m = (u[0] * C_PINV) & M32
+        u[0] = ptx.mad_lo_cc(m, C_P[0], u[0])
+        assert u[0] == 0
+        for j in range(1, 8):
+            u[j] = ptx.madc_lo_cc(m, C_P[j], u[j])
+        u[8] = ptx.addc(0, 0)
+        u[1] = ptx.mad_hi_cc(m, C_P[0], u[1])
+        for j in range(1, 7):
+            u[j + 1] = ptx.madc_hi_cc(m, C_P[j], u[j + 1])
+        u[8] = ptx.madc_hi(m, C_P[7], u[8])
+        u = u[1:] + [u[8]]
+    assert _value(u[:8]) <= P
+    r = [ptx.add_cc(u[0], t[8])] + [0] * 7
+    for k in range(1, 7):
+        r[k] = ptx.addc_cc(u[k], t[8 + k])
+    r[7] = ptx.addc(u[7], t[15])
+    return mont_reduce_once(ptx, r)
+
+
+def mont_mul(a, b):
+    ptx = Ptx()
+    return mont_reduce(ptx, mont_wide_mul(ptx, a, b))
+
+
+def mont_sqr(a):
+    ptx = Ptx()
+    return mont_reduce(ptx, mont_wide_sqr(ptx, a))
+
+
+def mont_from(a):
+    return mont_reduce(Ptx(), list(a) + [0] * 8)
+
+
+def mont_add(a, b):
+    ptx = Ptx()
+    s = [ptx.add_cc(a[0], b[0])] + [0] * 7
+    for k in range(1, 7):
+        s[k] = ptx.addc_cc(a[k], b[k])
+    s[7] = ptx.addc(a[7], b[7])
+    return mont_reduce_once(ptx, s)
+
+
+def mont_sub(a, b):
+    ptx = Ptx()
+    d = [ptx.sub_cc(a[0], b[0])] + [0] * 7
+    for k in range(1, 8):
+        d[k] = ptx.subc_cc(a[k], b[k])
+    mask = ptx.subc(0, 0)
+    out = [ptx.add_cc(d[0], C_P[0] & mask)] + [0] * 7
+    for k in range(1, 7):
+        out[k] = ptx.addc_cc(d[k], C_P[k] & mask)
+    out[7] = (d[7] + (C_P[7] & mask) + ptx.cc) & M32
+    return out
+
+
+def _seeded(seed, n, below=P):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(32), "little") % below for _ in range(n)]
+
+
+EDGES = [0, 1, 2, P - 1, P - 2, R % P, (R * R) % P, (1 << 253) + 7]
+
+
+# -- the header's constants -------------------------------------------------------
+
+def test_constants_match_python_ints():
+    assert _value(C_P) == P
+    assert _value(C_R2) == R * R % P
+    assert _value(C_ONE) == R % P
+    assert C_PINV == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert 4 * P < R   # the header's bounds rest on p < 2^254
+
+
+# -- the product and the squaring, walked in the header's carry order -------------
+
+RINV = pow(R, -1, P)
+VALUES = EDGES + _seeded(1, 24)
+
+
+@pytest.mark.parametrize("b", EDGES + _seeded(2, 6) + [R - 1, (1 << 64) - 1])
+def test_mont_mul_model(b):
+    """a * b * R^-1 mod p for every a < p and b < 2^256 (the multiplicities
+    and R^2 mod p are such b)."""
+    for a in VALUES:
+        got = _value(mont_mul(_words(a), _words(b)))
+        assert got == a * b * RINV % P, (a, b)
+
+
+def test_mont_sqr_model():
+    for a in VALUES + _seeded(3, 64):
+        assert _value(mont_sqr(_words(a))) == a * a * RINV % P, a
+
+
+def test_mont_conversions_and_add_sub_model():
+    for a in VALUES:
+        mont = mont_mul(C_R2, _words(a))                          # mont_to
+        assert _value(mont) == a * R % P
+        assert _value(mont_from(mont)) == a
+        for b in EDGES:
+            assert _value(mont_add(_words(a), _words(b))) == (a + b) % P
+            assert _value(mont_sub(_words(a), _words(b))) == (a - b) % P
+
+
+def test_mont_mul_by_plain_multiplicity_is_plain():
+    """K13's partial sum: an inverse in Montgomery form times a plain m_i
+    is the plain product, with no conversion back."""
+    for x, m in zip(_seeded(4, 16), _seeded(5, 16, 1 << 64)):
+        inv_mont = pow(x, P - 2, P) * R % P
+        assert _value(mont_mul(_words(inv_mont), _words(m))) == pow(x, P - 2, P) * m % P
+
+
+# -- K12's window chain -----------------------------------------------------------
+
+INV_SOURCE = (CSRC / "fr_inv.cu").read_text()
+
+
+def _define(source, name):
+    return int(re.search(r"#define\s+" + name + r"\s+(\d+)", source).group(1))
+
+
+def test_fr_inv_schedule_is_the_generated_one():
+    first, windows, tail = fr.sliding_window_schedule(P - 2, fr.INV_WINDOW)
+    assert (first, windows, tail) == fr.INV_SCHEDULE
+    assert tail == 0, "p - 2 is odd: the chain ends on a multiply"
+    assert _define(INV_SOURCE, "FR_INV_TABLE") == 1 << (fr.INV_WINDOW - 1)
+    assert _define(INV_SOURCE, "FR_INV_FIRST") == first // 2
+    assert _define(INV_SOURCE, "FR_INV_WINDOWS") == len(windows)
+    assert _c_array(INV_SOURCE, "c_inv_squares") == [s for s, _ in windows]
+    assert _c_array(INV_SOURCE, "c_inv_index") == [v // 2 for _, v in windows]
+    # 253 squarings (one for the table) and 56 multiplies (7 for it)
+    assert 1 + sum(s for s, _ in windows) == 253
+    assert (1 << (fr.INV_WINDOW - 1)) - 1 + len(windows) == 56
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6])
+def test_sliding_window_schedule_reproduces_pow(w):
+    first, windows, tail = fr.sliding_window_schedule(P - 2, w)
+    for a in [2, 3, P - 1] + _seeded(6 + w, 3):
+        acc = pow(a, first, P)
+        for squarings, v in windows:
+            acc = pow(acc, 1 << squarings, P) * pow(a, v, P) % P
+        assert pow(acc, 1 << tail, P) == pow(a, P - 2, P)
+
+
+def test_fr_inv_chain_on_the_model():
+    """The kernel's chain (fr_inv_mont) on the modelled Montgomery
+    arithmetic: a^(p-2) with 0 mapped to 0."""
+    first, windows, _ = fr.INV_SCHEDULE
+    for a in [0, 1, P - 1, R % P] + _seeded(7, 3):
+        m = mont_mul(C_R2, _words(a))
+        a2 = mont_sqr(m)
+        tab = [m]
+        for _ in range(1, 8):
+            tab.append(mont_mul(tab[-1], a2))
+        acc = tab[first // 2]
+        for squarings, v in windows:
+            for _ in range(squarings):
+                acc = mont_sqr(acc)
+            acc = mont_mul(acc, tab[v // 2])
+        assert _value(mont_from(acc)) == pow(a, P - 2, P)
+
+
+def test_inv_plain_walks_the_chain():
+    vals = [0, 1, P - 1] + _seeded(8, 3)
+    got = fr.inv_plain(fr.from_ints(vals))
+    assert fr.to_ints(got) == [pow(v, P - 2, P) for v in vals]
+
+
+# -- K13's plan ---------------------------------------------------------------------
+
+TILE = logup.LOGUP_THREADS * logup.LOGUP_RUN
+LOGUP_SOURCE = (CSRC / "logup_sum.cu").read_text()
+
+
+@pytest.mark.parametrize("n", [1, 2, TILE - 1, TILE, TILE + 1, TILE ** 2, TILE ** 2 + 1,
+                               528401, 6160016])
+def test_logup_plan_covers_every_element_once(n):
+    plan = logup.logup_plan(n)
+    assert plan.levels[0] == n and plan.levels[-1] == 1
+    assert all(b == -(-a // TILE) for a, b in zip(plan.levels, plan.levels[1:]))
+    for level, n_l in enumerate(plan.levels[:-1]):
+        tiles = plan.levels[level + 1]
+        if n_l > 4 * TILE:     # the first two tiles and the last two
+            check = [0, 1, tiles - 2, tiles - 1]
+            seen = [i for t in check for run in plan.tile_elements(level, t) for i in run]
+            want = [i for t in check for i in range(t * TILE, min((t + 1) * TILE, n_l))]
+        else:
+            seen = [i for t in range(tiles) for run in plan.tile_elements(level, t) for i in run]
+            want = list(range(n_l))
+        assert sorted(seen) == want
+    # the workspace: 8 words an element of every level below the top
+    assert plan.words == 8 * sum(plan.levels[:-1]) == logup.logup_workspace_words(n)
+
+
+def test_logup_plan_launches():
+    """At most 8 device launches a call (K12 included) at every logUp
+    side of both blocks: 2 levels at 528401 elements, 3 at 6160016."""
+    assert logup.logup_plan(528401).depth == 2
+    assert logup.logup_plan(6160016).depth == 3
+    for side, n, _ in workloads.LOGUP_SIDES:
+        up, down = logup.logup_plan(n).launches(sum_mode=True)
+        assert up + 1 + down <= 8, side
+    assert logup.logup_plan(TILE).launches(sum_mode=True) == (1, 1)
+    assert logup.logup_plan(TILE + 1).launches(sum_mode=True) == (2, 3)
+    assert logup.logup_plan(TILE + 1).launches(sum_mode=False) == (2, 2)
+
+
+def test_logup_plan_matches_the_source():
+    """The tile the wrapper plans with is the one the source is compiled
+    with, and the source's limits hold it."""
+    assert _define(LOGUP_SOURCE, "LOGUP_THREADS") == logup.LOGUP_THREADS
+    assert _define(LOGUP_SOURCE, "LOGUP_RUN") == logup.LOGUP_RUN
+    assert logup.LOGUP_THREADS & (logup.LOGUP_THREADS - 1) == 0
+    assert logup.logup_plan(6160016).depth <= _define(LOGUP_SOURCE, "LOGUP_MAX_LEVELS")
+
+
+# -- the Python-int reference K13 is held against on the card ------------------------
+
+@pytest.mark.parametrize("zero_at", [None, 0, 3, 6])
+def test_batch_inverse_ints(zero_at):
+    vals = [1, 2, P - 1] + _seeded(4, 11)
+    if zero_at is not None:
+        vals[zero_at] = 0
+    got = logup.batch_inverse_ints(vals)
+    assert got == ([pow(v, P - 2, P) for v in vals] if zero_at is None else [0] * len(vals))
+    assert got == fr.to_ints(logup.batch_inverse_plain(fr.from_ints(vals)))
+
+
+@pytest.mark.parametrize("m_width", [None, 1, 4])
+def test_logup_partial_sum_ints(m_width):
+    fps, alpha = _seeded(12, 9), 0xA1FA
+    rng = np.random.RandomState(13)
+    m_t = (None if m_width is None else torch.from_numpy(
+        rng.randint(0, 2 if m_width == 1 else 1 << 16, size=(9, m_width)).astype(np.int64)))
+    m = None if m_t is None else fr.to_ints(m_t)
+    want = sum((1 if m is None else m[i]) * pow(alpha - v, P - 2, P)
+               for i, v in enumerate(fps)) % P
+    assert logup.logup_partial_sum_ints(fps, alpha, m) == want
+    plain = logup.logup_partial_sum_plain(fr.from_ints(fps), fr.from_ints([alpha]), m_t)
+    assert fr.to_ints(plain[None])[0] == want

@@ -581,3 +581,113 @@ def test_logup_partial_sum(dev, n, mult):
     zero = logup.logup_partial_sum(fps, at, m)
     _equal(zero, logup.logup_partial_sum_plain(fps, at, m))
     assert not bool(zero.any())
+
+
+# -- K12 and K13 on the 32-bit-limb Montgomery product: Python ints, and every
+#    level and tile boundary of K13's plan ------------------------------------------
+
+P = fr.P
+LOGUP_TILE = logup.LOGUP_THREADS * logup.LOGUP_RUN
+
+
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 131072])
+def test_fr_inv_equals_python_ints(dev, rows):
+    rng = np.random.RandomState(rows)
+    cases = ([[0], [1], [P - 1], _fr_values(rng, 1)] if rows == 1
+             else [[0, 1, P - 1] + _fr_values(rng, rows - 3)])
+    for vals in cases:
+        a = L.ints_to_limbs(vals, 16).to(dev)
+        before = L.LAUNCHES["fr_inv"]
+        got = fr.inv(a)
+        assert L.LAUNCHES["fr_inv"] == before + 1
+        assert fr.to_ints(got.cpu()) == [pow(v, P - 2, P) for v in vals]
+        if rows <= 33:
+            _equal(got, fr.inv_plain(a))
+
+
+def _fr_rows(rng, n, zero_at=None):
+    """n canonical elements as [n, 16] limbs (the top limb below p's, so
+    each is below p; 1, 2 and p - 1 first) and as Python ints."""
+    limbs = rng.randint(0, 1 << 16, size=(n, 16)).astype(np.int64)
+    limbs[:, 15] %= P >> 240
+    t = torch.from_numpy(limbs)
+    t[:3] = L.ints_to_limbs([1, 2, P - 1], 16)[:n]
+    if zero_at is not None:
+        t[{"first": 0, "middle": n // 2, "last": n - 1}[zero_at]] = 0
+    return t, fr.to_ints(t)
+
+
+def _logup_call(call, n, sum_mode):
+    """One K13 call: two wrapper launches, one of K12, and the device
+    launches counted in the source equal to the plan's, at most 8 with
+    K12's."""
+    before = L.LAUNCHES["logup_sum"], L.LAUNCHES["fr_inv"], logup.device_launches()
+    got = call()
+    assert (L.LAUNCHES["logup_sum"], L.LAUNCHES["fr_inv"]) == (before[0] + 2, before[1] + 1)
+    up, down = logup.device_launches()
+    assert (up - before[2][0], down - before[2][1]) == logup.logup_plan(n).launches(sum_mode)
+    assert up - before[2][0] + 1 + down - before[2][1] <= 8
+    return got
+
+
+# every level and tile boundary of the plan, up to the ALU block's bytecode
+# queries
+LOGUP_NS = [1, 2, LOGUP_TILE - 1, LOGUP_TILE, LOGUP_TILE + 1, 2 * LOGUP_TILE + 3,
+            LOGUP_TILE ** 2, LOGUP_TILE ** 2 + 1, 6160016]
+
+
+@pytest.mark.parametrize("n", LOGUP_NS)
+def test_batch_inverse_across_the_plan(dev, n):
+    x, vals = _fr_rows(np.random.RandomState(n % 9973), n)
+    x = x.to(dev)
+    got = _logup_call(lambda: logup.batch_inverse(x), n, False)
+    if n <= 2 * LOGUP_TILE + 3:
+        assert fr.to_ints(got.cpu()) == logup.batch_inverse_ints(vals)
+        _equal(got, logup.batch_inverse_plain(x))
+    else:   # every x * inv is 1 (K1), and both ends against Python ints
+        one = torch.zeros((n, 16), dtype=torch.int64, device=dev)
+        one[:, 0] = 1
+        _equal(fr.fr_mul(x, got), one)
+        ends = list(range(LOGUP_TILE)) + list(range(n - LOGUP_TILE, n))
+        assert fr.to_ints(got[ends].cpu()) == [pow(vals[i], P - 2, P) for i in ends]
+
+
+@pytest.mark.parametrize("zero_at", ["first", "middle", "last"])
+@pytest.mark.parametrize("n", [LOGUP_TILE, LOGUP_TILE + 1, LOGUP_TILE ** 2 + 1])
+def test_batch_inverse_zero_across_the_plan(dev, n, zero_at):
+    x, _ = _fr_rows(np.random.RandomState(n % 9973), n, zero_at)
+    got = logup.batch_inverse(x.to(dev))
+    torch.cuda.synchronize()
+    assert not bool(got.any())
+
+
+# m widths 1 (en), 4 (counts) and 16 (any element); the largest shape with
+# the query side's m only, as the ALU block gives it
+LOGUP_SUM_CASES = [(n, w) for n in LOGUP_NS for w in (None, 1, 4, 16)
+                   if n < 6160016 or w == 1]
+
+
+@pytest.mark.parametrize("n,m_width", LOGUP_SUM_CASES)
+def test_logup_partial_sum_across_the_plan(dev, n, m_width):
+    rng = np.random.RandomState(n % 9973 + 7)
+    fps, vals = _fr_rows(rng, n)
+    fps = fps.to(dev)
+    alpha_int = 0xA1FA
+    alpha = L.int_to_limbs(alpha_int, 16).to(dev)
+    if m_width is None:
+        m, m_ints = None, [1] * n
+    elif m_width == 16:
+        m, m_ints = _fr_rows(rng, n)
+    else:   # en (0/1) or a 64-bit count
+        m = torch.from_numpy(rng.randint(0, 2 if m_width == 1 else 1 << 16, size=(n, m_width)))
+        m_ints = fr.to_ints(m)
+    m = None if m is None else m.to(dev)
+    got = _logup_call(lambda: logup.logup_partial_sum(fps, alpha, m), n, True)
+    assert fr.to_ints(got.cpu()[None])[0] == logup.logup_partial_sum_ints(vals, alpha_int, m_ints)
+    if n <= 2 * LOGUP_TILE + 3:
+        _equal(got, logup.logup_partial_sum_plain(fps, alpha, m))
+    # alpha equal to one fingerprint (first, middle, last): the sum is 0
+    for i in sorted({0, n // 2, n - 1}):
+        zero = logup.logup_partial_sum(fps, fps[i].clone(), m)
+        torch.cuda.synchronize()
+        assert not bool(zero.any())

@@ -160,10 +160,12 @@ def test_logup_partial_sum_is_zero_at_a_fingerprint():
 
 
 def test_workspace_words_cover_the_levels():
-    assert logup.logup_workspace_words(1) == 16 * 2
-    # 17 elements: levels 17 -> 2 -> 1; running products of 17 + 2, chunk
-    # products of 2 + 1, inverses of 2
-    assert logup.logup_workspace_words(17) == 16 * (19 + 3 + 2)
+    assert logup.logup_workspace_words(1) == 8
+    # one tile: 17 elements in Montgomery form, 8 words each
+    assert logup.logup_workspace_words(17) == 8 * 17
+    # two levels: the elements, then their tiles' products
+    tile = logup.LOGUP_THREADS * logup.LOGUP_RUN
+    assert logup.logup_workspace_words(tile + 1) == 8 * (tile + 1 + 2)
 
 
 # -- tests/test_logup.py's verdicts, through the port -----------------------------

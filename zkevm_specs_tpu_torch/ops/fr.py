@@ -156,17 +156,60 @@ def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
 # K12: field inverse
 # ---------------------------------------------------------------------------
 
+INV_WINDOW = 4   # csrc/fr_inv.cu's window width
+
+
+def sliding_window_schedule(e: int, w: int):
+    """The left-to-right sliding-window chain for a^e (e > 0) with window
+    width w, as ``(first, windows, tail)``: start from a^first (odd, below
+    2^w), then per window ``(squarings, v)`` square that many times and
+    multiply by a^v (odd, below 2^w), then square ``tail`` times (e's
+    trailing zero bits)."""
+    bits = bin(e)[2:]
+    first, windows, pending, i = None, [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            pending, i = pending + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        v = int(bits[i:j], 2)
+        if first is None:
+            first = v
+        else:
+            windows.append((pending + j - i, v))
+        pending, i = 0, j
+    return first, windows, pending
+
+
+INV_SCHEDULE = sliding_window_schedule(P - 2, INV_WINDOW)
+
+
 def inv_plain(a: torch.Tensor) -> torch.Tensor:
-    """Plain version of K12: ``pow_const(a, p - 2)`` over ``fr_mul_plain``."""
-    return _pow(a, P - 2, fr_mul_plain)
+    """Plain version of K12: a^(p-2) by the kernel's chain
+    (``INV_SCHEDULE``: the table a, a^3, ..., a^15 from a^2, then each
+    window's squarings and its multiply), over ``fr_mul_plain``."""
+    first, windows, _ = INV_SCHEDULE      # p - 2 is odd: no trailing squarings
+    a = L.pad_limbs(a, NL)
+    a2 = fr_mul_plain(a, a)
+    table = [a]
+    for _ in range(1, 1 << (INV_WINDOW - 1)):
+        table.append(fr_mul_plain(table[-1], a2))
+    acc = table[first // 2]
+    for squarings, v in windows:
+        for _ in range(squarings):
+            acc = fr_mul_plain(acc, acc)
+        acc = fr_mul_plain(acc, table[v // 2])
+    return acc
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
     """K12 wrapper: a^(p-2) mod p (0 maps to 0) for ``a [B, <=16]`` as
     ``[B, 16]`` canonical limbs.
 
-    Replaces ``zkevm_specs_tpu/ops/fr.py:inv`` (:134-158): any exact ladder
-    gives the one canonical value, so the kernel's left-to-right ladder
+    Replaces ``zkevm_specs_tpu/ops/fr.py:inv`` (:134-158): any exact chain
+    gives the one canonical value, so the kernel's sliding-window chain
     equals the JAX scan and its numpy ``pow_const``."""
     L.check_limbs(a, "fr.inv a")
     if not 1 <= a.shape[-1] <= NL:

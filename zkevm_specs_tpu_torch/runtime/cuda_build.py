@@ -75,9 +75,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "fr_inv_launch": [_P, _I64, _I32, _P, _I64, _P],
     },
     "logup_sum": {
-        "logup_up_launch": [_P, _I64, _I32, _P, _I64, _P, _I64, _P, _P],
-        "logup_down_launch": [_P, _I64, _I32, _P, _I64, _P, _I64, _I32, _P, _I64, _P, _P, _I32,
-                              _P],
+        "logup_up_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I64, _P, _P],
+        "logup_down_launch": [_I64, _P, _I64, _I32, _I32, _P, _I64, _P, _P, _I32, _P],
+        "logup_device_launches": [_P, _P],
+        "logup_blocks_per_sm": [_P, _P],
     },
 }
 

@@ -18,8 +18,9 @@ the CPU.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -96,19 +97,96 @@ def logup_partial_sum_plain(fps: torch.Tensor, alpha: torch.Tensor,
     return total[0]
 
 
-LOGUP_CHUNK = 16   # csrc/logup_sum.cu's chunk of a level
+def batch_inverse_ints(vals: List[int]) -> List[int]:
+    """Montgomery's batch inverse on Python ints, independent of the limb
+    code (every output 0 after a zero element): the reference K13 is held
+    against on the card."""
+    prefix, acc = [], 1
+    for v in vals:
+        acc = acc * v % fr.P
+        prefix.append(acc)
+    inv, out = pow(acc, fr.P - 2, fr.P), [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = inv * (prefix[i - 1] if i else 1) % fr.P
+        inv = inv * vals[i] % fr.P
+    return out
+
+
+def logup_partial_sum_ints(fps: List[int], alpha: int, m: Optional[List[int]] = None) -> int:
+    """``sum_i m_i / (alpha - fp_i) mod p`` on Python ints (m None: every
+    m_i is 1)."""
+    inv = batch_inverse_ints([(alpha - v) % fr.P for v in fps])
+    return sum(inv if m is None else (mi * ii for mi, ii in zip(m, inv))) % fr.P
+
+
+# csrc/logup_sum.cu's tile, fixed when it is compiled (its LOGUP_THREADS
+# and LOGUP_RUN): threads a block times elements a thread (the run); 1024
+# elements, so a level shrinks 1024-fold (sized on the card by
+# ``profile_replay.py --logup``)
+LOGUP_THREADS = 256
+LOGUP_RUN = 4
+
+
+class LogupPlan(NamedTuple):
+    """K13's plan for n elements (``make_plan`` in ``csrc/logup_sum.cu``,
+    which refuses any other): ``levels[l]`` elements at level l, from n
+    down to the one total; level l + 1 holds the products of level l's
+    tiles of ``tile = threads * run`` consecutive elements; the workspace
+    holds the elements of every level below the top, 8 uint32 words each."""
+    levels: Tuple[int, ...]
+    threads: int
+    run: int
+    words: int
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.run
+
+    @property
+    def depth(self) -> int:
+        """L: the levels with a tile pass (at least one)."""
+        return len(self.levels) - 1
+
+    def tile_elements(self, level: int, t: int) -> List[List[int]]:
+        """The elements of tile t at ``level``, per thread, in run order
+        (thread j: ``t * tile + j + k * threads``, k < run, below the
+        level's count)."""
+        n = self.levels[level]
+        return [[i for i in (t * self.tile + j + k * self.threads for k in range(self.run))
+                 if i < n] for j in range(self.threads)]
+
+    def launches(self, sum_mode: bool) -> Tuple[int, int]:
+        """Device launches of the up and the down entry (K12 between them
+        makes one more): a tile pass a level each way, and in the partial
+        sum one launch that adds the tile sums when there are several."""
+        return self.depth, self.depth + int(sum_mode and self.depth > 1)
+
+
+def logup_plan(n: int) -> LogupPlan:
+    """K13's levels and workspace for n >= 1 elements at the tile of
+    ``LOGUP_THREADS`` and ``LOGUP_RUN``."""
+    levels = [n]
+    while True:
+        levels.append(-(-levels[-1] // (LOGUP_THREADS * LOGUP_RUN)))
+        if levels[-1] == 1:
+            break
+    return LogupPlan(tuple(levels), LOGUP_THREADS, LOGUP_RUN, 8 * sum(levels[:-1]))
 
 
 def logup_workspace_words(n: int) -> int:
-    """uint32 words of K13's workspace for n elements (the layout of
-    ``make_plan`` in ``csrc/logup_sum.cu``)."""
-    levels = [n]
-    while True:
-        levels.append(-(-levels[-1] // LOGUP_CHUNK))
-        if levels[-1] == 1:
-            break
-    top = len(levels) - 1
-    return NL * (sum(levels[:top]) + sum(levels[1:]) + sum(levels[1:top]))
+    """uint32 words of K13's workspace for n elements."""
+    return logup_plan(n).words
+
+
+def device_launches() -> Tuple[int, int]:
+    """The kernels launched so far by K13's up and down entries, as
+    ``csrc/logup_sum.cu`` counts them at each launch (K12's launch between
+    them counts under ``fr_inv``)."""
+    from ..runtime import cuda_build
+
+    up, down = ctypes.c_int(), ctypes.c_int()
+    cuda_build.library("logup_sum").logup_device_launches(ctypes.byref(up), ctypes.byref(down))
+    return up.value, down.value
 
 
 def _check_elements(x: torch.Tensor, name: str) -> None:
@@ -122,18 +200,18 @@ def _logup_launch(x, alpha, m, out, sum_mode: bool) -> None:
     from ..runtime import cuda_build
 
     n = x.shape[0]
-    words = logup_workspace_words(n)
-    work = torch.empty((words,), dtype=torch.int32, device=x.device)
+    plan = logup_plan(n)
+    work = torch.empty((plan.words,), dtype=torch.int32, device=x.device)
     top = torch.empty((1, NL), dtype=L.DTYPE, device=x.device)
     lib = cuda_build.library("logup_sum")
+    shape = (plan.depth, work.data_ptr(), plan.words)
     a_ptr = None if alpha is None else alpha.data_ptr()
-    err = lib.logup_up_launch(x.data_ptr(), L.row_stride(x), x.shape[1], a_ptr, n,
-                              work.data_ptr(), words, top.data_ptr(), L.cuda_stream())
+    err = lib.logup_up_launch(x.data_ptr(), L.row_stride(x), x.shape[1], a_ptr, n, *shape,
+                              top.data_ptr(), L.cuda_stream())
     L.check_launch(err, "logup_sum")
     top_inv = fr.inv(top)
     m_ptr, m_stride, m_w = (None, 0, 0) if m is None else (m.data_ptr(), L.row_stride(m), m.shape[1])
-    err = lib.logup_down_launch(x.data_ptr(), L.row_stride(x), x.shape[1], a_ptr, n, m_ptr,
-                                m_stride, m_w, work.data_ptr(), words, top_inv.data_ptr(),
+    err = lib.logup_down_launch(n, m_ptr, m_stride, m_w, *shape, top_inv.data_ptr(),
                                 out.data_ptr(), int(sum_mode), L.cuda_stream())
     L.check_launch(err, "logup_sum")
 

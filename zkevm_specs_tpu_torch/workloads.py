@@ -297,6 +297,23 @@ def build_arith_block(n_txs: int = ARITH_BLOCK_TXS, cycles: int = ARITH_BLOCK_CY
                        arith_block_txs(n_txs, cycles, seed), sign=False)
 
 
+# (side, elements, m limbs) of every logUp partial sum (K13 call) of the two
+# blocks' checks: a query side's m is en (one limb), a table side's the
+# multiplicities (four limbs).  chip_smoke.py checks these against the
+# blocks it builds; profile_replay.py --logup times K13 at them without
+# building the blocks.
+LOGUP_SIDES = (
+    ("ALU rw query", 528401, 1), ("ALU rw table", 528369, 4),
+    ("ALU bytecode query", 6160016, 1), ("ALU bytecode table", 66002, 4),
+    ("ALU tx query", 180, 1), ("ALU tx table", 96, 4),
+    ("ALU block query", 55, 1), ("ALU block table", 8, 4),
+    ("arith rw query", 136713, 1), ("arith rw table", 96561, 4),
+    ("arith bytecode query", 1150040, 1), ("arith bytecode table", 966520, 4),
+    ("arith exp query", 2960, 1), ("arith exp table", 13365, 4),
+    ("arith tx query", 916, 1), ("arith tx table", 480, 4),
+    ("arith block query", 279, 1), ("arith block table", 8, 4))
+
+
 def receipt_gas_used(witness) -> int:
     """Gas used by the block, from its receipt rows (``bench.py:445-451``)."""
     from .tables.schemas import Target, TxReceiptFieldTag
