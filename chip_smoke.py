@@ -47,12 +47,15 @@ script exits non-zero):
    CUDA graph, K10 its last kernel, and a replay), no failure; the
    per-kernel pass (``run_device``, median of 5, its launches counted on
    their own, and the graph's recorded launches equal to them kernel for
-   kernel, plus one K10) and the graph replay (median of 10), the graph's
-   device time alone (CUDA events) and the host-scheduled groups' time
+   kernel, plus one K10, and K3's launches by path, staged or direct,
+   as its launcher counts them) and the graph replay (median
+   of 10), the graph's device time alone (CUDA events) and the
+   host-scheduled groups' time
    (they run on the host while the graph runs); the keccak check's share;
    one more per-kernel pass that records every kernel's arguments at each
-   distinct shape; a rebuild with one ADD step's gas_left + 1 that must
-   fail at that step or its predecessor only; and a 2 x 6 block whose
+   distinct shape, and counts every call under its shape; a rebuild with
+   one ADD step's gas_left + 1 that must fail at that step or its
+   predecessor only; and a 2 x 6 block whose
    failure dicts on the card and on the CPU must be equal, clean and
    corrupted.  The pi circuit is not ported (``not_ported``);
 9. arith: the arithmetic block (``workloads.build_arith_block(40, 37)``:
@@ -81,7 +84,13 @@ script exits non-zero):
    withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", 10 timed launches each, and "arith": K11 at each of its
+   "block", 10 timed launches each, each K3 and K4 entry with its count
+   in the pass, and a ``tiled_kernels`` line: for K3 and K4 over each
+   block's pass, the sums of count x ms and of count x bound_ms, the
+   one-lane launches and the launches of each instance; K4 also with a
+   bound that reads the table in whole 32-byte sectors, and at every
+   gather-only shape ``torch.index_select`` a part as its library call;
+   and "arith": K11 at each of its
    variants and shapes there, the exp circuit's included, 25 launches
    each; K2 has its row at the arithmetic block's widest shape, since the
    MUL group no longer launches it).  K8 at the ALU block's 66001 steps is
@@ -110,10 +119,12 @@ script exits non-zero):
    field product at its least work on 32-bit words (``FR_PRODUCT_OPS``,
    ``fr_product_chain``: an 8 x 32-bit-limb Montgomery product).
 
-The last three lines are the kernels line, the card's nvidia-smi line and
+The last three lines are the kernels line (K3's and K4's rows with their
+``block_pass_sums``), the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing anything.
 """
+import collections
 import contextlib
 import ctypes
 import json
@@ -144,6 +155,7 @@ from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
+from zkevm_specs_tpu_torch.runtime.timing import time_on_card_ms  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
 from zkevm_specs_tpu_torch.tables import logup  # noqa: E402
 from zkevm_specs_tpu_torch.tables.schemas import RW, BytecodeFieldTag, Target  # noqa: E402
@@ -154,6 +166,8 @@ SMALL_LANES = 256
 CORRUPT_LANE = 77_777
 REPLAY_REPEATS = 10
 KERNEL_REPEATS = 25
+# the kernels whose sums over a block pass the tiled_kernels line gives
+TILED_KERNELS = ("limb_addsub", "lookup_gather_eq")
 STATE_ROWS = workloads.ALU_BLOCK_STATE_ROWS
 SMALL_STATE_ROWS = 512
 CORRUPT_ROW = 77_777
@@ -233,7 +247,14 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                           "logup_sum")}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "ended_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -249,26 +270,6 @@ def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_on_card_ms(fn, repeats=KERNEL_REPEATS, warmup=3):
-    """Median device time of one call, from CUDA events around it.  A short
-    sleep kernel is queued first so the start event fires after the host
-    has enqueued the call, and the interval is the device's work alone
-    (for a multi-launch plain version it includes its launch gaps)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 # -- phase 3: the slice ---------------------------------------------------------
@@ -346,11 +347,13 @@ class Capture:
     """Records the arguments of calls of ``module.name`` while active: the
     first call for each value of ``key(args)`` (by default the first call
     only), its positional arguments in ``calls`` and its keyword arguments
-    in ``kwargs``.  Used on a run outside the counted main path, to hold and
-    time the kernels at the path's own shapes."""
+    in ``kwargs``, and every call counted under its key in ``counts``.  Used
+    on a run outside the counted main path, to hold and time the kernels at
+    the path's own shapes."""
 
     def __init__(self, module, name, key=lambda args: None):
         self.module, self.name, self.key, self.calls, self.kwargs = module, name, key, {}, {}
+        self.counts = collections.Counter()
         self.orig = getattr(module, name)
 
     def __enter__(self):
@@ -358,6 +361,7 @@ class Capture:
             key = self.key(args)
             if key not in self.calls:
                 self.calls[key], self.kwargs[key] = args, kw
+            self.counts[key] += 1
             return self.orig(*args, **kw)
 
         setattr(self.module, self.name, record)
@@ -368,9 +372,11 @@ class Capture:
 
 
 def addsub_key(args):
-    """K3's (mode, out_n, operand shapes): one capture for each."""
+    """K3's (mode, out_n, operand shapes, operand row strides): one capture
+    for each (a view of wider rows loads otherwise than a dense tensor)."""
     a, b, mode = args[:3]
-    return (mode, args[3] if len(args) > 3 else 0, tuple(a.shape), tuple(b.shape))
+    return (mode, args[3] if len(args) > 3 else 0, tuple(a.shape), tuple(b.shape),
+            L.row_stride(a), L.row_stride(b))
 
 
 def shapes(ts):
@@ -394,6 +400,10 @@ def word_mul_key(args):
     """K11's (variant, row shapes): one capture for each."""
     return (len(args) > 1 and bool(args[1]), shapes(args[0]))
 
+
+# the keyword under which a captured call's count rides beside its keyword
+# arguments (``block_path_shapes`` takes it out before a call)
+COUNT = "__count__"
 
 # the kernel wrappers the block verifier's device pass calls, as (kernel,
 # module, attribute, key of a distinct shape)
@@ -826,11 +836,19 @@ def run_block(path, card):
         assert counts[name] > 0, f"{path}: kernel {name} was not launched on the main path"
     assert counts["leaf_unpack"] == 1, counts
 
-    # the per-kernel pass, its launches counted on their own
+    # the per-kernel pass, its launches counted on their own (and K3's on
+    # each path, counted by its launcher)
     reset_counts()
+    paths_before = cuda_build.path_launches("limb_addsub")
     assert not bv.run_device(prepared), f"{path}: the per-kernel pass failed the clean block"
     torch.cuda.synchronize()
     pass_counts = read_counts()
+    # K3's launches by path, staged or direct; K4 has one
+    pass_paths = {"limb_addsub": {k: v - paths_before[k] for k, v in
+                                  cuda_build.path_launches("limb_addsub").items()},
+                  "lookup_gather_eq": {"tiled": pass_counts["lookup_gather_eq"]}}
+    assert sum(pass_paths["limb_addsub"].values()) == pass_counts["limb_addsub"], \
+        (pass_paths, pass_counts["limb_addsub"])
     # the graph holds the per-kernel pass's launches, kernel for kernel, and K10
     graph_counts = prepared["graph"]["launches"]
     for name in KERNELS:
@@ -863,6 +881,7 @@ def run_block(path, card):
         "per_kernel_pass_ms_median": per_kernel_ms, "per_kernel_pass_ms_min": per_kernel_min,
         "per_kernel_pass_launches": pass_counts,
         "per_kernel_pass_launches_total": sum(pass_counts.values()),
+        "per_kernel_pass_instance_launches": pass_paths,
         "graph_replay_ms_median": graph_ms, "graph_replay_ms_min": graph_min,
         "capture_s": t_capture, "graph_device_ms": graph_device_ms,
         "host_groups_ms": host_groups_ms, "graph_host_launches": 1,
@@ -901,9 +920,14 @@ def run_block(path, card):
     torch.cuda.synchronize()
     calls = {}
     for name, c in caps:
-        calls.setdefault(name, []).extend((args, c.kwargs[k]) for k, args in c.calls.items())
-    captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls}
+        calls.setdefault(name, []).extend((args, {**c.kwargs[k], COUNT: c.counts[k]})
+                                          for k, args in c.calls.items())
+    captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls,
+                "instances": pass_paths}
     out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
+    for name in TILED_KERNELS:
+        assert sum(kw[COUNT] for _, kw in calls[name]) == pass_counts[name], \
+            f"{path}: the captured {name} calls differ from the per-kernel pass's launches"
     logup_counts, logup_captured = run_logup(path, bv, prepared, card)
     del bv, prepared, up, leaves, caps, fails
     torch.cuda.empty_cache()
@@ -1124,7 +1148,8 @@ def verdict_entry(label, fails):
                     total + out_bytes + table.numel() * 8, 0,
                     f"{label}: {len(fails)} vectors, {total} verdicts, {out_bytes} bytes packed, "
                     f"{transfer.verdict_blocks([f.numel() for f in fails])[-1]} blocks")
-    entry["library_ms"] = time_on_card_ms(lambda: torch.cat(fails))   # bool out, not uint8
+    entry["library_ms"] = time_on_card_ms(lambda: torch.cat(fails),   # bool out, not uint8
+                                          repeats=KERNEL_REPEATS)
     return entry
 
 
@@ -1155,18 +1180,28 @@ def block_path_shapes(calls, label):
         add("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
             (nbytes(a, b) + rows_n * out_n * 8, rows_n * (2 * a.shape[1] * b.shape[1] + 3 * out_n)),
             f"{list(a.shape)} x {list(b.shape)} -> {out_n} limbs")
-    for args, _ in calls.get("limb_addsub", []):
+    for args, kw in calls.get("limb_addsub", []):
         x, y, mode = args[:3]
         out_n = args[3] if len(args) > 3 else 0
         add("limb_addsub", lambda: L.limb_addsub(*args), lambda: L.addsub_plain(x, y, mode, out_n),
-            addsub_cost(*args), f"{MODE_NAMES[mode]} {list(x.shape)} {list(y.shape)} out_n {out_n}")
+            addsub_cost(*args), f"{MODE_NAMES[mode]} {list(x.shape)} {list(y.shape)} out_n {out_n}"
+            f" strides {L.row_stride(x)} {L.row_stride(y)}")
+        out["limb_addsub"][-1].update(count=kw.get(COUNT), lanes=L.batch_rows(x, y))
     for args, kw in calls.get("lookup_gather_eq", []):
+        count = kw.get(COUNT)
+        kw = {k: v for k, v in kw.items() if k != COUNT}
         pick = ok_and_rows(kw.get("want_ok", True))
-        table, query = args[:2]
+        table, query, idx = args[:3]
+        moved, ops = gather_cost(*args)
         add("lookup_gather_eq", lambda: pick(engine.lookup_gather_eq(*args, **kw)),
-            lambda: pick(engine.lookup_gather_eq_plain(*args)), gather_cost(*args),
+            lambda: pick(engine.lookup_gather_eq_plain(*args)), (moved, ops),
             f"{table[0].shape[0]}-row table, {len(table)} parts "
-            f"({sum(q is not None for q in query)} queried), {args[2].shape[0]} lanes")
+            f"({sum(q is not None for q in query)} queried), {idx.shape[0]} lanes")
+        entry = out["lookup_gather_eq"][-1]
+        entry.update(gather_sector_bound(table, idx, moved))
+        entry.update(count=count, lanes=idx.shape[0])
+        if all(q is None for q in query):
+            entry.update(gather_library(table, idx))
     for args, _ in calls.get("state_order_lt", []):
         add("state_order_lt", lambda: state.state_order_lt(*args),
             lambda: state.state_order_lt_plain(*args), order_cost(args),
@@ -1194,6 +1229,62 @@ def block_path_shapes(calls, label):
             horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3))
     for args, _ in calls.get("mul_add_words", []):
         add("mul_add_words", *word_mul_entry(args), kernel_repeats=KERNEL_REPEATS)
+    return out
+
+
+def gather_library(table, idx):
+    """The library call of a gather-only K4 launch: one torch.index_select
+    a part on the resolved (clamped) rows, timed as K4 is and checked equal
+    to its gathered rows."""
+    rows = engine.hint_rows(idx, table[0].shape[0])
+
+    def library():
+        return [torch.index_select(t, 0, rows) for t in table]
+
+    _, gathered = engine.lookup_gather_eq(table, [None] * len(table), idx, want_ok=False)
+    assert all(torch.equal(g, w) for g, w in zip(gathered, library())), \
+        "lookup_gather_eq: the gather differs from torch.index_select"
+    return {"library": "torch.index_select per part on the clamped rows",
+            "library_ms": time_on_card_ms(library, repeats=BLOCK_SHAPE_REPEATS)}
+
+
+def gather_sector_bound(table, idx, moved):
+    """K4's bound with the table read in whole sectors: 32 bytes for each
+    distinct 32-byte sector of a table part that this run's rows touch
+    (computed on the host from the parts' addresses), in place of the
+    touched rows' bytes in ``gather_cost``."""
+    rows = hinted_rows(table, idx)
+    row_bytes = sum(8 * t.shape[1] for t in table)
+    sectors = 0
+    for t in table:
+        stride = L.row_stride(t)
+        start = t.data_ptr() + (rows[:1] if stride == 0 else rows) * stride * 8
+        first, last = start // 32, (start + 8 * t.shape[1] - 1) // 32
+        # rows ascend and the stride is not negative, so the sector runs do too
+        prev_last = np.concatenate([[first[0] - 1], last[:-1]])
+        sectors += int(np.maximum(0, last - np.maximum(first, prev_last + 1) + 1).sum())
+    sector_moved = moved - len(rows) * row_bytes + 32 * sectors
+    return {"table_sectors": sectors, "sector_bytes": sector_moved,
+            "sector_bound_ms": sector_moved / HBM_BYTES_PER_S * 1e3}
+
+
+def tiled_pass_sums(entries, instances):
+    """Over a block's per-kernel pass, for K3 and K4: the launches at the
+    captured shapes, the sums of count x ms and of count x bound_ms (K4's
+    also with its sector bound), the one-lane launches, and the launches of
+    each path (K3's as its launcher counted them; K4 has one)."""
+    out = {}
+    for name in TILED_KERNELS:
+        es = entries.get(name, [])
+        out[name] = {
+            "launches": sum(e["count"] for e in es),
+            "sum_count_ms": sum(e["count"] * e["ms"] for e in es),
+            "sum_count_bound_ms": sum(e["count"] * e["bound_ms"] for e in es),
+            "one_lane_launches": sum(e["count"] for e in es if e["lanes"] == 1),
+            "instance_launches": instances[name]}
+        if name == "lookup_gather_eq":
+            out[name]["sum_count_sector_bound_ms"] = sum(e["count"] * e["sector_bound_ms"]
+                                                         for e in es)
     return out
 
 
@@ -1334,14 +1425,21 @@ def addsub_cost(a, b, mode, out_n=0):
     return moved, rows * per_row
 
 
+def hinted_rows(table, idx):
+    """The distinct table rows this run's hint indexes resolve to, sorted."""
+    return np.unique(engine.hint_rows(idx, table[0].shape[0]).cpu().numpy())
+
+
 def gather_cost(table, query, idx, enabled=None):
-    """(bytes, int32 operations) of K4: each lane's hinted row of every part
-    read and written once, the queries, idx and enabled read, the ok bits
-    written where a part is queried, and two per compared limb."""
+    """(bytes, int32 operations) of K4: every table row the run's hints
+    touch read once (each part), each lane's gathered limbs written once,
+    the queries, idx and enabled read, the ok bits written where a part is
+    queried, and two per compared limb."""
     B = idx.shape[0]
-    gathered = B * 8 * sum(t.shape[1] for t in table)
+    row_bytes = 8 * sum(t.shape[1] for t in table)
     pairs = [(t, q) for t, q in zip(table, query) if q is not None]
-    moved = (nbytes(idx) + sum(nbytes(q) for _, q in pairs) + 2 * gathered
+    moved = (nbytes(idx) + sum(nbytes(q) for _, q in pairs)
+             + len(hinted_rows(table, idx)) * row_bytes + B * row_bytes
              + (B if pairs else 0) + (nbytes(enabled) if enabled is not None else 0))
     return moved, 2 * B * sum(max(t.shape[1], q.shape[1]) for t, q in pairs)
 
@@ -1414,6 +1512,7 @@ def kernel_phase(launches, mul_inputs, arith_calls):
             engine.lookup_gather_eq_plain(table, query, idx)),
         *gather_cost(table, query, idx), f"rw table {table[0].shape[0]} rows, 5 parts, B lanes",
         launches["lookup_gather_eq"]))
+    rows[-1].update(gather_sector_bound(table, idx, gather_cost(table, query, idx)[0]))
 
     # K11: the MUL group's word product, variant 256 at B lanes
     (args,) = mul_k11.values()
@@ -1470,7 +1569,7 @@ def slice_kernel_rows(launches, captured):
         entry = measure("lookup_search_eq", lambda: list(engine.lookup_search_eq(*args)),
                         lambda: list(engine.lookup_search_eq_plain(*args)), moved, ops, note)
         entry["searchsorted_ms"] = time_on_card_ms(
-            lambda: torch.searchsorted(keys, qkeys, side="left"))
+            lambda: torch.searchsorted(keys, qkeys, side="left"), repeats=KERNEL_REPEATS)
         k6.append(entry)
     rows.append({"name": "lookup_search_eq", "route": "cuda", "source": SOURCES["lookup_search_eq"],
                  "replaces": REPLACES["lookup_search_eq"], "launches": launches["lookup_search_eq"],
@@ -1498,7 +1597,7 @@ def path_shape_entries(captured):
         for key, args in captured[path]["limb_addsub"].items():
             seen.setdefault(key, (label, args))
     k3 = []
-    for (mode, out_n, sa, sb), (path, args) in seen.items():
+    for (mode, out_n, sa, sb, _, _), (path, args) in seen.items():
         x, y = args[:2]
         k3.append(measure("limb_addsub", lambda: L.limb_addsub(*args),
                           lambda: L.addsub_plain(x, y, mode, out_n), *addsub_cost(*args),
@@ -1986,10 +2085,18 @@ def main():
     shape_calls = [(path, captured[path]["calls"]) for path in BLOCK_PHASES]
     shape_calls += [(f"logup_{path} {family}", calls) for path in BLOCK_PHASES
                     for family, calls in captured[f"logup_{path}"]["calls"].items()]
+    block_sums = {}
     for label, calls in shape_calls:
-        for name, entries in block_path_shapes(calls, label).items():
+        by_name = block_path_shapes(calls, label)
+        if label in BLOCK_PHASES:
+            block_sums[label] = tiled_pass_sums(by_name, captured[label]["instances"])
+        for name, entries in by_name.items():
             row = next(r for r in rows if r["name"] == name)
             row["path_shapes"] = row.get("path_shapes", []) + entries
+    emit({"phase": "tiled_kernels", "per_kernel_pass": block_sums, "card": card})
+    for name in TILED_KERNELS:
+        next(r for r in rows if r["name"] == name)["block_pass_sums"] = {
+            label: sums[name] for label, sums in block_sums.items()}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["card"] = card

@@ -53,6 +53,32 @@ then the kernels' registers and spills from ptxas (of the first tile).
 
     python3 profile_replay.py --logup [ROOT ...]
 
+With ``--limbs``, for each checkout root in the order given (``.`` when
+none; parent and change in one call compare them on one card), a fresh
+process builds the ALU block and the arithmetic block
+(``workloads.build_alu_block``, ``build_arith_block``), runs each block's
+per-kernel pass once under torch.profiler (K3's and K4's device time and
+launches), and once more with every call of K3 (``limbs.limb_addsub``)
+and K4 (``engine.lookup_gather_eq``) counted under its shape (operand
+shapes and row strides, mode), as it does for the calls of each block's
+rw logUp check and for the kernels line's two shapes (K3's Fr add of two
+``[131072, 16]`` rows, K4's 5-part stack pop of the MUL group); then
+times each distinct shape on its own arguments
+(``runtime/timing.py:time_on_card_ms``, median of 10) and hashes its
+output.  K4's time at the 5-part stack pop is also split by what it
+moves (``gather_split``: the whole call, the gather alone, the gather
+with every hint at row 0, the narrowest part alone at row 0), each with
+its bytes and their time at the card's memory rate.  In a root
+whose sources take ``ADDSUB_TILE`` and ``GATHER_TILE``, every shape is
+timed at each tile of ``LIMB_TILES`` (the kernel built once more with
+``-D`` for each but the first).  Per block and kernel it prints the
+launches, the one-lane launches, the profiled device time and the sum of
+count x ms (by tile); every shape line goes to
+``build/profile_limbs.jsonl``, and the outputs must agree across roots
+and tiles.
+
+    python3 profile_replay.py --limbs [ROOT ...]
+
 With ``--sass NAME ...``, each named kernel library is built and its SASS
 read with ``cuobjdump -sass``: one JSON line per kernel with its
 instruction count, the count of each of its ten commonest opcodes, and
@@ -85,6 +111,7 @@ from torch.profiler import ProfilerActivity, profile
 from zkevm_specs_tpu_torch import workloads
 from zkevm_specs_tpu_torch.circuits import bytecode, keccak, state, withdrawal
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.runtime import timing
 from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
@@ -135,6 +162,10 @@ def profile_call(label, call, card, **info):
         "top_kernels": [{"name": n[:90], "count": c, "ms": us / 1e3} for n, (c, us) in top],
     }), flush=True)
 
+
+# runtime/timing.py's source, put before each child script that times a
+# call, so every checkout it imports is timed by this checkout's timer
+TIMER = Path(timing.__file__).read_text()
 
 COMPARE_CHILD = r"""
 import json, statistics, sys, time
@@ -191,19 +222,6 @@ rng = np.random.RandomState(0)
 r = int.from_bytes(rng.bytes(32), "little") % fr.P
 
 
-def events_ms(call):
-    times = []
-    for _ in range(10):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        start.record()
-        call()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def kernels_us(call):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
@@ -229,7 +247,7 @@ for T, n in ((66001, 1), (66001, 8), (24162, 40), (1024, 1), (300, 65536)):
         out = call()
         first = out if first is None else first
         assert torch.equal(out, first), (T, n, mult)
-        ms = events_ms(call)
+        ms = time_on_card_ms(call)
         split = kernels_us(call)
         idle_split = kernels_us(lambda: keccak.horner_rlc(byte_cols, idle, r))
         print(json.dumps({"root": sys.argv[1], "shape": [T, n], "target_items": 132 * 256 * mult,
@@ -268,19 +286,6 @@ def elements(n, width=16, below=1 << 16):
     if width == 16:
         limbs[:, 15] %= fr.P >> 240
     return torch.from_numpy(limbs).cuda()
-
-
-def events_ms(call):
-    times = []
-    for _ in range(10):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
-        start.record()
-        call()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernels(call, calls=5):
@@ -332,7 +337,7 @@ for lanes in (1, 131072):
     got = call()
     assert fr.to_ints(got.cpu()[:4]) == [pow(v, fr.P - 2, fr.P) for v in fr.to_ints(a.cpu()[:4])]
     count, us = kernels(call)
-    emit(kernel="fr_inv", lanes=lanes, ms=events_ms(call), device_launches=count, kernel_us=us)
+    emit(kernel="fr_inv", lanes=lanes, ms=time_on_card_ms(call), device_launches=count, kernel_us=us)
 
 alpha = L.int_to_limbs(0xA1FA, 16).cuda()
 libs = tile_libraries() if planned else {(None, None): None}
@@ -356,10 +361,243 @@ for label, n, m_width in shapes:
         first = out if first is None else first
         assert torch.equal(out, first), (label, threads, run)
         count, us = kernels(call)
-        emit(kernel="logup_sum", side=label, n=n, m_limbs=m_width, **info, ms=events_ms(call),
+        emit(kernel="logup_sum", side=label, n=n, m_limbs=m_width, **info, ms=time_on_card_ms(call),
              device_launches=count, kernel_us=us, sum=hex(L.limbs_to_int(out.cpu())))
 emit(resource_usage={k: cuda_build.resource_usage(k) for k in ("fr_inv", "logup_sum")})
 """
+
+
+# tiles swept at the block passes' shapes in a checkout whose sources take
+# them (the first of each is the source's own): K3's ADDSUB_TILE, K4's
+# GATHER_TILE
+LIMB_TILES = {"limb_addsub": ("ADDSUB_TILE", [128, 256, 64]),
+              "lookup_gather_eq": ("GATHER_TILE", [128, 64, 256])}
+
+LIMBS_CHILD = r"""
+import ctypes, hashlib, json, statistics, subprocess, sys
+from collections import Counter
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.parallel import logup_shard
+from zkevm_specs_tpu_torch.runtime import cuda_build
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
+from zkevm_specs_tpu_torch.tables import engine
+from zkevm_specs_tpu_torch.tables.schemas import Target
+
+tiles = json.loads(sys.argv[2])
+KERNELS = {"limb_addsub": "limb_addsub_kernel", "lookup_gather_eq": "lookup_gather_eq_kernel"}
+HBM_BYTES_PER_S = 3.35e12   # chip_smoke.py's: the H100 SXM's memory rate
+
+
+def emit(**kw):
+    print(json.dumps({"root": sys.argv[1], **kw}), flush=True)
+
+
+def digest(out):
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (list, tuple)) else [out]:
+        for u in t if isinstance(t, (list, tuple)) else [t]:
+            if u is not None:
+                h.update(u.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def key(name, args):
+    if name == "limb_addsub":
+        a, b, mode = args[:3]
+        return [mode, args[3] if len(args) > 3 else 0, list(a.shape), list(b.shape),
+                L.row_stride(a), L.row_stride(b)]
+    table, query, idx = args[:3]
+    return [[[list(t.shape), L.row_stride(t)] for t in table],
+            [None if q is None else list(q.shape) for q in query], list(idx.shape),
+            None if len(args) < 4 or args[3] is None else list(args[3].shape)]
+
+
+def tile_libraries(name):
+    # the kernel built with -D<define> for each tile but the first, its own
+    define, values = tiles[name]
+    src = cuda_build.CSRC / f"{name}.cu"
+    if f"#ifndef {define}" not in src.read_text():
+        return {None: cuda_build.library(name)}
+    libs, procs = {values[0]: cuda_build.library(name)}, {}
+    for v in values[1:]:
+        so = cuda_build.BUILD_DIR / f"lib{name}-{define.lower()}{v}.so"
+        procs[v] = so, subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-D{define}={v}", "-o", str(so),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for v, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, out
+        lib = libs[v] = ctypes.CDLL(str(so))
+        for fn, argtypes in cuda_build.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
+    return libs
+
+
+def capture(modules, run):
+    # every K3 and K4 call of run(), counted by key, the first of each kept
+    calls, counts = {}, Counter()
+    originals = {(m, n): getattr(m, n) for m, n in modules}
+
+    def recorder(module, name):
+        def record(*args, **kw):
+            k = json.dumps([name, key(name, args)])
+            calls.setdefault(k, (name, originals[module, name], args, kw))
+            counts[k] += 1
+            return originals[module, name](*args, **kw)
+        return record
+
+    for m, n in modules:
+        setattr(m, n, recorder(m, n))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+    return calls, counts
+
+
+def time_calls(label, calls, counts, profiled=None):
+    # each captured shape timed at every tile on its own arguments; the sums
+    sums = {name: {"launches": 0, "shapes": 0, "one_lane_launches": 0, "sum_count_ms": {}}
+            for name in KERNELS}
+    for name, (n, us) in (profiled or {}).items():
+        sums[name].update(profiled_launches=n, profiled_device_ms=us / 1e3)
+    for k, (name, fn, args, kw) in calls.items():
+        lanes = L.batch_rows(args[0], args[1]) if name == "limb_addsub" else args[2].shape[0]
+        by_tile = {}
+        for tile, lib in libs[name].items():
+            cuda_build._LIBS[name] = lib
+            call = lambda: fn(*args, **kw)
+            by_tile[str(tile)] = {"ms": time_on_card_ms(call), "digest": digest(call())}
+        cuda_build._LIBS[name] = next(iter(libs[name].values()))
+        first = next(iter(by_tile.values()))
+        assert all(v["digest"] == first["digest"] for v in by_tile.values()), (k, by_tile)
+        s = sums[name]
+        s["launches"] += counts[k]
+        s["shapes"] += 1
+        s["one_lane_launches"] += counts[k] if lanes == 1 else 0
+        for tile, v in by_tile.items():
+            s["sum_count_ms"][tile] = s["sum_count_ms"].get(tile, 0.0) + counts[k] * v["ms"]
+        emit(block=label, kernel=name, key=k, count=counts[k], lanes=lanes,
+             ms={t: v["ms"] for t, v in by_tile.items()}, digest=first["digest"])
+    return sums
+
+
+cuda_build.build_all()   # every kernel of the passes, one nvcc each, all at once
+libs = {name: tile_libraries(name) for name in KERNELS}
+PASS = [(L, "limb_addsub"), (engine, "lookup_gather_eq")]
+
+# the kernels line's timed shapes: K3's Fr add of two [131072, 16] rows;
+# K4's first stack pop of the MUL group's replay on its own rw table
+rng = torch.Generator().manual_seed(0)
+x, y = (torch.randint(0, 1 << 16, (workloads.GROUP_LANES, 16), generator=rng) for _ in "xy")
+x[:, 15] %= 0x3064
+y[:, 15] %= 0x3064
+x, y = x.cuda(), y.cuda()
+tables, steps, nexts = workloads.build_mul_workload(workloads.GROUP_LANES)
+v = CompiledGroupVerifier(tables, ExecutionState.MUL, steps, nexts)
+curr, _, tree, hints = v.prepare_inputs(steps, nexts)
+table = [tree["rw"]["cols"][c]["f"] for c in ("rw_counter", "rw", "key0", "id", "address")]
+query = [curr["rw_counter"], torch.zeros((1, 1), dtype=torch.int64, device="cuda"),
+         torch.tensor([[int(Target.Stack)]], dtype=torch.int64, device="cuda"), curr["call_id"],
+         curr["stack_pointer"]]
+calls, counts = capture(PASS, lambda: (L.limb_addsub(x, y, L.FR_ADD),
+                                       engine.lookup_gather_eq(table, query, hints[1]["idx"])))
+emit(block="timed_shapes", summary=time_calls("timed_shapes", calls, counts))
+
+# K4's time at that rw lookup split by what it moves: the whole call; the
+# gather alone (hint rows, table reads, gathered stores); the gather with
+# every hint at row 0 (the table read from cache: hint rows and stores);
+# the narrowest part alone at row 0 (about the hint rows alone).  Each
+# with the bytes it must move and their time at HBM_BYTES_PER_S.
+idx, lanes = hints[1]["idx"], hints[1]["idx"].shape[0]
+row0, narrow = torch.zeros_like(idx), min(range(len(table)), key=lambda p: table[p].shape[1])
+rows = torch.unique(idx.long().clamp(0, table[0].shape[0] - 1)).numel()
+tws = [t.shape[1] for t in table]
+moved = {"idx": 4 * lanes, "table_rows": 8 * sum(tws) * rows,
+         "query": sum(8 * q.shape[1] * q.shape[0] for q in query), "gathered": 8 * sum(tws) * lanes,
+         "ok": lanes}
+split = {"whole": (lambda: engine.lookup_gather_eq(table, query, idx), sum(moved.values())),
+         "gather_only": (lambda: engine.lookup_gather_eq(table, [None] * len(table), idx,
+                                                  want_ok=False),
+                         moved["idx"] + moved["table_rows"] + moved["gathered"]),
+         "gather_row0": (lambda: engine.lookup_gather_eq(table, [None] * len(table), row0,
+                                                  want_ok=False),
+                         moved["idx"] + 8 * sum(tws) + moved["gathered"]),
+         "narrowest_part_row0": (lambda: engine.lookup_gather_eq([table[narrow]], [None], row0,
+                                                                 want_ok=False),
+                                 moved["idx"] + 8 * tws[narrow] * (lanes + 1))}
+emit(block="gather_split", lanes=lanes, table_rows_touched=rows, table_widths=tws,
+     query_shapes=[list(q.shape) for q in query], bytes=moved,
+     **{name: {"ms": time_on_card_ms(call, repeats=25), "bytes": b,
+               "bound_ms": b / HBM_BYTES_PER_S * 1e3} for name, (call, b) in split.items()})
+del idx, row0
+del v, tables, steps, nexts, curr, tree, hints, calls
+
+for path, build in (("block", workloads.build_alu_block), ("arith", workloads.build_arith_block)):
+    witness = build()
+    bv = CompiledBlockVerifier(witness)
+    prepared = bv.prepare()
+    assert not bv.run_device(prepared), path
+    torch.cuda.synchronize()
+    # the per-kernel pass under the profiler: K3's and K4's device time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bv.run_device(prepared)
+        torch.cuda.synchronize()
+    profiled = {name: [0, 0.0] for name in KERNELS}
+    for e in prof.events():
+        for name, kernel in KERNELS.items():
+            if e.device_type == DeviceType.CUDA and kernel in e.name:
+                profiled[name][0] += 1
+                profiled[name][1] += e.time_range.end - e.time_range.start
+    calls, counts = capture(PASS, lambda: bv._device_pass(prepared))
+    emit(block=path, steps=len(witness.steps),
+         summary=time_calls(path, calls, counts, profiled))
+    # the logUp check of the block's rw family (the table fingerprint's K3
+    # launches, the 14-part gather of the query side)
+    calls, counts = capture(PASS + [(logup_shard, "lookup_gather_eq")],
+                            lambda: bv.verify_lookups(prepared, tables_names=("rw",)))
+    emit(block=f"logup_{path} rw", summary=time_calls(f"logup_{path} rw", calls, counts))
+    del bv, prepared, calls, witness
+    torch.cuda.empty_cache()
+emit(resource_usage={name: cuda_build.resource_usage(name) for name in KERNELS})
+"""
+
+
+def run_limbs(roots, card):
+    """LIMBS_CHILD in a fresh process for each root; every shape line goes
+    to build/profile_limbs.jsonl, the summaries to stdout; the outputs at
+    every shape must agree across roots."""
+    Path("build").mkdir(exist_ok=True)
+    digests, lines = {}, []
+    for root in roots:
+        out = subprocess.run([sys.executable, "-c", TIMER + LIMBS_CHILD, root,
+                              json.dumps(LIMB_TILES)],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise SystemExit(f"profile_replay: {root} failed:\n{out.stderr[-4000:]}")
+        for line in out.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            lines.append(line)
+            rec = json.loads(line)
+            if "digest" in rec:
+                want = digests.setdefault((rec["block"], rec["key"]), rec["digest"])
+                assert want == rec["digest"], f"{root} differs at {rec['block']} {rec['key']}"
+            else:
+                print(line, flush=True)
+    Path("build/profile_limbs.jsonl").write_text("\n".join(lines) + "\n")
+    print(json.dumps({"shapes_equal_across_roots": len(digests), "roots": roots,
+                      "lines": "build/profile_limbs.jsonl"}))
+    print(card)
 
 
 def run_roots(child, roots, card, *args):
@@ -416,13 +654,15 @@ def main():
             raise SystemExit(__doc__)
         return run_roots(COMPARE_CHILD, sys.argv[2:], card)
     if sys.argv[1:2] == ["--horner"]:
-        return run_roots(HORNER_CHILD, sys.argv[2:] or ["."], card)
+        return run_roots(TIMER + HORNER_CHILD, sys.argv[2:] or ["."], card)
     if sys.argv[1:2] == ["--sass"]:
         for name in sys.argv[2:]:
             sass_summary(name)
         return print(card)
+    if sys.argv[1:2] == ["--limbs"]:
+        return run_limbs(sys.argv[2:] or ["."], card)
     if sys.argv[1:2] == ["--logup"]:
-        return run_roots(LOGUP_CHILD, sys.argv[2:] or ["."], card,
+        return run_roots(TIMER + LOGUP_CHILD, sys.argv[2:] or ["."], card,
                          json.dumps(workloads.LOGUP_SIDES), json.dumps(LOGUP_TILES))
     for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
                                     ("MUL", ExecutionState.MUL, build_mul_workload)):

@@ -31,6 +31,10 @@ ptxas info    : Function properties for _Z9helper_fnPj
      "fr_mul_kernel"),
     ("_ZN42_GLOBAL__N__20b7434f_12_logup_sum_cu_c_p179up_kernelEPKx", "up_kernel"),
     ("_ZN12_GLOBAL__N_120mul_add_words_kernelILi256EEEvPKx", "mul_add_words_kernel<256>"),
+    ("_ZN12_GLOBAL__N_118limb_addsub_kernelILi2ELi17ELb1EEEvNS_4ArgsE",
+     "limb_addsub_kernel<2, 17, true>"),
+    ("_ZN12_GLOBAL__N_123lookup_gather_eq_kernelILb0EEEvNS_5PartsE",
+     "lookup_gather_eq_kernel<false>"),
     ("_Z13fr_mul_kernelPKxxiS0_xiPxx", "fr_mul_kernel"),
     ("not_mangled", "not_mangled"),
 ])

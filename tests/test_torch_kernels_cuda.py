@@ -15,9 +15,13 @@ import torch
 from zkevm_specs_tpu_torch.ops import fr
 from zkevm_specs_tpu_torch.ops import limbs as L
 from zkevm_specs_tpu_torch.ops import word_mul
+from zkevm_specs_tpu_torch.runtime import cuda_build
 from zkevm_specs_tpu_torch.tables import engine
 from zkevm_specs_tpu_torch.tables import logup
 
+from limb_tile_cases import (ADDSUB_CASES, ADDSUB_TILE, GATHER_CASES, GATHER_TILE, addsub_case,
+                             addsub_operands, addsub_staged, chain_width, gather_case,
+                             gather_operands)
 from word_mul_cases import CASES as WORD_MUL_CASES
 from word_mul_cases import make_case
 
@@ -122,6 +126,107 @@ def test_lookup_gather_eq(dev, with_enabled):
     ok, gathered = engine.lookup_gather_eq(table, [None] * 5, idx, want_ok=False)
     assert ok is None
     _equal(gathered, engine.lookup_gather_eq_plain(table, [None] * 5, idx)[1])
+
+
+# -- K3 and K4 at the edges of their tiles (tests/limb_tile_cases.py) ----------------
+
+@pytest.mark.parametrize("case", sorted(ADDSUB_CASES))
+def test_limb_addsub_tile_case(dev, case):
+    a, b, mode, out_n = addsub_case(case, dev)
+    _equal(L.limb_addsub(a, b, mode, out_n), L.addsub_plain(a, b, mode, out_n))
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_lookup_gather_eq_tile_case(dev, case):
+    table, query, idx, enabled = gather_case(case, dev)
+    got = engine.lookup_gather_eq(table, query, idx, enabled)
+    want = engine.lookup_gather_eq_plain(table, query, idx, enabled)
+    _equal([got[0], *got[1]], [want[0], *want[1]])
+    ok, gathered = engine.lookup_gather_eq(table, [None] * len(table), idx, want_ok=False)
+    assert ok is None
+    _equal(gathered, engine.lookup_gather_eq_plain(table, [None] * len(table), idx)[1])
+
+
+@pytest.mark.parametrize("mode,na,nb,out_n", [(L.ADD, 16, 16, 16), (L.SUB, 1, 16, 0),
+                                              (L.FR_ADD, 16, 16, 0), (L.FR_SUB, 16, 16, 0),
+                                              (L.ADD, 32, 32, 32), (L.SUB, 64, 64, 0),
+                                              (L.ADD, 2, 1, 2), (L.SUB, 3, 3, 0)])
+def test_limb_addsub_instance_at_its_threshold(dev, mode, na, nb, out_n):
+    """A batch of one lane or one tile less runs the direct path, a batch
+    of one tile or one more the staged one (a chain of ADDSUB_DIRECT_WIDTH
+    limbs or fewer, or wider than ADDSUB_MAX_UNROLLED, the direct one at
+    every batch), each counted once by the launcher."""
+    width = chain_width(mode, na, nb, out_n)
+    for batch in (1, ADDSUB_TILE - 1, ADDSUB_TILE, ADDSUB_TILE + 1):
+        a, b, _, _ = addsub_operands(mode, na, nb, out_n, batch, seed=batch, device=dev)
+        path = ("staged" if addsub_staged(batch, width, L.row_stride(a), L.row_stride(b))
+                else "direct")
+        before = cuda_build.path_launches("limb_addsub")
+        got = L.limb_addsub(a, b, mode, out_n)
+        after = cuda_build.path_launches("limb_addsub")
+        assert after[path] == before[path] + 1 and sum(after.values()) == sum(before.values()) + 1
+        _equal(got, L.addsub_plain(a, b, mode, out_n))
+
+
+@pytest.mark.parametrize("gather_only", [False, True])
+def test_lookup_gather_eq_instance_at_its_threshold(dev, gather_only):
+    """One partial tile, one tile and one more: one launch each."""
+    parts = [(8, None if gather_only else 8), (4, None if gather_only else 16)]
+    for batch in (1, GATHER_TILE - 1, GATHER_TILE, GATHER_TILE + 1):
+        table, query, idx, _ = gather_operands(parts, batch, seed=batch, device=dev)
+        before = L.LAUNCHES["lookup_gather_eq"]
+        got = engine.lookup_gather_eq(table, query, idx, want_ok=not gather_only)
+        assert L.LAUNCHES["lookup_gather_eq"] == before + 1
+        want = engine.lookup_gather_eq_plain(table, query, idx)
+        _equal(list(got[1]) + ([] if gather_only else [got[0]]),
+               list(want[1]) + ([] if gather_only else [want[0]]))
+
+
+@pytest.mark.parametrize("batch", [GATHER_TILE - 1, 3 * GATHER_TILE + 7])
+def test_lookup_gather_eq_misaligned_views(dev, batch):
+    """Table and query parts one limb into wider rows."""
+    table, query, idx, enabled = gather_operands([(8, 8), (4, 4)], batch, seed=3, device=dev,
+                                                 enabled="lanes")
+    table = [torch.cat([t[:, :1], t], dim=1)[:, 1:] for t in table]
+    query = [torch.cat([q[:, :1], q], dim=1)[:, 1:] for q in query]
+    got = engine.lookup_gather_eq(table, query, idx, enabled)
+    want = engine.lookup_gather_eq_plain(table, query, idx, enabled)
+    _equal([got[0], *got[1]], [want[0], *want[1]])
+
+
+def test_limb_addsub_and_lookup_gather_eq_replay_in_a_graph(dev):
+    """K3 (both instances, every mode) and K4 (a partial tile and many
+    tiles, with and without a query) captured in one CUDA graph give the
+    eager results on every replay."""
+    tile = ADDSUB_TILE
+    k3 = [addsub_case(c, dev) for c in (f"FR_ADD_16_16_0_batch{tile + 1}",
+                                        f"SUB_1_16_0_batch{tile - 1}", "ADD_16_8_view_view",
+                                        "FR_SUB_neg", f"ADD_32_32_32_batch{tile + 1}",
+                                        "SUB_64_3_offset_offset_view")]
+    k4 = [gather_case(c, dev) for c in ("rw_ascending_batch5000",
+                                        f"rw_random_batch{GATHER_TILE - 1}",
+                                        f"gather_random_batch{GATHER_TILE + 1}")]
+
+    def run():
+        outs = []
+        for a, b, mode, out_n in k3:
+            r = L.limb_addsub(a, b, mode, out_n)
+            outs += list(r) if mode == L.SUB else [r]
+        for table, query, idx, enabled in k4:
+            ok, gathered = engine.lookup_gather_eq(table, query, idx, enabled)
+            outs += [ok, *gathered]
+        return outs
+
+    want = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        _equal(outs, want)
 
 
 def test_counts_rise_only_where_a_kernel_launches(dev):

@@ -166,3 +166,32 @@ def test_wrappers_refuse_a_non_cpu_non_cuda_tensor():
         L.add(a, a, 4)
     with pytest.raises(ValueError):
         L.add(a, torch.zeros((4, 4), dtype=torch.int64), 4)
+
+
+# -- K3 at the edges of its tiles (tests/limb_tile_cases.py) -------------------------
+
+from zkevm_specs_tpu.ops import fr as JFR  # noqa: E402
+
+from limb_tile_cases import ADDSUB_CASES, addsub_case  # noqa: E402
+
+
+def _jax_addsub(name, a_np, b_np, mode, out_n):
+    """The JAX package's function of a K3 case: limbs.add/sub, fr.add/sub,
+    fr.reduce_once for a 17-limb FR_ADD, fr.neg for a zero FR_SUB minuend."""
+    if mode == L.ADD:
+        return JL.add(np, a_np, b_np, out_n)
+    if mode == L.SUB:
+        return JL.sub(np, a_np, b_np)
+    if mode == L.FR_ADD:
+        return JFR.reduce_once(np, a_np) if a_np.shape[1] == 17 else JFR.add(np, a_np, b_np)
+    return JFR.neg(np, b_np) if name == "FR_SUB_neg" else JFR.sub(np, a_np, b_np)
+
+
+@pytest.mark.parametrize("case", sorted(ADDSUB_CASES))
+def test_addsub_tile_case_matches_jax(case):
+    a, b, mode, out_n = addsub_case(case)
+    got = L.limb_addsub(a, b, mode, out_n)
+    want = _jax_addsub(case, a.numpy(), b.numpy(), mode, out_n)
+    got, want = (got, want) if mode == L.SUB else ((got,), (want,))
+    for g, w in zip(got, want):
+        _same(g, w)

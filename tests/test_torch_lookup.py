@@ -118,3 +118,54 @@ def test_plain_lookup_enabled_mask_and_clamp():
     assert ok.tolist() == [True, True, True, True]
     ok, (g,) = engine.lookup_gather_eq(table, [None], idx, want_ok=False)
     assert ok is None and g[:, 0].tolist() == [0, 2, 4, 18]
+
+
+# -- K4 at the edges of its tiles (tests/limb_tile_cases.py) -------------------------
+
+import jax.numpy as jnp  # noqa: E402
+
+from zkevm_specs_tpu.tables.engine import Col as JCol  # noqa: E402
+from zkevm_specs_tpu.tables.engine import Schema as JSchema  # noqa: E402
+from zkevm_specs_tpu.tables.engine import Table as JTable  # noqa: E402
+
+from limb_tile_cases import GATHER_CASES, gather_case  # noqa: E402
+
+
+def _jax_replay(table, query, idx, enabled):
+    """The JAX package's hint-replay branch of Table.lookup on jax.numpy
+    (its gather as XLA resolves an index), one "f" column a part: the
+    per-lane ok and every part's gathered limbs."""
+    batch = idx.shape[0]
+    ctx = JCtx(jnp, batch, "jit")
+    names = [f"c{p}" for p in range(len(table))]
+    row_ctx = JCtx(jnp, table[0].shape[0], "jit")
+    data = {c: JF(row_ctx, jnp.asarray(t.numpy().astype(np.uint32)), 254)
+            for c, t in zip(names, table)}
+    jt = JTable(ctx, JSchema("tiles", {c: JCol("f") for c in names}), data, table[0].shape[0])
+    cs = JCS(ctx)
+    cs.hint_replay, cs.hint_bits = [{"idx": jnp.asarray(idx.numpy())}], ["lookup_idx"]
+    q = {c: None if v is None else JF(ctx, jnp.asarray(v.numpy().astype(np.uint32)), 254)
+         for c, v in zip(names, query)}
+    row = jt.lookup(cs, q, None if enabled is None else jnp.asarray(enabled.numpy()))
+    gathered = [np.broadcast_to(np.asarray(getattr(row, c).limbs), (batch, t.shape[1]))
+                for c, t in zip(names, table)]
+    return ~np.asarray(cs.fail), gathered
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_tile_case_matches_jax(case):
+    table, query, idx, enabled = gather_case(case)
+    ok, gathered = engine.lookup_gather_eq(table, query, idx, enabled)
+    want_ok, want_gathered = _jax_replay(table, query, idx, enabled)
+    np.testing.assert_array_equal(ok.numpy(), want_ok)
+    for g, w in zip(gathered, want_gathered):
+        np.testing.assert_array_equal(g.numpy(), w.astype(np.int64))
+    if all(q is None for q in query):
+        assert bool(ok.all())
+
+
+def test_hint_rows_count_negative_indexes_from_the_end_once():
+    """XLA's gather (jnp indexing) wraps a negative index once, then clamps."""
+    idx = torch.tensor([-7, -6, -5, -1, 0, 4, 5, 9], dtype=torch.int32)
+    want = np.asarray(jnp.arange(5)[jnp.asarray(idx.numpy())])
+    assert engine.hint_rows(idx, 5).tolist() == want.tolist() == [0, 0, 0, 4, 0, 4, 4, 4]

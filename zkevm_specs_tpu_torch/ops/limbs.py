@@ -304,6 +304,11 @@ def limb_addsub(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int = 0):
     * ``FR_SUB``: (a - b) mod 2^256, p added back (mod 2^256) under borrow;
       with a = 0 it is ``fr.neg`` (neg(0) = 0).
 
+    On the card a batch of at least one tile (``csrc/limb_addsub.cu``'s
+    ``ADDSUB_TILE``) of a chain of 3 to 17 limbs is staged through shared
+    memory; a smaller batch, another width or two ``[1, n]`` rows runs one
+    thread a lane (``cuda_build.path_launches`` counts each path).
+
     Replaces ``zkevm_specs_tpu/ops/limbs.py:add``/``sub`` and
     ``ops/fr.py:add``/``sub``/``neg``/``reduce_once``."""
     check_limbs(a, "limb_addsub a")

@@ -41,6 +41,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "limb_addsub": {
         "limb_addsub_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I32, _P, _I32, _I64, _P],
+        "limb_addsub_path_launches": [_P, _P],
     },
     "lookup_gather_eq": {
         "lookup_gather_eq_launch": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -134,11 +135,12 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's own name (and its first template argument) from its
-    Itanium-mangled name, past any anonymous namespace (nvcc names it
-    ``_GLOBAL__N__<hash>_<file>...``), e.g.
+    """The kernel's own name (and its integer and bool template arguments)
+    from its Itanium-mangled name, past any anonymous namespace (nvcc names
+    it ``_GLOBAL__N__<hash>_<file>...``), e.g.
     ``_ZN38_GLOBAL__N__adcf131a_9_fr_mul_cu_c_p1713fr_mul_kernelEPKx...``
-    -> ``fr_mul_kernel``."""
+    -> ``fr_mul_kernel``, ``..._kernelILi2ELi17ELb1EEEv...`` ->
+    ``..._kernel<2, 17, true>``."""
     m = re.match(r"_ZN?", mangled)
     pos = m.end() if m else len(mangled)
     while True:
@@ -150,8 +152,12 @@ def _kernel_name(mangled: str) -> str:
         pos = start + len(name)
         if not name.startswith("_GLOBAL__N"):
             break
-    t = re.match(r"ILi(-?\d+)E", mangled[pos:])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
+    if not t:
+        return name
+    args = [("true" if v == "1" else "false") if kind == "b" else v
+            for kind, v in re.findall(r"L([ib])(-?\d+)E", t.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
@@ -183,6 +189,19 @@ def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
         if m and entry is not None:
             out[entry]["registers"] = int(m.group(1))
     return {_kernel_name(k): v for k, v in out.items()}
+
+
+def path_launches(name: str) -> Dict[str, int]:
+    """``{"staged": n, "direct": m}``: the launches of each instance of a
+    kernel whose launcher picks one (``limb_addsub``), as its C entry
+    ``<name>_path_launches`` counts them since the library loaded; zeros
+    before it loads."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        return {"staged": 0, "direct": 0}
+    staged, direct = ctypes.c_longlong(), ctypes.c_longlong()
+    getattr(lib, f"{name}_path_launches")(ctypes.byref(staged), ctypes.byref(direct))
+    return {"staged": staged.value, "direct": direct.value}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -65,12 +65,20 @@ class Schema:
 MAX_PARTS = 16
 
 
+def hint_rows(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The table row of each hint index, as the JAX package's gather under
+    XLA resolves it (``F.gather``'s ``lim[idx]``): a negative index counts
+    from the end once, then the index is clamped into the table."""
+    row = idx.long()
+    return torch.where(row < 0, row + n_rows, row).clamp(0, n_rows - 1)
+
+
 def lookup_gather_eq_plain(table_cols: Sequence[torch.Tensor],
                            query_cols: Sequence[Optional[torch.Tensor]],
                            idx: torch.Tensor, enabled: Optional[torch.Tensor] = None):
     """Plain version of K4 (see ``lookup_gather_eq``)."""
     batch = idx.shape[0]
-    row = idx.long().clamp(0, table_cols[0].shape[0] - 1)
+    row = hint_rows(idx, table_cols[0].shape[0])
     exact = torch.ones((batch,), dtype=torch.bool, device=idx.device)
     gathered = []
     for t, q in zip(table_cols, query_cols):
@@ -91,9 +99,13 @@ def lookup_gather_eq(table_cols: Sequence[torch.Tensor],
     ``table_cols``: the table's queried column parts, each ``[T, w_c]``;
     ``query_cols``: the query for each part, ``[B|1, w_q]``, or None for a
     part that is only gathered; ``idx``: the hinted row per lane, ``[B]``
-    int32 (clamped into the table); ``enabled``: optional bool ``[B|1]``.
+    int32 (resolved by ``hint_rows``); ``enabled``: optional bool ``[B|1]``.
     Returns ``(ok [B] bool, gathered)``, ok = exact | ~enabled (None when
     ``want_ok`` is False), gathered the ``[B, w_c]`` rows of each part.
+
+    On the card a block of threads takes a tile of lanes
+    (``csrc/lookup_gather_eq.cu``'s ``GATHER_TILE``) and sweeps their limbs
+    together, a batch under one tile as one partial tile.
 
     Replaces the hint-replay branch of
     ``zkevm_specs_tpu/tables/engine.py:Table.lookup`` with ``_gather_rows``
