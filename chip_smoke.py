@@ -84,12 +84,10 @@ script exits non-zero):
    withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", 10 timed launches each, each K3 and K4 entry with its count
-   in the pass, and a ``tiled_kernels`` line: for K3 and K4 over each
-   block's pass, the sums of count x ms and of count x bound_ms, the
-   one-lane launches and the launches of each instance; K4 also with a
-   bound that reads the table in whole 32-byte sectors, and at every
-   gather-only shape ``torch.index_select`` a part as its library call;
+   "block", 10 timed launches each, each entry with its count in the
+   pass; K4 also with a bound that reads the table in whole 32-byte
+   sectors, and at every gather-only shape ``torch.index_select`` a part
+   as its library call;
    and "arith": K11 at each of its
    variants and shapes there, the exp circuit's included, 25 launches
    each; K2 has its row at the arithmetic block's widest shape, since the
@@ -117,9 +115,20 @@ script exits non-zero):
    (``path_shapes`` labelled "logup_block <family>"/"logup_arith
    <family>").  The bounds of K1, K8 (its chain), K12 and K13 count a
    field product at its least work on 32-bit words (``FR_PRODUCT_OPS``,
-   ``fr_product_chain``: an 8 x 32-bit-limb Montgomery product).
+   ``fr_product_chain``: an 8 x 32-bit-limb Montgomery product).  K1 at
+   every shape is also held against a * b mod p on Python ints, and K7
+   against the host's numpy keccak-f, with the path it took (row or
+   warp) and its chain bound (``runtime/bounds.py:keccak_round_chain``;
+   its ``bound_ms`` the largest of bytes, operations and chain).  The
+   peaks and K1's and K7's cost models are ``runtime/bounds.py``'s, which
+   ``profile_replay.py`` shares.  A ``pass_sums`` line then
+   gives, over each block's device pass (the graph's K10 included) and
+   each block's logUp check (every family), for every kernel its calls,
+   the sums of count x ms and of count x bound_ms and their difference
+   (the time it loses to its bound), ranked by that loss, with K3's and
+   K7's launches of each path.
 
-The last three lines are the kernels line (K3's and K4's rows with their
+The last three lines are the kernels line (every row with its
 ``block_pass_sums``), the card's nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside it, the script exits non-zero before printing anything.
@@ -151,6 +160,9 @@ from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
 from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
+from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
+    DEP_LATENCY_CYCLES, HBM_BYTES_PER_S, K7_ROUND_CHAIN, bound, fr_mul_cost, fr_product_ops,
+    sm_clock_max_hz, sponge_chain_ms, sponge_cost)
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
@@ -166,8 +178,9 @@ SMALL_LANES = 256
 CORRUPT_LANE = 77_777
 REPLAY_REPEATS = 10
 KERNEL_REPEATS = 25
-# the kernels whose sums over a block pass the tiled_kernels line gives
-TILED_KERNELS = ("limb_addsub", "lookup_gather_eq")
+# the kernels whose wrappers launch once a call: their captured calls at a
+# block's pass add up to the pass's launches
+COUNTED_CALLS = ("fr_mul", "limb_addsub", "lookup_gather_eq", "keccak_sponge")
 STATE_ROWS = workloads.ALU_BLOCK_STATE_ROWS
 SMALL_STATE_ROWS = 512
 CORRUPT_ROW = 77_777
@@ -184,12 +197,6 @@ SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
-
-# H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
-# ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
-# (Hopper architecture white paper)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
 KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
@@ -839,16 +846,17 @@ def run_block(path, card):
     # the per-kernel pass, its launches counted on their own (and K3's on
     # each path, counted by its launcher)
     reset_counts()
-    paths_before = cuda_build.path_launches("limb_addsub")
+    paths_before = {name: cuda_build.path_launches(name) for name in cuda_build.PATHS}
     assert not bv.run_device(prepared), f"{path}: the per-kernel pass failed the clean block"
     torch.cuda.synchronize()
     pass_counts = read_counts()
-    # K3's launches by path, staged or direct; K4 has one
-    pass_paths = {"limb_addsub": {k: v - paths_before[k] for k, v in
-                                  cuda_build.path_launches("limb_addsub").items()},
-                  "lookup_gather_eq": {"tiled": pass_counts["lookup_gather_eq"]}}
-    assert sum(pass_paths["limb_addsub"].values()) == pass_counts["limb_addsub"], \
-        (pass_paths, pass_counts["limb_addsub"])
+    # K3's launches by path, staged or direct, and K7's, row or warp; K4 has one
+    pass_paths = {name: {k: v - paths_before[name][k] for k, v in
+                         cuda_build.path_launches(name).items()} for name in cuda_build.PATHS}
+    pass_paths["lookup_gather_eq"] = {"tiled": pass_counts["lookup_gather_eq"]}
+    for name in cuda_build.PATHS:
+        assert sum(pass_paths[name].values()) == pass_counts[name], \
+            (name, pass_paths[name], pass_counts[name])
     # the graph holds the per-kernel pass's launches, kernel for kernel, and K10
     graph_counts = prepared["graph"]["launches"]
     for name in KERNELS:
@@ -925,7 +933,7 @@ def run_block(path, card):
     captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls,
                 "instances": pass_paths}
     out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
-    for name in TILED_KERNELS:
+    for name in COUNTED_CALLS:
         assert sum(kw[COUNT] for _, kw in calls[name]) == pass_counts[name], \
             f"{path}: the captured {name} calls differ from the per-kernel pass's launches"
     logup_counts, logup_captured = run_logup(path, bv, prepared, card)
@@ -1002,20 +1010,22 @@ LOGUP_CAPTURES = (
 def logup_shape_calls(bv, prepared, families):
     """Every kernel's arguments at each distinct shape of every family's
     check, from runs outside the counted one: ``{family: {kernel: [(args,
-    kwargs), ...]}}``, a shape under the family that first gave it."""
-    calls = {}
-    seen = set()
+    kwargs), ...]}}``, a shape under the family that first gave it, its
+    kwargs with its calls over the checks of all families (``COUNT``)."""
+    first = {}
     with contextlib.ExitStack() as stack:
         caps = [(name, stack.enter_context(Capture(module, attr, key)))
                 for name, module, attr, key in LOGUP_CAPTURES]
         for family in families:
             bv.verify_lookups(prepared, tables_names=(family,))
             for name, c in caps:
-                for k, a in c.calls.items():
-                    if (name, k) not in seen:
-                        seen.add((name, k))
-                        calls.setdefault(family, {}).setdefault(name, []).append(
-                            (a, c.kwargs[k]))
+                for k in c.calls:
+                    first.setdefault((name, k), family)
+    calls = {}
+    for name, c in caps:
+        for k, a in c.calls.items():
+            calls.setdefault(first[name, k], {}).setdefault(name, []).append(
+                (a, {**c.kwargs[k], COUNT: c.counts[k]}))
     return calls
 
 
@@ -1132,8 +1142,9 @@ def block_kernel_rows(launches, captured, arith_captured):
 
     k10 = {"name": "verdict_pack", "route": "cuda", "source": SOURCES["verdict_pack"],
            "replaces": REPLACES["verdict_pack"], "launches": launches["verdict_pack"],
-           **verdict_entry("ALU block", captured["fails"]),
-           "path_shapes": [verdict_entry("arithmetic block", arith_captured["fails"])]}
+           **verdict_entry("ALU block", captured["fails"]), "pass": "block", "count": 1,
+           "path_shapes": [{**verdict_entry("arithmetic block", arith_captured["fails"]),
+                            "pass": "arith", "count": 1}]}
     return [k9, k10]
 
 
@@ -1161,74 +1172,76 @@ def block_path_shapes(calls, label):
     out = {}
     clock_hz = sm_clock_max_hz()
 
-    def add(name, kernel_fn, plain_fn, cost, note, plain_repeats=3,
+    def add(name, kw, kernel_fn, plain_fn, cost, note, plain_repeats=3,
             kernel_repeats=BLOCK_SHAPE_REPEATS):
-        out.setdefault(name, []).append(measure(
+        out.setdefault(name, []).append({**measure(
             name, kernel_fn, plain_fn, *cost, f"{label}: {note}",
-            kernel_repeats=kernel_repeats, plain_repeats=plain_repeats))
+            kernel_repeats=kernel_repeats, plain_repeats=plain_repeats), **pass_of(label, kw)})
 
     def ok_and_rows(want_ok):
         return lambda ok_g: ([ok_g[0]] if want_ok else []) + list(ok_g[1])
 
-    for args, _ in calls.get("fr_mul", []):
+    for args, kw in calls.get("fr_mul", []):
         a, b = args
-        add("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b), fr_mul_cost(a, b),
-            f"{list(a.shape)} x {list(b.shape)} -> [B,16]")
-    for args, _ in calls.get("limb_mul", []):
+        out.setdefault("fr_mul", []).append({**fr_mul_entry(
+            a, b, f"{label}: {list(a.shape)} x {list(b.shape)} -> [B,16], strides "
+            f"{L.row_stride(a)} {L.row_stride(b)}", kernel_repeats=BLOCK_SHAPE_REPEATS,
+            plain_repeats=3), **pass_of(label, kw)})
+    for args, kw in calls.get("limb_mul", []):
         a, b, out_n = args
         rows_n = max(a.shape[0], b.shape[0])
-        add("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
+        add("limb_mul", kw, lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
             (nbytes(a, b) + rows_n * out_n * 8, rows_n * (2 * a.shape[1] * b.shape[1] + 3 * out_n)),
             f"{list(a.shape)} x {list(b.shape)} -> {out_n} limbs")
     for args, kw in calls.get("limb_addsub", []):
         x, y, mode = args[:3]
         out_n = args[3] if len(args) > 3 else 0
-        add("limb_addsub", lambda: L.limb_addsub(*args), lambda: L.addsub_plain(x, y, mode, out_n),
+        add("limb_addsub", kw, lambda: L.limb_addsub(*args), lambda: L.addsub_plain(x, y, mode, out_n),
             addsub_cost(*args), f"{MODE_NAMES[mode]} {list(x.shape)} {list(y.shape)} out_n {out_n}"
             f" strides {L.row_stride(x)} {L.row_stride(y)}")
-        out["limb_addsub"][-1].update(count=kw.get(COUNT), lanes=L.batch_rows(x, y))
+        out["limb_addsub"][-1]["lanes"] = L.batch_rows(x, y)
     for args, kw in calls.get("lookup_gather_eq", []):
-        count = kw.get(COUNT)
-        kw = {k: v for k, v in kw.items() if k != COUNT}
-        pick = ok_and_rows(kw.get("want_ok", True))
+        call_kw = {k: v for k, v in kw.items() if k != COUNT}
+        pick = ok_and_rows(call_kw.get("want_ok", True))
         table, query, idx = args[:3]
         moved, ops = gather_cost(*args)
-        add("lookup_gather_eq", lambda: pick(engine.lookup_gather_eq(*args, **kw)),
+        add("lookup_gather_eq", kw, lambda: pick(engine.lookup_gather_eq(*args, **call_kw)),
             lambda: pick(engine.lookup_gather_eq_plain(*args)), (moved, ops),
             f"{table[0].shape[0]}-row table, {len(table)} parts "
             f"({sum(q is not None for q in query)} queried), {idx.shape[0]} lanes")
         entry = out["lookup_gather_eq"][-1]
         entry.update(gather_sector_bound(table, idx, moved))
-        entry.update(count=count, lanes=idx.shape[0])
+        entry["lanes"] = idx.shape[0]
         if all(q is None for q in query):
             entry.update(gather_library(table, idx))
-    for args, _ in calls.get("state_order_lt", []):
-        add("state_order_lt", lambda: state.state_order_lt(*args),
+    for args, kw in calls.get("state_order_lt", []):
+        add("state_order_lt", kw, lambda: state.state_order_lt(*args),
             lambda: state.state_order_lt_plain(*args), order_cost(args),
             f"{args[0].shape[0]} rw rows, 7 key columns")
-    for args, _ in calls.get("lookup_search_eq", []):
+    for args, kw in calls.get("lookup_search_eq", []):
         query, _, _, fps, _, max_span, batch = args
         moved, ops, scanned, _ = search_cost(args)
-        add("lookup_search_eq", lambda: list(engine.lookup_search_eq(*args)),
+        add("lookup_search_eq", kw, lambda: list(engine.lookup_search_eq(*args)),
             lambda: list(engine.lookup_search_eq_plain(*args)), (moved, ops),
             f"{batch} lanes, {len(query)} parts, {fps.shape[0]}-row index, span {max_span}, "
             f"{scanned} candidates")
-    for args, _ in calls.get("lookup_fingerprint", []):
+    for args, kw in calls.get("lookup_fingerprint", []):
         parts, coefs = args
-        add("lookup_fingerprint", lambda: engine.lookup_fingerprint(parts, coefs),
+        add("lookup_fingerprint", kw, lambda: engine.lookup_fingerprint(parts, coefs),
             lambda: engine.fingerprint_plain(parts, coefs), fingerprint_cost(parts, coefs),
             f"{parts[0].shape[0]} rows, {len(parts)} parts")
-    for args, _ in calls.get("keccak_sponge", []):
+    for args, kw in calls.get("keccak_sponge", []):
         blocks, n_blocks = args
-        add("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
-            lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks), sponge_cost(blocks, n_blocks),
-            f"{blocks.shape[0]} rows, max {blocks.shape[1]} blocks, {int(n_blocks.sum())} absorbed",
-            plain_repeats=0)
-    for args, _ in calls.get("horner_rlc", []):
+        out.setdefault("keccak_sponge", []).append({**sponge_entry(
+            blocks, n_blocks, f"{label}: {blocks.shape[0]} rows, max {blocks.shape[1]} blocks, "
+            f"{int(n_blocks.sum())} absorbed", clock_hz, kernel_repeats=BLOCK_SHAPE_REPEATS,
+            plain_repeats=0), **pass_of(label, kw)})
+    for args, kw in calls.get("horner_rlc", []):
         out.setdefault("horner_rlc", []).append(
-            horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3))
-    for args, _ in calls.get("mul_add_words", []):
-        add("mul_add_words", *word_mul_entry(args), kernel_repeats=KERNEL_REPEATS)
+            {**horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3),
+             **pass_of(label, kw)})
+    for args, kw in calls.get("mul_add_words", []):
+        add("mul_add_words", kw, *word_mul_entry(args), kernel_repeats=KERNEL_REPEATS)
     return out
 
 
@@ -1268,23 +1281,49 @@ def gather_sector_bound(table, idx, moved):
             "sector_bound_ms": sector_moved / HBM_BYTES_PER_S * 1e3}
 
 
-def tiled_pass_sums(entries, instances):
-    """Over a block's per-kernel pass, for K3 and K4: the launches at the
-    captured shapes, the sums of count x ms and of count x bound_ms (K4's
-    also with its sector bound), the one-lane launches, and the launches of
-    each path (K3's as its launcher counted them; K4 has one)."""
+def pass_of(label, kw):
+    """The pass an entry's calls belong to ("block", "arith" or
+    "logup_block", "logup_arith": a logUp family's label names its block's
+    check) and their count in it."""
+    return {"pass": label.split(" ")[0], "count": kw[COUNT]}
+
+
+def pass_sums(rows, instances):
+    """Over each block's device pass and each block's logUp check (every
+    family), for every kernel: its calls at the captured shapes (``count``
+    of each entry), the sums of count x ms and of count x bound_ms, and
+    their difference, the time it loses to its bound; K3's one-lane calls
+    and K3's and K7's launches of each path as their launchers counted
+    them, K4's sum of count x sector bound.  K13's time includes the K12
+    launch inside each of its calls, so a logUp total leaves K12 out."""
     out = {}
-    for name in TILED_KERNELS:
-        es = entries.get(name, [])
-        out[name] = {
-            "launches": sum(e["count"] for e in es),
-            "sum_count_ms": sum(e["count"] * e["ms"] for e in es),
-            "sum_count_bound_ms": sum(e["count"] * e["bound_ms"] for e in es),
-            "one_lane_launches": sum(e["count"] for e in es if e["lanes"] == 1),
-            "instance_launches": instances[name]}
-        if name == "lookup_gather_eq":
-            out[name]["sum_count_sector_bound_ms"] = sum(e["count"] * e["sector_bound_ms"]
-                                                         for e in es)
+    for r in rows:
+        for e in [r] + r.get("path_shapes", []):
+            if "pass" not in e:
+                continue
+            s = out.setdefault(e["pass"], {}).setdefault(r["name"], {
+                "launches": 0, "shapes": 0, "sum_count_ms": 0.0, "sum_count_bound_ms": 0.0})
+            s["launches"] += e["count"]
+            s["shapes"] += 1
+            s["sum_count_ms"] += e["count"] * e["ms"]
+            s["sum_count_bound_ms"] += e["count"] * e["bound_ms"]
+            if "lanes" in e:
+                s["one_lane_launches"] = (s.get("one_lane_launches", 0)
+                                          + (e["count"] if e["lanes"] == 1 else 0))
+            if "sector_bound_ms" in e:
+                s["sum_count_sector_bound_ms"] = (s.get("sum_count_sector_bound_ms", 0.0)
+                                                  + e["count"] * e["sector_bound_ms"])
+    for label, by_name in out.items():
+        for name, s in by_name.items():
+            s["loss_ms"] = s["sum_count_ms"] - s["sum_count_bound_ms"]
+            if name in instances.get(label, {}):
+                s["instance_launches"] = instances[label][name]
+        counted = [s for name, s in by_name.items()
+                   if not (label.startswith("logup") and name == "fr_inv")]
+        by_name["total"] = {k: sum(s[k] for s in counted)
+                            for k in ("launches", "sum_count_ms", "sum_count_bound_ms", "loss_ms")}
+        by_name["ranked_by_loss"] = sorted((n for n in by_name if n != "total"),
+                                           key=lambda n: -by_name[n]["loss_ms"])
     return out
 
 
@@ -1321,12 +1360,6 @@ def seeded_limbs(rng, rows, n, bound_bits, device):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(bytes_moved, int_ops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = int_ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
@@ -1377,12 +1410,20 @@ def compare(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note, launche
             "library_ms": None}
 
 
-def fr_mul_cost(a, b):
-    """(bytes, int32 operations) of K1 at the least work of a field product
-    (``fr_product_ops``) of its operands' 32-bit words."""
+def fr_mul_entry(a, b, note, **kw):
+    """K1 at one shape held against its plain version, and every lane
+    against a * b mod p on Python ints."""
+    entry = measure("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
+                    *fr_mul_cost(a.shape, b.shape), note, **kw)
     rows = max(a.shape[0], b.shape[0])
-    return (nbytes(a, b) + rows * 16 * 8,
-            rows * fr_product_ops(-(-a.shape[1] // 2), -(-b.shape[1] // 2)))
+
+    def want():
+        xs, ys = rows_to_ints(a), rows_to_ints(b)
+        return [x * y % fr.P for x, y in zip(xs * rows if len(xs) == 1 else xs,
+                                              ys * rows if len(ys) == 1 else ys)]
+
+    python_ints_check(entry, note, rows_to_ints(fr.fr_mul(a, b)), want)
+    return entry
 
 
 # K11's field steps (csrc/mul_add_words.cu, its own 16-bit-limb design): a
@@ -1474,8 +1515,9 @@ def kernel_phase(launches, mul_inputs, arith_calls):
     # K1: the fdiv_const shape, [B, 16] x constant [1, 16]
     a = seeded_limbs(rng, B, 16, 254, dev)
     b = L.int_to_limbs(pow(8, fr.P - 2, fr.P), 16)[None, :].to(dev)
-    rows.append(compare("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
-                        *fr_mul_cost(a, b), "MUL: [B,16] x [1,16] -> [B,16]", launches["fr_mul"]))
+    rows.append({"name": "fr_mul", "route": "cuda", "source": SOURCES["fr_mul"],
+                 "replaces": REPLACES["fr_mul"], "launches": launches["fr_mul"],
+                 **fr_mul_entry(a, b, "MUL: [B,16] x [1,16] -> [B,16]"), "library_ms": None})
 
     # K2: the MUL group no longer reaches it (K11 took _mul_512_terms'
     # products); its row is its widest shape on the arithmetic block's pass
@@ -1589,8 +1631,7 @@ def path_shape_entries(captured):
     """K1 and K3 at every distinct shape and mode that the state, bytecode
     and withdrawal paths gave them, each held against its plain version."""
     a, b = captured["bytecode"]["fr_mul"]
-    k1 = [measure("fr_mul", lambda: fr.fr_mul(a, b), lambda: fr.fr_mul_plain(a, b),
-                  *fr_mul_cost(a, b), f"bytecode: {list(a.shape)} x {list(b.shape)} -> [B,16]")]
+    k1 = [fr_mul_entry(a, b, f"bytecode: {list(a.shape)} x {list(b.shape)} -> [B,16]")]
     seen = {}
     for path in ("memory_stack", "storage_account", "bytecode", "withdrawal"):
         label = path if path in ("bytecode", "withdrawal") else f"state_{path}"
@@ -1605,15 +1646,6 @@ def path_shape_entries(captured):
     return {"fr_mul": k1, "limb_addsub": k3}
 
 
-# K7: the 32-bit instructions one keccak-f round issues, with the card's
-# three-input logic op (LOP3) and a 64-bit rotate as two funnel shifts (SHF;
-# no rotation of the permutation is by 32, which would be a free swap):
-# theta's column parities 5 x 2 halves x 2 LOP3, its five D lanes 2 SHF +
-# 2 LOP3 each, D into the 25 lanes 50 LOP3; rho 24 rotates x 2 SHF; chi
-# 25 lanes x 2 halves x 1 LOP3 (a ^ (~b & c)); iota 2.  A block adds the
-# 17-lane absorb.
-K7_OPS_PER_ROUND = 5 * 2 * 2 + 5 * (2 + 2) + 25 * 2 + 24 * 2 + 25 * 2 + 2
-K7_OPS_PER_BLOCK = 24 * K7_OPS_PER_ROUND + 2 * 17
 # K8's least work, not the kernel's own arithmetic (a 16-bit-limb field
 # product and its Barrett reduction a step, about 1800 instructions): a
 # row's value is the sum over active j of byte_j * r^e_j, e_j its active
@@ -1628,32 +1660,11 @@ K7_OPS_PER_BLOCK = 24 * K7_OPS_PER_ROUND + 2 * 17
 # reduction, about 300 instructions) needs no table but 16x the operations
 K8_OPS_PER_STEP = 2 * 8 + 2
 K8_OPS_PER_ROW = 2 * 8 * 8 + 8
-# the dependent-issue latency taken for the card's fixed-latency integer
-# instructions (IMAD, IADD3, LOP3, SHF): an assumption, not measured here
-DEP_LATENCY_CYCLES = 4
 
 
-# The least work of one BN254-Fr product on the card's 32-bit integer
-# units, independent of any kernel: an 8 x 32-bit-limb Montgomery product.
-# a * b takes 64 limb products, each a mad.lo and a mad.hi (128
-# instructions), and two carry words a row (16); the reduction takes the 64
-# products m_i * p_j (128), the 8 words m_i = t_i * (-p^-1) mod 2^32 (one
-# mul.lo each) and two carry words a row (16); p is subtracted at most once
-# (8 subtractions, 8 selects): 312 instructions.  A squaring forms 36 limb
-# products in place of 64 (the 28 cross products once and the 8 squares),
-# and doubles the cross products (16 shifts): 272.
-FR_REDC_OPS = 2 * 64 + 8 + 2 * 8
-FR_FINAL_OPS = 2 * 8
-
-
-def fr_product_ops(wa=8, wb=8):
-    """int32 instructions of a field product of a wa-word by a wb-word
-    operand (32-bit words, 8 for a full element): the limb products' low
-    and high words and two carry words a row of a * b, the reduction and
-    the final subtraction."""
-    return 2 * wa * wb + 2 * wb + FR_REDC_OPS + FR_FINAL_OPS
-
-
+# A squaring forms 36 limb products in place of a field product's 64 (the
+# 28 cross products once and the 8 squares), and doubles the cross
+# products (16 shifts): 272 instructions against 312 (bounds.fr_product_ops).
 FR_PRODUCT_OPS = fr_product_ops()
 FR_SQUARE_OPS = FR_PRODUCT_OPS - 2 * (64 - 36) + 16
 # an add or a subtraction mod p on eight words: a carry chain, p
@@ -1720,19 +1731,58 @@ K8_CHAIN_OPS = fr_product_chain()
 FR_SQUARE_CHAIN_OPS = fr_product_chain(square=True)
 
 
-def sm_clock_max_hz():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return float(out.stdout.split()[0]) * 1e6
+def sponge_entry(blocks, n_blocks, note, clock_hz, **kw):
+    """K7 at one shape held against its plain version, with the path its
+    launcher took (``path``: row or warp) and its bytes,
+    operations and chain bounds: the chain is the longest row's absorbed
+    blocks x 24 rounds x K7_ROUND_CHAIN dependent instructions at
+    DEP_LATENCY_CYCLES each and the card's top clock (``sponge_chain_ms``);
+    ``bound_ms`` is the largest of the three and ``bound_kind`` says which
+    (``bound_by`` names a chain "operations": it is dependent ones)."""
+    entry = measure("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
+                    lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks),
+                    *sponge_cost_of(blocks, n_blocks), note, **kw)
+    before = cuda_build.path_launches("keccak_sponge")
+    got = keccak_ops.keccak_sponge(blocks, n_blocks)
+    after = cuda_build.path_launches("keccak_sponge")
+    (entry["path"],) = [p for p in after if after[p] > before[p]]
+    t0 = time.perf_counter()
+    assert np.array_equal(got.cpu().numpy(), sponge_numpy(blocks, n_blocks)), \
+        f"keccak_sponge at {note}: disagrees with the numpy keccak-f"
+    entry["equals_numpy_keccak"] = True
+    entry["numpy_keccak_s"] = time.perf_counter() - t0
+    longest = int(n_blocks.clamp(0, blocks.shape[1]).max()) if blocks.shape[0] else 0
+    chain_ms = sponge_chain_ms(longest, clock_hz)
+    entry.update(chain_bound_ms=chain_ms, round_chain_ops=K7_ROUND_CHAIN, longest_row_blocks=longest,
+                 sm_clock_max_mhz=clock_hz / 1e6,
+                 bound_kind="chain" if chain_ms > entry["bound_ms"] else entry["bound_by"])
+    if chain_ms > entry["bound_ms"]:
+        entry["bound_ms"], entry["bound_by"] = chain_ms, "operations"
+    return entry
 
 
-def sponge_cost(blocks, n_blocks):
-    """(bytes, int32 operations) of K7 for this run's data: the blocks each
+def sponge_numpy(blocks, n_blocks):
+    """Each row's digest words by the host's numpy keccak-f over uint64
+    lanes (``ops/keccak.py:_keccak_f_u64``, the permutation the witness
+    builders' ``keccak256_batch`` runs), each row stopping at its own
+    clamped block count."""
+    words = blocks.cpu().numpy().astype(np.uint64)
+    lanes = words[:, :, 0:34:2] | (words[:, :, 1:34:2] << np.uint64(32))
+    nb = n_blocks.cpu().numpy().clip(0, blocks.shape[1])
+    st = [np.zeros(blocks.shape[0], dtype=np.uint64) for _ in range(25)]
+    for b in range(int(nb.max()) if nb.size else 0):
+        active = b < nb
+        absorbed = [st[i] ^ lanes[:, b, i] if i < 17 else st[i] for i in range(25)]
+        st = [np.where(active, p, s) for p, s in zip(keccak_ops._keccak_f_u64(absorbed), st)]
+    out = np.stack(st[:4], axis=-1)
+    return np.stack([out & np.uint64(0xFFFFFFFF), out >> np.uint64(32)], axis=-1).reshape(
+        blocks.shape[0], 8).astype(np.int64)
+
+
+def sponge_cost_of(blocks, n_blocks):
+    """K7's (bytes, int32 operations) for this run's data: the blocks each
     row absorbs (read once), its block count and its digest."""
-    absorbed = int(n_blocks.clamp(0, blocks.shape[1]).sum())
-    n = blocks.shape[0]
-    return absorbed * 34 * 8 + n * 4 + n * 8 * 8, absorbed * K7_OPS_PER_BLOCK
+    return sponge_cost(int(n_blocks.clamp(0, blocks.shape[1]).sum()), blocks.shape[0])
 
 
 def horner_cost(byte_cols, active_cols):
@@ -1845,10 +1895,8 @@ def keccak_kernel_rows(launches, captured):
         blocks, n_blocks = captured[f"keccak_{data}"]["keccak_sponge"]
         note = (f"keccak_{data}: {blocks.shape[0]} rows, max {blocks.shape[1]} blocks, "
                 f"{int(n_blocks.sum())} absorbed")
-        k7.append(measure("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
-                          lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks),
-                          *sponge_cost(blocks, n_blocks), note,
-                          plain_repeats=5 if data == "sha3_mix" else 0))
+        k7.append(sponge_entry(blocks, n_blocks, note, clock_hz,
+                               plain_repeats=5 if data == "sha3_mix" else 0))
     rows.append({"name": "keccak_sponge", "route": "cuda", "source": SOURCES["keccak_sponge"],
                  "replaces": REPLACES["keccak_sponge"], "launches": launches["keccak_sponge"],
                  **k7[0], "library_ms": None, "path_shapes": k7[1:]})
@@ -2005,10 +2053,10 @@ def logup_kernel_rows(launches, captured):
     k12, k13 = [], []
     for path in BLOCK_PHASES:
         for family, calls in captured[f"logup_{path}"]["calls"].items():
-            for (a,), _ in calls.get("fr_inv", []):
-                k12.append(fr_inv_entry(f"logup_{path}: the {family} check's total", a,
-                                        clock_hz, 0))
-            for args, _ in calls.get("logup_sum", []):
+            for (a,), kw in calls.get("fr_inv", []):
+                k12.append({**fr_inv_entry(f"logup_{path}: the {family} check's total", a,
+                                           clock_hz, 0), **pass_of(f"logup_{path}", kw)})
+            for args, kw in calls.get("logup_sum", []):
                 fps, alpha = args[:2]
                 m = args[2] if len(args) > 2 else None
                 side = "query side (m = en)" if m is not None and m.shape[1] == 1 else "table side"
@@ -2022,7 +2070,8 @@ def logup_kernel_rows(launches, captured):
                 python_ints_check(entry, note,
                                   rows_to_ints(logup.logup_partial_sum(fps, alpha, m)[None])[0],
                                   lambda: logup_sum_ints(fps, alpha, m))
-                k13.append({**entry, **logup_plan_entry(fps, alpha, m)})
+                k13.append({**entry, **logup_plan_entry(fps, alpha, m),
+                            **pass_of(f"logup_{path}", kw)})
     sides = sorted((f"{'ALU' if path == 'block' else 'arith'} {family} "
                     f"{'query' if args[2].shape[1] == 1 else 'table'}",
                     args[0].shape[0], args[2].shape[1])
@@ -2085,18 +2134,15 @@ def main():
     shape_calls = [(path, captured[path]["calls"]) for path in BLOCK_PHASES]
     shape_calls += [(f"logup_{path} {family}", calls) for path in BLOCK_PHASES
                     for family, calls in captured[f"logup_{path}"]["calls"].items()]
-    block_sums = {}
     for label, calls in shape_calls:
-        by_name = block_path_shapes(calls, label)
-        if label in BLOCK_PHASES:
-            block_sums[label] = tiled_pass_sums(by_name, captured[label]["instances"])
-        for name, entries in by_name.items():
+        for name, entries in block_path_shapes(calls, label).items():
             row = next(r for r in rows if r["name"] == name)
             row["path_shapes"] = row.get("path_shapes", []) + entries
-    emit({"phase": "tiled_kernels", "per_kernel_pass": block_sums, "card": card})
-    for name in TILED_KERNELS:
-        next(r for r in rows if r["name"] == name)["block_pass_sums"] = {
-            label: sums[name] for label, sums in block_sums.items()}
+    sums = pass_sums(rows, {path: captured[path]["instances"] for path in BLOCK_PHASES})
+    emit({"phase": "pass_sums", "passes": sums, "card": card})
+    for r in rows:
+        r["block_pass_sums"] = {label: by_name[r["name"]] for label, by_name in sums.items()
+                                if r["name"] in by_name}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["card"] = card

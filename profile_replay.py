@@ -79,6 +79,50 @@ and tiles.
 
     python3 profile_replay.py --limbs [ROOT ...]
 
+With ``--keccak``, for each checkout root in the order given (``.`` when
+none; parent and change in one call compare them on one card), a fresh
+process times K7 (``ops/keccak.py:keccak_sponge``) at the ALU block's,
+the arithmetic block's and the SHA3 mix's keccak tables (built once, in
+this process, into ``build/keccak_shapes.pt``) and at every row count x
+blocks a row of ``KECCAK_SWEEP`` (seeded words, every row full): the
+source's own build and, in a root whose source takes
+``KECCAK_COOP_ROWS``, one build a path (``-DKECCAK_COOP_ROWS=0``: every
+batch one thread a row; ``=2^31 - 1``: one warp a row;
+``cuda_build.build_variants``), each the median of 10
+(``time_on_card_ms``), with the bytes, operations and chain bounds that
+this process adds from ``runtime/bounds.py`` (``chip_smoke.py``'s
+model).  The outputs must agree across paths and roots; the sweep is
+what sets the switch-over.
+
+    python3 profile_replay.py --keccak [ROOT ...]
+
+With ``--frmul``, for each checkout root in the order given, a fresh
+process times K1 (``ops/fr.py:fr_mul``) at the kernels line's
+``[131072, 16] x [1, 16]`` and at every shape of both blocks' per-kernel
+passes, their rw logUp checks and their whole logUp checks, with the
+count of each shape (every call captured), and in a root whose source
+takes ``FRMUL_SPLIT`` also the builds that only stage and store (1) and
+only stage (2), which split each shape's time into loads, stores and
+product.  Per block the sums of count x ms by build and of count x
+bytes bound (``runtime/bounds.py:fr_mul_cost``, added by this process),
+one JSON line a shape and a summary a block; the outputs must agree
+across roots.
+
+    python3 profile_replay.py --frmul [ROOT ...]
+
+With ``--graphs``, for each checkout root in the order given (pass
+parent, change, change, parent to alternate), a fresh process builds the
+ALU block and the arithmetic block, captures each one's device pass in
+its CUDA graph and times ``GRAPH_REPLAYS`` replays back to back on the
+card alone (CUDA events around each, after ``GRAPH_WARMUP``), while
+nvidia-smi samples the SM and memory clocks, power draw, temperature and
+throttle reasons every 50 ms: one JSON line a block and root with each
+replay's time, the samples' medians within it, and the medians of the
+fast and the slow replays (the graphs' times fall in two modes, fast
+within ``MODE_GAP_MS`` of the fastest replay).
+
+    python3 profile_replay.py --graphs ROOT_A ROOT_B [ROOT ...]
+
 With ``--sass NAME ...``, each named kernel library is built and its SASS
 read with ``cuobjdump -sass``: one JSON line per kernel with its
 instruction count, the count of each of its ten commonest opcodes, and
@@ -111,7 +155,7 @@ from torch.profiler import ProfilerActivity, profile
 from zkevm_specs_tpu_torch import workloads
 from zkevm_specs_tpu_torch.circuits import bytecode, keccak, state, withdrawal
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
-from zkevm_specs_tpu_torch.runtime import timing
+from zkevm_specs_tpu_torch.runtime import bounds, timing
 from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 from zkevm_specs_tpu_torch.runtime.convert import to_device
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
@@ -572,15 +616,338 @@ emit(resource_usage={name: cuda_build.resource_usage(name) for name in KERNELS})
 """
 
 
-def run_limbs(roots, card):
-    """LIMBS_CHILD in a fresh process for each root; every shape line goes
-    to build/profile_limbs.jsonl, the summaries to stdout; the outputs at
-    every shape must agree across roots."""
-    Path("build").mkdir(exist_ok=True)
+GRAPHS_CHILD = r"""
+import datetime, json, statistics, subprocess, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+
+replays, warmup = int(sys.argv[2]), int(sys.argv[3])
+MODE_GAP_MS = 1.0
+FIELDS = ["timestamp", "clocks.sm", "clocks.mem", "power.draw", "temperature.gpu",
+          "clocks_throttle_reasons.active"]
+
+
+def query(fields, *loop):
+    return ["nvidia-smi", f"--query-gpu={','.join(fields)}", "--format=csv,noheader,nounits",
+            *loop]
+
+
+def start_sampler():
+    # nvidia-smi every 50 ms in the background (without the throttle
+    # reasons where this nvidia-smi does not take them)
+    fields = FIELDS
+    if subprocess.run(query(fields), capture_output=True).returncode != 0:
+        fields = FIELDS[:-1]
+    proc = subprocess.Popen(query(fields, "-lms", "50"), stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout))
+    reader.start()
+    return fields, proc, reader, lines
+
+
+def stop_sampler(fields, proc, reader, lines):
+    # [(host seconds, {field: value})]
+    proc.terminate()
+    reader.join()
+    proc.wait()
+    rows = []
+    for line in lines:
+        vals = [v.strip() for v in line.split(",")]
+        if len(vals) != len(fields):
+            continue
+        try:
+            t = datetime.datetime.strptime(vals[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+        except ValueError:
+            continue
+        rows.append((t, dict(zip(fields[1:], vals[1:]))))
+    return rows
+
+
+def replay_times(replay):
+    # (host start seconds, device ms) of each replay: back to back, a short
+    # sleep kernel before each so its start event fires after the host
+    # has enqueued it, placed on the host's clock by a reference event
+    for _ in range(warmup):
+        replay()
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    events = []
+    t0 = time.time()
+    ref.record()
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [(t0 + ref.elapsed_time(s) / 1e3, s.elapsed_time(e)) for s, e in events]
+
+
+def during(rows, t, ms, field):
+    # the field's median over the samples within a replay (the nearest one
+    # where none falls within it)
+    inside = [float(r[field]) for ts, r in rows if t <= ts <= t + ms / 1e3
+              if r[field].replace(".", "", 1).isdigit()]
+    if not inside and rows:
+        near = min(rows, key=lambda r: abs(r[0] - t))[1][field]
+        inside = [float(near)] if near.replace(".", "", 1).isdigit() else []
+    return statistics.median(inside) if inside else None
+
+
+for path, build in (("block", workloads.build_alu_block), ("arith", workloads.build_arith_block)):
+    bv = CompiledBlockVerifier(build())
+    prepared = bv.prepare()
+    assert not bv.run_device_combined(prepared), path
+    sampler = start_sampler()
+    times = replay_times(prepared["graph"]["graph"].replay)
+    rows = stop_sampler(*sampler)
+    ms = [m for _, m in times]
+    reasons = sorted({r.get("clocks_throttle_reasons.active") for _, r in rows} - {None})
+    # the replays fall in two modes 2.2-2.8 ms apart (PERF.md §6): fast is
+    # within MODE_GAP_MS of the fastest replay, slow the rest
+    fast = [m for m in ms if m < min(ms) + MODE_GAP_MS]
+    slow = [m for m in ms if m >= min(ms) + MODE_GAP_MS]
+    print(json.dumps({"root": sys.argv[1], "block": path, "replays": replays, "warmup": warmup,
+                      "graph_device_ms_median": statistics.median(ms),
+                      "fast_replays": len(fast), "fast_ms_median": statistics.median(fast),
+                      "slow_ms_median": statistics.median(slow) if slow else None,
+                      "graph_device_ms_min": min(ms), "ms": ms,
+                      "sm_mhz": [during(rows, t, m, "clocks.sm") for t, m in times],
+                      "mem_mhz": [during(rows, t, m, "clocks.mem") for t, m in times],
+                      "power_w": [during(rows, t, m, "power.draw") for t, m in times],
+                      "temperature_c": [during(rows, t, m, "temperature.gpu") for t, m in times],
+                      "throttle_reasons": reasons, "samples": len(rows)}), flush=True)
+    del bv, prepared
+    torch.cuda.empty_cache()
+"""
+
+GRAPH_REPLAYS, GRAPH_WARMUP = 60, 3
+
+
+# K7's sweep: row counts and blocks a row (every row full); the switch-over
+# KECCAK_COOP_ROWS is read from it
+KECCAK_SWEEP = {"rows": [1, 8, 40, 256, 2048, 2560, 3072, 4096, 16384, 65536],
+                "blocks": [1, 3, 178, 486]}
+
+KECCAK_CHILD = r"""
+import contextlib, hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from zkevm_specs_tpu_torch.ops import keccak
+from zkevm_specs_tpu_torch.runtime import cuda_build
+
+shapes_file, sweep = sys.argv[2], json.loads(sys.argv[3])
+
+
+def emit(**kw):
+    print(json.dumps({"root": sys.argv[1], **kw}), flush=True)
+
+
+def libraries():
+    # {path: library}: the source's own build (None) and, where it has the
+    # switch, one build a path: -DKECCAK_COOP_ROWS=0 (every batch one
+    # thread a row), =2^31 - 1 (one warp a row)
+    if "#ifndef KECCAK_COOP_ROWS" not in (cuda_build.CSRC / "keccak_sponge.cu").read_text():
+        return {"own": None}
+    return {"own": None, **cuda_build.build_variants(
+        "keccak_sponge", {"row": ["KECCAK_COOP_ROWS=0"],
+                          "warp": [f"KECCAK_COOP_ROWS={2**31 - 1}"]})}
+
+
+def time_paths(label, blocks, n_blocks, **info):
+    times, first = {}, None
+    for path, lib in libs.items():
+        with cuda_build.launching("keccak_sponge", lib) if lib else contextlib.nullcontext():
+            call = lambda: keccak.keccak_sponge(blocks, n_blocks)
+            out = call()
+            first = out if first is None else first
+            assert torch.equal(out, first), (label, path)
+            times[path] = time_on_card_ms(call, repeats=10)
+    digest = hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()[:16]
+    clamped = n_blocks.clamp(0, blocks.shape[1])
+    emit(shape=label, rows=blocks.shape[0], max_blocks=blocks.shape[1], **info, ms=times,
+         absorbed=int(clamped.sum()), longest=int(clamped.max()), digest=digest)
+
+
+libs = libraries()
+src = (cuda_build.CSRC / "keccak_sponge.cu").read_text()
+switch = [l for l in src.splitlines() if l.startswith("#define KECCAK_COOP_ROWS")]
+emit(switch=switch[0] if switch else None, paths=list(libs))
+for label, (blocks, n_blocks) in torch.load(shapes_file).items():
+    time_paths(label, blocks.cuda(), n_blocks.cuda())
+gen = torch.Generator(device="cuda").manual_seed(0)
+for nb in sweep["blocks"]:
+    for rows in sweep["rows"]:
+        blocks = torch.randint(0, 1 << 32, (rows, nb, 34), device="cuda", generator=gen)
+        n_blocks = torch.full((rows,), nb, dtype=torch.int32, device="cuda")
+        time_paths("sweep", blocks, n_blocks, blocks_per_row=nb)
+        del blocks
+        torch.cuda.empty_cache()
+emit(resource_usage=cuda_build.resource_usage("keccak_sponge"))
+"""
+
+
+def keccak_shapes(path):
+    """K7's arguments at the ALU block's keccak table, the arithmetic
+    block's and the SHA3 mix's (``build_keccak_inputs``'s blocks and block
+    counts), saved to ``path`` for the children."""
+    from zkevm_specs_tpu_torch.ops.keccak import RATE_WORDS, pad_blocks
+
+    def args(preimages):
+        _, _, padded, n_blocks = pad_blocks(preimages)
+        blocks = padded.view("<u4").astype("int64").reshape(len(preimages), -1, RATE_WORDS)
+        return torch.from_numpy(blocks), torch.from_numpy(n_blocks.astype("int32"))
+
+    arith = workloads.build_arith_block()
+    shapes = {"alu_block": args(workloads.build_keccak_alu_block()[0]),
+              "arith_block": args([bytes(bc.code) for bc in arith.bytecodes]
+                                  + list(arith.sha3_preimages)),
+              "sha3_mix": args(workloads.build_keccak_sha3_mix()[0])}
+    torch.save(shapes, path)
+
+
+def keccak_bounds(rec, clock_hz):
+    """A ``--keccak`` shape line's bytes, operations and chain bounds
+    (``runtime/bounds.py``), in ms."""
+    moved, ops = bounds.sponge_cost(rec["absorbed"], rec["rows"])
+    return {"bytes_ms": moved / bounds.HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops / bounds.INT32_OPS_PER_S * 1e3,
+            "chain_ms": bounds.sponge_chain_ms(rec["longest"], clock_hz)}
+
+
+# K1's builds timed at each shape: the kernel, then (where its source has
+# the switch) -DFRMUL_SPLIT=1 (staged loads and stores, no product) and =2
+# (staged loads alone)
+FRMUL_SPLITS = ["whole", "loads_stores", "loads"]
+
+FRMUL_CHILD = r"""
+import contextlib, hashlib, json, sys
+from collections import Counter
+sys.path.insert(0, sys.argv[1])
+import torch
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.runtime import cuda_build
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+
+splits = json.loads(sys.argv[2])
+
+
+def emit(**kw):
+    print(json.dumps({"root": sys.argv[1], **kw}), flush=True)
+
+
+def libraries():
+    # {split: library}: the source's own build (None) and, where it has the
+    # switch, the builds with -DFRMUL_SPLIT=1 and =2
+    if "#ifndef FRMUL_SPLIT" not in (cuda_build.CSRC / "fr_mul.cu").read_text():
+        return {splits[0]: None}
+    return {splits[0]: None, **cuda_build.build_variants(
+        "fr_mul", {name: [f"FRMUL_SPLIT={v}"] for v, name in enumerate(splits) if v})}
+
+
+def key(a, b):
+    return [list(a.shape), list(b.shape), L.row_stride(a), L.row_stride(b),
+            a.data_ptr() % 16, b.data_ptr() % 16]
+
+
+def capture(run):
+    calls, counts = {}, Counter()
+    orig = fr.fr_mul
+
+    def record(a, b):
+        k = json.dumps(key(a, b))
+        calls.setdefault(k, (a, b))
+        counts[k] += 1
+        return orig(a, b)
+
+    fr.fr_mul = record
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        fr.fr_mul = orig
+    return calls, counts
+
+
+def time_calls(label, calls, counts):
+    sums = {"launches": 0, "shapes": 0, "sum_count_ms": {}}
+    for k, (a, b) in calls.items():
+        ms = {}
+        for name, lib in libs.items():
+            with cuda_build.launching("fr_mul", lib) if lib else contextlib.nullcontext():
+                ms[name] = time_on_card_ms(lambda: fr.fr_mul(a, b))
+        out = fr.fr_mul(a, b)
+        split = {}
+        if len(ms) == len(splits):
+            split = {"loads_ms": ms["loads"], "stores_ms": ms["loads_stores"] - ms["loads"],
+                     "product_ms": ms["whole"] - ms["loads_stores"]}
+        sums["launches"] += counts[k]
+        sums["shapes"] += 1
+        for name, v in ms.items():
+            sums["sum_count_ms"][name] = sums["sum_count_ms"].get(name, 0.0) + counts[k] * v
+        emit(block=label, key=k, count=counts[k], lanes=L.batch_rows(a, b), ms=ms, **split,
+             digest=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
+    return sums
+
+
+cuda_build.build_all()
+libs = libraries()
+# the kernels line's shape: [131072, 16] x a constant [1, 16]
+gen = torch.Generator().manual_seed(0)
+x = torch.randint(0, 1 << 16, (workloads.GROUP_LANES, 16), generator=gen)
+x[:, 15] %= 0x3064
+c = fr.from_ints([pow(8, fr.P - 2, fr.P)]).cuda()
+x = x.cuda()
+calls, counts = capture(lambda: fr.fr_mul(x, c))
+emit(block="timed_shapes", summary=time_calls("timed_shapes", calls, counts))
+for path, build in (("block", workloads.build_alu_block), ("arith", workloads.build_arith_block)):
+    witness = build()
+    bv = CompiledBlockVerifier(witness)
+    prepared = bv.prepare()
+    assert not bv.run_device(prepared), path
+    for label, run in ((path, lambda: bv._device_pass(prepared)),
+                       (f"logup_{path} rw", lambda: bv.verify_lookups(prepared, tables_names=("rw",))),
+                       (f"logup_{path}", lambda: bv.verify_lookups(prepared))):
+        calls, counts = capture(run)
+        emit(block=label, summary=time_calls(label, calls, counts))
+    del bv, prepared, witness, calls
+    torch.cuda.empty_cache()
+emit(resource_usage=cuda_build.resource_usage("fr_mul"))
+"""
+
+
+def frmul_bounds(lines):
+    """``--frmul``'s lines with K1's bytes and their bound
+    (``runtime/bounds.py:fr_mul_cost``) added to each shape line, and the
+    sum of count x bound to each block's summary (which follows its
+    shapes)."""
+    out, sums = [], defaultdict(float)
+    for line in lines:
+        rec = json.loads(line)
+        if "key" in rec:
+            a_shape, b_shape = json.loads(rec["key"])[:2]
+            rec["bytes"] = bounds.fr_mul_cost(a_shape, b_shape)[0]
+            rec["bytes_bound_ms"] = rec["bytes"] / bounds.HBM_BYTES_PER_S * 1e3
+            sums[rec["root"], rec["block"]] += rec["count"] * rec["bytes_bound_ms"]
+        elif "summary" in rec:
+            rec["summary"]["sum_count_bound_ms"] = sums[rec["root"], rec["block"]]
+        out.append(json.dumps(rec))
+    return out
+
+
+def run_digests(child, roots, *args):
+    """``child`` in a fresh process for each root: its JSON lines, and the
+    number of shapes whose output (``digest``) agreed across roots."""
     digests, lines = {}, []
     for root in roots:
-        out = subprocess.run([sys.executable, "-c", TIMER + LIMBS_CHILD, root,
-                              json.dumps(LIMB_TILES)],
+        out = subprocess.run([sys.executable, "-c", child, root, *args],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"profile_replay: {root} failed:\n{out.stderr[-4000:]}")
@@ -590,12 +957,24 @@ def run_limbs(roots, card):
             lines.append(line)
             rec = json.loads(line)
             if "digest" in rec:
-                want = digests.setdefault((rec["block"], rec["key"]), rec["digest"])
-                assert want == rec["digest"], f"{root} differs at {rec['block']} {rec['key']}"
-            else:
-                print(line, flush=True)
+                at = json.dumps([rec.get(k) for k in ("block", "key", "shape", "rows",
+                                                      "max_blocks")])
+                want = digests.setdefault(at, rec["digest"])
+                assert want == rec["digest"], f"{root} differs at {at}"
+    return len(digests), lines
+
+
+def run_limbs(roots, card):
+    """LIMBS_CHILD in a fresh process for each root; every shape line goes
+    to build/profile_limbs.jsonl, the summaries to stdout; the outputs at
+    every shape must agree across roots."""
+    Path("build").mkdir(exist_ok=True)
+    shapes, lines = run_digests(TIMER + LIMBS_CHILD, roots, json.dumps(LIMB_TILES))
+    for line in lines:
+        if "digest" not in json.loads(line):
+            print(line, flush=True)
     Path("build/profile_limbs.jsonl").write_text("\n".join(lines) + "\n")
-    print(json.dumps({"shapes_equal_across_roots": len(digests), "roots": roots,
+    print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots,
                       "lines": "build/profile_limbs.jsonl"}))
     print(card)
 
@@ -653,6 +1032,9 @@ def main():
         if len(sys.argv) < 4:
             raise SystemExit(__doc__)
         return run_roots(COMPARE_CHILD, sys.argv[2:], card)
+    if sys.argv[1:2] == ["--graphs"]:
+        return run_roots(TIMER + GRAPHS_CHILD, sys.argv[2:] or ["."], card, str(GRAPH_REPLAYS),
+                         str(GRAPH_WARMUP))
     if sys.argv[1:2] == ["--horner"]:
         return run_roots(TIMER + HORNER_CHILD, sys.argv[2:] or ["."], card)
     if sys.argv[1:2] == ["--sass"]:
@@ -661,6 +1043,22 @@ def main():
         return print(card)
     if sys.argv[1:2] == ["--limbs"]:
         return run_limbs(sys.argv[2:] or ["."], card)
+    if sys.argv[1:2] in (["--keccak"], ["--frmul"]):
+        roots = sys.argv[2:] or ["."]
+        Path("build").mkdir(exist_ok=True)
+        if sys.argv[1] == "--keccak":
+            keccak_shapes("build/keccak_shapes.pt")
+            shapes, lines = run_digests(TIMER + KECCAK_CHILD, roots,
+                                        "build/keccak_shapes.pt", json.dumps(KECCAK_SWEEP))
+            clock_hz = bounds.sm_clock_max_hz()
+            lines = [json.dumps({**rec, **keccak_bounds(rec, clock_hz)} if "absorbed" in rec
+                                else rec) for rec in map(json.loads, lines)]
+        else:
+            shapes, lines = run_digests(TIMER + FRMUL_CHILD, roots, json.dumps(FRMUL_SPLITS))
+            lines = frmul_bounds(lines)
+        print("\n".join(lines))
+        print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots}))
+        return print(card)
     if sys.argv[1:2] == ["--logup"]:
         return run_roots(TIMER + LOGUP_CHILD, sys.argv[2:] or ["."], card,
                          json.dumps(workloads.LOGUP_SIDES), json.dumps(LOGUP_TILES))

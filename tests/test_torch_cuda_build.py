@@ -2,6 +2,7 @@
 nvcc needed: the log is written here as nvcc would write it), and the
 ctypes signatures against the sources' C entries."""
 import re
+import sys
 
 import pytest
 import torch
@@ -69,3 +70,27 @@ def test_signature_matches_the_source(lib, fn):
     assert m, f"{fn} is not an extern \"C\" int entry of {lib}.cu"
     params = [p for p in m.group(1).split(",") if p.strip()]
     assert len(params) == len(cuda_build.SIGNATURES[lib][fn])
+
+
+def test_variants_build_with_their_defines_and_launch_only_inside_launching(tmp_path,
+                                                                          monkeypatch):
+    """``build_variants`` runs one compiler a variant with its ``-D`` flags
+    into a library of its own; ``launching`` hands one to the wrappers for
+    the block and then gives back the source's own build."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write(' '.join(sys.argv))\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda_build, "_load", lambda name, so: (name, so.read_text()))
+    monkeypatch.setitem(cuda_build._LIBS, "keccak_sponge", "own")
+    libs = cuda_build.build_variants("keccak_sponge", {"row": ["KECCAK_COOP_ROWS=0"],
+                                                       "warp": ["KECCAK_COOP_ROWS=7", "X=1"]})
+    assert "-DKECCAK_COOP_ROWS=0" in libs["row"][1].split()
+    assert {"-DKECCAK_COOP_ROWS=7", "-DX=1"} <= set(libs["warp"][1].split())
+    assert all(str(cuda_build.CSRC / "keccak_sponge.cu") in cmd for _, cmd in libs.values())
+    assert len(set(tmp_path.joinpath("kernels").glob("*.so"))) == 2
+    with cuda_build.launching("keccak_sponge", libs["row"]):
+        assert cuda_build.library("keccak_sponge") is libs["row"]
+    assert cuda_build.library("keccak_sponge") == "own"

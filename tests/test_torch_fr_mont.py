@@ -1,5 +1,6 @@
-"""The design of K12 and K13 on the CPU, tolerance 0: the 32-bit-limb
-Montgomery arithmetic of ``csrc/fr_mont.cuh`` and the window chain of
+"""The design of K1, K12 and K13 on the CPU, tolerance 0: the 32-bit-limb
+Montgomery arithmetic of ``csrc/fr_mont.cuh``, K1's two product sequences
+(``csrc/fr_mul.cu``) on operands at and above p, and the window chain of
 ``csrc/fr_inv.cu``, read from the sources and walked on Python ints, and
 K13's plan (``tables/logup.py:logup_plan``).
 
@@ -282,6 +283,56 @@ def test_mont_mul_by_plain_multiplicity_is_plain():
     for x, m in zip(_seeded(4, 16), _seeded(5, 16, 1 << 64)):
         inv_mont = pow(x, P - 2, P) * R % P
         assert _value(mont_mul(_words(inv_mont), _words(m))) == pow(x, P - 2, P) * m % P
+
+
+# -- K1's products on the Montgomery form ------------------------------------------
+
+FRMUL_SOURCE = (CSRC / "fr_mul.cu").read_text()
+K1_EDGES = [0, 1, P - 1, P, 2 * P - 1, (1 << 254) - 1, R - 1]
+
+
+def k1_broadcast(a, b):
+    """fr_mul_kernel<true>: bR = mont_to(b) once (R^2 mod p < p first, b <
+    2^256), then each lane mont_mul(bR, a); every dropped carry checked."""
+    b_r = mont_mul(C_R2, _words(b))
+    assert _value(b_r) < P
+    return _value(mont_mul(b_r, _words(a)))
+
+
+def k1_varying(a, b):
+    """fr_mul_kernel<false>: aR = mont_to(a), then mont_mul(aR, b)."""
+    a_r = mont_mul(C_R2, _words(a))
+    assert _value(a_r) < P
+    return _value(mont_mul(a_r, _words(b)))
+
+
+def test_k1_source_runs_the_modelled_sequence():
+    """The lines k1_broadcast and k1_varying mirror, as fr_mul.cu writes
+    them: no operand is reduced before its product."""
+    assert "mont_pack16(g.b.p, g.b.n, w);\n      mont_to(w, w);" in FRMUL_SOURCE
+    assert "mont_mul(y, x, x);" in FRMUL_SOURCE
+    assert "mont_to(x, x);\n      mont_mul(x, y, x);" in FRMUL_SOURCE
+    assert "if (sa == 0 && sb != 0) {  // the broadcast row as b" in FRMUL_SOURCE
+
+
+@pytest.mark.parametrize("nb", [1, 2, 16])
+@pytest.mark.parametrize("na", [1, 2, 16])
+def test_k1_products_on_operands_at_and_above_p(na, nb):
+    """a * b mod p for operands of na and nb limbs holding any value below
+    2^(16 n): p, 2p - 1 and 2^256 - 1 included, on both kernels' sequences
+    and on the plain version (Barrett)."""
+    cut_a, cut_b = (1 << 16 * na) - 1, (1 << 16 * nb) - 1
+    a_vals = [v & cut_a for v in K1_EDGES + _seeded(20 + na, 4, R)]
+    b_vals = [v & cut_b for v in K1_EDGES + _seeded(30 + nb, 4, R)]
+    for a in a_vals:
+        for b in b_vals:
+            assert k1_broadcast(a, b) == a * b % P, (a, b)
+            assert k1_varying(a, b) == a * b % P, (a, b)
+    a_t = fr.L.ints_to_limbs(a_vals, na)
+    b_t = fr.L.ints_to_limbs(b_vals, nb)
+    for b_row, b in zip(b_t, b_vals):
+        got = fr.to_ints(fr.fr_mul_plain(a_t, b_row[None]))
+        assert got == [a * b % P for a in a_vals]
 
 
 # -- K12's window chain -----------------------------------------------------------

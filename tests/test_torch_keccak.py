@@ -19,6 +19,7 @@ and digest words equal, fail bits equal lane for lane.
   tests/test_keccak_circuit.py and on the builders at a small size;
 * ``runtime.convert.to_device`` keeps each extra array's type.
 """
+import re
 from pathlib import Path
 
 import numpy as np
@@ -154,6 +155,184 @@ def test_sponge_wrapper_checks_its_inputs():
         pops.keccak_sponge(blocks[:, :, :33], torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         pops.keccak_sponge(blocks.to("meta"), torch.ones(2, dtype=torch.int32).to("meta"))
+
+
+# -- K7's warp kernel: one row a warp, walked on Python ints -------------------------
+
+K7_SOURCE = (Path(pops.__file__).resolve().parents[1] / "csrc" / "keccak_sponge.cu").read_text()
+M32 = 0xFFFF_FFFF
+WARP = 32
+
+
+def _c_array(source, name):
+    """The integers of ``name[...] = {...}`` in a CUDA source."""
+    m = re.search(re.escape(name) + r"\[[^\]]*\]\s*=\s*\{([^}]*)\}", source)
+    assert m, f"{name} not found"
+    return [int(t.strip().rstrip("ul").rstrip("ULL"), 0)
+            for t in m.group(1).replace("\n", " ").split(",") if t.strip()]
+
+
+WEST, EAST = _c_array(K7_SOURCE, "c_theta_west"), _c_array(K7_SOURCE, "c_theta_east")
+RHO_ROT, PI_SRC = _c_array(K7_SOURCE, "c_rho_rot"), _c_array(K7_SOURCE, "c_pi_src")
+CHI1, CHI2 = _c_array(K7_SOURCE, "c_chi_src1"), _c_array(K7_SOURCE, "c_chi_src2")
+K7_RC = _c_array(K7_SOURCE, "c_rc")
+
+
+COL_PITCH = int(re.search(r"#define KECCAK_COL_PITCH (\d+)", K7_SOURCE).group(1))
+COL_WORDS = int(re.search(r"#define KECCAK_COL_WORDS (\d+)", K7_SOURCE).group(1))
+M64 = (1 << 64) - 1
+
+
+def _col_slot(t):
+    """Where thread t stores its lane for theta: column-major at COL_PITCH
+    lanes a column; threads 25-31 past the columns."""
+    return COL_PITCH * (t % 5) + t // 5 if t < 25 else 5 * COL_PITCH + t - 25
+
+
+def _fsl(lo, hi, s):
+    """__funnelshift_l(lo, hi, s): the high word of (hi:lo) << (s & 31)."""
+    return ((((hi << 32) | lo) << (s & 31)) >> 32) & M32
+
+
+def _rho(x, r, swap):
+    """The warp kernel's branchless rho by r mod 32 with swap = (r >= 32):
+    the halves swapped, then one funnel shift a half."""
+    lo, hi = x & M32, x >> 32
+    a, c = (hi, lo) if swap else (lo, hi)
+    return _fsl(c, a, r) | _fsl(a, c, r) << 32
+
+
+def _warp_round(st, rc):
+    """One round of keccak_sponge_warp_kernel on the 32 threads' 64-bit
+    lanes, store by store and load by load through the two shared-memory
+    buffers (a load reads what the warp stored before its __syncwarp)."""
+    cols = [None] * COL_WORDS
+    for t in range(WARP):                               # theta's exchange
+        assert cols[_col_slot(t)] is None
+        cols[_col_slot(t)] = st[t]
+    new = []
+    for t in range(WARP):
+        west, east = COL_PITCH * WEST[t], COL_PITCH * EAST[t]
+        cw = ce = 0
+        for k in range(5):                              # 16 + 16 + 8 bytes a column
+            assert west + k < 5 * COL_PITCH and east + k < 5 * COL_PITCH
+            cw ^= cols[west + k]
+            ce ^= cols[east + k]
+        new.append(st[t] ^ cw ^ ((ce << 1 | ce >> 63) & M64))
+    # pi + chi's exchange
+    rho = [_rho(new[t], RHO_ROT[t] & 31, RHO_ROT[t] >= 32) for t in range(WARP)]
+    return [rho[PI_SRC[t]] ^ (~rho[CHI1[t]] & rho[CHI2[t]] & M64) ^ (rc if t == 0 else 0)
+            for t in range(WARP)]
+
+
+def _warp_keccak_f(lanes):
+    st = list(lanes) + [0] * (WARP - 25)
+    for rc in K7_RC:
+        st = _warp_round(st, rc)
+    return st[:25]
+
+
+def test_k7_round_constants_and_tables():
+    """The source's round constants are the specification's; every
+    thread's loads read a lane of the warp (threads 0-24 only the 25
+    lanes; 25-31 hold none); the column layout gives every thread its own
+    slot, puts each column on a 16-byte boundary (its first two pairs
+    16-byte loads) and fits KECCAK_COL_WORDS."""
+    assert K7_RC == list(pops._RC)
+    for table in (WEST, EAST, RHO_ROT, PI_SRC, CHI1, CHI2):
+        assert len(table) == WARP
+    for t in range(WARP):
+        assert 0 <= WEST[t] < 5 and 0 <= EAST[t] < 5
+        assert all(0 <= r < (25 if t < 25 else WARP) for r in (PI_SRC[t], CHI1[t], CHI2[t])), t
+    assert sorted(PI_SRC[:25]) == list(range(25))
+    assert all(0 <= r < 64 for r in RHO_ROT)
+    slots = [_col_slot(t) for t in range(WARP)]
+    assert len(set(slots)) == WARP and max(slots) < COL_WORDS
+    assert COL_PITCH >= 5 and COL_PITCH % 2 == 0 and 5 * COL_PITCH <= COL_WORDS
+    assert {_col_slot(x + 5 * y) for x in range(5) for y in range(5)} == {
+        COL_PITCH * x + y for x in range(5) for y in range(5)}
+
+
+@pytest.mark.parametrize("r", range(64))
+def test_k7_branchless_rotation_equals_rotl64(r):
+    rng = np.random.RandomState(r)
+    for v in [0, (1 << 64) - 1, 1, 1 << 63] + [int(x) for x in
+                                              rng.randint(0, 1 << 62, size=6, dtype=np.int64)]:
+        v |= (r & 1) << 62
+        assert _rho(v, r & 31, r >= 32) == pops._rotl(v, r), (r, hex(v))
+
+
+@pytest.mark.parametrize("state", ["zeros", "ones", "seed0", "seed1", "seed2"])
+def test_k7_warp_round_model_equals_keccak_f(state):
+    """The warp's 24 rounds on the source's tables give keccak_f's state."""
+    if state == "zeros":
+        lanes = [0] * 25
+    elif state == "ones":
+        lanes = [(1 << 64) - 1] * 25
+    else:
+        rng = np.random.RandomState(int(state[-1]))
+        lanes = [int.from_bytes(rng.bytes(8), "little") for _ in range(25)]
+    assert _warp_keccak_f(lanes) == pops.keccak_f(lanes)
+
+
+def test_k7_warp_sponge_model_equals_keccak256():
+    """The warp kernel's absorb (threads 0-16 take words 2t, 2t + 1 of a
+    block), permutation and digest (threads 0-3 write lo, hi) on rows of
+    0, 135, 136 and 300 bytes."""
+    rng = np.random.RandomState(9)
+    datas = [rng.bytes(n) for n in (0, 135, 136, 300)]
+    _, _, padded, n_blocks = pops.pad_blocks(datas)
+    words = padded.view("<u4").astype(np.int64).reshape(len(datas), -1, 34)
+    for d, row, nb in zip(datas, words, n_blocks):
+        lanes = [0] * 25
+        for b in range(nb):
+            for t in range(17):
+                lanes[t] ^= int(row[b, 2 * t]) | int(row[b, 2 * t + 1]) << 32
+            lanes = _warp_keccak_f(lanes)
+        digest = [w for t in range(4) for w in (lanes[t] & M32, lanes[t] >> 32)]
+        np.testing.assert_array_equal(digest, _words(pops.keccak256(d)))
+
+
+def test_k7_switch_over_is_a_row_count():
+    m = re.search(r"#define KECCAK_COOP_ROWS (\d+)", K7_SOURCE)
+    assert m and int(m.group(1)) >= 1
+    assert "if (n < KECCAK_COOP_ROWS) {" in K7_SOURCE
+
+
+def _rotl(v, r):
+    return (v << r | v >> (64 - r)) & M64 if r else v
+
+
+def _least_depth_round(a, rc):
+    """A round in the form that ``runtime.bounds.keccak_round_chain``
+    counts: rho folded into theta's XOR, lane 0's round constant into a
+    copy of C[4] and its own B, then pi and chi."""
+    rot = [pops._ROT[i % 5][i // 5] for i in range(25)]
+    c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
+    b = [_rotl(a[i], rot[i]) ^ _rotl(c[(i + 4) % 5], rot[i]) ^ _rotl(c[(i + 1) % 5], rot[i] + 1)
+         for i in range(25)]
+    b0_rc = a[0] ^ (c[4] ^ rc) ^ _rotl(c[1], 1)
+    b = [b[s] for s in pops._PI_SRC]
+    return [(b0_rc if i == 0 else b[i]) ^ (~b[i - i % 5 + (i + 1) % 5] & b[i - i % 5 + (i + 2) % 5])
+            for i in range(25)]
+
+
+@pytest.mark.parametrize("state", ["zeros", "ones", "seed0", "seed1"])
+def test_k7_chain_bound_form_equals_keccak_f(state):
+    """The round whose depth bounds K7 (5 dependent instructions) computes
+    keccak-f: 24 rounds of it give keccak_f's state."""
+    from zkevm_specs_tpu_torch.runtime import bounds
+
+    if state in ("zeros", "ones"):
+        lanes = [0 if state == "zeros" else M64] * 25
+    else:
+        rng = np.random.RandomState(10 + int(state[-1]))
+        lanes = [int.from_bytes(rng.bytes(8), "little") for _ in range(25)]
+    want = pops.keccak_f(lanes)
+    for rc in pops._RC:
+        lanes = _least_depth_round(lanes, rc)
+    assert lanes == want
+    assert bounds.K7_ROUND_CHAIN == bounds.keccak_round_chain() == 5
 
 
 # -- K8's plain version ---------------------------------------------------------

@@ -8,6 +8,8 @@ is present, and runs on the card with
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which a CUDA machine
 need not have.)
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -393,6 +395,160 @@ def test_keccak_sponge_clamps_the_block_count(dev):
     n_blocks = torch.tensor([0, -3, 1, 2, 9, 3, 100, 1], dtype=torch.int32)
     blocks, n_blocks = blocks.to(dev), n_blocks.to(dev)
     _equal(keccak.keccak_sponge(blocks, n_blocks), keccak.keccak_sponge_plain(blocks, n_blocks))
+
+
+def _source_define(name, define):
+    m = re.search(r"#define " + define + r" (\d+)", (cuda_build.CSRC / name).read_text())
+    assert m, define
+    return int(m.group(1))
+
+
+# -- K7's two paths: one warp a row under KECCAK_COOP_ROWS rows, one thread a row
+# at and above it
+
+K7_COOP_ROWS = _source_define("keccak_sponge.cu", "KECCAK_COOP_ROWS")
+K7_POOL = [0, 1, 135, 136, 137, 300, 66000]   # 66000 bytes: 486 blocks
+
+
+def _pool_rows(rows, lengths, seed=43):
+    """``rows`` rows cycling over one preimage of each length: (the
+    preimages, blocks, n_blocks) on the card."""
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    rng = np.random.RandomState(seed)
+    pool = [rng.bytes(n) for n in lengths]
+    _, _, padded, n_blocks = keccak.pad_blocks(pool)
+    blocks = torch.from_numpy(padded.view("<u4").astype(np.int64).reshape(len(pool), -1, 34))
+    pick = torch.arange(rows) % len(pool)
+    return ([pool[i] for i in pick.tolist()], blocks.cuda()[pick.cuda()].contiguous(),
+            torch.from_numpy(n_blocks.astype(np.int32)).cuda()[pick.cuda()].contiguous())
+
+
+def _sponge_path(rows):
+    return "warp" if rows < K7_COOP_ROWS else "row"
+
+
+@pytest.mark.parametrize("rows", [1, 8, 40, K7_COOP_ROWS - 1, K7_COOP_ROWS, K7_COOP_ROWS + 1])
+def test_keccak_sponge_paths_equal_keccak256(dev, rows):
+    """Each path against keccak256 on rows of 0, 1, 135, 136, 137, 300 and
+    66000 bytes (486 blocks), and against the plain version on the short
+    rows; the launch is counted once, under the path the row count picks."""
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    datas, blocks, n_blocks = _pool_rows(rows, K7_POOL)
+    before, paths = L.LAUNCHES["keccak_sponge"], cuda_build.path_launches("keccak_sponge")
+    got = keccak.keccak_sponge(blocks, n_blocks)
+    torch.cuda.synchronize()
+    after = cuda_build.path_launches("keccak_sponge")
+    assert L.LAUNCHES["keccak_sponge"] == before + 1
+    assert {k: after[k] - paths[k] for k in after} == {
+        p: int(p == _sponge_path(rows)) for p in after}
+    words = got.cpu().numpy().astype("<u4")
+    assert [w.tobytes() for w in words] == [keccak.keccak256(d) for d in datas]
+    datas, blocks, n_blocks = _pool_rows(rows, K7_POOL[:-1])
+    _equal(keccak.keccak_sponge(blocks, n_blocks), keccak.keccak_sponge_plain(blocks, n_blocks))
+
+
+@pytest.mark.parametrize("rows", [8, K7_COOP_ROWS - 1, K7_COOP_ROWS])
+def test_keccak_sponge_paths_clamp_the_block_count(dev, rows):
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    _, blocks, _ = _pool_rows(rows, K7_POOL[:-1])
+    rng = np.random.RandomState(rows)
+    n_blocks = torch.from_numpy(rng.choice([-7, -1, 0, 1, 2, 3, 4, 1000], size=rows)
+                                .astype(np.int32)).to(dev)
+    _equal(keccak.keccak_sponge(blocks, n_blocks), keccak.keccak_sponge_plain(blocks, n_blocks))
+
+
+# -- K1 on its Montgomery path: operands at and above p, every layout ---------------
+
+FRMUL_TILE = _source_define("fr_mul.cu", "FRMUL_TILE")
+
+
+def _fr_mul_operand(rng, lanes, n, layout, dev):
+    """[lanes, n] limbs of values below 2^(16 n), the edges p, 2p - 1 and
+    2^256 - 1 (cut to n limbs) first; laid out dense, at an 8-byte offset
+    (no 16-byte loads), as a view of wider rows of even or odd stride."""
+    vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(lanes)]
+    edges = [fr.P, 2 * fr.P - 1, (1 << 256) - 1, 0, 1, fr.P - 1]
+    vals[:len(edges)] = edges[:lanes]
+    vals = [v % (1 << 16 * n) for v in vals]
+    t = L.ints_to_limbs(vals, n)
+    if layout == "dense":
+        return vals, t.to(dev)
+    if layout == "misaligned":
+        flat = torch.zeros(lanes * n + 1, dtype=torch.int64, device=dev)
+        view = flat[1:].view(lanes, n)
+    else:
+        wide = torch.zeros((lanes, n + (4 if layout == "strided" else 3)), dtype=torch.int64,
+                           device=dev)
+        view = wide[:, 2:2 + n] if layout == "strided" else wide[:, 1:1 + n]
+    view.copy_(t.to(dev))
+    return vals, view
+
+
+@pytest.mark.parametrize("layout", ["dense", "misaligned", "strided", "strided_odd"])
+@pytest.mark.parametrize("b_kind", ["broadcast_b", "broadcast_a", "varying"])
+@pytest.mark.parametrize("lanes", [1, FRMUL_TILE - 1, FRMUL_TILE, FRMUL_TILE + 1, 131072])
+def test_fr_mul_equals_python_ints_at_and_above_p(dev, lanes, b_kind, layout):
+    rng = np.random.RandomState(lanes + len(layout) + len(b_kind))
+    for na, nb in ((16, 16), (3, 16), (16, 1)):
+        a_vals, a = _fr_mul_operand(rng, lanes, na, layout, dev)
+        b_vals, b = _fr_mul_operand(rng, 1 if b_kind != "varying" else lanes, nb, layout, dev)
+        if b_kind == "broadcast_a":
+            a_vals, a, b_vals, b = b_vals, b, a_vals, a
+        got = fr.fr_mul(a, b)
+        if lanes <= 4 * FRMUL_TILE:
+            _equal(got, fr.fr_mul_plain(a, b))
+        if len(a_vals) == 1:
+            a_vals = a_vals * len(b_vals)
+        if len(b_vals) == 1:
+            b_vals = b_vals * len(a_vals)
+        assert fr.to_ints(got.cpu()) == [x * y % fr.P for x, y in zip(a_vals, b_vals)]
+
+
+@pytest.mark.parametrize("b_kind", ["row", "expanded"])
+@pytest.mark.parametrize("lanes", [1, FRMUL_TILE + 1, 131072])
+def test_fr_mul_two_broadcast_rows(dev, lanes, b_kind):
+    """An expanded ``[1, 16]`` a (row stride 0) times a ``[1, 16]`` row or
+    another expanded one: every lane of the batch holds the one product."""
+    rng = np.random.RandomState(lanes + len(b_kind))
+    x, y = (int.from_bytes(rng.bytes(32), "little") | 1 << 255 for _ in "xy")   # above p
+    a, b = (L.ints_to_limbs([v], 16).to(dev) for v in (x, y))
+    a = a.expand(lanes, 16)
+    if b_kind == "expanded":
+        b = b.expand(lanes, 16)
+    assert L.row_stride(a) == 0
+    got = fr.fr_mul(a, b)
+    assert got.shape == (lanes, 16)
+    _equal(got, fr.fr_mul_plain(a, b))
+    assert fr.to_ints(got.cpu()) == [x * y % fr.P] * lanes
+
+
+def test_fr_mul_and_keccak_sponge_replay_in_a_graph(dev):
+    """K1 (broadcast and varying b, a ragged tile) and K7 (both paths)
+    captured in one CUDA graph give the eager results on every replay."""
+    from zkevm_specs_tpu_torch.ops import keccak
+
+    rng = np.random.RandomState(47)
+    _, a = _fr_mul_operand(rng, 3 * FRMUL_TILE + 5, 16, "dense", dev)
+    _, b = _fr_mul_operand(rng, 3 * FRMUL_TILE + 5, 16, "strided", dev)
+    _, c = _fr_mul_operand(rng, 1, 16, "dense", dev)
+    sponges = [_pool_rows(rows, K7_POOL[:-1])[1:] for rows in (8, K7_COOP_ROWS)]
+
+    def run():
+        return [fr.fr_mul(a, b), fr.fr_mul(a, c)] + [keccak.keccak_sponge(*x) for x in sponges]
+
+    want = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        _equal(outs, want)
 
 
 # -- K8: the byte-RLC Horner scan ---------------------------------------------------

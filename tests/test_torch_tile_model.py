@@ -1,5 +1,6 @@
-"""The tile mappings of kernels K3 (``csrc/limb_addsub.cu``) and K4
-(``csrc/lookup_gather_eq.cu``) on the CPU: a Python model of each kernel's
+"""The tile mappings of kernels K3 (``csrc/limb_addsub.cu``), K4
+(``csrc/lookup_gather_eq.cu``) and K1 (``csrc/fr_mul.cu``, K3's staging at
+16 limbs) on the CPU: a Python model of each kernel's
 index arithmetic, with the tile sizes, the pitch, the division by a
 reciprocal and the choice of instance read from the sources, walked over
 every thread of a tile at each width and tile edge.  It checks that every
@@ -8,6 +9,7 @@ on 16-byte boundaries and never straddle two rows they should not, and
 that a warp reading limb k of its lanes' staged rows hits 32 distinct
 shared-memory banks (4-byte words, so one phase of 32 threads)."""
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ import torch
 
 from limb_tile_cases import (ADDSUB_DIRECT_WIDTH, ADDSUB_MAX_LIMBS, ADDSUB_MAX_UNROLLED,
                              ADDSUB_SOURCE, ADDSUB_TILE, GATHER_SOURCE, GATHER_THREADS,
-                             GATHER_TILE, GATHER_UNROLL, addsub_pitch, addsub_staged)
+                             GATHER_TILE, GATHER_UNROLL, addsub_pitch, addsub_staged, define)
 
 torch.set_num_threads(1)
 
@@ -262,3 +264,45 @@ def test_gather_flat_store_is_coalesced():
         for e in range(GATHER_TILE * tw):
             lane = div_by(e, tw)
             assert lane * tw + (e - lane * tw) == e
+
+
+# -- K1 (csrc/fr_mul.cu): K3's staging at a width of 16 limbs ------------------------
+
+FRMUL_SOURCE = (Path(__file__).resolve().parents[1] / "zkevm_specs_tpu_torch" / "csrc"
+                / "fr_mul.cu").read_text()
+FRMUL_TILE = define(FRMUL_SOURCE, "FRMUL_TILE")
+FRMUL_PITCH = define(FRMUL_SOURCE, "FRMUL_PITCH")
+
+
+def test_fr_mul_source_states_the_modelled_rules():
+    """K1 stages its rows as K3's stage() does at a width of 16 (copy and
+    span are n <= 16), and stores rows of 16 limbs two at a time."""
+    assert "return n == 1 ? e : (int)__umulhi((unsigned)e, magic);" in FRMUL_SOURCE
+    assert "return n <= 1 ? 0u : 0xFFFFFFFFu / (unsigned)n + 1u;" in FRMUL_SOURCE
+    assert "x.vec = aligned && (stride == n || (stride % 2 == 0 && n % 2 == 0));" in FRMUL_SOURCE
+    assert "for (int e = 2 * tid; e < total; e += 2 * nt) {" in FRMUL_SOURCE
+    assert "for (int f = 2 * t; f < total; f += 2 * FRMUL_TILE) {" in FRMUL_SOURCE
+    assert "const int lane = one ? 0 : f / FR_LIMBS, k = f % FR_LIMBS;" in FRMUL_SOURCE
+    # two broadcast rows: thread 0 alone forms the product, in row 0
+    assert "const bool one = g.a.stride == 0;" in FRMUL_SOURCE
+    assert "if (one ? t == 0 : t < lanes) {" in FRMUL_SOURCE
+    assert FRMUL_PITCH == addsub_pitch(16)
+    assert 2 * FRMUL_TILE * FRMUL_PITCH * 4 <= 48 * 1024
+    assert chain_banks_conflict_free(16, FRMUL_TILE)
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided_even", "strided_odd", "broadcast",
+                                    "misaligned"])
+@pytest.mark.parametrize("n", [1, 2, 3, 15, 16])
+def test_fr_mul_tile_loads_and_stores_every_limb_once(n, layout):
+    stride = {"dense": n, "misaligned": n, "broadcast": 0, "strided_even": n + 2 - n % 2,
+              "strided_odd": n + 1 + n % 2}[layout]
+    for lanes in sorted({1, FRMUL_TILE - 1, FRMUL_TILE}):
+        loads, writes = stage(stride, n, 16, layout != "misaligned", lanes, FRMUL_TILE)
+        rows = 1 if stride == 0 else lanes
+        assert set(writes) == {(lane, k) for lane in range(rows) for k in range(16)}
+        assert set(writes.values()) == {1} and set(loads.values()) == {1}
+        assert set(loads) == {(lane, k) for lane in range(rows) for k in range(n)}
+        stores, reads = store(16, 16, lanes, FRMUL_TILE)
+        assert set(stores) == {(lane, k) for lane in range(lanes) for k in range(16)}
+        assert set(stores.values()) == {1} and set(reads.values()) == {1}

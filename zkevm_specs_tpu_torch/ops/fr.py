@@ -100,8 +100,11 @@ def fr_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fr_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1 wrapper: (a * b) mod p for ``a [B|1, <=16]`` and ``b [B|1, <=16]``
-    as ``[B, 16]`` canonical limbs, bit-identical to Barrett in
-    ``reduce_wide``.
+    (any values below 2^(16 n), p and above included) as ``[B, 16]``
+    canonical limbs, equal to Barrett in ``reduce_wide``.  On the card a
+    tile of 128 lanes is staged through shared memory and multiplied on
+    ``csrc/fr_mont.cuh``'s Montgomery product: one product a lane for a
+    broadcast ``[1, n]`` operand, two for two varying ones.
 
     Replaces ``zkevm_specs_tpu/ops/fr.py:mul`` -> ``reduce_wide`` (the live
     form of the retired Pallas kernel ``fr_mul_pallas``)."""

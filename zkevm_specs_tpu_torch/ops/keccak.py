@@ -314,7 +314,11 @@ def keccak_sponge(blocks: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
     ``blocks``: ``[n, max_blocks, 34]`` int64, the padded preimage as
     little-endian 32-bit words, contiguous; ``n_blocks``: ``[n]`` int32,
     the blocks each row absorbs (clamped to ``[0, max_blocks]``).  Returns
-    the ``[n, 8]`` int64 digest words (lo, hi of lanes 0-3).
+    the ``[n, 8]`` int64 digest words (lo, hi of lanes 0-3).  On the card
+    a batch under ``csrc/keccak_sponge.cu``'s ``KECCAK_COOP_ROWS`` rows
+    runs one warp a row (a row's lanes spread over the warp's threads),
+    a larger one one thread a row; ``cuda_build.path_launches`` counts
+    each path.
 
     Replaces ``zkevm_specs_tpu/ops/keccak.py:keccak_f_lanes`` (the
     ``lax.scan`` of ``keccak_round``) inside the absorb loop of

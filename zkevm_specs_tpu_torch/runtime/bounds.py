@@ -1,0 +1,122 @@
+"""The least time the card could take for a kernel's work: the card's
+peaks and the cost models of K1 (``fr_mul``) and K7 (``keccak_sponge``).
+
+``chip_smoke.py`` and ``profile_replay.py`` (its ``--keccak`` and
+``--frmul`` modes) read their bounds from here, so both state the same
+model.  A bound is the larger of the bytes a call must move over the
+memory rate and the int32 operations it must issue over the card's
+integer rate; K7's also takes its chain, the dependent steps of its
+longest row at ``DEP_LATENCY_CYCLES`` each.
+"""
+import subprocess
+
+from ..ops import keccak as keccak_ops
+
+# H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
+# ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
+# (Hopper architecture white paper)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the dependent-issue latency taken for the card's fixed-latency integer
+# instructions (IMAD, IADD3, LOP3, SHF): an assumption, not measured here
+DEP_LATENCY_CYCLES = 4
+
+
+def sm_clock_max_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def bound(bytes_moved, int_ops):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The least work of one BN254-Fr product on the card's 32-bit integer
+# units, independent of any kernel: an 8 x 32-bit-limb Montgomery product.
+# a * b takes 64 limb products, each a mad.lo and a mad.hi (128
+# instructions), and two carry words a row (16); the reduction takes the 64
+# products m_i * p_j (128), the 8 words m_i = t_i * (-p^-1) mod 2^32 (one
+# mul.lo each) and two carry words a row (16); p is subtracted at most once
+# (8 subtractions, 8 selects): 312 instructions.
+FR_REDC_OPS = 2 * 64 + 8 + 2 * 8
+FR_FINAL_OPS = 2 * 8
+
+
+def fr_product_ops(wa=8, wb=8):
+    """int32 instructions of a field product of a wa-word by a wb-word
+    operand (32-bit words, 8 for a full element): the limb products' low
+    and high words and two carry words a row of a * b, the reduction and
+    the final subtraction."""
+    return 2 * wa * wb + 2 * wb + FR_REDC_OPS + FR_FINAL_OPS
+
+
+def fr_mul_cost(a_shape, b_shape):
+    """(bytes, int32 operations) of K1 on a ``[Ba, na]`` and a ``[Bb, nb]``
+    operand of int64 limbs: both read once, ``[max(Ba, Bb), 16]`` written,
+    and a field product (``fr_product_ops``) of the operands' 32-bit words
+    a lane."""
+    (ba, na), (bb, nb) = a_shape, b_shape
+    rows = max(ba, bb)
+    return 8 * (ba * na + bb * nb) + rows * 16 * 8, rows * fr_product_ops(-(-na // 2), -(-nb // 2))
+
+
+# K7: the 32-bit instructions one keccak-f round issues, with the card's
+# three-input logic op (LOP3) and a 64-bit rotate as two funnel shifts (SHF;
+# no rotation of the permutation is by 32, which would be a free swap):
+# theta's column parities 5 x 2 halves x 2 LOP3, its five D lanes 2 SHF +
+# 2 LOP3 each, D into the 25 lanes 50 LOP3; rho 24 rotates x 2 SHF; chi
+# 25 lanes x 2 halves x 1 LOP3 (a ^ (~b & c)); iota 2.  A block adds the
+# 17-lane absorb.
+K7_OPS_PER_ROUND = 5 * 2 * 2 + 5 * (2 + 2) + 25 * 2 + 24 * 2 + 25 * 2 + 2
+K7_OPS_PER_BLOCK = 24 * K7_OPS_PER_ROUND + 2 * 17
+
+
+def keccak_round_chain():
+    """The least depth of one keccak-f round in the card's 32-bit
+    instructions (the two halves of a lane side by side), each issued one
+    step after its last operand, every lane ready at step 0.  Rotation
+    distributes over XOR, so rho folds into theta: lane i = x + 5y, of
+    rotation r, leaves theta and rho as rot(A, r) ^ rot(C[x-1], r) ^
+    rot(C[x+1], r + 1):
+    - the column parities C[x], two three-input LOP3s (steps 1-2);
+    - rot(A, r), one funnel shift (SHF) a half (step 1); rot(C[x-1], r)
+      and rot(C[x+1], r + 1), one each (step 3; none where r is 0);
+    - the three terms XORed, one LOP3 (step 4);
+    - pi, a renaming of lanes, no instruction;
+    - chi, B ^ (~B[x+1] & B[x+2]), one LOP3 (step 5);
+    - iota: lane 0 (r = 0) forms C[4] ^ RC beside the shifts of step 3 and
+      its own B ^ RC at step 4 (B itself still feeds chi of lanes 3 and 4).
+    Returns the depth (5)."""
+    rot = {x + 5 * y: keccak_ops._ROT[x][y] for x in range(5) for y in range(5)}
+    c = [2] * 5
+    b = []
+    for i in range(25):
+        x, r = i % 5, rot[i]
+        shift = 1 if r else 0
+        b.append(max(shift, c[(x + 4) % 5] + shift, c[(x + 1) % 5] + 1) + 1)
+    b0_rc = max(0, c[4] + 1, c[1] + 1) + 1                 # A ^ (C[4] ^ RC) ^ rot(C[1], 1)
+    b = [b[s] for s in keccak_ops._PI_SRC]                   # b[d] = rho(a)[source of d]
+    out = [max(b0_rc if i == 0 else b[i], b[i - i % 5 + (i + 1) % 5],
+               b[i - i % 5 + (i + 2) % 5]) + 1 for i in range(25)]
+    return max(out)
+
+
+K7_ROUND_CHAIN = keccak_round_chain()
+
+
+def sponge_cost(absorbed, rows):
+    """(bytes, int32 operations) of K7 for ``absorbed`` blocks over
+    ``rows`` rows: the blocks read once (34 int64 words each), each row's
+    block count and its digest (8 int64 words)."""
+    return absorbed * 34 * 8 + rows * 4 + rows * 8 * 8, absorbed * K7_OPS_PER_BLOCK
+
+
+def sponge_chain_ms(longest, clock_hz):
+    """K7's chain bound: the longest row's blocks x 24 rounds x
+    K7_ROUND_CHAIN dependent instructions at DEP_LATENCY_CYCLES each."""
+    return longest * 24 * K7_ROUND_CHAIN * DEP_LATENCY_CYCLES / clock_hz * 1e3

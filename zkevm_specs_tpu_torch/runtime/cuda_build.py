@@ -7,10 +7,13 @@ and an unchanged one is reused.  ``build_all`` starts one nvcc per source,
 all at once; ``library`` builds one on first use and loads it.  Nothing is
 built or loaded at import time.  nvcc's output (ptxas's resource usage of
 every kernel) is kept beside the library as ``lib<name>-<hash>.log``, and
-``resource_usage`` reads it.
+``resource_usage`` reads it.  ``build_variants`` builds a source again
+with ``-D`` flags (a timing script's variants), and ``launching`` hands
+such a variant to the wrappers for the length of a ``with`` block.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -57,6 +60,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "keccak_sponge": {
         "keccak_sponge_launch": [_P, _I64, _P, _P, _I64, _P],
+        "keccak_sponge_path_launches": [_P, _P],
     },
     "horner_rlc": {
         "horner_chunk_launch": [_P, _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
@@ -96,42 +100,51 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _so_path(name: str) -> Path:
+def _so_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    for define in defines:
+        h.update(f"-D{define}".encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
-    """Compile the named kernels in parallel; returns wall seconds per
-    kernel (0.0 for one that was already built).  Raises with nvcc's
-    output if any build fails."""
+def _compile(jobs: Dict[str, tuple]) -> Dict[str, float]:
+    """``{key: (name, defines)}`` compiled in parallel, one nvcc each;
+    wall seconds per key (0.0 where already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        so = _so_path(name)
+    for key, (name, defines) in jobs.items():
+        so = _so_path(name, defines)
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, so)
-    seconds = {name: 0.0 for name in names}
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), tmp, so)
+    seconds = {key: 0.0 for key in jobs}
     failures = []
-    for name, (proc, tmp, so) in procs.items():
+    for key, (proc, tmp, so) in procs.items():
         out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[key] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            failures.append(f"{key}: nvcc exited {proc.returncode}\n{out}")
             continue
         so.with_suffix(".log").write_text(out)
         os.replace(tmp, so)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
+    """Compile the named kernels in parallel; returns wall seconds per
+    kernel (0.0 for one that was already built).  Raises with nvcc's
+    output if any build fails."""
+    return _compile({name: (name, ()) for name in names})
 
 
 def _kernel_name(mangled: str) -> str:
@@ -191,17 +204,30 @@ def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
     return {_kernel_name(k): v for k, v in out.items()}
 
 
+# the paths of each kernel whose launcher picks one, in the order its C
+# entry ``<name>_path_launches`` reports their launches
+PATHS: Dict[str, tuple] = {"limb_addsub": ("staged", "direct"), "keccak_sponge": ("row", "warp")}
+
+
 def path_launches(name: str) -> Dict[str, int]:
-    """``{"staged": n, "direct": m}``: the launches of each instance of a
-    kernel whose launcher picks one (``limb_addsub``), as its C entry
-    ``<name>_path_launches`` counts them since the library loaded; zeros
-    before it loads."""
+    """The launches of each path of a kernel whose launcher picks one
+    (``PATHS``: ``{"staged": n, "direct": m}`` for K3, ``{"row": n,
+    "warp": m}`` for K7), as its C entry counts them since the library
+    loaded; zeros before it loads."""
     lib = _LIBS.get(name)
-    if lib is None:
-        return {"staged": 0, "direct": 0}
-    staged, direct = ctypes.c_longlong(), ctypes.c_longlong()
-    getattr(lib, f"{name}_path_launches")(ctypes.byref(staged), ctypes.byref(direct))
-    return {"staged": staged.value, "direct": direct.value}
+    counts = [ctypes.c_longlong() for _ in PATHS[name]]
+    if lib is not None:
+        getattr(lib, f"{name}_path_launches")(*map(ctypes.byref, counts))
+    return {path: c.value for path, c in zip(PATHS[name], counts)}
+
+
+def _load(name: str, so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -211,10 +237,27 @@ def library(name: str) -> ctypes.CDLL:
         so = _so_path(name)
         if not so.exists():
             build_all([name])
-        lib = ctypes.CDLL(str(so))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = _load(name, so)
     return lib
+
+
+def build_variants(name: str, variants: Dict[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """``{label: library}``: kernel library ``name`` built once for each
+    label's defines (``{"row": ["KECCAK_COOP_ROWS=0"]}`` builds with
+    ``-DKECCAK_COOP_ROWS=0``), one nvcc each, all at once, and loaded.
+    The wrappers launch a variant only inside ``launching``."""
+    _compile({label: (name, tuple(d)) for label, d in variants.items()})
+    return {label: _load(name, _so_path(name, tuple(d))) for label, d in variants.items()}
+
+
+@contextlib.contextmanager
+def launching(name: str, lib: ctypes.CDLL):
+    """Inside the block, the wrappers of kernel library ``name`` launch
+    from ``lib`` (a ``build_variants`` library) in place of the source's
+    own build."""
+    own = library(name)
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        _LIBS[name] = own
