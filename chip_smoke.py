@@ -81,7 +81,8 @@ script exits non-zero):
    of the path (bit-exact: they are integer functions), with the median of
    25 timed launches, the plain version's time and the bound; K1, K3 and
    K8 also at every distinct shape and mode the state, bytecode, keccak and
-   withdrawal paths gave them (``path_shapes``), as K6 at its lookups and
+   withdrawal paths gave them (``path_shapes``), as K6 at its lookups
+   (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
    "block", 10 timed launches each, each entry with its count in the
@@ -90,8 +91,10 @@ script exits non-zero):
    as its library call;
    and "arith": K11 at each of its
    variants and shapes there, the exp circuit's included, 25 launches
-   each; K2 has its row at the arithmetic block's widest shape, since the
-   MUL group no longer launches it).  K8 at the ALU block's 66001 steps is
+   each, its bound at the least work on 32-bit words with a chain term
+   (``runtime/bounds.py:word_mul_cost``, ``word_mul_chain_ms``); K2 has
+   its row at the arithmetic block's widest shape, since the MUL group no
+   longer launches it).  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    2048 steps of the same rows (1024 at the block verifier's table), which
    the line says; at every K8 shape of every path the whole output is
@@ -120,13 +123,13 @@ script exits non-zero):
    against the host's numpy keccak-f, with the path it took (row or
    warp) and its chain bound (``runtime/bounds.py:keccak_round_chain``;
    its ``bound_ms`` the largest of bytes, operations and chain).  The
-   peaks and K1's and K7's cost models are ``runtime/bounds.py``'s, which
-   ``profile_replay.py`` shares.  A ``pass_sums`` line then
+   peaks and K1's, K6's, K7's and K11's cost models are
+   ``runtime/bounds.py``'s, which ``profile_replay.py`` shares.  A ``pass_sums`` line then
    gives, over each block's device pass (the graph's K10 included) and
    each block's logUp check (every family), for every kernel its calls,
    the sums of count x ms and of count x bound_ms and their difference
-   (the time it loses to its bound), ranked by that loss, with K3's and
-   K7's launches of each path.
+   (the time it loses to its bound), ranked by that loss, with K3's, K6's
+   and K7's launches of each path.
 
 The last three lines are the kernels line (every row with its
 ``block_pass_sums``), the card's nvidia-smi line and
@@ -161,8 +164,10 @@ from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
 from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
-    DEP_LATENCY_CYCLES, HBM_BYTES_PER_S, K7_ROUND_CHAIN, bound, fr_mul_cost, fr_product_ops,
-    sm_clock_max_hz, sponge_chain_ms, sponge_cost)
+    DEP_LATENCY_CYCLES, HBM_BYTES_PER_S, K7_ROUND_CHAIN, WORD_MUL_CHAIN, bound, chain_bound,
+    fingerprint_cost,
+    fr_mul_cost, fr_product_ops, nbytes, search_cost, sm_clock_max_hz, sponge_chain_ms,
+    sponge_cost, word_mul_chain_ms, word_mul_cost)
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
@@ -1220,15 +1225,17 @@ def block_path_shapes(calls, label):
             f"{args[0].shape[0]} rw rows, 7 key columns")
     for args, kw in calls.get("lookup_search_eq", []):
         query, _, _, fps, _, max_span, batch = args
-        moved, ops, scanned, _ = search_cost(args)
+        moved, ops, scanned = search_cost(args)
         add("lookup_search_eq", kw, lambda: list(engine.lookup_search_eq(*args)),
             lambda: list(engine.lookup_search_eq_plain(*args)), (moved, ops),
             f"{batch} lanes, {len(query)} parts, {fps.shape[0]}-row index, span {max_span}, "
             f"{scanned} candidates")
+        out["lookup_search_eq"][-1].update(path=search_path(args), lanes=batch)
     for args, kw in calls.get("lookup_fingerprint", []):
         parts, coefs = args
         add("lookup_fingerprint", kw, lambda: engine.lookup_fingerprint(parts, coefs),
-            lambda: engine.fingerprint_plain(parts, coefs), fingerprint_cost(parts, coefs),
+            lambda: engine.fingerprint_plain(parts, coefs),
+            fingerprint_cost([t.shape for t in parts]),
             f"{parts[0].shape[0]} rows, {len(parts)} parts")
     for args, kw in calls.get("keccak_sponge", []):
         blocks, n_blocks = args
@@ -1241,7 +1248,8 @@ def block_path_shapes(calls, label):
             {**horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3),
              **pass_of(label, kw)})
     for args, kw in calls.get("mul_add_words", []):
-        add("mul_add_words", kw, *word_mul_entry(args), kernel_repeats=KERNEL_REPEATS)
+        add("mul_add_words", kw, *word_mul_entry(args)[:4], kernel_repeats=KERNEL_REPEATS)
+        with_chain(out["mul_add_words"][-1], *word_mul_entry(args)[4:], clock_hz)
     return out
 
 
@@ -1327,9 +1335,27 @@ def pass_sums(rows, instances):
     return out
 
 
+def search_path(args):
+    """The path K6's launcher takes at these arguments (tile, warp or row),
+    read from its path counts around one more call."""
+    return cuda_build.path_taken("lookup_search_eq", lambda: engine.lookup_search_eq(*args))
+
+
+def with_chain(entry, wide, clock_hz):
+    """K11's entry with its chain bound (``word_mul_chain_ms``: one lane's
+    WORD_MUL_CHAIN dependent steps at DEP_LATENCY_CYCLES each and the
+    card's top clock), taken into ``bound_ms`` by ``chain_bound``."""
+    chain_ms = word_mul_chain_ms(wide, clock_hz)
+    entry.update(chain_bound_ms=chain_ms, lane_chain_ops=WORD_MUL_CHAIN[bool(wide)],
+                 sm_clock_max_mhz=clock_hz / 1e6)
+    entry["bound_ms"], entry["bound_by"], entry["bound_kind"] = chain_bound(
+        entry["bound_ms"], entry["bound_by"], chain_ms)
+    return entry
+
+
 def word_mul_entry(args):
-    """K11's (kernel call, plain call, cost, note) at captured arguments:
-    the verdicts and, for the 256 variant, the overflow limbs."""
+    """K11's (kernel call, plain call, cost, note, wide) at captured
+    arguments: the verdicts and, for the 256 variant, the overflow limbs."""
     rows = args[0]
     wide = len(args) > 1 and bool(args[1])
     batch = max(r.shape[0] for r in rows)
@@ -1343,8 +1369,9 @@ def word_mul_entry(args):
         ok = ok.expand(ok.shape[0], batch)
         return [ok] if over is None else [ok, over.expand(batch, 16)]
 
-    return (kernel, plain, word_mul_cost(rows, wide),
-            f"variant {512 if wide else 256}, {batch} lanes, rows {[list(r.shape) for r in rows]}")
+    return (kernel, plain, word_mul_cost([r.shape for r in rows], wide),
+            f"variant {512 if wide else 256}, {batch} lanes, rows {[list(r.shape) for r in rows]}",
+            wide)
 
 
 # -- phase 10: the kernels against their plain versions ---------------------------
@@ -1356,10 +1383,6 @@ def seeded_limbs(rng, rows, n, bound_bits, device):
     if bound_bits >= 254:
         vals = [v % fr.P for v in vals]
     return L.ints_to_limbs(vals, n).to(device)
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
@@ -1426,35 +1449,6 @@ def fr_mul_entry(a, b, note, **kw):
     return entry
 
 
-# K11's field steps (csrc/mul_add_words.cu, its own 16-bit-limb design): a
-# product by 2^-128 is a 16 x 16-limb product and Barrett reduction; an Fr add two 17-limb
-# chains and a select; an Fr sub two 16-limb chains; a ripple one 16-limb
-# chain; three operations a limb of each chain, two a product (multiply, add)
-K1_PRODUCTS = 16 * 16 + 17 * 17 + 17 * 18 // 2
-K1_CHAIN_OPS = 3 * (32 + 34 + 17) + 3 * 17 * 3
-FR_ADD_OPS = 3 * 17 + 3 * 17 + 16
-FR_SUB_OPS = 2 * 3 * 16
-RIPPLE_OPS = 3 * 16
-
-
-def word_mul_cost(rows, wide):
-    """(bytes, int32 operations) of K11: every row read once (a [1, w]
-    constant row once in all), the verdict bytes and the 256 variant's
-    overflow written once; per lane the 256 limb products of t0..t6 and
-    the field steps the function needs (256: two products by 2^-128, four
-    Fr adds, two Fr subs, three ripples; 512: three, five, three, four)
-    and a 16-limb compare per check.  The equalities' product by 2^128 and
-    its Fr add are not counted: in the field they hold for every canonical
-    input, so the least work writes them as true."""
-    batch = max(r.shape[0] for r in rows)
-    n_checks = 7 if wide else 4
-    n_mul, n_add, n_sub, n_ripple = (3, 5, 3, 4) if wide else (2, 4, 2, 3)
-    per_lane = (2 * (256 + n_mul * K1_PRODUCTS) + n_mul * K1_CHAIN_OPS + n_add * FR_ADD_OPS
-                + n_sub * FR_SUB_OPS + n_ripple * RIPPLE_OPS + n_checks * 16)
-    moved = nbytes(*rows) + batch * n_checks + (0 if wide else batch * 16 * 8)
-    return moved, batch * per_lane
-
-
 def addsub_cost(a, b, mode, out_n=0):
     """(bytes, int32 operations) of K3: three per limb of a chain (add,
     mask, carry shift), two chains and a select in the Fr modes."""
@@ -1493,13 +1487,6 @@ ORDER_KEY_LIMBS = 1 + 2 + 10 + 1 + 8 + 8 + 2
 def order_cost(cols):
     n = cols[0].shape[0]
     return n * ORDER_KEY_LIMBS * 8 + n, n * 2 * (3 * 17 + 4 + 19)
-
-
-def fingerprint_cost(parts, coefs):
-    """(bytes, int32 operations) of K6's fingerprint entry: every limb read
-    once, one u64 fingerprint written, a 64-bit multiply-add per limb."""
-    T = parts[0].shape[0]
-    return sum(nbytes(t) for t in parts) + T * 8, T * sum(t.shape[1] for t in parts) * 8
 
 
 MODE_NAMES = {L.ADD: "ADD", L.SUB: "SUB", L.FR_ADD: "FR_ADD", L.FR_SUB: "FR_SUB"}
@@ -1558,31 +1545,12 @@ def kernel_phase(launches, mul_inputs, arith_calls):
 
     # K11: the MUL group's word product, variant 256 at B lanes
     (args,) = mul_k11.values()
-    k11_kernel, k11_plain, k11_cost, k11_note = word_mul_entry(args)
-    rows.append(compare("mul_add_words", k11_kernel, k11_plain, *k11_cost, f"MUL: {k11_note}",
-                        launches["mul_add_words"]))
+    k11_kernel, k11_plain, k11_cost, k11_note, wide = word_mul_entry(args)
+    rows.append(with_chain(compare("mul_add_words", k11_kernel, k11_plain, *k11_cost,
+                                   f"MUL: {k11_note}", launches["mul_add_words"]),
+                           wide, sm_clock_max_hz()))
     rows[-1]["library"] = "none: no PyTorch call computes the word product and its carry checks"
     return rows
-
-
-def search_cost(args):
-    """(bytes, int32 operations, candidates scanned) of one K6 search, for
-    this run's data: the binary search, then the candidates that share the
-    query's fingerprint (at most ``max_span``), each gathered and compared."""
-    query, table, coefs, fps, order, max_span, batch = args
-    T = fps.shape[0]
-    qfp = engine.fingerprint_plain(query, coefs).expand(batch).contiguous()
-    keys, qkeys = fps ^ engine._SIGN, qfp ^ engine._SIGN
-    left = torch.searchsorted(keys, qkeys, side="left")
-    right = torch.searchsorted(keys, qkeys, side="right")
-    scanned = int((right - left).clamp(max=max_span).sum())
-    row_bytes = sum(8 * t.shape[1] for t in table)
-    q_width = sum(q.shape[1] for q in query)
-    steps = max(1, (T - 1).bit_length())
-    moved = (sum(nbytes(q) for q in query) + min(T, batch * steps) * 8
-             + scanned * (8 + row_bytes) + batch * (4 + 3))
-    ops = batch * (8 * q_width + 3 * steps) + scanned * 2 * (row_bytes // 8)
-    return moved, ops, scanned, (keys, qkeys)
 
 
 def slice_kernel_rows(launches, captured):
@@ -1604,14 +1572,17 @@ def slice_kernel_rows(launches, captured):
     for label, args in (("state_storage_account: Storage MPT lookup",
                          captured["storage_account"]["lookup_search_eq"]),
                         ("bytecode: keccak lookup", captured["bytecode"]["lookup_search_eq"])):
-        query, table, _, fps, _, max_span, batch = args
-        moved, ops, scanned, (keys, qkeys) = search_cost(args)
+        query, table, coefs, fps, _, max_span, batch = args
+        moved, ops, scanned = search_cost(args)
+        keys = fps ^ engine._SIGN
+        qkeys = (engine.fingerprint_plain(query, coefs).expand(batch) ^ engine._SIGN).contiguous()
         note = (f"{label}: {batch} lanes, {len(query)} parts, {fps.shape[0]}-row index, "
                 f"span {max_span}, {scanned} candidates")
         entry = measure("lookup_search_eq", lambda: list(engine.lookup_search_eq(*args)),
                         lambda: list(engine.lookup_search_eq_plain(*args)), moved, ops, note)
         entry["searchsorted_ms"] = time_on_card_ms(
             lambda: torch.searchsorted(keys, qkeys, side="left"), repeats=KERNEL_REPEATS)
+        entry.update(path=search_path(args), lanes=batch)
         k6.append(entry)
     rows.append({"name": "lookup_search_eq", "route": "cuda", "source": SOURCES["lookup_search_eq"],
                  "replaces": REPLACES["lookup_search_eq"], "launches": launches["lookup_search_eq"],
@@ -1620,7 +1591,8 @@ def slice_kernel_rows(launches, captured):
     # K6's fingerprint entry: the MPT index build of the Storage/Account mix
     parts, coefs = captured["storage_account"]["lookup_fingerprint"]
     rows.append(compare("lookup_fingerprint", lambda: engine.lookup_fingerprint(parts, coefs),
-                        lambda: engine.fingerprint_plain(parts, coefs), *fingerprint_cost(parts, coefs),
+                        lambda: engine.fingerprint_plain(parts, coefs),
+                        *fingerprint_cost([t.shape for t in parts]),
                         f"state_storage_account: MPT table, {parts[0].shape[0]} rows, "
                         f"{len(parts)} parts",
                         launches["lookup_fingerprint"]))
@@ -1742,10 +1714,9 @@ def sponge_entry(blocks, n_blocks, note, clock_hz, **kw):
     entry = measure("keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks),
                     lambda: keccak_ops.keccak_sponge_plain(blocks, n_blocks),
                     *sponge_cost_of(blocks, n_blocks), note, **kw)
-    before = cuda_build.path_launches("keccak_sponge")
+    entry["path"] = cuda_build.path_taken(
+        "keccak_sponge", lambda: keccak_ops.keccak_sponge(blocks, n_blocks))
     got = keccak_ops.keccak_sponge(blocks, n_blocks)
-    after = cuda_build.path_launches("keccak_sponge")
-    (entry["path"],) = [p for p in after if after[p] > before[p]]
     t0 = time.perf_counter()
     assert np.array_equal(got.cpu().numpy(), sponge_numpy(blocks, n_blocks)), \
         f"keccak_sponge at {note}: disagrees with the numpy keccak-f"
@@ -1754,10 +1725,9 @@ def sponge_entry(blocks, n_blocks, note, clock_hz, **kw):
     longest = int(n_blocks.clamp(0, blocks.shape[1]).max()) if blocks.shape[0] else 0
     chain_ms = sponge_chain_ms(longest, clock_hz)
     entry.update(chain_bound_ms=chain_ms, round_chain_ops=K7_ROUND_CHAIN, longest_row_blocks=longest,
-                 sm_clock_max_mhz=clock_hz / 1e6,
-                 bound_kind="chain" if chain_ms > entry["bound_ms"] else entry["bound_by"])
-    if chain_ms > entry["bound_ms"]:
-        entry["bound_ms"], entry["bound_by"] = chain_ms, "operations"
+                 sm_clock_max_mhz=clock_hz / 1e6)
+    entry["bound_ms"], entry["bound_by"], entry["bound_kind"] = chain_bound(
+        entry["bound_ms"], entry["bound_by"], chain_ms)
     return entry
 
 

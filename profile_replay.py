@@ -47,7 +47,8 @@ mean over 5 calls), and the sum's value, which must agree across roots.
 A root whose ``tables/logup.py`` has ``logup_plan`` is run at each tile
 of ``LOGUP_TILES`` (threads a block, elements a thread;
 ``csrc/logup_sum.cu`` is built once more with ``-DLOGUP_THREADS`` and
-``-DLOGUP_RUN`` for each tile but the first, its own), with the plan and
+``-DLOGUP_RUN`` for each tile but the first, its own, by
+``cuda_build.build_variants`` and launched inside ``launching``), with the plan and
 the kernels' resident blocks an SM; one JSON line per shape and tile,
 then the kernels' registers and spills from ptxas (of the first tile).
 
@@ -71,7 +72,8 @@ with every hint at row 0, the narrowest part alone at row 0), each with
 its bytes and their time at the card's memory rate.  In a root
 whose sources take ``ADDSUB_TILE`` and ``GATHER_TILE``, every shape is
 timed at each tile of ``LIMB_TILES`` (the kernel built once more with
-``-D`` for each but the first).  Per block and kernel it prints the
+``-D`` for each but the first, by ``cuda_build.build_variants``, launched
+inside ``launching``).  Per block and kernel it prints the
 launches, the one-lane launches, the profiled device time and the sum of
 count x ms (by tile); every shape line goes to
 ``build/profile_limbs.jsonl``, and the outputs must agree across roots
@@ -109,6 +111,30 @@ one JSON line a shape and a summary a block; the outputs must agree
 across roots.
 
     python3 profile_replay.py --frmul [ROOT ...]
+
+With ``--search``, for each checkout root in the order given (parent and
+change in one call compare them on one card), a fresh process times K6
+(``tables/engine.py:lookup_search_eq`` and its fingerprint entry
+``lookup_fingerprint``) at every shape the Storage/Account mix's state
+check (2^19 rows), the bytecode circuit at k = 20 and both blocks'
+per-kernel passes give it, with the count of each shape, the path the
+launcher took and, at the Storage lookup, ``torch.searchsorted``'s time on
+the same keys (the search step alone); then at ``SEARCH_SWEEP``'s batches
+of the Storage lookup's first lanes.  In a root whose source takes
+``SEARCH_WARP_BATCH``, every shape is also timed on a build of each path
+(``-DSEARCH_WARP_BATCH``, ``-DSEARCH_TILE_BATCH``, ``-DSEARCH_TILE_LIMBS``:
+every batch a tile, one warp a lane, or one thread a lane), which sets the
+switch-overs.  With ``--wordmul``, the same for K11
+(``ops/word_mul.py:mul_add_words``) at the MUL group's replay, at
+``WORDMUL_SWEEP``'s lanes of seeded words in both variants, and at the
+arithmetic block's pass, with a build of each tile
+(``-DWORDMUL_SMALL_BATCH``).  Each shape's bytes, operations and (K11)
+chain bound come from this checkout's ``runtime/bounds.py``, loaded into
+each root's process; per pass the sums of count x ms by build and of
+count x bound; the outputs must agree across roots and builds.
+
+    python3 profile_replay.py --search [ROOT ...]
+    python3 profile_replay.py --wordmul [ROOT ...]
 
 With ``--graphs``, for each checkout root in the order given (pass
 parent, change, change, parent to alternate), a fresh process builds the
@@ -309,7 +335,7 @@ for T, n in ((66001, 1), (66001, 8), (24162, 40), (1024, 1), (300, 65536)):
 LOGUP_TILES = [(256, 4), (128, 8), (256, 8), (128, 4)]
 
 LOGUP_CHILD = r"""
-import ctypes, json, re, statistics, subprocess, sys
+import contextlib, ctypes, json, re, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
@@ -356,23 +382,12 @@ def emit(**kw):
 
 def tile_libraries():
     # K13 at each tile: the default library, and logup_sum.cu built with
-    # -DLOGUP_THREADS and -DLOGUP_RUN for the others (one nvcc each, all
-    # at once) into this process's own files
-    src = cuda_build.CSRC / "logup_sum.cu"
-    libs, procs = {tuple(tiles[0]): cuda_build.library("logup_sum")}, {}
-    for threads, run in tiles[1:]:
-        so = cuda_build.BUILD_DIR / f"liblogup_sum-tile{threads}x{run}.so"
-        procs[threads, run] = so, subprocess.Popen(
-            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-DLOGUP_THREADS={threads}",
-             f"-DLOGUP_RUN={run}", "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for tile, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        assert proc.returncode == 0, out
-        lib = libs[tile] = ctypes.CDLL(str(so))
-        for fn, argtypes in cuda_build.SIGNATURES["logup_sum"].items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
-    return libs
+    # -DLOGUP_THREADS and -DLOGUP_RUN for the others
+    # (cuda_build.build_variants: one nvcc each, all at once)
+    variants = cuda_build.build_variants(
+        "logup_sum", {f"{t}x{r}": [f"LOGUP_THREADS={t}", f"LOGUP_RUN={r}"] for t, r in tiles[1:]})
+    return {tuple(tiles[0]): cuda_build.library("logup_sum"),
+            **{(t, r): variants[f"{t}x{r}"] for t, r in tiles[1:]}}
 
 
 for lanes in (1, 131072):
@@ -393,7 +408,6 @@ for label, n, m_width in shapes:
         info = {}
         if planned:   # the wrapper plans at this tile and launches its library
             logup.LOGUP_THREADS, logup.LOGUP_RUN = threads, run
-            cuda_build._LIBS["logup_sum"] = lib
             plan = logup.logup_plan(n)
             blocks = [ctypes.c_int(), ctypes.c_int()]
             assert lib.logup_blocks_per_sm(*map(ctypes.byref, blocks)) == 0
@@ -401,12 +415,14 @@ for label, n, m_width in shapes:
                     "planned_launches": sum(plan.launches(True)) + 1,
                     "blocks_per_sm": [blocks[0].value, blocks[1].value]}
         call = lambda: logup.logup_partial_sum(fps, alpha, m)
-        out = call()
-        first = out if first is None else first
-        assert torch.equal(out, first), (label, threads, run)
-        count, us = kernels(call)
-        emit(kernel="logup_sum", side=label, n=n, m_limbs=m_width, **info, ms=time_on_card_ms(call),
-             device_launches=count, kernel_us=us, sum=hex(L.limbs_to_int(out.cpu())))
+        with cuda_build.launching("logup_sum", lib) if lib else contextlib.nullcontext():
+            out = call()
+            first = out if first is None else first
+            assert torch.equal(out, first), (label, threads, run)
+            count, us = kernels(call)
+            emit(kernel="logup_sum", side=label, n=n, m_limbs=m_width, **info,
+                 ms=time_on_card_ms(call), device_launches=count, kernel_us=us,
+                 sum=hex(L.limbs_to_int(out.cpu())))
 emit(resource_usage={k: cuda_build.resource_usage(k) for k in ("fr_inv", "logup_sum")})
 """
 
@@ -418,7 +434,7 @@ LIMB_TILES = {"limb_addsub": ("ADDSUB_TILE", [128, 256, 64]),
               "lookup_gather_eq": ("GATHER_TILE", [128, 64, 256])}
 
 LIMBS_CHILD = r"""
-import ctypes, hashlib, json, statistics, subprocess, sys
+import hashlib, json, sys
 from collections import Counter
 sys.path.insert(0, sys.argv[1])
 import torch
@@ -464,24 +480,13 @@ def key(name, args):
 
 
 def tile_libraries(name):
-    # the kernel built with -D<define> for each tile but the first, its own
+    # the source's own build at its first tile, and the kernel built with
+    # -D<define> for each other tile (cuda_build.build_variants)
     define, values = tiles[name]
-    src = cuda_build.CSRC / f"{name}.cu"
-    if f"#ifndef {define}" not in src.read_text():
+    if f"#ifndef {define}" not in (cuda_build.CSRC / f"{name}.cu").read_text():
         return {None: cuda_build.library(name)}
-    libs, procs = {values[0]: cuda_build.library(name)}, {}
-    for v in values[1:]:
-        so = cuda_build.BUILD_DIR / f"lib{name}-{define.lower()}{v}.so"
-        procs[v] = so, subprocess.Popen(
-            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, f"-D{define}={v}", "-o", str(so),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for v, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        assert proc.returncode == 0, out
-        lib = libs[v] = ctypes.CDLL(str(so))
-        for fn, argtypes in cuda_build.SIGNATURES[name].items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
-    return libs
+    variants = cuda_build.build_variants(name, {str(v): [f"{define}={v}"] for v in values[1:]})
+    return {values[0]: cuda_build.library(name), **{v: variants[str(v)] for v in values[1:]}}
 
 
 def capture(modules, run):
@@ -518,10 +523,9 @@ def time_calls(label, calls, counts, profiled=None):
         lanes = L.batch_rows(args[0], args[1]) if name == "limb_addsub" else args[2].shape[0]
         by_tile = {}
         for tile, lib in libs[name].items():
-            cuda_build._LIBS[name] = lib
-            call = lambda: fn(*args, **kw)
-            by_tile[str(tile)] = {"ms": time_on_card_ms(call), "digest": digest(call())}
-        cuda_build._LIBS[name] = next(iter(libs[name].values()))
+            with cuda_build.launching(name, lib):
+                call = lambda: fn(*args, **kw)
+                by_tile[str(tile)] = {"ms": time_on_card_ms(call), "digest": digest(call())}
         first = next(iter(by_tile.values()))
         assert all(v["digest"] == first["digest"] for v in by_tile.values()), (k, by_tile)
         s = sums[name]
@@ -923,6 +927,252 @@ emit(resource_usage=cuda_build.resource_usage("fr_mul"))
 """
 
 
+# K6's batches swept on the Storage lookup's own arguments (its first lanes)
+SEARCH_SWEEP = [1, 32, 128, 512, 2048, 4096, 8192, 16384, 65536, 524288]
+# K11's lanes swept on seeded words, both variants
+WORDMUL_SWEEP = [1, 2048, 8192, 13365, 32768, 65536, 131072]
+
+# shared by the --search and --wordmul children: this checkout's bounds
+# (runtime/bounds.py, loaded from its path into the root's package so that
+# every root is bounded by one model), the digest, the capture of a
+# module's calls by key, and the timing of each call on every build
+SHAPES_HELPERS = r"""
+import contextlib, hashlib, importlib.util, json, sys
+from collections import Counter
+sys.path.insert(0, sys.argv[1])
+import torch
+from zkevm_specs_tpu_torch.ops import limbs as L
+from zkevm_specs_tpu_torch.runtime import cuda_build
+
+sweep, bounds_path = json.loads(sys.argv[2]), sys.argv[3]
+spec = importlib.util.spec_from_file_location("zkevm_specs_tpu_torch.runtime.bounds_model",
+                                              bounds_path)
+bounds = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(bounds)
+clock_hz = bounds.sm_clock_max_hz()
+
+
+def emit(**kw):
+    print(json.dumps({"root": sys.argv[1], **kw}), flush=True)
+
+
+def digest(out):
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (list, tuple)) else [out]:
+        if t is not None:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def variant_libraries(name, switch, variants):
+    # {build: library}: the source's own build (None) and, where the source
+    # takes the switch, one build a variant's defines (cuda_build.build_variants)
+    if f"#ifndef {switch}" not in (cuda_build.CSRC / f"{name}.cu").read_text():
+        return {"own": None}
+    return {"own": None, **cuda_build.build_variants(name, variants)}
+
+
+def capture(module, names, key, run):
+    # every call of module.<name> in run(), counted by key, the first kept
+    calls, counts = {}, Counter()
+    originals = {n: getattr(module, n) for n in names}
+
+    def recorder(name):
+        def record(*args):
+            k = json.dumps(key(name, args))
+            calls.setdefault(k, (name, args))
+            counts[k] += 1
+            return originals[name](*args)
+        return record
+
+    for n in names:
+        setattr(module, n, recorder(n))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in originals.items():
+            setattr(module, n, fn)
+    return calls, counts
+
+
+def time_builds(lib_name, libs, call):
+    # (ms by build, digest): every build's output equal to the first's
+    ms, first = {}, None
+    for build, lib in libs.items():
+        with cuda_build.launching(lib_name, lib) if lib else contextlib.nullcontext():
+            d = digest(call())
+            first = d if first is None else first
+            assert d == first, build
+            ms[build] = time_on_card_ms(call, repeats=10)
+    return ms, first
+
+
+def summed(label, rows):
+    # a pass's sums over its shapes: launches, count x ms by build, count x bound
+    out = {"launches": 0, "shapes": 0, "sum_count_ms": {}, "sum_count_bound_ms": 0.0}
+    for r in rows:
+        out["launches"] += r["count"]
+        out["shapes"] += 1
+        out["sum_count_bound_ms"] += r["count"] * r["bound_ms"]
+        for build, v in r["ms"].items():
+            out["sum_count_ms"][build] = out["sum_count_ms"].get(build, 0.0) + r["count"] * v
+    emit(block=label, summary=out)
+"""
+
+SEARCH_CHILD = r"""
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.circuits import bytecode, state
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+from zkevm_specs_tpu_torch.runtime.convert import to_device
+from zkevm_specs_tpu_torch.tables import engine
+
+NAMES = ("lookup_search_eq", "lookup_fingerprint")
+
+
+def key(name, args):
+    if name == "lookup_fingerprint":
+        parts = args[0]
+        return [name, [list(t.shape) for t in parts], [L.row_stride(t) for t in parts]]
+    query, table, _, fps, _, max_span, batch = args
+    return [name, batch, [list(q.shape) for q in query], [L.row_stride(q) for q in query],
+            [list(t.shape) for t in table], fps.shape[0], max_span]
+
+
+def search_path(args):
+    if "lookup_search_eq" not in getattr(cuda_build, "PATHS", {}):
+        return None
+    return cuda_build.path_taken("lookup_search_eq", lambda: engine.lookup_search_eq(*args))
+
+
+def time_shape(label, k, name, args, count):
+    if name == "lookup_fingerprint":
+        moved, ops = bounds.fingerprint_cost([t.shape for t in args[0]])
+        info = {"rows": args[0][0].shape[0], "parts": len(args[0])}
+        call = lambda: engine.lookup_fingerprint(*args)
+    else:
+        moved, ops, scanned = bounds.search_cost(args)
+        info = {"lanes": args[-1], "parts": len(args[0]), "index_rows": args[3].shape[0],
+                "span": args[5], "scanned": scanned, "path": search_path(args)}
+        call = lambda: list(engine.lookup_search_eq(*args))
+    ms, d = time_builds("lookup_search_eq", libs, call)
+    b_ms, b_by = bounds.bound(moved, ops)
+    rec = dict(block=label, key=k, kernel=name, count=count, **info, ms=ms, bytes=moved,
+               int_ops=ops, bound_ms=b_ms, bound_by=b_by, digest=d)
+    emit(**rec)
+    return rec
+
+
+def run_pass(label, run):
+    calls, counts = capture(engine, NAMES, key, run)
+    rows = [time_shape(label, k, name, args, counts[k]) for k, (name, args) in calls.items()]
+    for name in NAMES:
+        summed(f"{label} {name}", [r for r in rows if r["kernel"] == name])
+    return calls
+
+
+cuda_build.build_all()
+top = 2**31 - 1
+libs = variant_libraries("lookup_search_eq", "SEARCH_TILE_BATCH", {
+    "tile": ["SEARCH_WARP_BATCH=0", "SEARCH_TILE_BATCH=0", "SEARCH_TILE_LIMBS=0"],
+    "warp": [f"SEARCH_WARP_BATCH={top}"],
+    "row": ["SEARCH_WARP_BATCH=0", f"SEARCH_TILE_BATCH={top}"]})
+# the Storage/Account mix's state check (the standalone Storage lookup and
+# the MPT index build), then the batch sweep on the Storage lookup's lanes
+rows, mpt_rows = workloads.build_state_storage_account(workloads.ALU_BLOCK_STATE_ROWS)
+cols, tree, meta = state.pack_state_inputs(rows, mpt_rows)
+check, inputs = state.make_state_check_fn(meta), to_device((cols, tree), "cuda")
+del rows, mpt_rows, cols, tree
+calls = run_pass("state_storage_account", lambda: check(*inputs))
+storage = max((args for name, args in calls.values() if name == "lookup_search_eq"),
+              key=lambda args: args[-1])
+keys = storage[3] ^ engine._SIGN
+qkeys = (engine.fingerprint_plain(storage[0], storage[2]).expand(storage[-1])
+         ^ engine._SIGN).contiguous()
+emit(block="state_storage_account", searchsorted_ms=time_on_card_ms(
+    lambda: torch.searchsorted(keys, qkeys, side="left"), repeats=10))
+for batch in sweep:
+    query = [q if q.shape[0] == 1 else q[:batch] for q in storage[0]]
+    args = (query, *storage[1:6], batch)
+    time_shape("sweep", json.dumps(["sweep", batch]), "lookup_search_eq", args, 1)
+del check, inputs, calls, storage, keys, qkeys, query, args
+torch.cuda.empty_cache()
+# the bytecode circuit's keccak lookup (the ALU-mix bytecodes at k = 20)
+b_rows, keccak_rows, r = workloads.build_alu_bytecodes(workloads.ALU_BLOCK_TXS,
+                                                       workloads.ALU_BLOCK_OPS)
+kernel = bytecode.bytecode_kernel(b_rows, keccak_rows, r)
+del b_rows, keccak_rows
+run_pass("bytecode", kernel)
+del kernel
+torch.cuda.empty_cache()
+for path, build in (("block", workloads.build_alu_block), ("arith", workloads.build_arith_block)):
+    witness = build()
+    bv = CompiledBlockVerifier(witness)
+    prepared = bv.prepare()
+    assert not bv.run_device(prepared), path
+    run_pass(path, lambda: bv._device_pass(prepared))
+    del bv, prepared, witness
+    torch.cuda.empty_cache()
+emit(resource_usage=cuda_build.resource_usage("lookup_search_eq"))
+"""
+
+WORDMUL_CHILD = r"""
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState
+from zkevm_specs_tpu_torch.ops import word_mul
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier
+
+
+def key(name, args):
+    rows, wide = args[0], len(args) > 1 and bool(args[1])
+    return [int(wide), [list(r.shape) for r in rows], [L.row_stride(r) for r in rows]]
+
+
+def time_shape(label, k, rows, wide, count):
+    moved, ops = bounds.word_mul_cost([r.shape for r in rows], wide)
+    chain_ms = bounds.word_mul_chain_ms(wide, clock_hz)
+    b_ms, b_by, b_kind = bounds.chain_bound(*bounds.bound(moved, ops), chain_ms)
+    ms, d = time_builds("mul_add_words", libs, lambda: list(word_mul.mul_add_words(rows, wide)))
+    rec = dict(block=label, key=k, count=count, lanes=max(r.shape[0] for r in rows),
+               variant=512 if wide else 256, ms=ms, bytes=moved, int_ops=ops, chain_ms=chain_ms,
+               bound_ms=b_ms, bound_by=b_by, bound_kind=b_kind, digest=d)
+    emit(**rec)
+    return rec
+
+
+def run_pass(label, run):
+    calls, counts = capture(word_mul, ("mul_add_words",), key, run)
+    summed(label, [time_shape(label, k, args[0], len(args) > 1 and bool(args[1]), counts[k])
+                   for k, (_, args) in calls.items()])
+
+
+cuda_build.build_all()
+libs = variant_libraries("mul_add_words", "WORDMUL_SMALL_BATCH",
+                         {"small": [f"WORDMUL_SMALL_BATCH={2**31 - 1}"],
+                          "large": ["WORDMUL_SMALL_BATCH=0"]})
+# the MUL group's replay (the kernels line's shape), then the lanes sweep
+tables, steps, nexts = workloads.build_mul_workload(workloads.GROUP_LANES)
+v = CompiledGroupVerifier(tables, ExecutionState.MUL, steps, nexts)
+inputs = v.prepare_inputs(steps, nexts)
+run_pass("mul_group", lambda: v(*inputs))
+del v, inputs, tables, steps, nexts
+gen = torch.Generator(device="cuda").manual_seed(0)
+for wide in (False, True):
+    for lanes in sweep:
+        rows = [torch.randint(0, 1 << 16, (lanes, 8), device="cuda", generator=gen)
+                for _ in range(10 if wide else 8)]
+        time_shape("sweep", json.dumps(["sweep", int(wide), lanes]), rows, wide, 1)
+torch.cuda.empty_cache()
+witness = workloads.build_arith_block()
+bv = CompiledBlockVerifier(witness)
+prepared = bv.prepare()
+assert not bv.run_device(prepared)
+run_pass("arith", lambda: bv._device_pass(prepared))
+emit(resource_usage=cuda_build.resource_usage("mul_add_words"))
+"""
+
+
 def frmul_bounds(lines):
     """``--frmul``'s lines with K1's bytes and their bound
     (``runtime/bounds.py:fr_mul_cost``) added to each shape line, and the
@@ -1056,6 +1306,15 @@ def main():
         else:
             shapes, lines = run_digests(TIMER + FRMUL_CHILD, roots, json.dumps(FRMUL_SPLITS))
             lines = frmul_bounds(lines)
+        print("\n".join(lines))
+        print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots}))
+        return print(card)
+    if sys.argv[1:2] in (["--search"], ["--wordmul"]):
+        search = sys.argv[1] == "--search"
+        roots = sys.argv[2:] or ["."]
+        shapes, lines = run_digests(
+            TIMER + SHAPES_HELPERS + (SEARCH_CHILD if search else WORDMUL_CHILD), roots,
+            json.dumps(SEARCH_SWEEP if search else WORDMUL_SWEEP), bounds.__file__)
         print("\n".join(lines))
         print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots}))
         return print(card)

@@ -94,3 +94,26 @@ def test_variants_build_with_their_defines_and_launch_only_inside_launching(tmp_
     with cuda_build.launching("keccak_sponge", libs["row"]):
         assert cuda_build.library("keccak_sponge") is libs["row"]
     assert cuda_build.library("keccak_sponge") == "own"
+
+
+def test_path_taken_names_the_path_whose_count_moved(monkeypatch):
+    """``path_taken`` returns the one path whose launch count, as the C
+    entry reports it, moved across the call; a call that launched none
+    raises."""
+    counts = {"row": 3, "warp": 5}
+
+    class Lib:
+        @staticmethod
+        def keccak_sponge_path_launches(*refs):
+            for ref, path in zip(refs, cuda_build.PATHS["keccak_sponge"]):
+                ref._obj.value = counts[path]
+
+    def launch(path):
+        counts[path] += 1
+
+    monkeypatch.setitem(cuda_build._LIBS, "keccak_sponge", Lib())
+    assert cuda_build.path_launches("keccak_sponge") == counts
+    assert cuda_build.path_taken("keccak_sponge", lambda: launch("warp")) == "warp"
+    assert cuda_build.path_taken("keccak_sponge", lambda: launch("row")) == "row"
+    with pytest.raises(ValueError):
+        cuda_build.path_taken("keccak_sponge", lambda: None)

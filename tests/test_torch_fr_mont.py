@@ -1,8 +1,9 @@
-"""The design of K1, K12 and K13 on the CPU, tolerance 0: the 32-bit-limb
-Montgomery arithmetic of ``csrc/fr_mont.cuh``, K1's two product sequences
-(``csrc/fr_mul.cu``) on operands at and above p, and the window chain of
-``csrc/fr_inv.cu``, read from the sources and walked on Python ints, and
-K13's plan (``tables/logup.py:logup_plan``).
+"""The design of K1, K11, K12 and K13 on the CPU, tolerance 0: the
+32-bit-limb Montgomery arithmetic of ``csrc/fr_mont.cuh``, K1's two
+product sequences (``csrc/fr_mul.cu``) on operands at and above p, K11's
+word product and carry chain (``csrc/mul_add_words.cu``) against its plain
+version, and the window chain of ``csrc/fr_inv.cu``, read from the sources
+and walked on Python ints, and K13's plan (``tables/logup.py:logup_plan``).
 
 The model below runs the header's functions instruction by instruction in
 the header's carry order (one carry flag, as in PTX), and asserts that
@@ -16,8 +17,11 @@ import pytest
 import torch
 
 from zkevm_specs_tpu_torch import workloads
-from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.ops import fr, word_mul
 from zkevm_specs_tpu_torch.tables import logup
+
+from word_mul_cases import CASES as WORD_MUL_CASES
+from word_mul_cases import ints_of, make_case
 
 torch.set_num_threads(1)
 
@@ -464,3 +468,147 @@ def test_logup_partial_sum_ints(m_width):
     assert logup.logup_partial_sum_ints(fps, alpha, m) == want
     plain = logup.logup_partial_sum_plain(fr.from_ints(fps), fr.from_ints([alpha]), m_t)
     assert fr.to_ints(plain[None])[0] == want
+
+
+# -- K11's chain on the 32-bit words (csrc/mul_add_words.cu) ------------------------
+
+WORDMUL_SOURCE = (CSRC / "mul_add_words.cu").read_text()
+C_POW128 = _c_array(WORDMUL_SOURCE, "c_wm_pow128")
+Q128 = (1 << 128) - 1
+
+
+def k11_mac64(ptx, a0, a1, b0, b1, t):
+    """mac64: t += (a0, a1) * (b0, b1) in three carry chains."""
+    t[0] = ptx.mad_lo_cc(a0, b0, t[0])
+    t[1] = ptx.madc_hi_cc(a0, b0, t[1])
+    t[2] = ptx.madc_lo_cc(a1, b1, t[2])
+    t[3] = ptx.madc_hi_cc(a1, b1, t[3])
+    t[4] = ptx.addc(t[4], 0)
+    for x, y in ((a0, b1), (a1, b0)):
+        t[1] = ptx.mad_lo_cc(x, y, t[1])
+        t[2] = ptx.madc_hi_cc(x, y, t[2])
+        t[3] = ptx.addc_cc(t[3], 0)
+        t[4] = ptx.addc(t[4], 0)
+
+
+def k11_pair_sum(lo, hi):
+    ptx = Ptx()
+    return [lo[0], lo[1], ptx.add_cc(lo[2], hi[0]), ptx.addc_cc(lo[3], hi[1]),
+            ptx.addc_cc(lo[4], hi[2]), ptx.addc_cc(0, hi[3]), ptx.addc_cc(0, hi[4]),
+            ptx.addc(0, 0)]
+
+
+def k11_mul_inv128(x):
+    """mul_inv128: the reduction of x moved up four words."""
+    return mont_reduce(Ptx(), [0] * 4 + list(x) + [0] * 4)
+
+
+def k11_half_carry(lhs, rhs):
+    carry = k11_mul_inv128(mont_sub(lhs, rhs))
+    back = mont_add(rhs, mont_mul(C_POW128, carry))
+    return carry, lhs == back
+
+
+def k11_below_2_72(v):
+    return v[2] < 256 and all(w == 0 for w in v[3:])
+
+
+def k11_lane(vals, wide):
+    """One lane of mul_add_words_kernel on Python ints, in the kernel's
+    order: the verdicts and, for the 256 variant, the overflow's value."""
+    a_lo, a_hi, b_lo, b_hi, c_lo, c_hi, d_lo, d_hi = vals[:8]
+    A = _words(a_lo & Q128)[:4] + _words(a_hi & Q128)[:4]
+    B = _words(b_lo & Q128)[:4] + _words(b_hi & Q128)[:4]
+    tk = [[0] * 5 for _ in range(7)]
+    for i in range(4):
+        for j in range(4):
+            k11_mac64(Ptx(), A[2 * i], A[2 * i + 1], B[2 * j], B[2 * j + 1], tk[i + j])
+    lo, hi = (vals[8], vals[9]) if wide else (d_lo, d_hi)
+    lhs0 = mont_add(k11_pair_sum(tk[0], tk[1]), _words(c_lo))
+    carry0, eq0 = k11_half_carry(lhs0, _words(lo))
+    lhs1 = mont_add(mont_add(k11_pair_sum(tk[2], tk[3]), _words(c_hi)), carry0)
+    carry1, eq1 = k11_half_carry(lhs1, _words(hi))
+    if not wide:
+        ptx = Ptx()
+        s = [ptx.add_cc(tk[4][0], tk[5][0])]
+        s += [ptx.addc_cc(tk[4][m], tk[5][m]) for m in range(1, 5)]
+        s.append(ptx.addc(0, 0))
+        s[0] = ptx.add_cc(s[0], tk[6][0])
+        for m in range(1, 5):
+            s[m] = ptx.addc_cc(s[m], tk[6][m])
+        s[5] = ptx.addc(s[5], 0)
+        over = mont_add(carry1, s + [0, 0])
+        return [k11_below_2_72(carry0), k11_below_2_72(carry1), eq0, eq1], _value(over)
+    lhs2 = mont_add(k11_pair_sum(tk[4], tk[5]), carry1)
+    carry2, eq2 = k11_half_carry(lhs2, _words(d_lo))
+    top = mont_add(tk[6] + [0, 0, 0], carry2)
+    return [k11_below_2_72(carry0), k11_below_2_72(carry1), k11_below_2_72(carry2), eq0, eq1, eq2,
+            top == _words(d_hi)], None
+
+
+def test_k11_source_runs_the_modelled_chain():
+    """The constant and the lines k11_lane mirrors, as mul_add_words.cu
+    writes them."""
+    assert _value(C_POW128) == (1 << 384) % P                  # 2^128 in Montgomery form
+    for line in ("mac64(A[2 * i], A[2 * i + 1], B[2 * j], B[2 * j + 1], tk[i + j]);",
+                 "for (int k = 0; k < 16; ++k) t[k] = (k >= 4 && k < 12) ? x[k - 4] : 0u;",
+                 "mont_sub(lhs, rhs, diff);\n  mul_inv128(diff, carry);",
+                 "mont_mul(pow128, carry, back);\n  mont_add(rhs, back, back);",
+                 "mont_add(x, y, x);\n    mont_add(x, carry0, lhs);",
+                 "mont_add(carry1, s, s);",
+                 "mont_add(x, carry1, lhs);",
+                 "bool ok = v[2] < 256u;"):
+        assert line in WORDMUL_SOURCE, line
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["256", "512"])
+@pytest.mark.parametrize("case", WORD_MUL_CASES)
+def test_k11_chain_equals_the_plain_version(case, wide):
+    """The kernel's 32-bit chain on Python ints, every dropped carry
+    checked, against ``mul_add_words_plain`` lane for lane on
+    ``tests/word_mul_cases.py``'s cases."""
+    rows, _, _ = make_case(case, wide)
+    batch = max(r.shape[0] for r in rows)
+    ints = [ints_of(r) for r in rows]
+    want_ok, want_over = word_mul.mul_add_words_plain(rows, wide)
+    want_ok = want_ok.expand(want_ok.shape[0], batch)
+    for lane in range(batch):
+        vals = [v[0] if len(v) == 1 else v[lane] for v in ints]
+        ok, over = k11_lane(vals, wide)
+        assert ok == [bool(b) for b in want_ok[:, lane]], (case, lane)
+        if not wide:
+            got = fr.L.ints_to_limbs([over], 16)[0]
+            assert torch.equal(got, want_over.expand(batch, 16)[lane]), (case, lane)
+
+
+def _ripple(ready):
+    """Step each word of an 8-word carry chain is ready at, for operand
+    words ready at ``ready``: word k a step after its operand and the
+    carry out of word k - 1."""
+    out, carry = [], 0
+    for r in ready:
+        carry = max(r, carry) + 1
+        out.append(carry)
+    return out
+
+
+def test_k11_chain_bound_is_the_least_depth():
+    """K11's chain bound (``runtime/bounds.py``) from its parts' least
+    depths: an Fr add s = x + y then s - p a step behind and a select, an
+    Fr subtract d = x - y then d + p a step behind and a select, each 10
+    steps; the product by 2^-128 one product, four reduction rounds of
+    three and an Fr add; composed in the order of the variants."""
+    from zkevm_specs_tpu_torch.runtime import bounds
+
+    first = _ripple([0] * 8)                  # x + y, or x - y
+    second = _ripple(first)                   # s - p, or d + p
+    fr_step = max(second[-1], first[-1]) + 1  # the select on the last carry or borrow
+    assert bounds.CHAIN_ADD == bounds.CHAIN_SUB == fr_step == 10
+    assert bounds.CHAIN_INV128 == 1 + 4 * 3 + fr_step
+    half = bounds.CHAIN_ADD + bounds.CHAIN_SUB + bounds.CHAIN_INV128
+    head = bounds.CHAIN_T + bounds.CHAIN_PAIR
+    assert bounds.WORD_MUL_CHAIN == {False: head + 2 * half + bounds.CHAIN_ADD,
+                                     True: head + 3 * half + bounds.CHAIN_ADD}
+    assert bounds.WORD_MUL_CHAIN == {False: 107, True: 150}
+    assert bounds.chain_bound(0.2, "bytes", 0.1) == (0.2, "bytes", "bytes")
+    assert bounds.chain_bound(0.2, "bytes", 0.3) == (0.3, "operations", "chain")

@@ -8,6 +8,7 @@ is present, and runs on the card with
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which a CUDA machine
 need not have.)
 """
+import contextlib
 import re
 
 import numpy as np
@@ -952,3 +953,221 @@ def test_logup_partial_sum_across_the_plan(dev, n, m_width):
         zero = logup.logup_partial_sum(fps, fps[i].clone(), m)
         torch.cuda.synchronize()
         assert not bool(zero.any())
+
+
+# -- K6's three paths: one warp a lane under SEARCH_WARP_BATCH lanes, a staged tile
+# of lanes from SEARCH_TILE_BATCH lanes of wide queries, one thread a lane between;
+# each case also on a build of each path alone
+
+SEARCH_WARP_BATCH = _source_define("lookup_search_eq.cu", "SEARCH_WARP_BATCH")
+SEARCH_TILE_BATCH = _source_define("lookup_search_eq.cu", "SEARCH_TILE_BATCH")
+SEARCH_TILE_LIMBS = _source_define("lookup_search_eq.cu", "SEARCH_TILE_LIMBS")
+K6_BATCHES = [1, 31, 127, 128, 129, SEARCH_WARP_BATCH - 1, SEARCH_WARP_BATCH + 1, 1 << 19]
+assert (1 << 19) >= SEARCH_TILE_BATCH
+K6_ROWS = 5000
+K6_WIDTHS = [(1, 1), (8, 8), (16, 16), (10, 9), (16, 16), (16, 16)]  # (table, query) limbs
+assert sum(q for _, q in K6_WIDTHS) >= SEARCH_TILE_LIMBS   # 2^19 lanes take the tile path
+
+
+@pytest.fixture(scope="module")
+def search_libs():
+    """{path: library}: the source's own build (None) and one build a path
+    (every batch a tile, one warp a lane, or one thread a lane)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    top = 2**31 - 1
+    return {"own": None, **cuda_build.build_variants(
+        "lookup_search_eq",
+        {"tile": ["SEARCH_WARP_BATCH=0", "SEARCH_TILE_BATCH=0", "SEARCH_TILE_LIMBS=0"],
+         "warp": [f"SEARCH_WARP_BATCH={top}"],
+         "row": ["SEARCH_WARP_BATCH=0", f"SEARCH_TILE_BATCH={top}"]})}
+
+
+def _search_path(batch, query):
+    """The path the source's own launcher takes."""
+    if batch < SEARCH_WARP_BATCH:
+        return "warp"
+    wide = sum(q.shape[1] for q in query) >= SEARCH_TILE_LIMBS
+    return "tile" if batch >= SEARCH_TILE_BATCH and wide else "row"
+
+
+_K6_TABLE = {}
+
+
+def _k6_table():
+    """A table of six parts and its host index: rows 10-17 equal (8
+    matches), rows 20-25 equal but in part 3's limb 5, whose coefficient
+    is 0 (6 candidates, one match), row 30 with limbs at 2^40 + 7 and -5,
+    part 3's limb 9 nonzero in every 97th row (past the query's width)."""
+    if not _K6_TABLE:
+        rng = np.random.RandomState(5)
+        table = [rng.randint(0, 1 << 16, size=(K6_ROWS, tw)).astype(np.int64)
+                 for tw, _ in K6_WIDTHS]
+        table[3][:, 9] = 0
+        table[3][::97, 9] = 3
+        for t in table:
+            t[10:18] = t[10]
+            t[20:26] = t[20]
+        table[3][20:26, 5] = np.arange(6)
+        table[1][30, 2], table[1][30, 3] = (1 << 40) + 7, -5
+        coefs = rng.randint(-(1 << 62), 1 << 62, size=(len(K6_WIDTHS), 16)).astype(np.int64)
+        coefs[3, 5] = 0
+        table_t, coefs_t = [torch.from_numpy(t) for t in table], torch.from_numpy(coefs)
+        fps = engine.fingerprint_plain(table_t, coefs_t)
+        order = torch.sort(fps ^ engine._SIGN, stable=True).indices
+        _K6_TABLE.update(table=table_t, coefs=coefs_t, fps=fps[order].contiguous(), order=order)
+    return _K6_TABLE
+
+
+def _k6_args(batch, layout, max_span, dev):
+    """The lookup's arguments on the card: ``batch`` lanes picking rows
+    (the runs and row 30 first, every 5th lane matching no row); "wide"
+    moves limbs outside [0, 2^32) into the query (part 3's limb 5 by 2^32,
+    which leaves the low word and the fingerprint alone; part 1's limb 2
+    to -2^33); "broadcast" gives one [1, w] row a part; "strided" lays
+    every query and table part out at a row stride above its width."""
+    k6 = _k6_table()
+    rng = np.random.RandomState(batch)
+    picks = rng.randint(0, K6_ROWS, size=batch)
+    picks[:4] = [10, 20, 23, 30][:min(batch, 4)]
+    query = [t[torch.from_numpy(picks)][:, :qw].clone()
+             for t, (_, qw) in zip(k6["table"], K6_WIDTHS)]
+    query[2][4::5, 0] ^= 1
+    if layout == "wide":
+        query[3][1::3, 5] += 1 << 32
+        query[1][5::7, 2] = -(1 << 33)
+    if layout == "broadcast":
+        query = [q[:1].clone() for q in query]
+    table = list(k6["table"])
+
+    def strided(t):
+        out = torch.zeros((t.shape[0], t.shape[1] + 3), dtype=t.dtype, device=dev)
+        out[:, :t.shape[1]] = t.to(dev)
+        return out[:, :t.shape[1]]
+
+    place = strided if layout == "strided" else (lambda t: t.to(dev))
+    return ([place(q) for q in query], [place(t) for t in table], k6["coefs"].to(dev),
+            k6["fps"].to(dev), k6["order"].to(dev), max_span, batch)
+
+
+def _k6_check(args, libs):
+    """Each build against the plain version, one launch a call, counted
+    under the path its launcher picks."""
+    batch = args[-1]
+    want = engine.lookup_search_eq_plain(*args)
+    for path, lib in libs.items():
+        with cuda_build.launching("lookup_search_eq", lib) if lib else contextlib.nullcontext():
+            before, paths = L.LAUNCHES["lookup_search_eq"], cuda_build.path_launches(
+                "lookup_search_eq")
+            got = engine.lookup_search_eq(*args)
+            torch.cuda.synchronize()
+            after = cuda_build.path_launches("lookup_search_eq")
+        assert L.LAUNCHES["lookup_search_eq"] == before + 1
+        took = path if lib else _search_path(batch, args[0])
+        assert {k: after[k] - paths[k] for k in after} == {p: int(p == took) for p in after}
+        _equal(list(got), list(want))
+    return want
+
+
+@pytest.mark.parametrize("max_span", range(1, 9))
+@pytest.mark.parametrize("batch", K6_BATCHES)
+def test_lookup_search_eq_paths_at_batches(dev, search_libs, batch, max_span):
+    first_row, unsat, unique, covered = _k6_check(_k6_args(batch, "dense", max_span, dev),
+                                                  search_libs)
+    if batch >= 4:   # rows 10-17: 8 matches; rows 20-25: 6 candidates, one match
+        assert bool(unsat[0]) and bool(unique[0]) == (max_span == 1)
+        assert bool(covered[0]) == (max_span == 8) and int(first_row[1]) == 20
+        assert bool(unique[1]) and bool(unsat[2]) == (max_span >= 4)
+
+
+@pytest.mark.parametrize("max_span", [1, 3, 8])
+@pytest.mark.parametrize("layout", ["broadcast", "strided", "wide"])
+@pytest.mark.parametrize("batch", K6_BATCHES)
+def test_lookup_search_eq_paths_at_layouts(dev, search_libs, batch, layout, max_span):
+    """A broadcast [1, w] query, rows at a stride above their width, and
+    query limbs at and above 2^32 (a lane the tile path marks wide): the
+    kernel on both paths equal to the plain version."""
+    _, unsat, _, _ = _k6_check(_k6_args(batch, layout, max_span, dev), search_libs)
+    if layout == "wide" and batch > 3:
+        assert not bool(unsat[1]) and bool(unsat[3])   # 2^32 apart: no match; row 30 matches
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, K6_ROWS])
+def test_lookup_fingerprint_at_tiles(dev, rows):
+    """The fingerprint entry at the tile's edges, dense and at a row
+    stride above the width, limbs outside [0, 2^32) included."""
+    k6 = _k6_table()
+    for layout in ("dense", "strided"):
+        args = _k6_args(1, layout, 1, dev)
+        parts = [t[:rows] for t in args[1]]
+        before = L.LAUNCHES["lookup_fingerprint"]
+        got = engine.lookup_fingerprint(parts, args[2])
+        assert L.LAUNCHES["lookup_fingerprint"] == before + 1
+        _equal(got, engine.fingerprint_plain(parts, args[2]))
+    assert torch.equal(engine.fingerprint_plain(k6["table"], k6["coefs"])[k6["order"]], k6["fps"])
+
+
+FP_TILED_ROWS = _source_define("lookup_search_eq.cu", "FP_TILED_ROWS")
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided"])
+@pytest.mark.parametrize("rows", [FP_TILED_ROWS - 1, FP_TILED_ROWS, FP_TILED_ROWS + 129])
+def test_lookup_fingerprint_both_paths(dev, rows, layout):
+    """The fingerprint entry on both sides of its switch to staged tiles
+    (FP_TILED_ROWS rows of the 67-limb table, which passes FP_TILED_LIMBS):
+    the table's rows cycled, row 30's limbs at 2^40 + 7 and -5 included."""
+    k6 = _k6_table()
+    pick = torch.arange(rows) % K6_ROWS
+    parts = [t[pick] for t in k6["table"]]
+    if layout == "strided":   # a row stride above the width, made on the card
+        parts = [torch.cat([t, torch.zeros((rows, 3), dtype=t.dtype)], 1).to(dev)[:, :t.shape[1]]
+                 for t in parts]
+    else:
+        parts = [t.to(dev) for t in parts]
+    coefs = k6["coefs"].to(dev)
+    before = L.LAUNCHES["lookup_fingerprint"]
+    got = engine.lookup_fingerprint(parts, coefs)
+    assert L.LAUNCHES["lookup_fingerprint"] == before + 1
+    _equal(got, engine.fingerprint_plain(parts, coefs))
+
+
+# -- K11 at a batch of one, at the arithmetic block's 2048 lanes (small tile) and at
+# the MUL group's 131072 (large tile), both variants
+
+WORDMUL_SMALL_BATCH = _source_define("mul_add_words.cu", "WORDMUL_SMALL_BATCH")
+
+
+def _word_rows(case, wide, lanes, layout, dev):
+    """``word_mul_cases`` rows cycled to ``lanes`` lanes ([1, w] rows kept),
+    dense or at a row stride above the width."""
+    rows, _, _ = make_case(case, wide, n=min(lanes, 4096), seed=lanes)
+    out = []
+    for r in rows:
+        if r.shape[0] > 1 or lanes == 1:
+            r = r[torch.arange(lanes) % r.shape[0]]
+        if layout == "strided":
+            wide_r = torch.zeros((r.shape[0], r.shape[1] + 3), dtype=r.dtype, device=dev)
+            wide_r[:, :r.shape[1]] = r.to(dev)
+            out.append(wide_r[:, :r.shape[1]])
+        else:
+            out.append(r.to(dev))
+    return out
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided"])
+@pytest.mark.parametrize("case", ["random_valid", "random_fields", "constants", "widths",
+                                  "carry_past_72_bits"])
+@pytest.mark.parametrize("wide", [False, True], ids=["256", "512"])
+@pytest.mark.parametrize("lanes", [1, 2048, 131072])
+def test_mul_add_words_at_lanes(dev, lanes, wide, case, layout):
+    rows = _word_rows(case, wide, lanes, layout, dev)
+    assert (lanes < WORDMUL_SMALL_BATCH) == (lanes != 131072)   # both tiles run
+    before = L.LAUNCHES["mul_add_words"]
+    ok, overflow = word_mul.mul_add_words(rows, wide)
+    assert L.LAUNCHES["mul_add_words"] == before + 1
+    want_ok, want_over = word_mul.mul_add_words_plain(rows, wide)
+    _equal(ok, want_ok.expand(ok.shape))
+    if not wide:
+        _equal(overflow, want_over.expand(overflow.shape))
+    if case == "carry_past_72_bits" and lanes > 1:   # carry_lo 2^72 fails, 2^72 - 1 passes
+        assert not bool(ok[0, 0]) and bool(ok[0, 1])

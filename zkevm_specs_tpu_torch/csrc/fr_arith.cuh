@@ -1,5 +1,6 @@
-// BN254-Fr arithmetic on 16-bit limbs held in registers, shared by K1
-// fr_mul and K8 horner_rlc: the 16 x 16-limb schoolbook product (with an
+// BN254-Fr arithmetic on 16-bit limbs held in registers, used by K8
+// horner_rlc alone (K1, K11 and K12 moved to fr_mont.cuh's 32-bit
+// Montgomery product): the 16 x 16-limb schoolbook product (with an
 // addend folded into its first column) and the Barrett reduction of
 // zkevm_specs_tpu/ops/fr.py:reduce_wide (fr.py:43-63), step by step:
 // q1 = x >> 240, q3 = (q1 * mu) >> 272, r = (x - q3 * p) mod 2^272, then p

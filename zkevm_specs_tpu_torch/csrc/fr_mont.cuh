@@ -1,8 +1,8 @@
 // BN254-Fr arithmetic on eight 32-bit limbs in Montgomery form (R = 2^256),
-// shared by K12 fr_inv and K13 logup_sum.  Every limb product is a
-// mad.lo/mad.hi pair on a PTX carry chain, so a field product is about 330
-// integer instructions where fr_arith.cuh's 16-bit Barrett product takes
-// about 1800.
+// shared by K1 fr_mul, K11 mul_add_words, K12 fr_inv and K13 logup_sum.
+// Every limb product is a mad.lo/mad.hi pair on a PTX carry chain, so a
+// field product is about 330 integer instructions where fr_arith.cuh's
+// 16-bit Barrett product takes about 1800.
 //
 // The product (mont_mul) is a separated operand scan: the 16-word product
 // a * b, then a word-by-word Montgomery reduction of its low half.  Rows of

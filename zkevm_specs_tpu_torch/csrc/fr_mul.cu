@@ -14,8 +14,8 @@
 // instructions a byte, at the card's int32 rate-to-bandwidth ratio; with a
 // broadcast b, one product a lane.  A thread that reads its own lane's
 // limbs makes every warp load touch 32 rows 128 bytes apart, so the design
-// stages a tile of FRMUL_TILE lanes through shared memory as K3
-// (limb_addsub.cu) does:
+// stages a tile of FRMUL_TILE lanes through shared memory by K3's rules
+// (limb_addsub.cu), with limb_common.cuh's stage_rows:
 //   1. the block loads the tile's limbs flattened (element e is lane e / n,
 //      limb e % n), consecutive threads on consecutive limbs, 16 bytes a
 //      thread where the base address and the row stride allow; rows sit in
@@ -53,62 +53,12 @@ namespace {
 static_assert(2 * FRMUL_TILE * FRMUL_PITCH * 4 <= 48 * 1024,
               "two staged tiles must fit 48 KB of shared memory");
 
-// One operand: a row of n limbs every `stride` elements (0: one broadcast
-// row)
-struct Operand {
-  const int64_t* p;
-  long long stride;
-  int n;
-  unsigned magic;  // div_by's reciprocal of n
-  int vec;         // 16-byte loads: base 16-byte aligned, and pairs never straddle rows
-};
-
 struct Args {
-  Operand a, b;
+  StagedRow a, b;  // n <= 16 limbs a row, so copy = span = n
   int64_t* out;
   int out_vec;  // out 16-byte aligned
   long long batch;
 };
-
-// e / n for e * n < 2^32: a multiply by ceil(2^32 / n) (host_magic)
-__device__ __forceinline__ int div_by(int e, int n, unsigned magic) {
-  return n == 1 ? e : (int)__umulhi((unsigned)e, magic);
-}
-
-static unsigned host_magic(int n) { return n <= 1 ? 0u : 0xFFFFFFFFu / (unsigned)n + 1u; }
-
-// Loads the n limbs of the tile's rows of x into shared memory rows at
-// FRMUL_PITCH, zero up to 16; a broadcast row once.
-__device__ __forceinline__ void stage(const Operand& x, uint32_t* s, long long base, int lanes) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (x.stride == 0) {
-    for (int k = tid; k < FR_LIMBS; k += nt) s[k] = k < x.n ? (uint32_t)x.p[k] : 0u;
-    return;
-  }
-  const int64_t* src = x.p + base * x.stride;
-  const int total = lanes * x.n;
-#pragma unroll 4
-  for (int e = 2 * tid; e < total; e += 2 * nt) {
-    const int lane = div_by(e, x.n, x.magic);
-    const int k = e - lane * x.n;
-    const int lane1 = k + 1 == x.n ? lane + 1 : lane, k1 = k + 1 == x.n ? 0 : k + 1;
-    int64_t v0, v1 = 0;
-    if (x.vec && e + 1 < total) {
-      const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(src + lane * x.stride + k));
-      v0 = v.x;
-      v1 = v.y;
-    } else {
-      v0 = __ldg(reinterpret_cast<const long long*>(src + lane * x.stride + k));
-      if (e + 1 < total)
-        v1 = __ldg(reinterpret_cast<const long long*>(src + lane1 * x.stride + k1));
-    }
-    s[lane * FRMUL_PITCH + k] = (uint32_t)v0;
-    if (e + 1 < total) s[lane1 * FRMUL_PITCH + k1] = (uint32_t)v1;
-  }
-  if (x.n < FR_LIMBS)
-    for (int lane = tid; lane < lanes; lane += nt)
-      for (int k = x.n; k < FR_LIMBS; ++k) s[lane * FRMUL_PITCH + k] = 0u;
-}
 
 // eight 32-bit words of a staged row of 16 limbs
 __device__ __forceinline__ void pack_row(const uint32_t* row, uint32_t w[8]) {
@@ -132,9 +82,9 @@ __global__ void __launch_bounds__(FRMUL_TILE) fr_mul_kernel(Args g) {
       for (int k = 0; k < MONT_LIMBS; ++k) sb[k] = w[k];
     }
   } else {
-    stage(g.b, sb, base, lanes);
+    stage_rows(g.b, sb, base, lanes, FRMUL_PITCH, FR_LIMBS);
   }
-  stage(g.a, sa, base, lanes);
+  stage_rows(g.a, sa, base, lanes, FRMUL_PITCH, FR_LIMBS);
   __syncthreads();
   // a broadcast a (and so b): one product, in row 0, for every lane
   const bool one = g.a.stride == 0;
@@ -178,17 +128,6 @@ __global__ void __launch_bounds__(FRMUL_TILE) fr_mul_kernel(Args g) {
   }
 }
 
-Operand operand(const void* p, long long stride, int n) {
-  Operand x;
-  x.p = (const int64_t*)p;
-  x.stride = stride;
-  x.n = n;
-  x.magic = host_magic(n);
-  const bool aligned = ((uintptr_t)p & 15) == 0;
-  x.vec = aligned && (stride == n || (stride % 2 == 0 && n % 2 == 0));
-  return x;
-}
-
 }  // namespace
 
 extern "C" int fr_mul_launch(const void* a, long long sa, int na, const void* b,
@@ -198,10 +137,10 @@ extern "C" int fr_mul_launch(const void* a, long long sa, int na, const void* b,
   if (na < 1 || na > FR_LIMBS || nb < 1 || nb > FR_LIMBS || sa < 0 || sb < 0)
     return (int)cudaErrorInvalidValue;
   Args g;
-  g.a = operand(a, sa, na);
-  g.b = operand(b, sb, nb);
+  g.a = staged_row(a, sa, na, FR_LIMBS);
+  g.b = staged_row(b, sb, nb, FR_LIMBS);
   if (sa == 0 && sb != 0) {  // the broadcast row as b
-    const Operand t = g.a;
+    const StagedRow t = g.a;
     g.a = g.b;
     g.b = t;
   }

@@ -86,13 +86,6 @@ struct Args {
   int width;  // the chain's limbs: out_n (ADD), n (SUB), 17 (FR_ADD), 16 (FR_SUB)
 };
 
-// e / n for e * n < 2^32: a multiply by ceil(2^32 / n) (host_magic)
-__device__ __forceinline__ int div_by(int e, int n, unsigned magic) {
-  return n == 1 ? e : (int)__umulhi((unsigned)e, magic);
-}
-
-static unsigned host_magic(int n) { return n <= 1 ? 0u : 0xFFFFFFFFu / (unsigned)n + 1u; }
-
 struct SmemRow {
   const uint32_t* p;
   __device__ __forceinline__ uint32_t operator[](int k) const { return p[k]; }

@@ -57,13 +57,6 @@ struct Parts {
   unsigned magic[MAX_PARTS];  // div_by's reciprocal of span
 };
 
-// e / n for e * n < 2^32: a multiply by ceil(2^32 / n) (host_magic)
-__device__ __forceinline__ int div_by(int e, int n, unsigned magic) {
-  return n == 1 ? e : (int)__umulhi((unsigned)e, magic);
-}
-
-static unsigned host_magic(int n) { return n <= 1 ? 0u : 0xFFFFFFFFu / (unsigned)n + 1u; }
-
 // the row of a hint index: negative counts from the end once, then clamped
 __device__ __forceinline__ long long hint_row(int i, long long n_rows) {
   long long row = i < 0 ? i + n_rows : i;

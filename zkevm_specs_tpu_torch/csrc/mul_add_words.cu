@@ -1,17 +1,17 @@
 // K11 mul_add_words: the 512-bit word product a * b + c of 256-bit words and
-// the carry constraints of the EVM circuit's arithmetic gadgets, one lane
-// per thread, every operand of a lane in registers.
+// the carry constraints of the EVM circuit's arithmetic gadgets.
 //
 // Replaces the XLA computation of zkevm_specs_tpu/evm/instruction.py:
 // _mul_512_terms (:812), mul_add_words (:827) and mul_add_words_512 (:845),
 // and circuits/exp.py:_mul_add_words (:19), which the JAX package runs as a
 // chain of some forty field operations.  Each word is lo/hi (two [B|1, w]
-// 16-bit-limb rows, w <= 16, canonical below p); a, b, c, d (and e) are the
-// ten rows of `Operands`, a [1, w] constant row given stride 0.
+// rows of canonical 16-bit limbs held in int64, w <= 16, each value below
+// p); a, b, c, d (and e) are the ten rows of `Args`, a [1, w] constant row
+// given stride 0.
 //
 //   a64, b64  the 64-bit quarters (lo mod 2^64, (lo >> 64) mod 2^64, the
 //             same of hi), as Word.to_64s gives them (limbs above 8 drop);
-//   t0..t6    t_k = sum_{i+j=k} a64_i * b64_j, exact (< 2^131);
+//   t0..t6    t_k = sum_{i+j=k} a64_i * b64_j, exact (< 2^130);
 //   L0, L1, L2  t0 + t1 * 2^64, t2 + t3 * 2^64, t4 + t5 * 2^64, exact.
 //
 // Variant 256 (a * b + c == d mod 2^256), checks in the chain's order:
@@ -24,238 +24,289 @@
 //   lhs0 == e_lo + carry_0 * 2^128, lhs1 == e_hi + carry_1 * 2^128,
 //   L2 + carry_1 == d_lo + carry_2 * 2^128, t6 + carry_2 == d_hi].
 // Every sum, difference and product above is taken mod p on canonical
-// values, which is what the F chain computes: its narrow steps stay below
-// 2^253 < p, and its wide steps are fr.add/sub/mul (K3's Fr modes, K1's
-// Barrett reduction, shared here through fr_arith.cuh).  A negative
+// values, as the F chain takes them (fr.add/sub/mul).  A negative
 // difference wraps mod p, so its carry is a 254-bit field value that fails
-// the 72-bit check, as in the chain.
+// the 72-bit check, as in the chain.  In the field the equalities hold for
+// every canonical input; the kernel still computes them as the chain does.
 //
-// In the field the equalities hold for every canonical input (carry * 2^128
-// is lhs - rhs); the kernel still computes them as the chain does, with the
-// product by 2^128 as a limb shift and one Barrett reduction.
+// The arithmetic is fr_mont.cuh's, on eight 32-bit words a value:
+//   - the t_k are 64 limb products, each 64-bit pair product a 2 x 2-word
+//     schoolbook of mad.lo/mad.hi on PTX carry chains (mac64), added into
+//     t_k's five words;
+//   - an Fr add or subtract is mont_add / mont_sub, an 8-word carry chain
+//     and p taken off (or put back) once;
+//   - x * 2^-128 mod p is mont_mul(2^128, x), the constant 2^-128 in
+//     Montgomery form first: its wide product is x moved up four words,
+//     so the kernel reduces that (mont_reduce) and skips the product;
+//   - carry * 2^128 mod p is mont_mul(2^384 mod p, carry), 2^128 in
+//     Montgomery form first.
+// mont_mul(a, b) is canonical for a < p and any b < 2^256 (fr_mont.cuh),
+// and every first factor above is a constant below p.
 //
-// What bounds it on the card: integer multiply-adds.  A lane reads at most
-// 10 x 16 limbs (1280 bytes) and writes 4 or 7 verdict bytes and 128 bytes
-// of overflow, and does 256 partial products plus two (variant 256) or three
-// (variant 512) 16 x 16-limb field products by 2^-128 with their Barrett
-// reductions, and a Barrett reduction per equality: far above the card's
-// int32 rate-to-bandwidth ratio.  The design keeps every intermediate in
-// registers and touches device memory only for the operands and the
-// verdicts.
-#include "fr_arith.cuh"
+// What bounds it on the card: bytes at large batches (a lane reads up to
+// 10 rows of 16 limbs and writes 4 or 7 verdict bytes and 128 bytes of
+// overflow, against about 1300 integer instructions), one lane's chain of
+// dependent carries at small ones.  A thread that reads its own lane's
+// limbs makes every warp load touch 32 rows a row apart, so the design
+// stages a tile of lanes as K1 (fr_mul.cu) does, with limb_common.cuh's
+// stage_rows:
+//   1. the block's threads load the tile's rows flattened (element e is
+//      lane e / span, limb e % span), 16 bytes a thread where the base
+//      address and the row stride allow, a [1, w] row once a block; each
+//      limb goes into shared memory as a 16-bit half, so a row's words sit
+//      packed, at an odd pitch of 32-bit words (5 for a quarter row, 9 for
+//      a field row), and a warp reading word j of 32 lanes hits 32 banks;
+//   2. one thread a lane runs the arithmetic above from shared memory and
+//      writes its verdict bytes (a warp's 32 lanes, one sector a check);
+//   3. the 256 variant's overflow words go back into shared memory and
+//      out as 16 int64 limbs a lane, a flattened store, 16 bytes a thread.
+// Under WORDMUL_SMALL_BATCH lanes a block takes WORDMUL_SMALL_TILE lanes
+// with the same threads, so a 2048-lane call spreads over 64 SMs, not 16,
+// and four threads share each lane's loads.  (Measured and dropped: every
+// row's loads issued before any is staged, and the equalities on the small
+// tile's free warps; both ran slower.)
+#include "fr_mont.cuh"
+
+#define WORDMUL_THREADS 128     // threads of a block
+#define WORDMUL_TILE 128        // lanes of a tile from WORDMUL_SMALL_BATCH lanes
+#define WORDMUL_SMALL_TILE 32   // lanes of a tile under it
+#ifndef WORDMUL_SMALL_BATCH
+#define WORDMUL_SMALL_BATCH 32768
+#endif
+#define QUARTER_LIMBS 8         // limbs of a, b a lane uses (two quarters a row)
+#define QUARTER_PITCH 5         // words a staged quarter row takes: odd
+#define FIELD_PITCH 9           // words a staged field row of 16 limbs takes: odd
 
 namespace {
 
 constexpr int N_OPERANDS = 10;  // a.lo a.hi b.lo b.hi c.lo c.hi d.lo d.hi e.lo e.hi
+constexpr int N_QUARTER_ROWS = 4;
+constexpr int N_FIELD_ROWS = N_OPERANDS - N_QUARTER_ROWS;
 
-struct Operands {
-  const int64_t* ptr[N_OPERANDS];
-  long long stride[N_OPERANDS];  // elements between lanes; 0 for a [1, w] row
-  int width[N_OPERANDS];
+static_assert((N_QUARTER_ROWS * QUARTER_PITCH + (N_FIELD_ROWS + 1) * FIELD_PITCH) *
+                      WORDMUL_TILE * 4 <= 48 * 1024,
+              "a staged tile must fit 48 KB of shared memory");
+
+// 2^384 mod p: 2^128 in Montgomery form, the first factor of carry * 2^128
+__constant__ uint32_t c_wm_pow128[MONT_LIMBS] = {
+    0xef8cfeb9, 0xb075da81, 0xa5b6cd8c, 0xa7f12acc,
+    0x7957bf7b, 0x32c47504, 0x48ffa25e, 0x03d581d7};
+
+struct Args {
+  StagedRow row[N_OPERANDS];  // the first 8 limbs of a, b; 16 of the others
+  uint8_t* ok;         // [4 | 7, batch]
+  int64_t* overflow;   // [batch, 16] (variant 256)
+  int overflow_vec;    // overflow 16-byte aligned
+  long long batch;
 };
 
-// 2^-128 mod p, 16 limbs
-__constant__ uint32_t c_inv128[16] = {
-    0xdc6f, 0x76f9, 0x753c, 0x18ee, 0xe70f, 0xa329, 0x7e14, 0x54ad,
-    0x84df, 0x4f76, 0x366f, 0x2b16, 0x3579, 0x1fdf, 0x00d7, 0x1331};
-
-__device__ __forceinline__ void load_row(const Operands& o, int k, long long lane, int n,
-                                         uint32_t* v) {
-  const int64_t* row = o.ptr[k] + lane * o.stride[k];
-#pragma unroll
-  for (int i = 0; i < n; ++i) v[i] = limb_at(row, i, o.width[k]);
+// t += a * b for 64-bit a = (a0, a1), b = (b0, b1) and a five-word t that
+// stays below 2^160 (a t_k is below 2^130): the limb products' words in
+// three carry chains, each carry into t[4]
+__device__ __forceinline__ void mac64(uint32_t a0, uint32_t a1, uint32_t b0, uint32_t b1,
+                                      uint32_t t[5]) {
+  t[0] = ptx::mad_lo_cc(a0, b0, t[0]);
+  t[1] = ptx::madc_hi_cc(a0, b0, t[1]);
+  t[2] = ptx::madc_lo_cc(a1, b1, t[2]);
+  t[3] = ptx::madc_hi_cc(a1, b1, t[3]);
+  t[4] = ptx::addc(t[4], 0u);
+  t[1] = ptx::mad_lo_cc(a0, b1, t[1]);
+  t[2] = ptx::madc_hi_cc(a0, b1, t[2]);
+  t[3] = ptx::addc_cc(t[3], 0u);
+  t[4] = ptx::addc(t[4], 0u);
+  t[1] = ptx::mad_lo_cc(a1, b0, t[1]);
+  t[2] = ptx::madc_hi_cc(a1, b0, t[2]);
+  t[3] = ptx::addc_cc(t[3], 0u);
+  t[4] = ptx::addc(t[4], 0u);
 }
 
-// (x + y) mod p for canonical x, y: the 17-limb sum, p subtracted unless
-// that borrows (K3's FR_ADD)
-__device__ __forceinline__ void fr_add16(const uint32_t x[16], const uint32_t y[16],
-                                         uint32_t out[16]) {
-  uint32_t s[17];
-  uint32_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const uint32_t v = x[k] + y[k] + carry;
-    s[k] = v & LIMB_MASK;
-    carry = v >> LIMB_BITS;
-  }
-  s[16] = carry;
-  uint32_t d[17];
-  int borrow = 0;
-#pragma unroll
-  for (int k = 0; k < 17; ++k) {
-    const int v = (int)s[k] - (int)c_p17[k] - borrow;
-    d[k] = (uint32_t)v & LIMB_MASK;
-    borrow = v < 0;
-  }
-#pragma unroll
-  for (int k = 0; k < 16; ++k) out[k] = borrow ? s[k] : d[k];
+// L = lo + hi * 2^64 for five-word lo, hi (below 2^195: exact in 8 words)
+__device__ __forceinline__ void pair_sum(const uint32_t lo[5], const uint32_t hi[5],
+                                         uint32_t L[8]) {
+  L[0] = lo[0];
+  L[1] = lo[1];
+  L[2] = ptx::add_cc(lo[2], hi[0]);
+  L[3] = ptx::addc_cc(lo[3], hi[1]);
+  L[4] = ptx::addc_cc(lo[4], hi[2]);
+  L[5] = ptx::addc_cc(0u, hi[3]);
+  L[6] = ptx::addc_cc(0u, hi[4]);
+  L[7] = ptx::addc(0u, 0u);
 }
 
-// (x - y) mod p for canonical x, y: the 16-limb difference, p added back
-// under borrow (K3's FR_SUB)
-__device__ __forceinline__ void fr_sub16(const uint32_t x[16], const uint32_t y[16],
-                                         uint32_t out[16]) {
-  int borrow = 0;
+// out = x * 2^-128 mod p, canonical, for x < 2^256: mont_mul(2^128, x),
+// whose wide product is x moved up four words
+__device__ __forceinline__ void mul_inv128(const uint32_t x[8], uint32_t out[8]) {
+  uint32_t t[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const int v = (int)x[k] - (int)y[k] - borrow;
-    out[k] = (uint32_t)v & LIMB_MASK;
-    borrow = v < 0;
+  for (int k = 0; k < 16; ++k) t[k] = (k >= 4 && k < 12) ? x[k - 4] : 0u;
+  mont_reduce(t, out);
+}
+
+// the carry of one 128-bit half: carry = (lhs - rhs) * 2^-128 (mod p)
+__device__ __forceinline__ void carry_of(const uint32_t lhs[8], const uint32_t rhs[8],
+                                         uint32_t carry[8]) {
+  uint32_t diff[8];
+  mont_sub(lhs, rhs, diff);
+  mul_inv128(diff, carry);
+}
+
+// the half's equality lhs == rhs + carry * 2^128 (mod p)
+__device__ __forceinline__ bool equality(const uint32_t lhs[8], const uint32_t rhs[8],
+                                         const uint32_t carry[8]) {
+  uint32_t pow128[8], back[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) pow128[k] = c_wm_pow128[k];
+  mont_mul(pow128, carry, back);
+  mont_add(rhs, back, back);
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) ok = ok && lhs[k] == back[k];
+  return ok;
+}
+
+__device__ __forceinline__ bool below_2_72(const uint32_t v[8]) {
+  bool ok = v[2] < 256u;
+#pragma unroll
+  for (int k = 3; k < 8; ++k) ok = ok && v[k] == 0u;
+  return ok;
+}
+
+__device__ __forceinline__ void load_words(const uint32_t* row, int n, uint32_t* w) {
+#pragma unroll
+  for (int k = 0; k < n; ++k) w[k] = row[k];
+}
+
+template <bool WIDE, int TILE>
+__global__ void __launch_bounds__(WORDMUL_THREADS) mul_add_words_kernel(Args g) {
+  __shared__ uint32_t sq[N_QUARTER_ROWS * TILE * QUARTER_PITCH];
+  __shared__ uint32_t sf[N_FIELD_ROWS * TILE * FIELD_PITCH];
+  __shared__ uint32_t so[WIDE ? 1 : TILE * FIELD_PITCH];
+  const long long base = (long long)blockIdx.x * TILE;
+  const int lanes = (int)min((long long)TILE, g.batch - base);
+#pragma unroll
+  for (int r = 0; r < N_QUARTER_ROWS; ++r)
+    stage_rows(g.row[r], reinterpret_cast<uint16_t*>(sq + r * TILE * QUARTER_PITCH), base, lanes,
+               2 * QUARTER_PITCH, QUARTER_LIMBS);
+#pragma unroll
+  for (int r = 0; r < (WIDE ? N_FIELD_ROWS : N_FIELD_ROWS - 2); ++r)
+    stage_rows(g.row[N_QUARTER_ROWS + r], reinterpret_cast<uint16_t*>(sf + r * TILE * FIELD_PITCH),
+               base, lanes, 2 * FIELD_PITCH, 16);
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const long long n = g.batch;
+  auto field = [&](int r, int lane) {
+    return sf + r * TILE * FIELD_PITCH +
+           (g.row[N_QUARTER_ROWS + r].stride == 0 ? 0 : lane * FIELD_PITCH);
+  };
+  // half h's rhs row (d_lo, d_hi in variant 256; e_lo, e_hi, d_lo in 512)
+  // and its equality's verdict row
+  auto rhs_row = [](int h) { return WIDE ? (h == 2 ? 2 : 4 + h) : 2 + h; };
+  auto eq_row = [](int h) { return WIDE ? 3 + h : 2 + h; };
+  if (t < lanes) {
+    auto quarter = [&](int r) {
+      return sq + r * TILE * QUARTER_PITCH + (g.row[r].stride == 0 ? 0 : t * QUARTER_PITCH);
+    };
+    // the quarters as word pairs: a64_i = (A[2i], A[2i + 1]); lo's words
+    // 0..3, then hi's
+    uint32_t A[8], B[8];
+    load_words(quarter(0), 4, A);
+    load_words(quarter(1), 4, A + 4);
+    load_words(quarter(2), 4, B);
+    load_words(quarter(3), 4, B + 4);
+    uint32_t tk[7][5];
+#pragma unroll
+    for (int k = 0; k < 7; ++k)
+#pragma unroll
+      for (int m = 0; m < 5; ++m) tk[k][m] = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mac64(A[2 * i], A[2 * i + 1], B[2 * j], B[2 * j + 1], tk[i + j]);
+
+    uint8_t* ok = g.ok + base + t;
+    // half h: its carry against its rhs row, the range check and the equality
+    auto half = [&](int h, const uint32_t lhs[8], uint32_t carry[8]) {
+      uint32_t rhs[8];
+      load_words(field(rhs_row(h), t), 8, rhs);
+      carry_of(lhs, rhs, carry);
+      ok[h * n] = below_2_72(carry);
+      ok[eq_row(h) * n] = equality(lhs, rhs, carry);
+    };
+    uint32_t x[8], y[8], lhs[8], carry0[8], carry1[8];
+    // lhs_lo = L0 + c_lo
+    pair_sum(tk[0], tk[1], x);
+    load_words(field(0, t), 8, y);
+    mont_add(x, y, lhs);
+    half(0, lhs, carry0);
+    // lhs_hi = L1 + c_hi + carry_lo
+    pair_sum(tk[2], tk[3], x);
+    load_words(field(1, t), 8, y);
+    mont_add(x, y, x);
+    mont_add(x, carry0, lhs);
+    half(1, lhs, carry1);
+    if constexpr (!WIDE) {
+      // overflow = carry_hi + (t4 + t5 + t6), the sum exact (< 2^132)
+      uint32_t s[8];
+      s[0] = ptx::add_cc(tk[4][0], tk[5][0]);
+#pragma unroll
+      for (int m = 1; m < 5; ++m) s[m] = ptx::addc_cc(tk[4][m], tk[5][m]);
+      s[5] = ptx::addc(0u, 0u);
+      s[0] = ptx::add_cc(s[0], tk[6][0]);
+#pragma unroll
+      for (int m = 1; m < 5; ++m) s[m] = ptx::addc_cc(s[m], tk[6][m]);
+      s[5] = ptx::addc(s[5], 0u);
+      s[6] = s[7] = 0u;
+      mont_add(carry1, s, s);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) so[t * FIELD_PITCH + k] = s[k];
+    } else {
+      // lhs2 = L2 + carry_1; t6 + carry_2 == d_hi
+      uint32_t carry2[8];
+      pair_sum(tk[4], tk[5], x);
+      mont_add(x, carry1, lhs);
+      half(2, lhs, carry2);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = k < 5 ? tk[6][k] : 0u;
+      mont_add(x, carry2, x);
+      load_words(field(3, t), 8, y);
+      bool top = true;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) top = top && x[k] == y[k];
+      ok[6 * n] = top;
+    }
   }
-  if (borrow) {
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const uint32_t v = out[k] + c_p17[k] + carry;
-      out[k] = v & LIMB_MASK;
-      carry = v >> LIMB_BITS;
+  if constexpr (!WIDE) {
+    __syncthreads();
+    // the overflow rows, 16 limbs a lane: limbs 2j and 2j + 1 are the
+    // halves of word j, one 16-byte store
+    int64_t* dst = g.overflow + base * 16;
+    const int total = lanes * 16;
+#pragma unroll 4
+    for (int f = 2 * t; f < total; f += 2 * WORDMUL_THREADS) {
+      const uint32_t w = so[(f >> 4) * FIELD_PITCH + ((f & 15) >> 1)];
+      const int64_t v0 = w & LIMB_MASK, v1 = w >> LIMB_BITS;
+      if (g.overflow_vec) {
+        *reinterpret_cast<longlong2*>(dst + f) = make_longlong2(v0, v1);
+      } else {
+        dst[f] = v0;
+        dst[f + 1] = v1;
+      }
     }
   }
 }
 
-// (x * c) mod p for a canonical x and a constant c (K1's arithmetic)
-__device__ __forceinline__ void fr_mul_const(const uint32_t x[16], const uint32_t* c,
-                                             uint32_t out[16]) {
-  uint32_t cv[16], w[32];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) cv[k] = c[k];
-  fr_product(x, cv, 0u, w);
-  fr_barrett(w, out);
-}
-
-__device__ __forceinline__ bool below_2_72(const uint32_t v[16]) {
-  bool ok = v[4] < 256u;
-#pragma unroll
-  for (int k = 5; k < 16; ++k) ok = ok && v[k] == 0u;
-  return ok;
-}
-
-__device__ __forceinline__ bool equal16(const uint32_t x[16], const uint32_t y[16]) {
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) ok = ok && x[k] == y[k];
-  return ok;
-}
-
-// carry ripple of non-negative 64-bit columns into 16 canonical limbs
-__device__ __forceinline__ void ripple(const uint64_t cols[16], uint32_t out[16]) {
-  uint64_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    acc += cols[k];
-    out[k] = (uint32_t)acc & LIMB_MASK;
-    acc >>= LIMB_BITS;
-  }
-}
-
-// the carry of one 128-bit half: carry = (lhs - rhs) * 2^-128, and the
-// equality lhs == rhs + carry * 2^128 (both mod p); carry * 2^128 is the
-// carry's limbs moved up by eight, then reduced
-__device__ __forceinline__ void half_carry(const uint32_t lhs[16], const uint32_t rhs[16],
-                                           uint32_t carry[16], bool* eq) {
-  uint32_t diff[16], wide[32], shifted[16], back[16];
-  fr_sub16(lhs, rhs, diff);
-  fr_mul_const(diff, c_inv128, carry);
-#pragma unroll
-  for (int k = 0; k < 32; ++k) wide[k] = (k >= 8 && k < 24) ? carry[k - 8] : 0u;
-  fr_barrett(wide, shifted);
-  fr_add16(rhs, shifted, back);
-  *eq = equal16(lhs, back);
-}
-
 template <bool WIDE>
-__global__ void __launch_bounds__(THREADS_PER_BLOCK)
-mul_add_words_kernel(Operands o, uint8_t* __restrict__ ok, int64_t* __restrict__ overflow,
-                     long long batch) {
-  long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-
-  // the quarters: limbs 0..7 of lo, then limbs 0..7 of hi
-  uint32_t A[16], B[16];
-  load_row(o, 0, lane, 8, A);
-  load_row(o, 1, lane, 8, A + 8);
-  load_row(o, 2, lane, 8, B);
-  load_row(o, 3, lane, 8, B + 8);
-
-  // t_k's columns: col[k][m] = sum over i + j = k of limb products of
-  // quarter i of a and quarter j of b at column m
-  uint64_t col[7][8];
-#pragma unroll
-  for (int k = 0; k < 7; ++k)
-#pragma unroll
-    for (int m = 0; m < 8; ++m) col[k][m] = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) col[i + j][u + v] += (uint64_t)A[4 * i + u] * B[4 * j + v];
-
-  // L_h = t_{2h} + t_{2h+1} * 2^64
-  uint32_t L[3][16];
-#pragma unroll
-  for (int h = 0; h < (WIDE ? 3 : 2); ++h) {
-    uint64_t cols[16];
-#pragma unroll
-    for (int m = 0; m < 16; ++m)
-      cols[m] = (m < 8 ? col[2 * h][m] : 0) + (m >= 4 && m < 12 ? col[2 * h + 1][m - 4] : 0);
-    ripple(cols, L[h]);
+cudaError_t launch(const Args& g, cudaStream_t stream) {
+  if (g.batch < WORDMUL_SMALL_BATCH) {
+    const unsigned blocks = (unsigned)((g.batch + WORDMUL_SMALL_TILE - 1) / WORDMUL_SMALL_TILE);
+    mul_add_words_kernel<WIDE, WORDMUL_SMALL_TILE><<<blocks, WORDMUL_THREADS, 0, stream>>>(g);
+  } else {
+    const unsigned blocks = (unsigned)((g.batch + WORDMUL_TILE - 1) / WORDMUL_TILE);
+    mul_add_words_kernel<WIDE, WORDMUL_TILE><<<blocks, WORDMUL_THREADS, 0, stream>>>(g);
   }
-
-  uint32_t c_lo[16], c_hi[16], lo[16], hi[16];   // lo/hi: d (variant 256) or e (512)
-  load_row(o, 4, lane, 16, c_lo);
-  load_row(o, 5, lane, 16, c_hi);
-  load_row(o, WIDE ? 8 : 6, lane, 16, lo);
-  load_row(o, WIDE ? 9 : 7, lane, 16, hi);
-
-  uint32_t lhs0[16], lhs1[16], t[16], carry0[16], carry1[16];
-  bool eq0, eq1;
-  fr_add16(L[0], c_lo, lhs0);
-  half_carry(lhs0, lo, carry0, &eq0);
-  fr_add16(L[1], c_hi, t);
-  fr_add16(t, carry0, lhs1);
-  half_carry(lhs1, hi, carry1, &eq1);
-
-  if (!WIDE) {
-    ok[lane] = below_2_72(carry0);
-    ok[batch + lane] = below_2_72(carry1);
-    ok[2 * batch + lane] = eq0;
-    ok[3 * batch + lane] = eq1;
-    // overflow = carry_hi + t4 + t5 + t6
-    uint64_t cols[16];
-#pragma unroll
-    for (int m = 0; m < 16; ++m) cols[m] = m < 8 ? col[4][m] + col[5][m] + col[6][m] : 0;
-    uint32_t s[16], of[16];
-    ripple(cols, s);
-    fr_add16(carry1, s, of);
-    int64_t* out = overflow + lane * 16;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) out[k] = (int64_t)of[k];
-    return;
-  }
-
-  uint32_t d_lo[16], d_hi[16], lhs2[16], carry2[16];
-  bool eq2;
-  load_row(o, 6, lane, 16, d_lo);
-  load_row(o, 7, lane, 16, d_hi);
-  fr_add16(L[2], carry1, lhs2);
-  half_carry(lhs2, d_lo, carry2, &eq2);
-  // t6 + carry_2 == d_hi
-  uint64_t cols[16];
-#pragma unroll
-  for (int m = 0; m < 16; ++m) cols[m] = m < 8 ? col[6][m] : 0;
-  uint32_t t6[16], top[16];
-  ripple(cols, t6);
-  fr_add16(t6, carry2, top);
-  ok[lane] = below_2_72(carry0);
-  ok[batch + lane] = below_2_72(carry1);
-  ok[2 * batch + lane] = below_2_72(carry2);
-  ok[3 * batch + lane] = eq0;
-  ok[4 * batch + lane] = eq1;
-  ok[5 * batch + lane] = eq2;
-  ok[6 * batch + lane] = equal16(top, d_hi);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -266,18 +317,17 @@ mul_add_words_kernel(Operands o, uint8_t* __restrict__ ok, int64_t* __restrict__
 extern "C" int mul_add_words_launch(int wide, const long long* desc, void* ok, void* overflow,
                                     long long batch, void* stream) {
   if (batch <= 0) return 0;
-  Operands o;
+  Args g;
   for (int k = 0; k < N_OPERANDS; ++k) {
-    o.ptr[k] = (const int64_t*)desc[k];
-    o.stride[k] = desc[N_OPERANDS + k];
-    o.width[k] = (int)desc[2 * N_OPERANDS + k];
+    const int n = (int)desc[2 * N_OPERANDS + k];
+    if (n < 1 || n > 16 || desc[N_OPERANDS + k] < 0) return (int)cudaErrorInvalidValue;
+    g.row[k] = staged_row((const void*)desc[k], desc[N_OPERANDS + k], n,
+                          k < N_QUARTER_ROWS ? QUARTER_LIMBS : 16);
   }
-  if (wide) {
-    mul_add_words_kernel<true><<<grid_for(batch), THREADS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        o, (uint8_t*)ok, (int64_t*)overflow, batch);
-  } else {
-    mul_add_words_kernel<false><<<grid_for(batch), THREADS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        o, (uint8_t*)ok, (int64_t*)overflow, batch);
-  }
-  return (int)cudaGetLastError();
+  g.ok = (uint8_t*)ok;
+  g.overflow = (int64_t*)overflow;
+  g.overflow_vec = ((uintptr_t)overflow & 15) == 0;
+  g.batch = batch;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(wide ? launch<true>(g, s) : launch<false>(g, s));
 }

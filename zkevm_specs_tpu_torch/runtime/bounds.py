@@ -1,16 +1,21 @@
 """The least time the card could take for a kernel's work: the card's
-peaks and the cost models of K1 (``fr_mul``) and K7 (``keccak_sponge``).
+peaks and the cost models of K1 (``fr_mul``), K6 (``lookup_search_eq``
+and its fingerprint entry), K7 (``keccak_sponge``) and K11
+(``mul_add_words``).
 
-``chip_smoke.py`` and ``profile_replay.py`` (its ``--keccak`` and
-``--frmul`` modes) read their bounds from here, so both state the same
-model.  A bound is the larger of the bytes a call must move over the
-memory rate and the int32 operations it must issue over the card's
-integer rate; K7's also takes its chain, the dependent steps of its
-longest row at ``DEP_LATENCY_CYCLES`` each.
+``chip_smoke.py`` and ``profile_replay.py`` (its ``--keccak``,
+``--frmul``, ``--search`` and ``--wordmul`` modes) read their bounds from
+here, so both state the same model.  A bound is the larger of the bytes a
+call must move over the memory rate and the int32 operations it must
+issue over the card's integer rate; K7's and K11's also take their chain,
+the dependent steps of one row or lane at ``DEP_LATENCY_CYCLES`` each.
 """
 import subprocess
 
+import torch
+
 from ..ops import keccak as keccak_ops
+from ..tables import engine
 
 # H100 SXM peaks used for the bounds: HBM3 3.35 TB/s (data sheet); int32
 # ALU issue 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 1.673e13 op/s
@@ -34,6 +39,16 @@ def bound(bytes_moved, int_ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = int_ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_bound(bound_ms, bound_by, chain_ms):
+    """(bound_ms, bound_by, bound_kind): a ``bound`` with a chain term, the
+    dependent steps of one row or lane.  ``bound_ms`` is the larger;
+    ``bound_by`` names a chain "operations" (it is dependent ones), and
+    ``bound_kind`` says which of bytes, operations and chain sets it."""
+    if chain_ms > bound_ms:
+        return chain_ms, "operations", "chain"
+    return bound_ms, bound_by, bound_by
 
 
 # The least work of one BN254-Fr product on the card's 32-bit integer
@@ -120,3 +135,100 @@ def sponge_chain_ms(longest, clock_hz):
     """K7's chain bound: the longest row's blocks x 24 rounds x
     K7_ROUND_CHAIN dependent instructions at DEP_LATENCY_CYCLES each."""
     return longest * 24 * K7_ROUND_CHAIN * DEP_LATENCY_CYCLES / clock_hz * 1e3
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# K6: the fingerprint entry and the search, for this run's data
+
+def fingerprint_cost(shapes):
+    """(bytes, int32 operations) of K6's fingerprint entry on parts of
+    ``[T, w]`` shapes: every limb read once, one u64 fingerprint written, a
+    64-bit multiply-add (eight int32 instructions) per limb."""
+    T = shapes[0][0]
+    limbs = sum(w for _, w in shapes)
+    return T * limbs * 8 + T * 8, T * limbs * 8
+
+
+def search_cost(args):
+    """(bytes, int32 operations, candidates scanned) of one K6 search, for
+    this run's data: the query read once, the binary search's keys (at most
+    every key once), then the candidates that share the query's
+    fingerprint (at most ``max_span`` a lane), each slot's key, row index
+    and row gathered and compared once, and the four outputs; a
+    multiply-add a query limb, three operations a search step, two a
+    compared limb."""
+    query, table, coefs, fps, order, max_span, batch = args
+    T = fps.shape[0]
+    qfp = engine.fingerprint_plain(query, coefs).expand(batch).contiguous()
+    keys, qkeys = fps ^ engine._SIGN, qfp ^ engine._SIGN
+    left = torch.searchsorted(keys, qkeys, side="left")
+    right = torch.searchsorted(keys, qkeys, side="right")
+    scanned = int((right - left).clamp(max=max_span).sum())
+    row_bytes = sum(8 * t.shape[1] for t in table)
+    steps = max(1, (T - 1).bit_length())
+    moved = (sum(nbytes(q) for q in query) + min(T, batch * steps) * 8
+             + scanned * (8 + row_bytes) + batch * (4 + 3))
+    ops = batch * (8 * sum(q.shape[1] for q in query) + 3 * steps) + scanned * 2 * (row_bytes // 8)
+    return moved, ops, scanned
+
+
+# K11: the least work of one lane on 32-bit words, independent of the
+# kernel.  The seven t_k take the 64 limb products of two 256-bit words (a
+# mad.lo and a mad.hi each) and two carry words for each of the 16 64-bit
+# pair products; L_h = t_2h + t_2h+1 * 2^64 overlaps in three words and
+# carries two; an Fr add or subtract is an 8-word carry chain, p taken off
+# or put back, and a select or a mask a word; a product by 2^-128 is a
+# field product by a one-word operand (2^-128 in Montgomery form is 2^128,
+# one nonzero word: fr_product_ops(8, 1)); the 256 variant's t4 + t5 + t6
+# two five-word adds; a range check below 2^72 one compare and five zero
+# tests, the 512 variant's t6 + carry_2 == d_hi eight compares.  The
+# equalities' product by 2^128 and its Fr add are not counted: in the field
+# they hold for every canonical input, so the least work writes them true.
+WORD_PRODUCT_OPS = 2 * 64 + 2 * 16
+PAIR_SUM_OPS = 3 + 2
+FR_ADD_OPS = FR_SUB_OPS = 3 * 8
+INV128_OPS = fr_product_ops(8, 1)
+BELOW_2_72_OPS = 1 + 5
+WORD_MUL_LANE_OPS = {
+    False: (WORD_PRODUCT_OPS + 2 * PAIR_SUM_OPS + 4 * FR_ADD_OPS + 2 * FR_SUB_OPS
+            + 2 * INV128_OPS + 2 * 5 + 2 * BELOW_2_72_OPS),
+    True: (WORD_PRODUCT_OPS + 3 * PAIR_SUM_OPS + 5 * FR_ADD_OPS + 3 * FR_SUB_OPS
+           + 3 * INV128_OPS + 3 * BELOW_2_72_OPS + 8),
+}
+# One lane's least dependent steps (each issued a step after its last
+# operand): a t_k a product and a five-word carry chain (6); L_h its
+# overlap's chain (5); an Fr add its chain, the borrow of s - p one step
+# behind and the select (10); an Fr subtract likewise: d = x - y, d + p one
+# step behind and the select on the borrow (10); a product by 2^-128 the
+# product (1), the four rounds of its reduction whose word is nonzero
+# (three each: m, its low product, the carry into the next word), then the
+# high half added with p taken off once, one Fr add (10).  The 256 variant
+# runs t, L0, + c_lo, - d_lo, * 2^-128, + carry_lo (L1 + c_hi formed
+# beside it), - d_hi, * 2^-128, + (t4 + t5 + t6): 107 steps; the 512
+# variant the same up to carry_hi, then + L2, - d_lo, * 2^-128, + t6: 150.
+CHAIN_T, CHAIN_PAIR, CHAIN_ADD, CHAIN_SUB = 6, 5, 8 + 1 + 1, 8 + 1 + 1
+CHAIN_INV128 = 1 + 4 * 3 + CHAIN_ADD
+_HALF = CHAIN_ADD + CHAIN_SUB + CHAIN_INV128
+WORD_MUL_CHAIN = {False: CHAIN_T + CHAIN_PAIR + 2 * _HALF + CHAIN_ADD,
+                  True: CHAIN_T + CHAIN_PAIR + 3 * _HALF + CHAIN_ADD}
+
+
+def word_mul_cost(shapes, wide):
+    """(bytes, int32 operations) of K11 on limb rows of ``[B|1, w]``
+    shapes: every row read once (a, b only in the eight limbs of their
+    quarters; a [1, w] constant row once in all), the verdict bytes and the
+    256 variant's 16 overflow limbs written once, and
+    ``WORD_MUL_LANE_OPS`` a lane."""
+    batch = max(n for n, _ in shapes)
+    moved = sum(n * min(w, 8 if k < 4 else 16) * 8 for k, (n, w) in enumerate(shapes))
+    moved += batch * (7 if wide else 4) + (0 if wide else batch * 16 * 8)
+    return moved, batch * WORD_MUL_LANE_OPS[bool(wide)]
+
+
+def word_mul_chain_ms(wide, clock_hz):
+    """K11's chain bound: one lane's WORD_MUL_CHAIN dependent steps at
+    DEP_LATENCY_CYCLES each and the card's top clock."""
+    return WORD_MUL_CHAIN[bool(wide)] * DEP_LATENCY_CYCLES / clock_hz * 1e3

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -57,6 +57,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "lookup_search_eq_launch": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I64, _I32, _P, _P, _I64, _P],
         "lookup_fingerprint_launch": [_I32, _P, _P, _P, _P, _P, _I64, _P],
+        "lookup_search_eq_path_launches": [_P, _P, _P],
     },
     "keccak_sponge": {
         "keccak_sponge_launch": [_P, _I64, _P, _P, _I64, _P],
@@ -206,19 +207,32 @@ def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
 
 # the paths of each kernel whose launcher picks one, in the order its C
 # entry ``<name>_path_launches`` reports their launches
-PATHS: Dict[str, tuple] = {"limb_addsub": ("staged", "direct"), "keccak_sponge": ("row", "warp")}
+PATHS: Dict[str, tuple] = {"limb_addsub": ("staged", "direct"), "keccak_sponge": ("row", "warp"),
+                           "lookup_search_eq": ("tile", "warp", "row")}
 
 
 def path_launches(name: str) -> Dict[str, int]:
     """The launches of each path of a kernel whose launcher picks one
     (``PATHS``: ``{"staged": n, "direct": m}`` for K3, ``{"row": n,
-    "warp": m}`` for K7), as its C entry counts them since the library
-    loaded; zeros before it loads."""
+    "warp": m}`` for K7, ``{"tile": n, "warp": m, "row": k}`` for K6's
+    search), as
+    its C entry counts them since the library loaded; zeros before it
+    loads."""
     lib = _LIBS.get(name)
     counts = [ctypes.c_longlong() for _ in PATHS[name]]
     if lib is not None:
         getattr(lib, f"{name}_path_launches")(*map(ctypes.byref, counts))
     return {path: c.value for path, c in zip(PATHS[name], counts)}
+
+
+def path_taken(name: str, call: Callable[[], object]) -> str:
+    """The path of kernel ``name`` (``PATHS``) that ``call`` launched: the
+    one whose count moved across it."""
+    before = path_launches(name)
+    call()
+    after = path_launches(name)
+    (path,) = [p for p in after if after[p] > before[p]]
+    return path
 
 
 def _load(name: str, so: Path) -> ctypes.CDLL:
