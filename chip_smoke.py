@@ -72,7 +72,9 @@ script exits non-zero):
    and the table columns ``prepare`` uploaded, every family the JAX
    package's ShardedBlockVerifier names (rw, bytecode, tx, block, exp, ...)
    with the counts set to 0 just before and read just after, each family's
-   rows, queries, host seconds and check time, true on the clean block;
+   rows, queries, host seconds, check time and the port's launches of one
+   check (``check_launches``: one K2 normalise-and-reduce launch, no K2
+   product), true on the clean block;
    false with an over-counted multiplicity and with a corrupted rw value;
    an alpha equal to a table fingerprint giving a zero partial sum on the
    card and in the plain version; and on the small block the same
@@ -94,7 +96,15 @@ script exits non-zero):
    each, its bound at the least work on 32-bit words with a chain term
    (``runtime/bounds.py:word_mul_cost``, ``word_mul_chain_ms``); K2 has
    its row at the arithmetic block's widest shape, since the MUL group no
-   longer launches it).  K8 at the ALU block's 66001 steps is
+   longer launches it, and every distinct shape of that pass in its
+   ``path_shapes``, each also held against Python ints).  K2's
+   normalise-and-reduce entry (``limb_reduce``) at the logUp sides'
+   ``[2, 16]`` (keep 17, reduced) and at ``[2, 32]`` (keep 32, reduced
+   and rippled alone), and at every shape the logUp checks give it, each
+   against Python ints, its bound the larger of its bytes and its chain
+   (``runtime/bounds.py:reduce_chain``).  K5 at both state mixes' 2^19
+   rows and at both blocks' 528369, each also against the keys compared
+   on Python ints.  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    2048 steps of the same rows (1024 at the block verifier's table), which
    the line says; at every K8 shape of every path the whole output is
@@ -165,8 +175,8 @@ from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
     DEP_LATENCY_CYCLES, HBM_BYTES_PER_S, K7_ROUND_CHAIN, WORD_MUL_CHAIN, bound, chain_bound,
-    fingerprint_cost,
-    fr_mul_cost, fr_product_ops, nbytes, search_cost, sm_clock_max_hz, sponge_chain_ms,
+    fingerprint_cost, fr_mul_cost, fr_product_ops, limb_mul_cost, nbytes, order_cost,
+    reduce_chain, reduce_chain_ms, reduce_cost, search_cost, sm_clock_max_hz, sponge_chain_ms,
     sponge_cost, word_mul_chain_ms, word_mul_cost)
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
@@ -204,15 +214,18 @@ SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against th
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
-KERNELS = ("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
-           "lookup_search_eq", "lookup_fingerprint", "keccak_sponge", "horner_rlc",
-           "leaf_unpack", "verdict_pack", "mul_add_words", "fr_inv", "logup_sum")
+KERNELS = ("fr_mul", "limb_mul", "limb_reduce", "limb_addsub", "lookup_gather_eq",
+           "state_order_lt", "lookup_search_eq", "lookup_fingerprint", "keccak_sponge",
+           "horner_rlc", "leaf_unpack", "verdict_pack", "mul_add_words", "fr_inv", "logup_sum")
 SOURCES = {name: f"zkevm_specs_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 SOURCES["lookup_fingerprint"] = "zkevm_specs_tpu_torch/csrc/lookup_search_eq.cu"
+SOURCES["limb_reduce"] = "zkevm_specs_tpu_torch/csrc/limb_mul.cu"
 REPLACES = {
     "fr_mul": "zkevm_specs_tpu/ops/fr.py:97 (mul -> reduce_wide :43; retired Pallas "
               "fr_mul_pallas, ops/pallas_fr.py:146 before 8a07970)",
     "limb_mul": "zkevm_specs_tpu/ops/limbs.py:277 (mul, with carry_propagate :197)",
+    "limb_reduce": "zkevm_specs_tpu/ops/limbs.py:197 (carry_propagate) with ops/fr.py:43 "
+                   "(reduce_wide), as parallel/logup_shard.py:153-154 composes them",
     "limb_addsub": "zkevm_specs_tpu/ops/limbs.py:228 (add/sub :228-252; fr.py:66-94 "
                    "add/sub/neg/reduce_once)",
     "lookup_gather_eq": "zkevm_specs_tpu/tables/engine.py:199 (Table.lookup hint replay, "
@@ -255,7 +268,7 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "arith": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
                           "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words"),
-                "logup": ("lookup_gather_eq", "fr_mul", "limb_mul", "limb_addsub", "fr_inv",
+                "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
 
 
@@ -408,6 +421,18 @@ def search_key(args):
     return shapes(query), shapes(table), fps.shape[0], max_span, batch
 
 
+def mul_key(args):
+    """K2's (operand shapes, row strides, out_n): one capture for each."""
+    a, b, out_n = args
+    return shapes((a, b)), L.row_stride(a), L.row_stride(b), out_n
+
+
+def reduce_key(args):
+    """K2's normalise-and-reduce entry: (shape, row stride, keep, reduce)."""
+    x, keep, reduce = args
+    return tuple(x.shape), x.stride(0), keep, bool(reduce)
+
+
 def word_mul_key(args):
     """K11's (variant, row shapes): one capture for each."""
     return (len(args) > 1 and bool(args[1]), shapes(args[0]))
@@ -421,7 +446,8 @@ COUNT = "__count__"
 # module, attribute, key of a distinct shape)
 BLOCK_CAPTURES = (
     ("fr_mul", fr, "fr_mul", lambda a: shapes(a)),
-    ("limb_mul", L, "limb_mul", lambda a: (shapes(a[:2]), a[2])),
+    ("limb_mul", L, "limb_mul", mul_key),
+    ("limb_reduce", L, "limb_reduce", reduce_key),
     ("limb_addsub", L, "limb_addsub", addsub_key),
     ("lookup_gather_eq", engine, "lookup_gather_eq", gather_key),
     ("state_order_lt", state, "state_order_lt", lambda a: shapes(a)),
@@ -1003,7 +1029,8 @@ def logup_limbs(bv, prepared):
 # and the partial sum as logup_shard calls them)
 LOGUP_CAPTURES = (
     ("fr_mul", fr, "fr_mul", lambda a: shapes(a)),
-    ("limb_mul", L, "limb_mul", lambda a: (shapes(a[:2]), a[2])),
+    ("limb_mul", L, "limb_mul", mul_key),
+    ("limb_reduce", L, "limb_reduce", reduce_key),
     ("limb_addsub", L, "limb_addsub", addsub_key),
     ("lookup_gather_eq", logup_shard, "lookup_gather_eq", gather_key),
     ("fr_inv", fr, "inv", lambda a: shapes(a)),
@@ -1069,15 +1096,22 @@ def run_logup(path, bv, prepared, card):
         torch.cuda.synchronize()
         inputs_s = time.perf_counter() - t0
         args = (inp["query_fps"], inp["query_en"], inp["parts"], inp["multiplicities"], logup_shard.ALPHA)
+        before = dict(L.LAUNCHES)
         ok = logup_shard.sharded_logup_check(*args)
+        torch.cuda.synchronize()
+        check_launches = {k: L.LAUNCHES[k] - before.get(k, 0) for k in KERNELS
+                          if L.LAUNCHES[k] != before.get(k, 0)}
         assert ok, f"{path}: logUp of {name} failed on the clean block"
+        assert check_launches.get("limb_reduce") == 1 and "limb_mul" not in check_launches, \
+            f"{path}: the {name} check launched {check_launches}"
         check_ms = time_on_card_ms(lambda: logup_shard.sharded_logup_check(*args), repeats=10,
                                    warmup=1)
         out["families"][name] = {
             "rows": inp["n_rows"], "queries": inp["n_queries"],
             "enabled_queries": int(inp["query_en"].sum()), "host_s": inp["host_s"],
             "inputs_s": inputs_s, "parts_from_prepare": parts is not None,
-            "check_ms_median": check_ms, "ok": ok}
+            "check_ms_median": check_ms, "check_launches": check_launches,
+            "check_launches_total": sum(check_launches.values()), "ok": ok}
         if name == "rw":
             rw = inp
 
@@ -1194,10 +1228,15 @@ def block_path_shapes(calls, label):
             plain_repeats=3), **pass_of(label, kw)})
     for args, kw in calls.get("limb_mul", []):
         a, b, out_n = args
-        rows_n = max(a.shape[0], b.shape[0])
-        add("limb_mul", kw, lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
-            (nbytes(a, b) + rows_n * out_n * 8, rows_n * (2 * a.shape[1] * b.shape[1] + 3 * out_n)),
-            f"{list(a.shape)} x {list(b.shape)} -> {out_n} limbs")
+        out.setdefault("limb_mul", []).append({**limb_mul_entry(
+            a, b, out_n, f"{label}: {list(a.shape)} x {list(b.shape)} -> {out_n} limbs, strides "
+            f"{L.row_stride(a)} {L.row_stride(b)}", kernel_repeats=BLOCK_SHAPE_REPEATS,
+            plain_repeats=3), **pass_of(label, kw)})
+    for (x, keep, reduce), kw in calls.get("limb_reduce", []):
+        out.setdefault("limb_reduce", []).append({**limb_reduce_entry(
+            x, keep, reduce, f"{label}: {list(x.shape)} -> keep {keep}"
+            f"{', reduced' if reduce else ''}", clock_hz, kernel_repeats=BLOCK_SHAPE_REPEATS,
+            plain_repeats=3), **pass_of(label, kw)})
     for args, kw in calls.get("limb_addsub", []):
         x, y, mode = args[:3]
         out_n = args[3] if len(args) > 3 else 0
@@ -1220,9 +1259,9 @@ def block_path_shapes(calls, label):
         if all(q is None for q in query):
             entry.update(gather_library(table, idx))
     for args, kw in calls.get("state_order_lt", []):
-        add("state_order_lt", kw, lambda: state.state_order_lt(*args),
-            lambda: state.state_order_lt_plain(*args), order_cost(args),
-            f"{args[0].shape[0]} rw rows, 7 key columns")
+        out.setdefault("state_order_lt", []).append({**order_lt_entry(
+            args, f"{label}: {args[0].shape[0]} rw rows, 7 key columns",
+            kernel_repeats=BLOCK_SHAPE_REPEATS, plain_repeats=3), **pass_of(label, kw)})
     for args, kw in calls.get("lookup_search_eq", []):
         query, _, _, fps, _, max_span, batch = args
         moved, ops, scanned = search_cost(args)
@@ -1353,6 +1392,78 @@ def with_chain(entry, wide, clock_hz):
     return entry
 
 
+def limb_mul_entry(a, b, out_n, note, **kw):
+    """K2's product at one shape held against its plain version, and every
+    lane against (a * b) mod 2^(16 out_n) on Python ints."""
+    entry = measure("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
+                    *limb_mul_cost(a.shape, b.shape, out_n), note, **kw)
+    rows = max(a.shape[0], b.shape[0])
+
+    def want():
+        xs, ys = rows_to_ints(a), rows_to_ints(b)
+        return [x * y % (1 << 16 * out_n) for x, y in zip(xs * rows if len(xs) == 1 else xs,
+                                                           ys * rows if len(ys) == 1 else ys)]
+
+    python_ints_check(entry, note, rows_to_ints(L.limb_mul(a, b, out_n)), want)
+    entry["lanes"] = rows
+    return entry
+
+
+def limb_reduce_entry(x, keep, reduce, note, clock_hz, **kw):
+    """K2's normalise-and-reduce entry at one shape held against its plain
+    version and against x' mod 2^(16 keep) (mod p, reduced) on Python ints,
+    with its chain bound (``runtime/bounds.py:reduce_chain``: one row's
+    least depth at DEP_LATENCY_CYCLES each and the card's top clock)."""
+    def plain():
+        return fr.normalize_reduce_plain(x, keep) if reduce else L.carry_propagate_plain(x, keep)
+
+    entry = measure("limb_reduce", lambda: L.limb_reduce(x, keep, reduce), plain,
+                    *reduce_cost(x.shape[0], x.shape[1], keep, reduce), note, **kw)
+    cols = x.cpu().tolist()
+
+    def want():
+        vals = [sum(c << (16 * k) for k, c in enumerate(row[:keep])) % (1 << (16 * keep))
+                for row in cols]
+        return [v % fr.P for v in vals] if reduce else vals
+
+    python_ints_check(entry, note, rows_to_ints(L.limb_reduce(x, keep, reduce)), want)
+    chain_ms = reduce_chain_ms(keep, reduce, clock_hz)
+    entry.update(keep=keep, reduce=bool(reduce), chain_bound_ms=chain_ms,
+                 row_chain_ops=reduce_chain(keep, reduce), sm_clock_max_mhz=clock_hz / 1e6)
+    entry["bound_ms"], entry["bound_by"], entry["bound_kind"] = chain_bound(
+        entry["bound_ms"], entry["bound_by"], chain_ms)
+    return entry
+
+
+def order_lt_ints(cols):
+    """K5's function on Python ints: each row's key (the declared-bounds
+    integer of ``state.order_key_plain``'s docstring) compared with the
+    previous row's (cyclic), or the row is Start."""
+    def ints(t, k=None):
+        return rows_to_ints(t if k is None else t[:, :k])
+
+    tag, id_, address, field_tag, lo, hi, rwc = (ints(cols[0]), ints(cols[1]), ints(cols[2], 10),
+                                                 ints(cols[3]), ints(cols[4]), ints(cols[5]),
+                                                 ints(cols[6]))
+    keys = []
+    for t, i, a, f, l, h, r in zip(tag, id_, address, field_tag, lo, hi, rwc):
+        w = ((((t << 28) + i) << 160) + a << 16) + f
+        keys.append(((w << 32) + (h << 128 | l) << 32) | r)
+    return [keys[i - 1] < keys[i] or tag[i] == 1 for i in range(len(keys))]
+
+
+def order_lt_entry(cols, note, **kw):
+    """K5 at one shape held against its plain version and against the keys
+    compared on Python ints."""
+    entry = measure("state_order_lt", lambda: state.state_order_lt(*cols),
+                    lambda: state.state_order_lt_plain(*cols), *order_cost(cols[0].shape[0]),
+                    note, **kw)
+    python_ints_check(entry, note, state.state_order_lt(*cols).cpu().tolist(),
+                      lambda: order_lt_ints(cols))
+    entry["rows"] = cols[0].shape[0]
+    return entry
+
+
 def word_mul_entry(args):
     """K11's (kernel call, plain call, cost, note, wide) at captured
     arguments: the verdicts and, for the 256 variant, the overflow limbs."""
@@ -1479,16 +1590,6 @@ def gather_cost(table, query, idx, enabled=None):
     return moved, 2 * B * sum(max(t.shape[1], q.shape[1]) for t, q in pairs)
 
 
-# K5 reads the ordering key's limbs of a row (tag 1, id 2, address 10,
-# field_tag 1, storage key 8 + 8, rw_counter 2) and compares row i with i-1
-ORDER_KEY_LIMBS = 1 + 2 + 10 + 1 + 8 + 8 + 2
-
-
-def order_cost(cols):
-    n = cols[0].shape[0]
-    return n * ORDER_KEY_LIMBS * 8 + n, n * 2 * (3 * 17 + 4 + 19)
-
-
 MODE_NAMES = {L.ADD: "ADD", L.SUB: "SUB", L.FR_ADD: "FR_ADD", L.FR_SUB: "FR_SUB"}
 
 
@@ -1507,14 +1608,35 @@ def kernel_phase(launches, mul_inputs, arith_calls):
                  **fr_mul_entry(a, b, "MUL: [B,16] x [1,16] -> [B,16]"), "library_ms": None})
 
     # K2: the MUL group no longer reaches it (K11 took _mul_512_terms'
-    # products); its row is its widest shape on the arithmetic block's pass
+    # products); its row is its widest shape on the arithmetic block's pass,
+    # and every distinct shape of that pass is in its path_shapes
     a, b, out_n = max((args for args, _ in arith_calls["limb_mul"]),
                       key=lambda args: max(args[0].shape[0], args[1].shape[0]) * args[2])
-    n = max(a.shape[0], b.shape[0])
-    rows.append(compare("limb_mul", lambda: L.limb_mul(a, b, out_n), lambda: L.mul_plain(a, b, out_n),
-                        nbytes(a, b) + n * out_n * 8, n * (2 * a.shape[1] * b.shape[1] + 3 * out_n),
-                        f"arith: {list(a.shape)} x {list(b.shape)} -> {out_n} limbs",
-                        launches["limb_mul"]))
+    rows.append({"name": "limb_mul", "route": "cuda", "source": SOURCES["limb_mul"],
+                 "replaces": REPLACES["limb_mul"], "launches": launches["limb_mul"],
+                 **limb_mul_entry(a, b, out_n,
+                                  f"arith: {list(a.shape)} x {list(b.shape)} -> {out_n} limbs"),
+                 "library_ms": None,
+                 "library": "none: no PyTorch call forms a limb product with its carries"})
+
+    # K2's normalise-and-reduce entry: the logUp tail's [2, 16] at keep 17
+    # (both sides of a check; columns below 2^32 exercise the ripple), then a
+    # 32-limb shape reduced (reduce_wide's) and rippled alone (the logUp
+    # checks' own calls are in its path_shapes)
+    clock_hz = sm_clock_max_hz()
+    wide = torch.from_numpy(np.random.RandomState(12).randint(0, 1 << 32, size=(2, 32),
+                                                              dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    logup_x = wide[:, :16].contiguous()
+    k2r = [limb_reduce_entry(x, keep, red, note, clock_hz) for x, keep, red, note in (
+        (logup_x, 17, True, "logUp sides: [2, 16] -> keep 17, reduced"),
+        (wide, 32, True, "[2, 32] -> keep 32, reduced"),
+        (wide, 32, False, "[2, 32] -> keep 32"))]
+    rows.append({"name": "limb_reduce", "route": "cuda", "source": SOURCES["limb_reduce"],
+                 "replaces": REPLACES["limb_reduce"], "launches": launches["limb_reduce"],
+                 **k2r[0], "library_ms": None,
+                 "library": "none: no PyTorch call normalises limb carries or reduces mod p",
+                 "path_shapes": k2r[1:]})
 
     # K3: the Fr add of two full-width values (F.__add__ past 253 bits)
     x = seeded_limbs(rng, B, 16, 254, dev)
@@ -1557,12 +1679,16 @@ def slice_kernel_rows(launches, captured):
     """K5 and K6 at the shapes the state and bytecode paths gave them."""
     rows = []
 
-    # K5: the ordering check over the Memory/Stack mix's 2^19 uploaded rows
-    cols = captured["memory_stack"]["state_order_lt"]
-    rows.append(compare("state_order_lt", lambda: state.state_order_lt(*cols),
-                        lambda: state.state_order_lt_plain(*cols), *order_cost(cols),
-                        f"state_memory_stack: {cols[0].shape[0]} rows, 7 key columns",
-                        launches["state_order_lt"]))
+    # K5: the ordering check over the Memory/Stack mix's 2^19 uploaded rows,
+    # and the Storage/Account mix's (the blocks' are in its path_shapes)
+    k5 = [order_lt_entry(captured[mix]["state_order_lt"],
+                         f"state_{mix}: {STATE_ROWS} rows, 7 key columns")
+          for mix in ("memory_stack", "storage_account")]
+    rows.append({"name": "state_order_lt", "route": "cuda", "source": SOURCES["state_order_lt"],
+                 "replaces": REPLACES["state_order_lt"], "launches": launches["state_order_lt"],
+                 **k5[0], "library_ms": None,
+                 "library": "none: no PyTorch call compares multi-limb keys row by row",
+                 "path_shapes": k5[1:]})
 
     # K6: the Storage lookup of the Storage/Account mix (the kernel's row)
     # and the keccak lookup of the bytecode circuit (its path_shapes); the

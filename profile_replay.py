@@ -136,6 +136,23 @@ count x bound; the outputs must agree across roots and builds.
     python3 profile_replay.py --search [ROOT ...]
     python3 profile_replay.py --wordmul [ROOT ...]
 
+With ``--narrow``, the same for K2 and K5: K2's product
+(``ops/limbs.py:limb_mul``) and K5 (``circuits/state.py:state_order_lt``)
+at every shape of the Memory/Stack state check (2^19 rows) and of both
+blocks' per-kernel passes, with counts, K2 also at ``NARROW_SWEEP``'s
+lanes of seeded limbs (``[lanes, 1] x [1, 16] -> 16``, the arithmetic
+pass's widest, and ``[lanes, 16] x [lanes, 16] -> 32``); the logUp tail
+(both sides ``[2, 16]`` at keep 17, reduced; a ``[2, 32]`` input reduced
+and rippled alone) as the root runs it, K2's normalise-and-reduce entry
+(``ops/fr.py:normalize_reduce``, ``ops/limbs.py:carry_propagate``) or,
+before it, a ``carry_propagate`` and a ``reduce_wide`` a row, with the
+port's launches and every device kernel
+(torch.profiler) a call and the entry's chain bound; and each logUp
+family's check of both blocks (``sharded_logup_check``: its launches,
+device kernels, time and verdict).
+
+    python3 profile_replay.py --narrow [ROOT ...]
+
 With ``--graphs``, for each checkout root in the order given (pass
 parent, change, change, parent to alternate), a fresh process builds the
 ALU block and the arithmetic block, captures each one's device pass in
@@ -1173,6 +1190,153 @@ emit(resource_usage=cuda_build.resource_usage("mul_add_words"))
 """
 
 
+# K2's product swept on seeded limbs at the arithmetic pass's widest shape
+# and at a full 16 x 16-limb product, on every build
+NARROW_SWEEP = [1, 2048, 8192, 32768, 65536, 131072]
+
+NARROW_CHILD = r"""
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from zkevm_specs_tpu_torch import workloads
+from zkevm_specs_tpu_torch.circuits import state
+from zkevm_specs_tpu_torch.ops import fr
+from zkevm_specs_tpu_torch.parallel import logup_shard
+from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+from zkevm_specs_tpu_torch.runtime.convert import to_device
+
+HAS_ENTRY = hasattr(fr, "normalize_reduce")
+OWN = {"own": None}   # the source's own build
+
+
+def key(name, args):
+    if name == "limb_mul":
+        a, b, out_n = args
+        return [name, list(a.shape), list(b.shape), L.row_stride(a), L.row_stride(b), out_n]
+    return [name, args[0].shape[0], [c.stride(0) for c in args]]
+
+
+def device_kernels(call, calls=3):
+    # every device kernel a call launches (PyTorch's own included), a mean
+    # over a few calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / calls
+
+
+def launches_of(call):
+    # the port's kernel launches of one call, as its wrappers count them
+    before = dict(L.LAUNCHES)
+    call()
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in L.LAUNCHES.items() if v != before.get(k, 0)}
+
+
+def time_mul(label, k, a, b, out_n, count):
+    moved, ops = bounds.limb_mul_cost(a.shape, b.shape, out_n)
+    b_ms, b_by = bounds.bound(moved, ops)
+    ms, d = time_builds("limb_mul", OWN, lambda: L.limb_mul(a, b, out_n))
+    rec = dict(block=label, key=k, kernel="limb_mul", count=count,
+               lanes=max(a.shape[0], b.shape[0]), ms=ms, bytes=moved, int_ops=ops,
+               bound_ms=b_ms, bound_by=b_by, digest=d)
+    emit(**rec)
+    return rec
+
+
+def time_order(label, k, cols, count):
+    moved, ops = bounds.order_cost(cols[0].shape[0])
+    b_ms, b_by = bounds.bound(moved, ops)
+    ms, d = time_builds("state_order_lt", OWN, lambda: state.state_order_lt(*cols))
+    rec = dict(block=label, key=k, kernel="state_order_lt", count=count, rows=cols[0].shape[0],
+               ms=ms, bytes=moved, int_ops=ops, bound_ms=b_ms, bound_by=b_by, digest=d)
+    emit(**rec)
+    return rec
+
+
+def run_pass(label, run):
+    rows = []
+    for module, name, timer in ((L, "limb_mul", lambda k, a, c: time_mul(label, k, *a, c)),
+                                (state, "state_order_lt",
+                                 lambda k, a, c: time_order(label, k, a, c))):
+        calls, counts = capture(module, (name,), key, run)
+        shapes = [timer(k, args, counts[k]) for k, (_, args) in calls.items()]
+        if shapes:
+            summed(f"{label} {name}", shapes)
+        rows += shapes
+    return rows
+
+
+def run_logup(label, bv, prepared):
+    # each family's check: its launches (the port's, and every device
+    # kernel), its time on the card, its verdict and both sides' limbs
+    for name in [n for n in logup_shard.LOGUP_TABLES if n in bv.lookup_log]:
+        inp = logup_shard.family_inputs(getattr(bv.tables, name), bv.lookup_log[name], "cuda",
+                                        bv.table_parts_on_device(prepared, name))
+        args = (inp["query_fps"], inp["query_en"], inp["parts"], inp["multiplicities"],
+                logup_shard.ALPHA)
+        check = lambda: logup_shard.sharded_logup_check(*args)
+        launches = launches_of(check)
+        emit(block=f"logup_{label}", key=json.dumps(["logup", name]), family=name,
+             ok=check(), launches=launches, launches_total=sum(launches.values()),
+             device_kernels=device_kernels(check),
+             check_ms=time_on_card_ms(check, repeats=10, warmup=1),
+             digest=digest(torch.cat(list(logup_shard.logup_sums(*args)))))
+
+
+def tail(x, keep, reduce):
+    # the logUp tail as this root runs it: K2's entry, or (before it) a
+    # carry_propagate and a reduce_wide a row
+    if HAS_ENTRY:
+        return fr.normalize_reduce(x, keep) if reduce else L.carry_propagate(x, keep)
+    rows = [L.carry_propagate(x[i:i + 1], keep) for i in range(x.shape[0])]
+    return torch.cat([fr.reduce_wide(r) for r in rows] if reduce else rows)
+
+
+cuda_build.build_all()
+gen = torch.Generator(device="cuda").manual_seed(0)
+# the normalise-and-reduce tail: the logUp sides [2, 16] at keep 17, a
+# 32-limb input reduced and rippled alone
+for label, width, keep, reduce in (("logup_tail", 16, 17, True), ("reduce_32", 32, 32, True),
+                                   ("ripple_32", 32, 32, False)):
+    x = torch.randint(0, 1 << 16, (2, width), device="cuda", generator=gen)
+    call = lambda: tail(x, keep, reduce)
+    moved, ops = bounds.reduce_cost(2, width, keep, reduce)
+    chain_ms = bounds.reduce_chain_ms(keep, reduce, clock_hz)
+    b_ms, b_by, b_kind = bounds.chain_bound(*bounds.bound(moved, ops), chain_ms)
+    launches = launches_of(call)
+    emit(block="entry", key=json.dumps([label]), entry=HAS_ENTRY, launches=launches,
+         device_kernels=device_kernels(call), ms={"own": time_on_card_ms(call, repeats=25)},
+         bytes=moved, int_ops=ops, chain_ms=chain_ms, bound_ms=b_ms, bound_by=b_by,
+         bound_kind=b_kind, digest=digest(call()))
+# K2's product over the lanes
+for lanes in sweep:
+    for na, nb, out_n, a_rows in ((1, 16, 16, lanes), (16, 16, 32, lanes)):
+        a = torch.randint(0, 1 << 16, (a_rows, na), device="cuda", generator=gen)
+        b = torch.randint(0, 1 << 16, (1 if na == 1 else lanes, nb), device="cuda", generator=gen)
+        time_mul("sweep", json.dumps(["sweep", lanes, na, nb]), a, b, out_n, 1)
+torch.cuda.empty_cache()
+# the state check's K5 (Memory/Stack, 2^19 rows)
+rows, mpt_rows = workloads.build_state_memory_stack(workloads.ALU_BLOCK_STATE_ROWS)
+cols, tree, meta = state.pack_state_inputs(rows, mpt_rows)
+check, inputs = state.make_state_check_fn(meta), to_device((cols, tree), "cuda")
+del rows, mpt_rows, cols, tree
+run_pass("state_memory_stack", lambda: check(*inputs))
+del check, inputs
+torch.cuda.empty_cache()
+for path, build in (("block", workloads.build_alu_block), ("arith", workloads.build_arith_block)):
+    witness = build()
+    bv = CompiledBlockVerifier(witness)
+    prepared = bv.prepare()
+    assert not bv.run_device(prepared), path
+    run_pass(path, lambda: bv._device_pass(prepared))
+    run_logup(path, bv, prepared)
+    del bv, prepared, witness
+    torch.cuda.empty_cache()
+emit(resource_usage={n: cuda_build.resource_usage(n) for n in ("limb_mul", "state_order_lt")})
+"""
+
+
 def frmul_bounds(lines):
     """``--frmul``'s lines with K1's bytes and their bound
     (``runtime/bounds.py:fr_mul_cost``) added to each shape line, and the
@@ -1309,12 +1473,13 @@ def main():
         print("\n".join(lines))
         print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots}))
         return print(card)
-    if sys.argv[1:2] in (["--search"], ["--wordmul"]):
-        search = sys.argv[1] == "--search"
+    if sys.argv[1:2] in (["--search"], ["--wordmul"], ["--narrow"]):
+        child, sweep = {"--search": (SEARCH_CHILD, SEARCH_SWEEP),
+                        "--wordmul": (WORDMUL_CHILD, WORDMUL_SWEEP),
+                        "--narrow": (NARROW_CHILD, NARROW_SWEEP)}[sys.argv[1]]
         roots = sys.argv[2:] or ["."]
-        shapes, lines = run_digests(
-            TIMER + SHAPES_HELPERS + (SEARCH_CHILD if search else WORDMUL_CHILD), roots,
-            json.dumps(SEARCH_SWEEP if search else WORDMUL_SWEEP), bounds.__file__)
+        shapes, lines = run_digests(TIMER + SHAPES_HELPERS + child, roots, json.dumps(sweep),
+                                    bounds.__file__)
         print("\n".join(lines))
         print(json.dumps({"shapes_equal_across_roots": shapes, "roots": roots}))
         return print(card)

@@ -60,6 +60,61 @@ def test_reduce_wide_matches_jax():
     assert fr.to_ints(fr.reduce_wide(x)) == [v % P for v in prods]
 
 
+# K2's normalise-and-reduce entry: inputs of m columns below 2^32 (the JAX
+# carry_propagate's max_entry_bits) at each fill, and values at the edges
+K2_FILLS = {"zero": 0, "limb": (1 << 16) - 1, "max": (1 << 32) - 1}
+K2_VALUES = [P - 1, P, 2 * P, P * P - 1, (1 << 272) - 1]
+
+
+def _k2_columns(m, rows, fill, seed):
+    rng = np.random.RandomState(seed)
+    if fill == "random":
+        return rng.randint(0, 1 << 32, size=(rows, m), dtype=np.uint64).astype(np.uint32)
+    if fill == "values":
+        vals = [K2_VALUES[i % len(K2_VALUES)] for i in range(rows)]
+        return np.asarray([[(v >> (16 * k)) & 0xFFFF for k in range(m)] for v in vals],
+                          dtype=np.uint32)
+    return np.full((rows, m), K2_FILLS[fill], dtype=np.uint32)
+
+
+@pytest.mark.parametrize("fill", ["zero", "limb", "max", "random", "values"])
+@pytest.mark.parametrize("rows", [1, 2, 5])
+@pytest.mark.parametrize("m", [1, 16, 17, 20, 32])
+def test_normalize_reduce_plain_matches_jax(m, rows, fill):
+    """K2's second entry's plain versions against the JAX functions they
+    replace, tolerance 0: ``carry_propagate_plain`` against
+    ``L.carry_propagate``, and ``normalize_reduce_plain`` against
+    ``fr.reduce_wide(L.carry_propagate(x, keep))``, at keep 17 and 32; and
+    the reduced value against x' mod p on Python ints."""
+    cols = _k2_columns(m, rows, fill, 7 * m + rows)
+    x = torch.from_numpy(cols.astype(np.int64))
+    for keep in (17, 32):
+        flat_ref = JL.carry_propagate(np, cols, keep)
+        _same(fr.L.carry_propagate_plain(x, keep), flat_ref)
+        _same(fr.L.carry_propagate(x, keep), flat_ref)
+        red_ref = JFR.reduce_wide(np, flat_ref)
+        _same(fr.normalize_reduce_plain(x, keep), red_ref)
+        _same(fr.normalize_reduce(x, keep), red_ref)
+        wide = [sum(int(c) << (16 * k) for k, c in enumerate(row[:keep])) % (1 << (16 * keep))
+                for row in cols]
+        assert fr.to_ints(fr.normalize_reduce(x, keep)) == [v % P for v in wide]
+
+
+def test_reduce_wide_equals_the_entry_at_keep_32():
+    """``reduce_wide`` is ``normalize_reduce`` at keep 32 (K2's entry on the
+    card, the plain Barrett on the CPU): equal on canonical 32-limb
+    products; the entry's launcher alone takes no CPU tensor."""
+    va, vb = _canonical(20, 5), _canonical(20, 6)
+    _, x = _limbs([a * b for a, b in zip(va, vb)], 32)
+    assert torch.equal(fr.normalize_reduce(x, 32), fr.reduce_wide(x))
+    with pytest.raises(ValueError, match="at most 32"):
+        fr.reduce_wide(torch.zeros((1, 33), dtype=torch.int64))
+    with pytest.raises(ValueError, match="out of range"):
+        fr.normalize_reduce(x, 33)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fr.L.limb_reduce(x, 32, reduce=True)
+
+
 @pytest.mark.parametrize("broadcast_b", [False, True])
 def test_add_sub_neg_match_jax_and_ints(broadcast_b):
     va = _canonical(40, 3)

@@ -2,8 +2,10 @@
 32-bit-limb Montgomery arithmetic of ``csrc/fr_mont.cuh``, K1's two
 product sequences (``csrc/fr_mul.cu``) on operands at and above p, K11's
 word product and carry chain (``csrc/mul_add_words.cu``) against its plain
-version, and the window chain of ``csrc/fr_inv.cu``, read from the sources
-and walked on Python ints, and K13's plan (``tables/logup.py:logup_plan``).
+version, the window chain of ``csrc/fr_inv.cu`` and K2's normalise-and-reduce
+entry (``csrc/limb_mul.cu:limb_reduce_kernel``: the ripple, hi * 2^256 mod p
+by ``mont_to``, lo below p, one ``mont_add``), read from the sources and
+walked on Python ints, and K13's plan (``tables/logup.py:logup_plan``).
 
 The model below runs the header's functions instruction by instruction in
 the header's carry order (one carry flag, as in PTX), and asserts that
@@ -612,3 +614,137 @@ def test_k11_chain_bound_is_the_least_depth():
     assert bounds.WORD_MUL_CHAIN == {False: 107, True: 150}
     assert bounds.chain_bound(0.2, "bytes", 0.1) == (0.2, "bytes", "bytes")
     assert bounds.chain_bound(0.2, "bytes", 0.3) == (0.3, "operations", "chain")
+
+
+# -- K2's normalise-and-reduce entry (csrc/limb_mul.cu:limb_reduce_kernel) -----------
+
+LIMB_MUL_SOURCE = (CSRC / "limb_mul.cu").read_text()
+
+
+def _p_multiples():
+    m = re.search(r"c_p_multiples\[3\]\[MONT_LIMBS\]\s*=\s*\{(.*?)\};", LIMB_MUL_SOURCE, re.S)
+    assert m, "c_p_multiples not found"
+    words = [int(t, 16) for t in re.findall(r"0x[0-9a-fA-F]+", m.group(1))]
+    return [words[8 * j:8 * j + 8] for j in range(3)]
+
+
+P_MULTIPLES = _p_multiples()
+
+
+def k2_sub_if_not_below(x, c):
+    ptx = Ptx()
+    d = [ptx.sub_cc(x[0], c[0])] + [0] * 7
+    for k in range(1, 8):
+        d[k] = ptx.subc_cc(x[k], c[k])
+    borrow = ptx.subc(0, 0)
+    return [x[k] if borrow else d[k] for k in range(8)]
+
+
+def k2_reduce_row(cols, keep, reduce):
+    """limb_reduce_kernel on one row of non-negative columns, in its order:
+    the 64-bit ripple (every sum checked below 2^64), the limbs packed into
+    16 words, lo below p by 4p, 2p, p, hi * 2^256 mod p by mont_to, one
+    mont_add; returns the row's output limbs."""
+    n = min(len(cols), keep)
+    carry, limbs = 0, []
+    for k in range(32 if reduce else keep):
+        v = (cols[k] if k < n else 0) + carry
+        assert v < 1 << 64, "a column sum wraps the 64-bit register"
+        limbs.append(v & 0xFFFF if k < keep else 0)
+        carry = v >> 16
+    if not reduce:
+        return limbs
+    w = [limbs[2 * j] | limbs[2 * j + 1] << 16 for j in range(16)]
+    lo, hi = w[:8], w[8:]
+    y = mont_mul(C_R2, hi)
+    assert _value(y) == _value(hi) * R % P
+    for c in P_MULTIPLES:
+        lo = k2_sub_if_not_below(lo, c)
+    assert _value(lo) < P
+    out = _value(mont_add(lo, y))
+    return [(out >> (16 * k)) & 0xFFFF for k in range(16)]
+
+
+def test_k2_reduce_source_runs_the_modelled_sequence():
+    s = LIMB_MUL_SOURCE
+    assert [sum(w << (32 * k) for k, w in enumerate(c)) for c in P_MULTIPLES] == [4 * P, 2 * P, P]
+    assert 4 * P < R < 6 * P
+    for line in ("const int cols = m < keep ? m : keep;",
+                 "const uint64_t v = (k < cols ? (uint64_t)row[k] : 0ull) + carry;",
+                 "const uint32_t limb = k < keep ? (uint32_t)(v & LIMB_MASK) : 0u;",
+                 "if (k & 1) w[k >> 1] |= limb << LIMB_BITS;",
+                 "mont_to(hi, y);  // hi * 2^256 mod p",
+                 "for (int j = 0; j < 3; ++j) sub_if_not_below(lo, c_p_multiples[j]);",
+                 "mont_add(lo, y, lo);",
+                 "mont_unpack16(lo, out + r * 16);"):
+        assert line in s, line
+
+
+def _k2_cases(m, rows, seed):
+    rng = np.random.default_rng(seed)
+    fills = {"zero": 0, "limb": (1 << 16) - 1, "max": (1 << 32) - 1}
+    out = [[v] * m for v in fills.values()]
+    out += [[int(x) for x in rng.integers(0, 1 << 32, size=m)] for _ in range(rows)]
+    return out
+
+
+@pytest.mark.parametrize("keep", [17, 32])
+@pytest.mark.parametrize("m", [1, 16, 17, 20, 32])
+def test_k2_reduce_walk_equals_the_plain_version(m, keep):
+    """The entry's walk, reduced and not, on rows of 32-bit columns and on
+    values at p - 1, p, 2p, p^2 - 1, 2^272 - 1 and 2^512 - 1, equals
+    carry_propagate_plain, normalize_reduce_plain and x' mod p."""
+    rows = _k2_cases(m, 5, 100 * m + keep)
+    for v in (P - 1, P, 2 * P, P * P - 1, (1 << 272) - 1, (1 << 512) - 1):
+        rows.append([(v >> (16 * k)) & 0xFFFF for k in range(m)])
+    x = torch.tensor(rows, dtype=torch.int64)
+    flat = fr.L.carry_propagate_plain(x, keep)
+    red = fr.normalize_reduce_plain(x, keep)
+    for i, row in enumerate(rows):
+        want = sum(c << (16 * k) for k, c in enumerate(row[:keep])) % (1 << (16 * keep))
+        assert k2_reduce_row(row, keep, False) == flat[i].tolist()
+        assert sum(c << (16 * k) for k, c in enumerate(flat[i].tolist())) == want
+        got = k2_reduce_row(row, keep, True)
+        assert got == red[i].tolist(), (m, keep, i)
+        assert sum(c << (16 * k) for k, c in enumerate(got)) == want % P
+
+
+def test_k2_reduce_walk_on_wide_columns():
+    """Columns far above 2^32 (up to 2^62, where the plain version's int64
+    sums stay exact): the kernel's walk equals the plain version."""
+    rows = [[(1 << 62) + k for k in range(32)], [(1 << 62) - 1] * 32]
+    x = torch.tensor(rows, dtype=torch.int64)
+    for keep in (17, 32):
+        flat = fr.L.carry_propagate_plain(x, keep)
+        red = fr.normalize_reduce_plain(x, keep)
+        for i, row in enumerate(rows):
+            assert k2_reduce_row(row, keep, False) == flat[i].tolist()
+            assert k2_reduce_row(row, keep, True) == red[i].tolist()
+
+
+def test_k2_reduce_chain_bound_is_the_least_depth():
+    """K2's normalise-and-reduce chain (``runtime/bounds.py:reduce_chain``)
+    from its parts' least depths: the word-form ripple (a funnel shift,
+    one chain over ceil(keep / 2) words, the top word's mask at an odd
+    keep), then hi * 2^256 mod p (the products, one chain over 8 + h
+    columns, eight reduction rounds of three, an Fr add) beside lo's three
+    subtract-and-select steps, then an Fr add."""
+    from zkevm_specs_tpu_torch.runtime import bounds
+
+    fr_add = max(_ripple(_ripple([0] * 8))[-1], _ripple([0] * 8)[-1]) + 1
+    assert bounds.CHAIN_ADD == fr_add
+    sub_select = _ripple([0] * 8)[-1] + 1
+    assert bounds.CHAIN_LO_BELOW_P == 3 * sub_select
+    for keep, reduce in ((17, True), (32, True), (17, False), (32, False), (16, True)):
+        words = -(-keep // 2)
+        ripple = 1 + _ripple([0] * words)[-1] + keep % 2
+        if not reduce:
+            want = ripple
+        elif words <= 8:
+            want = ripple + 3 * sub_select
+        else:
+            h = words - 8
+            product = 1 + _ripple([0] * (8 + h))[-1] + 8 * 3 + fr_add
+            want = ripple + max(product, 3 * sub_select) + fr_add
+        assert bounds.reduce_chain(keep, reduce) == want, (keep, reduce)
+    assert bounds.reduce_chain(17, True) == 65 and bounds.reduce_chain(32, True) == 78

@@ -1171,3 +1171,193 @@ def test_mul_add_words_at_lanes(dev, lanes, wide, case, layout):
         _equal(overflow, want_over.expand(overflow.shape))
     if case == "carry_past_72_bits" and lanes > 1:   # carry_lo 2^72 fails, 2^72 - 1 passes
         assert not bool(ok[0, 0]) and bool(ok[0, 1])
+
+
+# -- K2's product, tile-staged: tile edges, either operand broadcast, any row
+# stride; and K2's normalise-and-reduce entry
+
+MUL_TILE = _source_define("limb_mul.cu", "MUL_TILE")
+MUL_BATCHES = [1, MUL_TILE - 1, MUL_TILE, MUL_TILE + 1, 2048, 65535, 65536, 65537, 131072]
+MUL_SHAPES = [(1, 16, 16), (16, 1, 17), (17, 17, 34), (5, 9, 3), (8, 16, 24), (16, 16, 32),
+              (4, 4, 8), (17, 3, 20), (2, 2, 1)]
+
+
+def _mul_operand(rng, lanes, n, layout, dev):
+    """[lanes, n] limbs of values below 2^(16 n) (2^(16 n) - 1 and 0 first),
+    dense, at an 8-byte offset, or a view of wider rows of even or odd
+    stride."""
+    vals = [int.from_bytes(rng.bytes(40), "little") % (1 << 16 * n) for _ in range(lanes)]
+    vals[:2] = [(1 << 16 * n) - 1, 0][:lanes]
+    t = L.ints_to_limbs(vals, n)
+    if layout == "dense":
+        return vals, t.to(dev)
+    if layout == "misaligned":
+        view = torch.zeros(lanes * n + 1, dtype=torch.int64, device=dev)[1:].view(lanes, n)
+    else:
+        wide = torch.zeros((lanes, n + (4 if layout == "strided" else 3)), dtype=torch.int64,
+                           device=dev)
+        view = wide[:, 2:2 + n] if layout == "strided" else wide[:, 1:1 + n]
+    view.copy_(t.to(dev))
+    return vals, view
+
+
+@pytest.mark.parametrize("layout", ["dense", "misaligned", "strided", "strided_odd"])
+@pytest.mark.parametrize("side", ["varying", "broadcast_a", "broadcast_b"])
+@pytest.mark.parametrize("batch", MUL_BATCHES)
+def test_limb_mul_tiles(dev, batch, side, layout):
+    """K2's product at the tile's edges and up to 131072 lanes, one launch
+    a call, equal to its plain version and (to 2048 lanes) to (a * b) mod
+    2^(16 out_n) on Python ints."""
+    rng = np.random.RandomState(batch + len(side) + len(layout))
+    for na, nb, out_n in MUL_SHAPES:
+        a_vals, a = _mul_operand(rng, 1 if side == "broadcast_a" else batch, na, layout, dev)
+        b_vals, b = _mul_operand(rng, 1 if side == "broadcast_b" else batch, nb, layout, dev)
+        before = L.LAUNCHES["limb_mul"]
+        got = L.limb_mul(a, b, out_n)
+        assert L.LAUNCHES["limb_mul"] == before + 1
+        _equal(got, L.mul_plain(a, b, out_n))
+        if batch <= 2048:
+            a_vals = a_vals * batch if len(a_vals) == 1 else a_vals
+            b_vals = b_vals * batch if len(b_vals) == 1 else b_vals
+            want = [x * y % (1 << 16 * out_n) for x, y in zip(a_vals, b_vals)]
+            assert L.limbs_to_ints(got.cpu()) == want, (na, nb, out_n)
+
+
+def test_limb_mul_every_width_pair(dev):
+    """Every (na, nb) of 1..17 at 33 lanes (a partial second tile), out_n
+    the full product and the widest 34, against Python ints."""
+    rng = np.random.RandomState(17)
+    for na in range(1, 18):
+        for nb in range(1, 18):
+            a_vals, a = _mul_operand(rng, 33, na, "dense", dev)
+            b_vals, b = _mul_operand(rng, 33, nb, "strided_odd", dev)
+            for out_n in sorted({na + nb, 34}):
+                got = L.limb_mul(a, b, out_n)
+                _equal(got, L.mul_plain(a, b, out_n))
+                want = [x * y % (1 << 16 * out_n) for x, y in zip(a_vals, b_vals)]
+                assert L.limbs_to_ints(got.cpu()) == want, (na, nb, out_n)
+
+
+def _reduce_columns(rng, rows, m, layout, dev):
+    """[rows, m] columns below 2^32 (a row of 2^32 - 1, of 2^16 - 1 and of
+    p's limbs first), dense or a view of wider rows."""
+    cols = rng.randint(0, 1 << 32, size=(rows, m), dtype=np.uint64).astype(np.int64)
+    edges = [[(1 << 32) - 1] * m, [(1 << 16) - 1] * m, [(fr.P >> 16 * k) & 0xFFFF for k in range(m)]]
+    cols[:min(rows, 3)] = np.asarray(edges[:rows], dtype=np.int64)
+    t = torch.from_numpy(cols)
+    if layout == "dense":
+        return cols, t.to(dev)
+    wide = torch.zeros((rows, m + 3), dtype=torch.int64, device=dev)
+    wide[:, 1:1 + m] = t.to(dev)
+    return cols, wide[:, 1:1 + m]
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided"])
+@pytest.mark.parametrize("reduce", [False, True], ids=["ripple", "reduce"])
+@pytest.mark.parametrize("keep", [17, 32])
+@pytest.mark.parametrize("rows", [1, 2, 3, 257])
+def test_limb_reduce(dev, rows, keep, reduce, layout):
+    """K2's normalise-and-reduce entry at m = 1..32 columns, one launch a
+    call, equal to its plain version (``carry_propagate_plain``, or
+    ``normalize_reduce_plain``) and to x' mod 2^(16 keep) (mod p, reduced)
+    on Python ints."""
+    rng = np.random.RandomState(rows * keep + reduce)
+    for m in range(1, 33):
+        cols, x = _reduce_columns(rng, rows, m, layout, dev)
+        before = L.LAUNCHES["limb_reduce"]
+        got = L.limb_reduce(x, keep, reduce)
+        assert L.LAUNCHES["limb_reduce"] == before + 1
+        want = fr.normalize_reduce_plain(x, keep) if reduce else L.carry_propagate_plain(x, keep)
+        _equal(got, want)
+        wide = [sum(int(c) << (16 * k) for k, c in enumerate(row[:keep])) % (1 << (16 * keep))
+                for row in cols]
+        assert L.limbs_to_ints(got.cpu()) == [v % fr.P if reduce else v for v in wide], m
+
+
+def test_carry_propagate_and_reduce_wide_launch_the_entry(dev):
+    """On the card ``L.carry_propagate`` (keep as asked, up to 34),
+    ``fr.reduce_wide`` (keep 32) and ``fr.normalize_reduce`` are one launch
+    of the entry each and launch no product."""
+    rng = np.random.RandomState(5)
+    _, x = _reduce_columns(rng, 5, 20, "dense", dev)
+    product = L.ints_to_limbs([(fr.P - 1) ** 2, fr.P * 3, 7], 32).to(dev)
+    for call, want in ((lambda: L.carry_propagate(x, 34), L.carry_propagate_plain(x, 34)),
+                       (lambda: fr.reduce_wide(product), fr.reduce_wide_plain(product)),
+                       (lambda: fr.normalize_reduce(x, 17), fr.normalize_reduce_plain(x, 17))):
+        before = dict(L.LAUNCHES)
+        got = call()
+        launched = {k: L.LAUNCHES[k] - before.get(k, 0) for k in L.LAUNCHES}
+        assert {k: v for k, v in launched.items() if v} == {"limb_reduce": 1}
+        _equal(got, want)
+
+
+# -- K5: warp and block edges, both sizes of the main path, strided views
+
+
+
+def _order_cols_on_card(n, data, layout, dev):
+    """The key columns of n rows at their declared widths, made on the card:
+    random keys with runs of equal prefixes ("random"), keys ascending in
+    rw_counter ("sorted"), or one key on every row ("equal", no Start row);
+    else a Start row every 1000 rows from row 0; dense or views of wider
+    rows."""
+    gen = torch.Generator(device=dev).manual_seed(n + len(data))
+
+    def limbs(w, used=None):
+        t = torch.randint(0, 1 << 16, (n, w), device=dev, generator=gen)
+        if used is not None:
+            t[:, used:] = 0
+        return t
+
+    tag = torch.randint(2, 12, (n, 1), device=dev, generator=gen)
+    cols = [tag, limbs(2), limbs(16, 10), limbs(1), limbs(8), limbs(8), limbs(2)]
+    if data == "random":
+        runs = torch.arange(n, device=dev) // 3 * 3       # rows of a run of 3 share a prefix
+        for c in cols[:6]:
+            c.copy_(c[runs])
+    elif data in ("sorted", "equal"):
+        for c in cols:
+            c.copy_(c[:1].expand_as(c))
+        if data == "sorted":
+            i = torch.arange(n, device=dev)
+            cols[6][:, 0], cols[6][:, 1] = i & 0xFFFF, i >> 16
+    if data != "equal":
+        cols[0][::1000] = 1
+    if layout == "strided":
+        out = []
+        for c in cols:
+            wide = torch.zeros((n, c.shape[1] + 3), dtype=torch.int64, device=dev)
+            wide[:, 1:1 + c.shape[1]] = c
+            out.append(wide[:, 1:1 + c.shape[1]])
+        cols = out
+    return cols
+
+
+def _order_ints(cols):
+    from zkevm_specs_tpu_torch.circuits import state
+
+    keys = L.limbs_to_ints(state.order_key_plain(*[c.cpu() for c in cols]))
+    tags = cols[0][:, 0].cpu().tolist()
+    return [keys[i - 1] < keys[i] or tags[i] == 1 for i in range(len(keys))]
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided"])
+@pytest.mark.parametrize("data", ["random", "sorted", "equal"])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 2 ** 19, 528369])
+def test_state_order_lt_tiles(dev, n, data, layout):
+    """K5 at row counts about a warp and a block and at the state (2^19)
+    and block (528369) checks' sizes, one launch a call, equal to its plain
+    version and (to 257 rows) to the keys compared as Python ints."""
+    from zkevm_specs_tpu_torch.circuits import state
+
+    cols = _order_cols_on_card(n, data, layout, dev)
+    before = L.LAUNCHES["state_order_lt"]
+    got = state.state_order_lt(*cols)
+    assert L.LAUNCHES["state_order_lt"] == before + 1
+    _equal(got, state.state_order_lt_plain(*cols))
+    if n <= 257:
+        assert got.cpu().tolist() == _order_ints(cols)
+    if data == "sorted" and n > 1:
+        assert bool(got[1:].all())
+    if data == "equal":
+        assert not bool(got.any())

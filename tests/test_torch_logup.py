@@ -369,6 +369,30 @@ def test_verify_block_lookups_logup(kind):
     assert LS.verify_block_lookups_logup(pw, device="cpu") == {"rw": True}
 
 
+def test_logup_sums_reduce_both_sides_in_one_entry_call(monkeypatch):
+    """Each family's check normalises and reduces its two sides in one call
+    of K2's normalise-and-reduce entry (``fr.normalize_reduce`` on ``[2,
+    16]`` at keep 17): one call a family, no K2 product and no separate
+    ``carry_propagate`` on the logUp path; the verdicts are unchanged."""
+    _, _, _, jper, bv = _block("clean")
+    calls = []
+    entry = fr.normalize_reduce
+
+    def spy(x, keep):
+        calls.append((tuple(x.shape), keep))
+        return entry(x, keep)
+
+    def no_product(*a):
+        raise AssertionError("a K2 product on the logUp path")
+
+    monkeypatch.setattr(fr, "normalize_reduce", spy)
+    monkeypatch.setattr(L, "limb_mul", no_product)
+    monkeypatch.setattr(L, "carry_propagate", no_product)
+    names = tuple(n for n in LS.LOGUP_TABLES if n in jper)
+    assert bv.verify_lookups() == {n: True for n in names}
+    assert calls == [((2, 16), 17)] * len(names)
+
+
 def _rw_negative_inputs():
     _, _, jtables, jper, bv = _block("clean")
     inp = LS.family_inputs(bv.tables.rw, bv.lookup_log["rw"], "cpu")

@@ -304,6 +304,60 @@ def test_order_plain_matches_jax(seed):
     np.testing.assert_array_equal(fkey.numpy(), np.asarray(jkey))
 
 
+def _tile_edge_rows(n, seed):
+    """Rows of random keys (a prefix shared with the previous row at
+    random) with, at each of K5's tile boundaries 128 and 256 that n
+    reaches: keys equal across the boundary, keys that differ only in the
+    key's top limbs (17-18: tag's high bits) and keys that differ only in
+    rw_counter; a Start row at row 0."""
+    rows = _key_rows(max(n, 26), seed)[:n] if n >= 26 else []
+    if n < 26:
+        rng = np.random.RandomState(seed)
+        for _ in range(n):
+            rows.append({"rw_counter": int(rng.randint(0, 1 << 31)), "is_write": 1,
+                         "tag": int(rng.randint(1, 12)), "id": int(rng.randint(0, 1 << 28)),
+                         "address": int.from_bytes(rng.bytes(20), "little"),
+                         "field_tag": int(rng.randint(0, 1 << 16)),
+                         "storage_key": int.from_bytes(rng.bytes(32), "little"), "value": 0,
+                         "initial_value": 0, "root": 0, "lexicographic_ordering_selector": 1})
+    for b in (128, 256):
+        if b + 2 < n:
+            rows[b] = dict(rows[b - 1])                                   # equal keys
+            rows[b + 1] = dict(rows[b], tag=rows[b]["tag"] ^ 0x30)         # top limbs only
+            rows[b + 2] = dict(rows[b + 1], rw_counter=rows[b + 1]["rw_counter"] + 1)
+        elif b < n:
+            rows[b] = dict(rows[b - 1], rw_counter=rows[b - 1]["rw_counter"] + 1)
+    if n:
+        rows[0] = dict(rows[0], tag=int(jst.Tag.Start))
+    assert all(r["rw_counter"] < 1 << 32 for r in rows)
+    return rows
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 255, 256, 257])
+def test_order_plain_matches_jax_at_tile_edges(n):
+    """K5's plain version against the JAX ``_order_limbs`` of the rows and
+    of ``shifted(-1)`` with ``L.lt`` (state.py:253, :304-311), tolerance 0,
+    at row counts about K5's tiles of 128, with the tile-boundary cases of
+    ``_tile_edge_rows``."""
+    rows = _tile_edge_rows(n, n)
+    want, jkey = _jax_order_ok(rows)
+    _, st = _port_rows(rows)
+    cols = (st.tag.limbs, st.id.limbs, st.address.limbs, st.field_tag.limbs,
+            st.storage_key.lo.limbs, st.storage_key.hi.limbs, st.rw_counter.limbs)
+    np.testing.assert_array_equal(pst.order_key_plain(*cols).numpy(), np.asarray(jkey)[:, :19])
+    np.testing.assert_array_equal(pst.state_order_lt_plain(*cols).numpy(), want)
+    np.testing.assert_array_equal(pst.state_order_lt(*cols).numpy(), want)
+    assert bool(want[0])
+    for b in (128, 256):
+        if b + 2 < n:
+            assert not want[b] and want[b + 1] and want[b + 2]
+            key = np.asarray(jkey)
+            assert (key[b + 1, :17] == key[b, :17]).all() and (key[b + 1, 17:] != key[b, 17:]).any()
+            assert (key[b + 2, 2:] == key[b + 1, 2:]).all()
+        elif b < n:
+            assert want[b]
+
+
 def test_widened_row_takes_the_f_op_branch(monkeypatch):
     rows = _key_rows(48, 7, address_override=5)
     want, _ = _jax_order_ok(rows)

@@ -1,8 +1,11 @@
 """The tile mappings of kernels K3 (``csrc/limb_addsub.cu``), K4
 (``csrc/lookup_gather_eq.cu``), K1 (``csrc/fr_mul.cu``, K3's staging at
 16 limbs), K6 (``csrc/lookup_search_eq.cu``: its query tile, its sweep of
-the candidates and both paths' searches) and K11
-(``csrc/mul_add_words.cu``: K3's staging into 16-bit halves) on the CPU:
+the candidates and both paths' searches), K11
+(``csrc/mul_add_words.cu``: K3's staging into 16-bit halves), K2's product
+(``csrc/limb_mul.cu``: K3's staging at the operands' limb caps, a
+flattened store) and K5 (``csrc/state_order_lt.cu``: a row's loads and the
+previous row's key across a warp) on the CPU:
 a Python model of each kernel's
 index arithmetic, with the tile sizes, the pitch, the division by a
 reciprocal and the choice of instance read from the sources, walked over
@@ -138,10 +141,11 @@ def stage(stride, n, width, aligned, lanes, tile):
     return loads, writes
 
 
-def store(out_n, width, lanes, tile):
+def store(out_n, width, lanes, tile, pitch=None):
     """K3's flattened store over every thread: the output elements it
-    writes and the staged words it reads."""
-    pitch = addsub_pitch(width)
+    writes and the staged words it reads (K2's product stores the same
+    way from rows of ``pitch`` words)."""
+    pitch = addsub_pitch(width) if pitch is None else pitch
     stores, reads = Counter(), Counter()
     total = lanes * out_n
     for t in range(tile):
@@ -719,3 +723,170 @@ def test_word_mul_overflow_store_writes_every_limb_once():
                 stores[(f + 1) // 16, (f + 1) % 16] += 1
         assert set(stores) == {(lane, k) for lane in range(lanes) for k in range(16)}
         assert set(stores.values()) == {1} and set(words.values()) == {1}
+
+
+# -- K2 (csrc/limb_mul.cu): the product's staged operands and flattened store -------
+
+LIMB_MUL_SOURCE = (CSRC / "limb_mul.cu").read_text()
+MUL_THREADS = define(LIMB_MUL_SOURCE, "MUL_THREADS")
+MUL_TILE = define(LIMB_MUL_SOURCE, "MUL_TILE")
+MUL_OUT_PITCH = define(LIMB_MUL_SOURCE, "MUL_OUT_PITCH")
+MUL_CAPS = (4, 8, 16, 17)
+
+
+def mul_cap(n):
+    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 17
+
+
+def test_limb_mul_source_states_the_modelled_rules():
+    """K2's product stages both operands as K3's stage() does at the
+    operand's limb cap (limb_common.cuh's stage_rows, 32-bit words at an odd
+    pitch), one thread a lane, and stores its output flattened as K3 does,
+    from rows of MUL_OUT_PITCH words; a tile of MUL_TILE lanes at every
+    batch, no build-time override."""
+    s = LIMB_MUL_SOURCE
+    assert '#include "fr_mont.cuh"' in s
+    assert "__host__ __device__ constexpr int mul_pitch(int cap) { return cap | 1; }" in s
+    assert "int cap_of(int n) { return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 17; }" in s
+    assert "g.a = staged_row(a, sa, na, ca);" in s
+    assert "g.b = staged_row(b, sb, nb, cb);" in s
+    assert "stage_rows(g.a, sa, base, lanes, mul_pitch(CA), CA);" in s
+    assert "stage_rows(g.b, sb, base, lanes, mul_pitch(CB), CB);" in s
+    assert_staged_rows_rules()
+    assert "const uint32_t* ar = sa + (g.a.stride == 0 ? 0 : t * mul_pitch(CA));" in s
+    assert "uint32_t* o = so + t * MUL_OUT_PITCH;" in s
+    assert "for (int f = 2 * t; f < total; f += 2 * MUL_THREADS) {" in s
+    assert "const int lane = div_by(f, g.out_n, g.out_magic);" in s
+    assert ("const int lane1 = k + 1 == g.out_n ? lane + 1 : lane, k1 = k + 1 == g.out_n ? 0 "
+            ": k + 1;") in s
+    assert "const unsigned blocks = (unsigned)((g.batch + MUL_TILE - 1) / MUL_TILE);" in s
+    assert "limb_mul_kernel<CA, CB><<<blocks, MUL_THREADS, 0, stream>>>(g);" in s
+    assert "#ifndef" not in s
+    assert MUL_OUT_PITCH % 2 == 1 and MUL_OUT_PITCH >= 34
+    assert MUL_TILE % 2 == 0 and MUL_TILE <= MUL_THREADS
+    assert (2 * addsub_pitch(17) + MUL_OUT_PITCH) * MUL_TILE * 4 <= 48 * 1024
+
+
+def test_limb_mul_tile_threshold():
+    """One tile at every batch, no threshold: a 2048-lane call of the
+    arithmetic pass runs 64 blocks of 32 lanes, the last block of any batch
+    holds the remainder."""
+    def blocks(batch):
+        return -(-batch // MUL_TILE)
+
+    assert (blocks(2048), MUL_TILE) == (64, 32)
+    assert blocks(1) == 1 and blocks(MUL_TILE + 1) == 2
+    for batch in (1, MUL_TILE - 1, MUL_TILE, MUL_TILE + 1, 2048, 65536, 131072):
+        assert 0 < batch - (blocks(batch) - 1) * MUL_TILE <= MUL_TILE
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 9, 15, 16, 17])
+def test_limb_mul_tile_loads_and_stores_every_limb_once(n, layout):
+    """K2's operand staging at MUL_THREADS threads and MUL_TILE lanes: every
+    (lane, limb) of an operand loaded once and its word written once (zero
+    from the row's width up to its cap), 16-byte loads aligned and within a
+    row, a broadcast row once; a lane's staged row and output row read and
+    written bank-free; every (lane, limb) of the output stored once from
+    one staged word, 16-byte stores on even elements, for every out_n."""
+    stride, cap = _stride(layout, n), mul_cap(n)
+    pitch = addsub_pitch(cap)
+    assert pitch % 2 == 1 and pitch >= cap
+    for lanes in sorted({1, MUL_TILE - 1, MUL_TILE}):
+        loads, writes = stage(stride, n, cap, layout != "misaligned", lanes, MUL_THREADS)
+        rows = 1 if stride == 0 else lanes
+        assert set(writes) == {(lane, k) for lane in range(rows) for k in range(cap)}
+        assert set(writes.values()) == {1} and set(loads.values()) == {1}
+        assert set(loads) == {(lane, k) for lane in range(rows) for k in range(n)}
+    assert chain_banks_conflict_free(cap, MUL_TILE)
+    for w0 in range(0, MUL_TILE, WARP):
+        for k in range(34):
+            assert len({((w0 + t) * MUL_OUT_PITCH + k) % BANKS for t in range(WARP)}) == WARP
+    for out_n in sorted({1, 2, n, 2 * n, 16, 17, 33, 34}):
+        for lanes in sorted({1, MUL_TILE - 1, MUL_TILE}):
+            stores, reads = store(out_n, 0, lanes, MUL_THREADS, pitch=MUL_OUT_PITCH)
+            assert set(stores) == {(lane, k) for lane in range(lanes) for k in range(out_n)}
+            assert set(stores.values()) == {1} and set(reads.values()) == {1}
+            # the tile's first element is even: a tile starts at an even lane
+            assert (MUL_TILE * out_n) % 2 == 0
+
+
+# -- K5 (csrc/state_order_lt.cu): one thread a row, the previous key by a shuffle --
+
+ORDER_SOURCE = (CSRC / "state_order_lt.cu").read_text()
+ORDER_THREADS = define(ORDER_SOURCE, "ORDER_THREADS")
+# (limbs a row the key uses, the column's width in the state circuit), in the
+# source's column order
+ORDER_COLS = [(1, 1), (2, 2), (10, 16), (1, 1), (8, 8), (8, 8), (2, 2)]
+
+
+def test_state_order_source_states_the_modelled_rules():
+    """K5 loads a row's 32 key limbs in 16-byte pairs where every column of
+    two limbs or more is 16-byte aligned at an even row stride (one load a
+    limb otherwise), takes the previous row's key from the lane before by
+    a warp shuffle, lane 0 building its own (row r - 1, or n - 1 for row
+    0), and a lane past the end loads row n - 1 and writes nothing."""
+    s = ORDER_SOURCE
+    for line in ("return c == TAG || c == FIELD_TAG ? 1 : c == ID || c == RW_COUNTER ? 2 : c == "
+                 "ADDRESS ? 10 : 8;",
+                 "enum Col { TAG, ID, ADDRESS, FIELD_TAG, SK_LO, SK_HI, RW_COUNTER, N_COLS };",
+                 "if (VEC && col_limbs(c) % 2 == 0) {",
+                 "for (int k = 0; k < col_limbs(c); k += 2) {",
+                 "const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(row + k));",
+                 "const long long r = live ? i : g.n - 1;",
+                 "for (int k = 0; k < KEY_LIMBS; ++k) prev[k] = __shfl_up_sync(0xffffffffu, "
+                 "cur[k], 1);",
+                 "if ((threadIdx.x & 31) == 0) {",
+                 "load_row<VEC>(g, r == 0 ? g.n - 1 : r - 1, v);",
+                 "if (live) g.out[i] = lt || tag == START_TAG;",
+                 "vec = vec && (col_limbs(c) % 2 == 1 ||",
+                 "(((uintptr_t)ptrs[c] & 15) == 0 && strides[c] % 2 == 0));",
+                 "const unsigned blocks = (unsigned)((n + ORDER_THREADS - 1) / ORDER_THREADS);"):
+        assert line in s, line
+    assert "int limb_offset(int c) {\n  return (c > TAG" in s    # closed form: it folds
+    assert ORDER_THREADS % WARP == 0
+    assert "#ifndef" not in s
+    assert sum(used for used, _ in ORDER_COLS) == 32
+
+
+@pytest.mark.parametrize("layout", ["dense", "strided", "misaligned"])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257])
+def test_state_order_loads_every_row_once_and_its_previous_key(n, layout):
+    """Over every lane of an n-row check: each row's limbs the key uses
+    loaded once by its own lane (no limb beyond them: address 10 of 16),
+    16-byte loads aligned and within a row; each live row's previous key is
+    row (i - 1) mod n's, by the shuffle from the lane before or built by
+    lane 0 of its warp; a lane past the end writes nothing."""
+    strides = [{"dense": width, "misaligned": width, "strided": width + 2 + width % 2}[layout]
+               for _, width in ORDER_COLS]
+    vec = layout != "misaligned" and all(used % 2 == 1 or stride % 2 == 0
+                                         for (used, _), stride in zip(ORDER_COLS, strides))
+    loads = Counter()
+    blocks = -(-n // ORDER_THREADS)
+    prev_of, written = {}, Counter()
+    for b in range(blocks):
+        rows = {}
+        for t in range(ORDER_THREADS):
+            i = b * ORDER_THREADS + t
+            live = i < n
+            r = i if live else n - 1
+            rows[t] = r
+            for c, ((used, _), stride) in enumerate(zip(ORDER_COLS, strides)):
+                step = 2 if vec and used % 2 == 0 else 1
+                for k in range(0, used, step):
+                    if step == 2:
+                        assert (r * stride + k) % 2 == 0    # a 16-byte aligned pair in the row
+                    if live:
+                        for kk in range(k, k + step):
+                            loads[c, r, kk] += 1
+        for t in range(ORDER_THREADS):
+            i = b * ORDER_THREADS + t
+            if i >= n:
+                continue
+            prev_of[i] = (rows[t] - 1) % n if t % WARP == 0 else rows[t - 1]
+            written[i] += 1
+    assert set(loads) == {(c, row, k) for c, (used, _) in enumerate(ORDER_COLS)
+                          for row in range(n) for k in range(used)}
+    assert set(loads.values()) == {1}
+    assert prev_of == {i: (i - 1) % n for i in range(n)}
+    assert set(written) == set(range(n)) and set(written.values()) == {1}

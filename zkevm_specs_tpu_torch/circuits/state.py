@@ -275,7 +275,7 @@ def order_key_plain(tag, id_, address, field_tag, sk_lo, sk_hi, rw_counter) -> t
     v[:, :8] += sk_lo
     v[:, 8:16] += sk_hi
     v[:, 2:16] += w
-    return torch.cat([rw_counter[:, :2], L.carry_propagate(v, 17)], dim=1)
+    return torch.cat([rw_counter[:, :2], L.carry_propagate_plain(v, 17)], dim=1)
 
 
 def state_order_lt_plain(tag, id_, address, field_tag, sk_lo, sk_hi, rw_counter) -> torch.Tensor:

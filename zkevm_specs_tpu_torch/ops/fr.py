@@ -5,7 +5,9 @@ Counterpart of ``zkevm_specs_tpu/ops/fr.py``.  A field element batch is
 (< p).  The field multiply is kernel K1 (``fr_mul``, ``csrc/fr_mul.cu``);
 add, sub, neg and reduce_once are the Fr modes of kernel K3
 (``limbs.limb_addsub``); the inverse is kernel K12 (``inv``,
-``csrc/fr_inv.cu``).
+``csrc/fr_inv.cu``); the wide reduction (``reduce_wide``, and
+``normalize_reduce`` with the carry normalisation before it) is K2's
+normalise-and-reduce entry (``limbs.limb_reduce`` with ``reduce`` set).
 """
 from __future__ import annotations
 
@@ -35,31 +37,27 @@ def _row(host: torch.Tensor, device) -> torch.Tensor:
     return t
 
 
-def _reduce_wide(x, mul, sub, select):
-    """Barrett with b=2^16, k=16 (HAC 14.42), over the given limb ops:
-      q1 = x >> 240 ; q2 = q1*mu ; q3 = q2 >> 272
-      r  = (x mod 2^272) - (q3*p mod 2^272), then subtract p at most twice.
-    """
-    x = L.pad_limbs(x, 32)
-    q1 = x[..., 15:]                                   # x >> 240, 17 limbs
-    q2 = mul(q1, _row(MU_LIMBS, x.device), 34)
-    q3 = q2[..., 17:]                                  # q2 >> 272, 17 limbs
-    r2 = mul(q3, _row(P_LIMBS_17, x.device), 17)      # mod 2^272
-    r, _ = sub(x[..., :17], r2)
-    for _ in range(2):
-        d, b2 = sub(r, _row(P_LIMBS_17, x.device))
-        r = select(b2 == 0, d, r)
-    return r[..., :NL]
-
-
-def _select_plain(cond, a, b):
-    return torch.where(cond[..., None], a, b)
+def normalize_reduce(x: torch.Tensor, keep: int) -> torch.Tensor:
+    """``reduce_wide(L.carry_propagate(x, keep))`` for non-negative
+    columns ``x [R, m]`` (``keep`` <= 32): ``[R, 16]`` canonical limbs.  On
+    the card one launch of K2's normalise-and-reduce entry
+    (``L.limb_reduce`` with ``reduce`` set)."""
+    L.check_limbs(x, "normalize_reduce x")
+    if L.on_cpu(x):
+        if not 1 <= keep <= L.MAX_REDUCE_KEEP:
+            raise ValueError(f"normalize_reduce: keep {keep} out of range")
+        return normalize_reduce_plain(x, keep)
+    return L.limb_reduce(x, keep, True)
 
 
 def reduce_wide(x: torch.Tensor) -> torch.Tensor:
-    """Barrett-reduce x (< p^2, up to 32 limbs) to a canonical 16-limb value
-    (through K2 and K3 on the card)."""
-    return _reduce_wide(x, L.mul, L.sub, L.select)
+    """Barrett-reduce x (canonical limbs, up to 32; exact for any x <
+    2^512) to a canonical 16-limb value: ``normalize_reduce`` at keep 32,
+    whose ripple leaves canonical limbs as they are; one launch on the
+    card."""
+    if x.shape[-1] > L.MAX_REDUCE_KEEP:
+        raise ValueError(f"reduce_wide: {x.shape[-1]} limbs, at most {L.MAX_REDUCE_KEEP}")
+    return normalize_reduce(x, L.MAX_REDUCE_KEEP)
 
 
 def reduce_once(x: torch.Tensor) -> torch.Tensor:
@@ -87,9 +85,27 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def reduce_wide_plain(x: torch.Tensor) -> torch.Tensor:
-    """``reduce_wide`` in plain PyTorch ops (the kernels' plain versions)."""
-    return _reduce_wide(x, L.mul_plain, lambda u, v: L.addsub_plain(u, v, L.SUB, 0),
-                        _select_plain)
+    """``reduce_wide`` in plain PyTorch ops (the kernels' plain versions):
+    Barrett with b=2^16, k=16 (HAC 14.42),
+      q1 = x >> 240 ; q2 = q1*mu ; q3 = q2 >> 272
+      r  = (x mod 2^272) - (q3*p mod 2^272), then subtract p at most twice.
+    """
+    x = L.pad_limbs(x, 32)
+    q1 = x[..., 15:]                                   # x >> 240, 17 limbs
+    q2 = L.mul_plain(q1, _row(MU_LIMBS, x.device), 34)
+    q3 = q2[..., 17:]                                  # q2 >> 272, 17 limbs
+    r2 = L.mul_plain(q3, _row(P_LIMBS_17, x.device), 17)   # mod 2^272
+    r, _ = L.addsub_plain(x[..., :17], r2, L.SUB, 0)
+    for _ in range(2):
+        d, b2 = L.addsub_plain(r, _row(P_LIMBS_17, x.device), L.SUB, 0)
+        r = torch.where((b2 == 0)[..., None], d, r)
+    return r[..., :NL]
+
+
+def normalize_reduce_plain(x: torch.Tensor, keep: int) -> torch.Tensor:
+    """Plain version of K2's normalise-and-reduce entry:
+    ``reduce_wide_plain(carry_propagate_plain(x, keep))``."""
+    return reduce_wide_plain(L.carry_propagate_plain(x, keep))
 
 
 def fr_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

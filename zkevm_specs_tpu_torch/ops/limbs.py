@@ -7,11 +7,14 @@ batch.  int64 is wide enough for every intermediate of the plain versions:
 a limb product is below 2^32 and a product column of up to 17 terms plus
 its carry stays far below 2^63.
 
-Two functions carry the arithmetic on the card, each a hand-written CUDA
-kernel with a plain PyTorch version beside it:
+Three functions carry the arithmetic on the card, each a hand-written
+CUDA kernel with a plain PyTorch version beside it:
 
 * ``limb_mul`` (K2, ``csrc/limb_mul.cu``): the unreduced narrow product,
   carries normalised into canonical limbs, top carry dropped;
+* ``carry_propagate`` (K2's second entry, ``limb_reduce``): the carry
+  normalisation of accumulated columns (the same entry with ``reduce``
+  set is ``fr.normalize_reduce``);
 * ``limb_addsub`` (K3, ``csrc/limb_addsub.cu``): the add and subtract
   chains, plain or mod p (the Fr modes are used by ``ops/fr.py``).
 
@@ -148,13 +151,23 @@ def _normalize(cols: torch.Tensor, out_n: int) -> torch.Tensor:
     return out
 
 
-def carry_propagate(cols: torch.Tensor, out_n: int) -> torch.Tensor:
-    """Normalize accumulated non-negative columns into ``out_n`` canonical
-    16-bit limbs; any residual carry out of the top limb is dropped, as in
-    the JAX package."""
+def carry_propagate_plain(cols: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Plain version of ``carry_propagate`` (and of K2's normalisation
+    entry without ``reduce``)."""
     if cols.shape[-1] > out_n:
         cols = cols[..., :out_n]
     return _normalize(cols, out_n)
+
+
+def carry_propagate(cols: torch.Tensor, out_n: int) -> torch.Tensor:
+    """Normalize accumulated non-negative columns ``[R, m]`` into ``out_n``
+    canonical 16-bit limbs; any residual carry out of the top limb is
+    dropped, as in the JAX package.  On the card one K2 launch
+    (``limb_reduce`` without ``reduce``)."""
+    check_limbs(cols, "carry_propagate cols")
+    if on_cpu(cols):
+        return carry_propagate_plain(cols, out_n)
+    return limb_reduce(cols, out_n, False)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +237,9 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
 def limb_mul(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
     """K2 wrapper: unreduced product of ``a [B|1, na]`` and ``b [B|1, nb]``
     as ``[B, out_n]`` canonical limbs, carry out of the top limb dropped.
+    On the card a tile of 32 lanes (``csrc/limb_mul.cu``'s ``MUL_TILE``)
+    is staged through shared memory, one lane a thread, and stored
+    flattened.
 
     Replaces ``zkevm_specs_tpu/ops/limbs.py:mul`` with its
     ``carry_propagate``/``_resolve_carries``."""
@@ -242,6 +258,39 @@ def limb_mul(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
     err = lib.limb_mul_launch(a.data_ptr(), row_stride(a), na, b.data_ptr(), row_stride(b), nb,
                               out.data_ptr(), out_n, rows, cuda_stream())
     check_launch(err, "limb_mul")
+    return out
+
+
+MAX_REDUCE_KEEP = 32   # reduce_wide's input width
+
+
+def limb_reduce(x: torch.Tensor, keep: int, reduce: bool) -> torch.Tensor:
+    """K2's second entry, the launch alone (``x`` on a CUDA device): the
+    columns of ``x [R, m]`` (non-negative int64) rippled into ``keep``
+    canonical limbs, the carry out of the top limb dropped, as ``[R,
+    keep]``; with ``reduce`` (``keep`` <= 32) that value mod p as ``[R,
+    16]`` canonical limbs.  One launch, one thread a row.  Its wrappers,
+    which take the plain versions on the CPU, are ``carry_propagate`` and
+    ``fr.normalize_reduce``.
+
+    Replaces ``zkevm_specs_tpu/ops/limbs.py:carry_propagate`` and, with
+    ``reduce``, ``ops/fr.py:reduce_wide`` after it
+    (``parallel/logup_shard.py:153-154``)."""
+    check_limbs(x, "limb_reduce x")
+    cap = MAX_REDUCE_KEEP if reduce else MAX_MUL_OUT
+    if not (1 <= keep <= cap and x.shape[-1] >= 1):
+        raise ValueError(f"limb_reduce: {x.shape[-1]} columns -> keep {keep} out of range")
+    if on_cpu(x):
+        raise ValueError("limb_reduce launches on a CUDA tensor: on the CPU call "
+                         "carry_propagate or fr.normalize_reduce")
+    from ..runtime import cuda_build
+
+    rows = x.shape[0]
+    out = torch.empty((rows, 16 if reduce else keep), dtype=DTYPE, device=x.device)
+    lib = cuda_build.library("limb_mul")
+    err = lib.limb_reduce_launch(x.data_ptr(), x.stride(0), x.shape[-1], out.data_ptr(), keep,
+                                 int(reduce), rows, cuda_stream())
+    check_launch(err, "limb_reduce")
     return out
 
 

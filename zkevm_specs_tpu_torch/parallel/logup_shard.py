@@ -18,8 +18,9 @@ the raw column parts that the check is handed.  A corrupted table part
 therefore moves rhs and not lhs, and the identity fails.
 
 On the card the fingerprints run on K4 (the gather by the logged index),
-K1 and K3, both partial sums on K13 with K12 between its passes, and the
-compare reads back one bool.
+K1 and K3, both partial sums on K13 with K12 between its passes, both
+sides' normalisation and reduction on one launch of K2's second entry, and
+the compare reads back one bool.
 
 ``table_fingerprints`` and ``query_fingerprints_from_log`` (like
 ``tables/logup.py``'s ``multiset_check`` and ``compute_multiplicities``)
@@ -131,7 +132,10 @@ def logup_sums(query_fps: torch.Tensor, query_en: torch.Tensor,
     lhs = logup_partial_sum(q_fps, alpha_l, en)
     rhs = logup_partial_sum(t_fps, alpha_l, multiplicities.to(dev))
     # the JAX package sums the raw limbs over the ranks, then normalises
-    return tuple(fr.reduce_wide(L.carry_propagate(s[None, :], 17)) for s in (lhs, rhs))
+    # (carry_propagate to 17 limbs) and reduces (reduce_wide): both sides in
+    # one launch of K2's normalise-and-reduce entry
+    both = fr.normalize_reduce(torch.stack([lhs, rhs]), 17)
+    return both[:1], both[1:]
 
 
 def sharded_logup_check(query_fps: torch.Tensor, query_en: torch.Tensor,

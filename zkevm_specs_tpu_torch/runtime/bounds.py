@@ -1,14 +1,16 @@
 """The least time the card could take for a kernel's work: the card's
-peaks and the cost models of K1 (``fr_mul``), K6 (``lookup_search_eq``
-and its fingerprint entry), K7 (``keccak_sponge``) and K11
-(``mul_add_words``).
+peaks and the cost models of K1 (``fr_mul``), K2 (``limb_mul`` and its
+normalise-and-reduce entry ``limb_reduce``), K5 (``state_order_lt``), K6
+(``lookup_search_eq`` and its fingerprint entry), K7 (``keccak_sponge``)
+and K11 (``mul_add_words``).
 
 ``chip_smoke.py`` and ``profile_replay.py`` (its ``--keccak``,
-``--frmul``, ``--search`` and ``--wordmul`` modes) read their bounds from
-here, so both state the same model.  A bound is the larger of the bytes a
-call must move over the memory rate and the int32 operations it must
-issue over the card's integer rate; K7's and K11's also take their chain,
-the dependent steps of one row or lane at ``DEP_LATENCY_CYCLES`` each.
+``--frmul``, ``--search``, ``--wordmul`` and ``--narrow`` modes) read
+their bounds from here, so both state the same model.  A bound is the
+larger of the bytes a call must move over the memory rate and the int32
+operations it must issue over the card's integer rate; K2's second
+entry's, K7's and K11's also take their chain, the dependent steps of one
+row or lane at ``DEP_LATENCY_CYCLES`` each.
 """
 import subprocess
 
@@ -232,3 +234,76 @@ def word_mul_chain_ms(wide, clock_hz):
     """K11's chain bound: one lane's WORD_MUL_CHAIN dependent steps at
     DEP_LATENCY_CYCLES each and the card's top clock."""
     return WORD_MUL_CHAIN[bool(wide)] * DEP_LATENCY_CYCLES / clock_hz * 1e3
+
+
+# K2's product: both operands read once (a [1, n] row once), out_n limbs a
+# lane written, and a lane's na x nb limb products (a multiply and an add
+# each) and out_n carry steps (add, mask, shift)
+def limb_mul_cost(a_shape, b_shape, out_n):
+    """(bytes, int32 operations) of K2's product on a ``[Ba, na]`` and a
+    ``[Bb, nb]`` operand of int64 limbs."""
+    (ba, na), (bb, nb) = a_shape, b_shape
+    rows = max(ba, bb)
+    return 8 * (ba * na + bb * nb) + rows * out_n * 8, rows * (2 * na * nb + 3 * out_n)
+
+
+# K2's normalise-and-reduce entry (``limb_reduce``), one row's least depth,
+# each step issued one step after its last operand, for columns below 2^32
+# (the JAX carry_propagate's max_entry_bits).  The ripple on 32-bit words:
+# the even columns are words as they stand, the odd ones a funnel shift
+# across two words (1 step), then one carry chain over the ceil(keep / 2)
+# words of x' and a mask of the top word when keep is odd.  The reduction
+# of x' = lo + hi * 2^256 (hi h words): hi * 2^256 mod p a Montgomery
+# product by R^2 mod p, the limb products (1), one carry chain merging the
+# 8 + h columns, eight reduction rounds of three (m, its low product, the
+# carry into the next word) and the high half added with p taken off once
+# (an Fr add, CHAIN_ADD); lo below p beside it, three subtractions of 4p,
+# 2p, p, each an 8-word chain and a select (27); then one Fr add.
+CHAIN_REDUCE_ROUND = 3
+CHAIN_LO_BELOW_P = 3 * (8 + 1)
+
+
+def reduce_chain(keep, reduce):
+    """One row's dependent steps in K2's normalise-and-reduce entry."""
+    words = -(-keep // 2)
+    ripple = 1 + words + keep % 2
+    if not reduce:
+        return ripple
+    h = max(0, words - 8)
+    if h == 0:
+        return ripple + CHAIN_LO_BELOW_P
+    product = 1 + (8 + h) + 8 * CHAIN_REDUCE_ROUND + CHAIN_ADD
+    return ripple + max(product, CHAIN_LO_BELOW_P) + CHAIN_ADD
+
+
+def reduce_chain_ms(keep, reduce, clock_hz):
+    """The chain bound of K2's normalise-and-reduce entry at the card's
+    top clock."""
+    return reduce_chain(keep, reduce) * DEP_LATENCY_CYCLES / clock_hz * 1e3
+
+
+def reduce_cost(rows, m, keep, reduce):
+    """(bytes, int32 operations) of K2's normalise-and-reduce entry on
+    ``[rows, m]`` columns: every column read once, the ``keep`` limbs (or,
+    reduced, 16) a row written; a row's ripple (three a limb) and, reduced,
+    the product of hi by R^2 mod p, the three subtractions with selects and
+    one Fr add."""
+    moved = rows * min(m, keep) * 8 + rows * (16 if reduce else keep) * 8
+    ops = 3 * keep
+    if reduce:
+        h = max(0, -(-keep // 2) - 8)
+        ops += (fr_product_ops(h, 8) if h else 0) + 3 * (8 + 8) + FR_ADD_OPS
+    return moved, rows * ops
+
+
+# K5: a row reads the limbs of its key (tag 1, id 2, address 10, field_tag
+# 1, storage key 8 + 8, rw_counter 2) and writes one flag; the least work
+# builds each row's key once (the 17-limb add of three a limb, the packing
+# of tag and id, the 19 limbs) and compares it with the previous row's
+ORDER_KEY_LIMBS = 1 + 2 + 10 + 1 + 8 + 8 + 2
+ORDER_ROW_OPS = 3 * 17 + 4 + 19 + 2 * 19
+
+
+def order_cost(n):
+    """(bytes, int32 operations) of K5 at ``n`` rows."""
+    return n * ORDER_KEY_LIMBS * 8 + n, n * ORDER_ROW_OPS

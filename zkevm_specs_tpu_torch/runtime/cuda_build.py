@@ -41,6 +41,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "limb_mul": {
         "limb_mul_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I32, _I64, _P],
+        "limb_reduce_launch": [_P, _I64, _I32, _P, _I32, _I32, _I64, _P],
     },
     "limb_addsub": {
         "limb_addsub_launch": [_P, _I64, _I32, _P, _I64, _I32, _P, _I32, _P, _I32, _I64, _P],
