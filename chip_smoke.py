@@ -13,14 +13,21 @@ script exits non-zero):
 2. build: the kernels of ``zkevm_specs_tpu_torch/csrc``, one nvcc per
    source, all started together, with each kernel's registers and spill
    bytes as ptxas reports them;
-3. slice: the compiled EVM group verifier on the ADD and MUL groups at
-   131072 lanes (``bench.py``'s ``BENCH_STEPS``): host trace, upload, one
-   replay on the card with every kernel launch count set to 0 just before
-   it and read just after, every lane passing, then the replay timed, then
-   a rebuild with one corrupted lane that must fail alone; plus the replay
-   at 256 lanes held against the same replay on the CPU (the plain
-   versions, which the CPU tests hold against the JAX package); the MUL
-   group's word product runs as one K11 launch;
+3. slice: the compiled EVM group verifier on the ADD and MUL groups
+   (``slice`` lines), then on the groups of the last eight ALU gadgets
+   (``alu_group`` lines, ``workloads.ALU_GROUPS``: LT, SLT, ISZERO, NOT,
+   AND, BYTE, SIGNEXTEND, SAR), each at 131072 lanes (``bench.py``'s
+   ``BENCH_STEPS``): host trace, upload, one replay on the card with every
+   kernel launch count set to 0 just before it and read just after, every
+   lane passing, then the replay timed, the arguments of every kernel at
+   each distinct shape of one more replay, and one corrupted lane, an edit
+   of the uploaded inputs, that must fail alone (the pushed word's lowest
+   bit flipped; SIGNEXTEND's gas_left + 1, its result bytes being
+   unconstrained, as in the JAX package); plus the replay at 256 lanes
+   held against the same replay on the CPU (the plain versions, which the
+   CPU tests hold against the JAX package), clean and with the builder's
+   own corrupted lane; the MUL group's word product runs as one K11
+   launch; each group and block line gives its phase's seconds;
 4. state: the state circuit (``make_state_check_fn``) on both of
    ``bench.py``'s row mixes at 2^19 rows: build, pack and upload, one
    counted check with every row passing, 10 timed checks, a rebuild with
@@ -51,19 +58,26 @@ script exits non-zero):
    as its launcher counts them) and the graph replay (median
    of 10), the graph's device time alone (CUDA events) and the
    host-scheduled groups' time
-   (they run on the host while the graph runs); the keccak check's share;
+   (they run on the host while the graph runs); the keccak check's share
+   (the check's host ms over the replay and the per-kernel pass, its own
+   captured graph's device ms over the block graph's device ms);
    one more per-kernel pass that records every kernel's arguments at each
    distinct shape, and counts every call under its shape; a rebuild with
    one ADD step's gas_left + 1 that must fail at that step or its
-   predecessor only; and a 2 x 6 block whose
-   failure dicts on the card and on the CPU must be equal, clean and
-   corrupted.  The pi circuit is not ported (``not_ported``);
+   predecessor only; the built verifier's pi-kernel inputs with one row's
+   rpi_value_lc + 1, uploaded by a new ``prepare``, that must fail at
+   ("pi", row) keys only; the keccak and pi checks' shares; and a 2 x 6 block,
+   its two txs with calldata (so that pi's calldata region and its
+   calldata-gas lookup have enabled rows on the card), whose failure dicts
+   on the card and on the CPU must be equal, clean and corrupted.  Every circuit is ported (``"not_ported": []``), pi on
+   every block;
 9. arith: the arithmetic block (``workloads.build_arith_block(40, 37)``:
    1110840 gas of MUL, DIV, MOD, SDIV, SMOD, ADDMOD, MULMOD, EXP, SHL and
    SHR on seeded words, 1480 EXP events in the exp circuit) through the
-   same steps, the exp circuit's share beside the keccak check's, and two
-   corruptions each on its own rebuild (one MULMOD step's pushed result
-   + 1; one exp-circuit row's d + 1) that must fail exactly where the JAX
+   same steps, the exp circuit's share beside the keccak and pi checks', and
+   the pi edit above, and two corruptions each on its own rebuild (one
+   MULMOD step's pushed result + 1; one exp-circuit row's d + 1) that must
+   fail exactly where the JAX
    verifier fails on the same edit of the 4 x 1 block (the CPU tests
    show those keys); and the 4 x 1 block's failure dicts on the card and
    on the CPU, clean and with the MULMOD edit;
@@ -88,7 +102,9 @@ script exits non-zero):
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
    "block", 10 timed launches each, each entry with its count in the
-   pass; K4 also with a bound that reads the table in whole 32-byte
+   pass, the pi check's K1, K3 and K6 calls among them; and likewise at
+   each distinct shape of the eight ALU groups' replays, labelled with the
+   group; K4 also with a bound that reads the table in whole 32-byte
    sectors, and at every gather-only shape ``torch.index_select`` a part
    as its library call;
    and "arith": K11 at each of its
@@ -149,6 +165,7 @@ package beside it, the script exits non-zero before printing anything.
 import collections
 import contextlib
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -209,6 +226,8 @@ K8_BLOCK_HELD_STEPS = 1024  # ... and at the block verifier's keccak table (anot
 BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
 BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
+# its txs' calldata: zero and nonzero bytes, 43 in all
+SMALL_BLOCK_CALL_DATA = (bytes([0, 1, 2, 0]), bytes(range(1, 40)))
 ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
@@ -270,6 +289,12 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                           "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
+# the last eight ALU gadgets' groups: every one reaches K3 and K4 (their
+# fixed Bitwise, SignByte and Pow2 lookups are computed predicates, as in the
+# JAX package); SLT's and SAR's bytes_to_fq products reach K2 and K1
+for _name in workloads.ALU_GROUPS:
+    PATH_KERNELS[_name] = (("fr_mul", "limb_mul", "limb_addsub", "lookup_gather_eq")
+                           if _name in ("SLT", "SAR") else ("limb_addsub", "lookup_gather_eq"))
 
 
 T0 = time.perf_counter()
@@ -299,9 +324,13 @@ def card_line():
 
 # -- phase 3: the slice ---------------------------------------------------------
 
-def run_group(name, exec_state, build, card):
-    out = {"phase": "slice", "group": name, "lanes": LANES, "card": card}
-    t0 = time.perf_counter()
+def run_group(name, exec_state, build, n_pops, corrupt, card, phase):
+    """One group of ``n_pops``-operand steps through the compiled group
+    verifier at LANES lanes (phase 3 of the module docstring); returns the
+    main path's launch counts and (the uploaded inputs, every kernel's
+    arguments at each distinct shape of one more replay)."""
+    out = {"phase": phase, "group": name, "lanes": LANES, "card": card}
+    t_phase = t0 = time.perf_counter()
     tables, steps, nexts = build(LANES)
     t1 = time.perf_counter()
     verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)   # device "cuda"
@@ -309,6 +338,7 @@ def run_group(name, exec_state, build, card):
     inputs = verifier.prepare_inputs(steps, nexts)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    del tables, steps, nexts
 
     # the main path: counts set to 0 just before the replay, read just after
     reset_counts()
@@ -335,35 +365,54 @@ def run_group(name, exec_state, build, card):
         "constraint_evals_per_s": LANES * verifier.n_constraints / (med / 1e3),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
-    keep = None
-    if name == "MUL":
-        # K11's arguments at the group's shape, from one more replay
-        with Capture(word_mul, "mul_add_words", word_mul_key) as k11:
-            verifier(*inputs)
-        keep = (inputs, k11.calls)
-    del tables, steps, nexts, verifier, inputs, fail
-
-    tables, steps, nexts = build(LANES, corrupt_lane=CORRUPT_LANE)
-    verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)
-    fail = verifier(*verifier.prepare_inputs(steps, nexts))
+    _, calls = capture_pass(lambda: verifier(*inputs))
+    out["distinct_kernel_shapes"] = {k: len(c) for k, c in calls.items()}
+    # the corrupted lane as an edit of the uploaded inputs, the clean trace
+    # reused (the builder's own corrupt_lane runs at 256 lanes below)
+    corrupt_lane = CORRUPT_LANE % LANES
+    with corrupted_upload(inputs, corrupt_lane, n_pops, corrupt):
+        fail = verifier(*inputs)
     bad = torch.nonzero(fail).flatten().tolist()
-    assert bad == [CORRUPT_LANE], f"{name}: corrupted lane {CORRUPT_LANE}, failing lanes {bad[:8]}"
-    out["corrupt_lane_caught"] = CORRUPT_LANE
-    del tables, steps, nexts, verifier, fail
+    assert bad == [corrupt_lane], f"{name}: corrupted lane {corrupt_lane}, failing lanes {bad[:8]}"
+    out["corrupt_lane_caught"] = corrupt_lane
+    del fail, verifier
 
     # the card's replay against the CPU replay (plain versions) at 256 lanes
-    for corrupt in (None, 3):
-        tables, steps, nexts = build(SMALL_LANES, seed=1, corrupt_lane=corrupt)
+    for bad_lane in (None, 3):
+        tables, steps, nexts = build(SMALL_LANES, seed=1, corrupt_lane=bad_lane)
         on_card = CompiledGroupVerifier(tables, exec_state, steps, nexts)
         on_cpu = CompiledGroupVerifier(tables, exec_state, steps, nexts, device="cpu")
         f_card = on_card(*on_card.prepare_inputs(steps, nexts)).cpu()
         f_cpu = on_cpu(*on_cpu.prepare_inputs(steps, nexts))
         assert torch.equal(f_card, f_cpu), f"{name}: card and CPU replays disagree"
-        assert torch.nonzero(f_card).flatten().tolist() == ([] if corrupt is None else [corrupt])
+        assert torch.nonzero(f_card).flatten().tolist() == ([] if bad_lane is None else [bad_lane])
     out["small_replay_matches_cpu"] = True
+    out["seconds"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     emit(out)
-    return counts, keep
+    return counts, (inputs, calls)
+
+
+@contextlib.contextmanager
+def corrupted_upload(inputs, lane, n_pops, corrupt):
+    """A group's uploaded replay inputs with ``lane`` made wrong by one while
+    active, as ``workloads.build_op_workload``'s ``corrupt_lane`` makes it:
+    the lane's pushed word (its rw row after its ``n_pops`` pops; the lowest
+    bit of the value flipped) for ``corrupt="result"``, the step's gas_left
+    + 1 for ``"gas_left"``."""
+    curr, _, tree, _ = inputs
+    if corrupt == "gas_left":
+        cell = curr["gas_left"][lane]
+        old = cell.clone()
+        cell[0] += 1
+    else:
+        cell = tree["rw"]["cols"]["value"]["lo"][lane * (n_pops + 1) + n_pops]
+        old = cell.clone()
+        cell[0] ^= 1
+    try:
+        yield
+    finally:
+        cell.copy_(old)
 
 
 # -- phase 4: the state circuit ---------------------------------------------------
@@ -458,6 +507,22 @@ BLOCK_CAPTURES = (
     ("horner_rlc", withdrawal_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
     ("mul_add_words", word_mul, "mul_add_words", word_mul_key),
 )
+
+
+def capture_pass(fn):
+    """``fn()`` with every wrapper of BLOCK_CAPTURES recorded: its result
+    and, by kernel, the arguments of each distinct shape with the count of
+    calls at it (outside the counted runs)."""
+    with contextlib.ExitStack() as stack:
+        caps = [(name, stack.enter_context(Capture(module, attr, key)))
+                for name, module, attr, key in BLOCK_CAPTURES]
+        result = fn()
+    torch.cuda.synchronize()
+    calls = {}
+    for name, c in caps:
+        calls.setdefault(name, []).extend((args, {**c.kwargs[k], COUNT: c.counts[k]})
+                                          for k, args in c.calls.items())
+    return result, calls
 
 
 def state_inputs(mix, n_rows, corrupt_row=None, seed=0):
@@ -769,6 +834,24 @@ def host_ms(fn, repeats):
     return statistics.median(times), min(times), out
 
 
+def captured_device_ms(fn):
+    """The device time of ``fn()`` alone: captured in its own CUDA graph
+    (after a warm-up call on a side stream, as the block verifier
+    captures its pass) and its replay timed with CUDA events, so that it
+    compares with the block graph's ``graph_device_ms``; a call from
+    Python would also count the host's gaps between its launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_on_card_ms(graph.replay, repeats=5, warmup=1)
+
+
 def corrupt_gas_left(w):
     """One ADD step's gas_left + 1: that step or its predecessor fails,
     nothing else."""
@@ -822,17 +905,39 @@ def corrupt_exp_row_d(w):
     return {"corrupt_exp_row": k}, lambda bv, f: set(f) == {("exp", k - 1), ("exp", k)}, undo
 
 
+def corrupt_pi_value_lc(bv):
+    """One pi row's rpi_value_lc + 1 in the built verifier's pi-kernel
+    inputs, before a new ``prepare``: only ("pi", row) keys fail, that row's
+    and the one whose value chain reads it, as the JAX verifier's keys on
+    the same edit (tests/test_torch_block.py, pi_value_lc)."""
+    k = next(k for n, k in bv.circuit_kernels if n == "pi")
+    limbs = k.args[0]["rpi_value_lc"]["f"]
+    r = k.n // 2
+    old = limbs[r].copy()
+    v = (sum(int(x) << (L.LIMB_BITS * i) for i, x in enumerate(old)) + 1) % fr.P
+    limbs[r] = L.int_to_limbs(v, limbs.shape[1]).numpy()
+
+    def undo():
+        limbs[r] = old
+
+    return ({"corrupt_pi_row": r}, lambda f: bool(f) and set(f) <= {("pi", r - 1), ("pi", r)},
+            undo)
+
+
 # the block phases: the witness builder and its sizes, the circuit checks
 # whose share of the device time is reported, the corruptions, and the
 # small block held against the CPU with the corruption it gets there
 BLOCK_PHASES = {
     "block": dict(build=lambda: workloads.build_alu_block(ALU_TXS, ALU_OPS),
-                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS}, shares=("keccak",),
+                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS}, shares=("keccak", "pi"),
                   corruptions=(corrupt_gas_left,),
-                  small=lambda: workloads.build_alu_block(*SMALL_BLOCK), small_size=SMALL_BLOCK,
+                  small=lambda: workloads.build_alu_block(*SMALL_BLOCK,
+                                                          call_data=SMALL_BLOCK_CALL_DATA),
+                  small_size=SMALL_BLOCK,
                   small_corruption=corrupt_gas_left),
     "arith": dict(build=lambda: workloads.build_arith_block(ARITH_TXS, ARITH_CYCLES),
-                  sizes={"txs": ARITH_TXS, "cycles_per_tx": ARITH_CYCLES}, shares=("exp", "keccak"),
+                  sizes={"txs": ARITH_TXS, "cycles_per_tx": ARITH_CYCLES},
+                  shares=("exp", "keccak", "pi"),
                   corruptions=(corrupt_mulmod_push, corrupt_exp_row_d),
                   small=lambda: workloads.build_arith_block(*SMALL_ARITH), small_size=SMALL_ARITH,
                   small_corruption=corrupt_mulmod_push),
@@ -846,7 +951,8 @@ def run_block(path, card):
     CBV = block_runtime.CompiledBlockVerifier
     out = {"phase": path, **spec["sizes"], "sign": False, "not_ported": list(CBV.not_ported),
            "card": card}
-    t0 = time.perf_counter()
+    assert not CBV.not_ported, CBV.not_ported
+    t_phase = t0 = time.perf_counter()
     witness = spec["build"]()
     t_trace = time.perf_counter() - t0
     gas = workloads.receipt_gas_used(witness)
@@ -930,9 +1036,11 @@ def run_block(path, card):
     for name in spec["shares"]:
         k, args = next((k, a) for n, k, a in prepared["circuits"] if n == name)
         check_ms, _, _ = host_ms(lambda: k(args), 3)
+        check_device_ms = captured_device_ms(lambda: k(args))
         out.update({f"{name}_check_ms": check_ms, f"{name}_rows": k.n,
+                    f"{name}_check_graph_device_ms": check_device_ms,
                     f"{name}_share_of_graph_replay": check_ms / graph_ms,
-                    f"{name}_share_of_graph_device": check_ms / graph_device_ms,
+                    f"{name}_share_of_graph_device": check_device_ms / graph_device_ms,
                     f"{name}_share_of_per_kernel_pass": check_ms / per_kernel_ms})
     out.update({
         # bench.py:_bench_block_mix's terms (:550-580): repeat-verify over a warm
@@ -952,15 +1060,7 @@ def run_block(path, card):
     with Capture(block_runtime, "upload") as up:
         bv.prepare()
     leaves, _ = up.calls[None]
-    with contextlib.ExitStack() as stack:
-        caps = [(name, stack.enter_context(Capture(module, attr, key)))
-                for name, module, attr, key in BLOCK_CAPTURES]
-        fails = bv._device_pass(prepared)
-    torch.cuda.synchronize()
-    calls = {}
-    for name, c in caps:
-        calls.setdefault(name, []).extend((args, {**c.kwargs[k], COUNT: c.counts[k]})
-                                          for k, args in c.calls.items())
+    fails, calls = capture_pass(lambda: bv._device_pass(prepared))
     captured = {"plan": transfer.UploadPlan(leaves), "fails": fails, "calls": calls,
                 "instances": pass_paths}
     out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
@@ -968,11 +1068,18 @@ def run_block(path, card):
         assert sum(kw[COUNT] for _, kw in calls[name]) == pass_counts[name], \
             f"{path}: the captured {name} calls differ from the per-kernel pass's launches"
     logup_counts, logup_captured = run_logup(path, bv, prepared, card)
-    del bv, prepared, up, leaves, caps, fails
+
+    # the pi kernel's inputs corrupted in the built verifier, uploaded anew:
+    # pi's keys fail, nothing else
+    info, expected, undo = corrupt_pi_value_lc(bv)
+    failures = bv.run_device_combined(bv.prepare())
+    assert expected(failures), f"{path}: {info}, failures {sorted(failures, key=str)[:8]}"
+    out["corruptions"] = [{**info, "failing_keys": sorted(failures, key=str)}]
+    undo()
+    del bv, prepared, up, leaves, fails
     torch.cuda.empty_cache()
 
     # each corruption on its own rebuild: it fails where it must, nothing else
-    out["corruptions"] = []
     for corrupt in spec["corruptions"]:
         info, expected, undo = corrupt(witness)
         bv = CBV(witness)
@@ -1005,6 +1112,8 @@ def run_block(path, card):
             assert all(ok for ok, _, _ in lu_cpu.values()), lu_cpu
             out["small_block_logup_matches_cpu"] = sorted(lu_cpu)
     out["small_block_matches_cpu"] = list(spec["small_size"])
+    out["small_block_calldata_bytes"] = sum(len(tx.call_data) for tx in small.txs)
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return counts, captured, logup_counts, logup_captured
 
@@ -1661,12 +1770,13 @@ def kernel_phase(launches, mul_inputs, arith_calls):
         lambda: (lambda ok_g: [ok_g[0], *ok_g[1]])(engine.lookup_gather_eq(table, query, idx)),
         lambda: (lambda ok_g: [ok_g[0], *ok_g[1]])(
             engine.lookup_gather_eq_plain(table, query, idx)),
-        *gather_cost(table, query, idx), f"rw table {table[0].shape[0]} rows, 5 parts, B lanes",
+        *gather_cost(table, query, idx),
+        f"rw table {table[0].shape[0]} rows, 5 parts, {idx.shape[0]} lanes (the MUL group's)",
         launches["lookup_gather_eq"]))
     rows[-1].update(gather_sector_bound(table, idx, gather_cost(table, query, idx)[0]))
 
-    # K11: the MUL group's word product, variant 256 at B lanes
-    (args,) = mul_k11.values()
+    # K11: the MUL group's word product, variant 256 at its lanes
+    ((args, _),) = mul_k11
     k11_kernel, k11_plain, k11_cost, k11_note, wide = word_mul_entry(args)
     rows.append(with_chain(compare("mul_add_words", k11_kernel, k11_plain, *k11_cost,
                                    f"MUL: {k11_note}", launches["mul_add_words"]),
@@ -2202,14 +2312,20 @@ def main():
           "resource_usage": {name: cuda_build.resource_usage(name)
                              for name in cuda_build.SIGNATURES}})
 
-    by_path = {}
-    mul_inputs = None
-    for name, exec_state, build in (("ADD", ExecutionState.ADD, build_add_workload),
-                                    ("MUL", ExecutionState.MUL, build_mul_workload)):
-        by_path[name], keep = run_group(name, exec_state, build, card)
-        if keep is not None:
-            mul_inputs = keep
-    captured = {}
+    # the groups: (name, state, builder, pops a step, what corrupt_lane
+    # makes wrong, phase)
+    groups = [("ADD", ExecutionState.ADD, build_add_workload, 2, "result", "slice"),
+              ("MUL", ExecutionState.MUL, build_mul_workload, 2, "result", "slice")]
+    groups += [(name, exec_state, functools.partial(workloads.build_alu_group, name),
+                len(operands_of(0, 0, 0)), corrupt, "alu_group")
+               for name, (exec_state, _, operands_of, _, corrupt) in workloads.ALU_GROUPS.items()]
+    by_path, captured = {}, {}
+    for name, *group in groups:
+        by_path[name], (inputs, calls) = run_group(name, *group[:4], card, group[4])
+        captured[name] = {"calls": calls}
+        if name == "MUL":
+            mul_inputs = (inputs, calls["mul_add_words"])
+        del inputs
     for mix in ("memory_stack", "storage_account"):
         by_path[f"state_{mix}"], captured[mix] = run_state(mix, card)
     by_path["bytecode"], captured["bytecode"] = run_bytecode(card)
@@ -2227,7 +2343,8 @@ def main():
             + logup_kernel_rows(launches, captured))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
-    shape_calls = [(path, captured[path]["calls"]) for path in BLOCK_PHASES]
+    shape_calls = [(path, captured[path]["calls"])
+                   for path in (*workloads.ALU_GROUPS, *BLOCK_PHASES)]
     shape_calls += [(f"logup_{path} {family}", calls) for path in BLOCK_PHASES
                     for family, calls in captured[f"logup_{path}"]["calls"].items()]
     for label, calls in shape_calls:

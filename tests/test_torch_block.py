@@ -15,11 +15,14 @@ which needs no XLA compile:
 
 * the group partition (state, flags, lane indexes, signature);
 * every group's per-lane fail bits, against JAX ``_run_eager_group``;
-* the state, prologue, bytecode, keccak, exp and withdrawal rows, against the
-  JAX checks in spec mode (the JAX ``CircuitKernel``'s inputs, recorded
-  as it is built, run eagerly);
+* the state, prologue, bytecode, keccak, exp, withdrawal and pi rows,
+  against the JAX checks in spec mode (the JAX ``CircuitKernel``'s inputs,
+  recorded as it is built, run eagerly);
 * the failure dicts of ``run_device`` and ``run_device_combined``, against
-  the JAX verdict without its ``("pi", row)`` keys (pi is not ported).
+  the JAX verdict, its ``("pi", row)`` keys included.
+
+Two more blocks exercise the pi circuit: one whose txs carry calldata, and
+one whose pi witness has a row's ``rpi_value_lc`` + 1 in both packages.
 
 Also K9's and K10's plain versions against the per-leaf upload and
 ``torch.cat``, the narrowing against the JAX ``_ship_leaves``, and what the
@@ -30,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from zkevm_specs_tpu.circuits import pi as jpi
 from zkevm_specs_tpu.circuits import state as jst
 from zkevm_specs_tpu.dsl.cs import ConstraintSystem as JCS
 from zkevm_specs_tpu.dsl.value import Ctx as JCtx
@@ -39,6 +43,7 @@ from zkevm_specs_tpu.tables import schemas as js
 from zkevm_specs_tpu.tables.engine import Table as JTable
 from zkevm_specs_tpu.witness import tracer as JT
 from zkevm_specs_tpu.witness import typing as JY
+from zkevm_specs_tpu_torch.circuits import pi as ppi
 from zkevm_specs_tpu_torch.runtime import transfer
 from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 from zkevm_specs_tpu_torch.runtime.convert import to_device
@@ -51,7 +56,8 @@ from test_torch_tracer import _jax_txs, txs_of
 
 torch.set_num_threads(1)
 
-CIRCUITS = ("prologue", "bytecode", "keccak", "withdrawal")
+CIRCUITS = ("prologue", "bytecode", "keccak", "withdrawal", "pi")
+PI_CORRUPT_ROW = 37
 
 
 def _corrupt(w, kind):
@@ -84,6 +90,29 @@ def _corrupt(w, kind):
         row["d"] = (row["d"] + 1) % (1 << 256)
 
 
+def _calldata_txs(Y):
+    """Three calls whose txs carry calldata (zero and nonzero bytes, and an
+    empty one), for the pi circuit's calldata region."""
+    txs = txs_of(Y, n_txs=3, n_ops=2)
+    for (tx, _), data in zip(txs, (bytes([0, 1, 2, 0]), b"", bytes(range(1, 40)))):
+        tx.call_data = data
+    return txs
+
+
+def _pi_value_lc(pkg):
+    """``pkg.public_data2witness`` with row PI_CORRUPT_ROW's rpi_value_lc
+    + 1 in the witness it returns."""
+    build = pkg.public_data2witness
+
+    def corrupted(*args):
+        w = build(*args)
+        row = w.rows[PI_CORRUPT_ROW]
+        row["rpi_value_lc"] = (row["rpi_value_lc"] + 1) % ppi.P
+        return w
+
+    return corrupted
+
+
 def _arith_txs(Y, n_txs=4, cycles=1):
     """``workloads.arith_block_txs`` in the package ``Y``'s classes."""
     txs = workloads.arith_block_txs(n_txs, cycles)
@@ -99,6 +128,12 @@ BLOCKS = {   # kind: (txs_of arguments or a txs builder, corruption, withdrawals
     "sub_mul_div_mod": (dict(n_ops=8, ops=("add", "sub", "mul", "div", "mod")), None, 0),
     "shared_caller": (dict(shared_caller=True), None, 0),
     "withdrawals": (dict(), None, 3),
+    "calldata": (_calldata_txs, None, 0),
+    # the last eight ALU gadgets' opcodes through the block verifier
+    "alu_gadgets": (dict(n_ops=14, ops=("gt", "sgt", "eq", "slt", "iszero", "not", "or", "xor",
+                                        "byte", "signextend", "sar", "and_", "lt", "shr")),
+                    None, 0),
+    "pi_value_lc": (dict(), "pi_value_lc", 0),
     # the arithmetic block (4 txs x 1 cycle), clean and with chip_smoke.py's
     # two corruptions
     "arith": (_arith_txs, None, 0),
@@ -107,15 +142,14 @@ BLOCKS = {   # kind: (txs_of arguments or a txs builder, corruption, withdrawals
 }
 # the blocks whose verdict must hold a failure
 MUST_FAIL = {"gas_left", "stack_value", "coinbase_balance", "prologue_value", "shared_caller",
-             "arith_mulmod_push", "arith_exp_row_d"}
+             "arith_mulmod_push", "arith_exp_row_d", "pi_value_lc"}
 
 _CACHE = {}
 
 
 class JaxSide:
     """The JAX verifier of a witness, with every lane and row verdict in
-    spec mode (no XLA compile), but for the circuits the port has not
-    ported, which are not evaluated."""
+    spec mode (no XLA compile)."""
 
     def __init__(self, w, monkeypatch):
         recorded = []
@@ -134,8 +168,6 @@ class JaxSide:
                                   JTable.from_rows(ctx, js.MPT_SCHEMA, self.bv._state_mpt))
         self.rows = {"state": np.asarray(cs.fail)}
         for name, check, cols, tables, static, extra in recorded:
-            if name in CompiledBlockVerifier.not_ported:
-                continue
             v = next(iter(cols.values()))
             ctx = getattr(v, "lo", v).ctx
             cs = JCS(ctx)
@@ -164,9 +196,14 @@ def _sides(kind, monkeypatch):
                   for T, Y in ((JT, JY), (PT, PY)))
         _corrupt(jw, corruption)
         _corrupt(pw, corruption)
-        pbv = CompiledBlockVerifier(pw, device="cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            if corruption == "pi_value_lc":
+                for pkg in (jpi, ppi):
+                    mp.setattr(pkg, "public_data2witness", _pi_value_lc(pkg))
+            pbv = CompiledBlockVerifier(pw, device="cpu")
+            jax_side = JaxSide(jw, monkeypatch)
         prepared = pbv.prepare()
-        _CACHE[kind] = (JaxSide(jw, monkeypatch), pbv, prepared, pbv._device_pass(prepared))
+        _CACHE[kind] = (jax_side, pbv, prepared, pbv._device_pass(prepared))
     return _CACHE[kind]
 
 
@@ -230,6 +267,9 @@ def test_failures_match_jax(kind, monkeypatch):
     if kind == "gas_left":
         bad = next(i for i, s in enumerate(pbv.witness.steps) if s.execution_state.name == "ADD")
         assert set(want) == {bad - 1, bad}
+    if kind == "pi_value_lc":
+        # the corrupted row and the row whose chain reads it, nothing else
+        assert set(want) <= {("pi", PI_CORRUPT_ROW - 1), ("pi", PI_CORRUPT_ROW)} and want
     if want:
         with pytest.raises(AssertionError, match="block verification failed"):
             pbv.verify()
@@ -368,4 +408,9 @@ def test_unported_circuits_raise(field, value):
 
 
 def test_not_ported_names_pi():
-    assert CompiledBlockVerifier.not_ported == ("pi",)
+    """The pi circuit is ported: the verifier names no unported circuit of
+    an unsigned block, and runs pi last, after the withdrawal circuit."""
+    assert CompiledBlockVerifier.not_ported == ()
+    w = PT.trace_block(PY.Block(), txs_of(PY, n_txs=1, n_ops=1), sign=False)
+    names = [name for name, _ in CompiledBlockVerifier(w, device="cpu").circuit_kernels]
+    assert names[-2:] == ["withdrawal", "pi"]

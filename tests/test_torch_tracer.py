@@ -1,5 +1,5 @@
 """The port's tracer (zkevm_specs_tpu_torch.witness.tracer, the ALU subset
-with ADDMOD, MULMOD and EXP) against the JAX package's ``trace_block(...,
+with SIGNEXTEND, ADDMOD, MULMOD and EXP) against the JAX package's ``trace_block(...,
 sign=False)``, tolerance 0: every field of every step, every rw row, the
 tables' rows, the exp circuit's rows and the per-tx outcome bookkeeping are
 equal on the same transactions.  Also the host
@@ -65,6 +65,9 @@ CASES = {
     "shared_caller": dict(shared_caller=True),
     "arith": dict(n_ops=8, ops=("add", "sub", "mul", "div", "mod", "lt", "and_", "shl")),
     "empty": dict(n_txs=0),
+    # the last eight ALU gadgets' opcodes (ISZERO and NOT leave one word each)
+    "alu_gadgets": dict(n_ops=16, ops=("gt", "sgt", "eq", "slt", "iszero", "not", "or", "xor",
+                                       "byte", "signextend", "sar", "and_", "lt", "shr")),
 }
 
 
@@ -74,6 +77,30 @@ def test_trace_matches_jax(case):
     jw = JT.trace_block(JY.Block(base_fee=int(1e9)), txs_of(JY, **kw), sign=False)
     pw = PT.trace_block(PY.Block(base_fee=int(1e9)), txs_of(PY, **kw), sign=False)
     assert_same_witness(jw, pw)
+
+
+@pytest.mark.parametrize("index,value", [
+    (0, 0xFF), (0, 0x7F), (1, 0xFF80), (15, 0x80 << 120), (30, (1 << 255) - 1),
+    (30, 1 << 247), (31, (1 << 256) - 2), (32, 1 << 255), (1 << 255, 0x1234),
+])
+def test_signextend_rows_match_jax(index, value):
+    """The tracer's SIGNEXTEND (``op_signextend``): the step, its three
+    stack rows and the pushed word equal the JAX tracer's, for indexes
+    below, at and past 31 and both signs of the selected byte."""
+    def trace(T, Y):
+        bc = Y.Bytecode().signextend(index, value).pop().stop()
+        tx = Y.Transaction(id=1, gas=100000, caller_address=0xFE, callee_address=0xFF)
+        return T.trace_block(Y.Block(base_fee=int(1e9)), [(tx, bc)], sign=False)
+
+    jw, pw = trace(JT, JY), trace(PT, PY)
+    assert_same_witness(jw, pw)
+    step = next(s for s in pw.steps if s.execution_state.name == "SIGNEXTEND")
+    pushed = next(r for r in pw.rw.rws if r["rw_counter"] == step.rw_counter + 2)
+    bit = 8 * index + 7
+    want = value if index >= 31 else (
+        value | ((1 << 256) - (1 << (bit + 1))) if (value >> bit) & 1
+        else value & ((1 << (bit + 1)) - 1))
+    assert pushed["value"] == want
 
 
 def test_alu_block_builder_is_bench_mix_traced_unsigned():

@@ -1,8 +1,10 @@
 """The block's glue between circuits: the rw rows as state-circuit
-operations, and the in-circuit prologue check.
+operations, the pi circuit's view of a block, and the in-circuit prologue
+check.
 
 Counterpart of ``zkevm_specs_tpu/circuits/super_circuit.py``
-(``rw_rows_to_state_ops`` :62-118, ``build_prologue_inputs`` /
+(``rw_rows_to_state_ops`` :62-118, ``public_data_from_witness`` :121-155,
+``build_prologue_inputs`` /
 ``_canon_u32`` / ``check_prologue`` / ``prologue_kernel`` :327-495).  The
 tracer prepends a prologue of call-context setup writes at rw counters
 1..K; the prologue check pins those rows in-circuit: their counters, keys
@@ -104,6 +106,38 @@ def rw_rows_to_state_ops(rw_rows: List[dict]) -> List[Operation]:
     if ops and ops[0].tag == Tag.Start:
         ops[0].lexicographic_ordering_selector = 0
     return ops
+
+
+def public_data_from_witness(witness: BlockWitness, MAX_WITHDRAWALS: int):
+    """The pi circuit's ``PublicData`` of a block witness: the block and tx
+    data the EVM tables carry, plus the header fields the EVM circuit never
+    reads, mocked as in the reference (``tx_sign_hash`` 1234, reference
+    typing.py:265); the withdrawals padded to ``MAX_WITHDRAWALS`` with zero
+    amounts that continue the id chain, as the withdrawal circuit pads."""
+    from .pi import Block as PiBlock, PublicData
+    from .pi import Transaction as PiTransaction, Withdrawal as PiWithdrawal
+
+    b = witness.block
+    hashes = [0] * (256 - len(b.history_hashes)) + list(b.history_hashes)
+    pi_block = PiBlock(
+        hash=0, parent_hash=hashes[-1] if hashes else 0, uncle_hash=0,
+        coinbase=b.coinbase, state_root=0, tx_hash=0, receipt_hash=0,
+        bloom=bytes(256), prev_randao=b.prev_randao, number=b.number,
+        gas_limit=b.gas_limit, gas_used=0, time=b.timestamp, extra=b"",
+        mix_digest=0, nonce=0, base_fee=b.base_fee,
+        withdrawals_root=b.withdrawal_root,
+    )
+    pi_txs = [PiTransaction(nonce=tx.nonce, gas_price=tx.gas_price, gas=tx.gas,
+                            from_addr=tx.caller_address, to_addr=tx.callee_address,
+                            value=tx.value, data=bytes(tx.call_data), tx_sign_hash=1234)
+              for tx in witness.txs]
+    pi_wds = [PiWithdrawal(wd.id, wd.validator_id, wd.address, wd.amount)
+              for wd in witness.withdrawals]
+    while len(pi_wds) < MAX_WITHDRAWALS:
+        next_id = pi_wds[-1].id + 1 if pi_wds else 0
+        pi_wds.append(PiWithdrawal(next_id, 0, 0, 0))
+    return PublicData(chain_id=witness.block.chainid, block=pi_block, state_root_prev=0,
+                      block_hashes=hashes, txs=pi_txs, withdrawals=pi_wds)
 
 
 def build_prologue_inputs(witness: BlockWitness, tables: Tables):

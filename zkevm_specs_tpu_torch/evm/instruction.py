@@ -1,5 +1,6 @@
 """The batched EVM-step constraint builder (the part the ported gadgets use:
-ADD/SUB, MUL/DIV/MOD, SDIV/SMOD, ADDMOD, MULMOD, EXP, SHL/SHR, PUSH, POP,
+ADD/SUB, MUL/DIV/MOD, SDIV/SMOD, ADDMOD, MULMOD, EXP, SHL/SHR, SAR,
+LT/GT/EQ, SLT/SGT, ISZERO, NOT, AND/OR/XOR, BYTE, SIGNEXTEND, PUSH, POP,
 STOP, BeginTx, EndTx, EndBlock).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
@@ -279,11 +280,13 @@ class Instruction:
     def ints_of(self, v: Union[F, Word]) -> list:
         """Per-lane Python ints of a value, broadcast to the batch size.
 
-        In the replay the host arithmetic cannot run, so inert
-        ``_HintDummy`` placeholders are returned; ``word_hint`` / ``f_hint``
-        replay the arrays recorded by the eager hint pass."""
+        In the replay the host arithmetic cannot run, so one inert
+        ``_HintDummy`` placeholder is returned, not one a lane: a gadget's
+        per-lane hint loop then runs once in each replay (the JAX package
+        traces it once under jit), and ``word_hint`` / ``f_hint`` replay
+        the arrays recorded by the eager hint pass."""
         if not self.ctx.eager:
-            return [_DUMMY] * self.ctx.batch
+            return [_DUMMY]
         vals = v.to_ints()
         if len(vals) == 1 and self.ctx.batch > 1:
             vals = vals * self.ctx.batch
@@ -578,6 +581,15 @@ class Instruction:
             size = nz if size is None else torch.maximum(size, nz)
         return F(self.ctx, size[..., None], 8)
 
+    def bytes_to_fq(self, value: Sequence[F]) -> F:
+        """The little-endian bytes as one field value, the last byte most
+        significant (the JAX package's ``bytes_to_fq``)."""
+        assert len(value) <= MAX_N_BYTES
+        acc = self.fq(0)
+        for i in reversed(range(len(value))):
+            acc = acc * 256 + self._f(value[i])
+        return acc
+
     def abs_word(self, x: Word) -> Tuple[Word, F]:
         """(abs(x), x_is_neg) as in reference instruction.py:539-571."""
         is_neg = self.is_neg_word(x)
@@ -665,6 +677,9 @@ class Instruction:
 
     def pow2_lookup(self, value: F, pow_lo128: F, pow_hi128: F):
         self.fixed_lookup(FixedTableTag.Pow2, value, pow_lo128, pow_hi128)
+
+    def sign_byte_lookup(self, value: F, sign_byte: F):
+        self.fixed_lookup(FixedTableTag.SignByte, value, sign_byte, self.fq(0))
 
     def responsible_opcode_lookup(self, opcode: F, aux: IntOrF = 0):
         self.fixed_lookup(

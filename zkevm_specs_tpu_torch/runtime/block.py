@@ -10,8 +10,9 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    repeated) to powers of two; a chunk of fewer than ``min_jit_lanes``
    lanes is verified on the host, as the JAX package does;
 3. the state circuit proves the rw table, and the prologue, bytecode,
-   keccak, exp (when the block ran an EXP) and withdrawal circuits run as
-   ``CircuitKernel`` checks;
+   keccak, exp (when the block ran an EXP), withdrawal and pi circuits run
+   as ``CircuitKernel`` checks, the withdrawal and pi circuits on every
+   block;
 4. ``prepare`` uploads every input leaf once (kernel K9, ``transfer.py``);
    ``run_device`` runs the checks one by one and reads each verdict back;
    ``run_device_combined`` replays the whole device pass as one CUDA graph,
@@ -21,10 +22,9 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    (``parallel/logup_shard.py``) from the lookups that step 2's eager pass
    logged (``lookup_log``) and the table columns ``prepare`` uploaded.
 
-Not ported: the pi circuit (``not_ported``), which the JAX verifier runs on
-every block, and the tx, sig, copy and ecc circuits; a witness that
-carries one of the latter raises ``NotImplementedError``.  The verdicts
-are the JAX verifier's, key for key, without its ``("pi", row)`` keys.
+Not ported: the tx, sig, copy and ecc circuits; a witness that carries
+one of them raises ``NotImplementedError``.  The verdicts are the JAX
+verifier's, key for key, its ``("pi", row)`` keys included.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..circuits import pi as pi_circuit
 from ..circuits.bytecode import assign_bytecode_circuit, assign_keccak_table, bytecode_kernel, unroll
 from ..circuits.exp import exp_kernel
 from ..circuits.keccak import keccak_kernel
@@ -43,7 +44,11 @@ from ..circuits.state import (
     mpt_table_from_ops,
     pack_state_inputs,
 )
-from ..circuits.super_circuit import prologue_kernel, rw_rows_to_state_ops
+from ..circuits.super_circuit import (
+    prologue_kernel,
+    public_data_from_witness,
+    rw_rows_to_state_ops,
+)
 from ..circuits.withdrawal import withdrawal_kernel, withdrawals2witness
 from ..config import DEFAULT_CONFIG
 from ..dsl.cs import ConstraintSystem, LaneSplit
@@ -130,10 +135,11 @@ def _remap(tree, by_id: Dict[int, torch.Tensor]):
 class CompiledBlockVerifier:
     """Whole-block witness verification on ``device`` ("cuda" unless the
     caller asks for "cpu"; there is no fallback): every EVM step group, the
-    state circuit over the rw table, and the prologue, bytecode, keccak, exp
-    and withdrawal circuits.  The pi circuit is not ported (``not_ported``)."""
+    state circuit over the rw table, and the prologue, bytecode, keccak, exp,
+    withdrawal and pi circuits.  Every circuit the JAX verifier runs on an
+    unsigned block is ported (``not_ported`` is empty)."""
 
-    not_ported = ("pi",)
+    not_ported = ()
 
     def __init__(self, witness: BlockWitness, min_jit_lanes: int = 4,
                  max_group_lanes: int = 1 << 16, device="cuda"):
@@ -163,7 +169,8 @@ class CompiledBlockVerifier:
 
         # in-circuit prologue, then the producer circuits of the tables the
         # EVM circuit reads (the JAX verifier's order), then the withdrawal
-        # circuit (run on every block)
+        # and pi circuits (run on every block, one padding withdrawal when
+        # the block has none)
         self.circuit_kernels: List[Tuple[str, object]] = [
             ("prologue", prologue_kernel(witness, self.tables, device=self.device))]
         bc_rows = assign_bytecode_circuit(k_bytecode, [unroll(c) for c in codes], r)
@@ -179,6 +186,12 @@ class CompiledBlockVerifier:
         wd_witness = withdrawals2witness(witness.withdrawals, n_wd, r, kwargs["block_table"])
         self.circuit_kernels.append(("withdrawal", withdrawal_kernel(wd_witness, n_wd, r,
                                                                      device=self.device)))
+        max_txs = len(witness.txs)
+        max_calldata = max(1, sum(len(tx.call_data) for tx in witness.txs))
+        pi_witness = pi_circuit.public_data2witness(public_data_from_witness(witness, n_wd),
+                                                    max_txs, max_calldata, n_wd)
+        self.circuit_kernels.append(("pi", pi_circuit.pi_kernel(
+            pi_witness, max_txs, max_calldata, n_wd, device=self.device)))
 
         steps = list(witness.steps) + [DUMMY_STEP_STATE]
         n_pairs = len(steps) - 1

@@ -12,9 +12,6 @@ import copy as _copy
 from typing import Mapping, Optional, Sequence, Union
 
 from ..dsl.value import Ctx, F, Word, WordOrValue
-from ..evm.execution_state import responsible_opcode_codes
-from ..evm.opcode import constant_gas_cost_pairs
-from ..evm.precompile import precompile_info_pairs
 from . import schemas as S
 from .engine import Row, Table
 from .fixed import FixedTables
@@ -26,6 +23,12 @@ TABLE_NAMES = (
 
 
 def _shared_fixed() -> FixedTables:
+    # imported here: the evm package imports this module, so a top-level
+    # import would make importing this module first a cycle
+    from ..evm.execution_state import responsible_opcode_codes
+    from ..evm.opcode import constant_gas_cost_pairs
+    from ..evm.precompile import precompile_info_pairs
+
     ft = FixedTables()
     ft.register_set(S.FixedTableTag.ResponsibleOpcode, responsible_opcode_codes())
     ft.register_set(

@@ -1,10 +1,10 @@
 """Mini EVM tracer, the ALU subset: builds a coherent block witness (steps
 and rw rows, and the exp circuit's squaring trace) for blocks of PUSH /
-ALU / ADDMOD / MULMOD / EXP / POP / STOP bytecodes.
+ALU / SIGNEXTEND / ADDMOD / MULMOD / EXP / POP / STOP bytecodes.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer.run_tx`` :374-548,
-``step_op`` :721-749, the handlers :1861-1928 and ``trace_block``
+``step_op`` :721-749, the handlers :1861-1942 and ``trace_block``
 :2629-2754).  Each executed opcode emits exactly the rw rows its gadget
 looks up, with the JAX tracer's rw_counter / gas / stack-pointer
 bookkeeping, so the witness equals the JAX tracer's row for row.
@@ -388,6 +388,11 @@ class _Tracer:
         self.spush(out)
         self.pc += 1
 
+    def op_signextend(self, op):
+        i, x = self.spop(), self.spop()
+        self.spush(signextend(i, x))
+        self.pc += 1
+
     def op_mod3(self, op):
         a, b, n = self.spop(), self.spop(), self.spop()
         if n == 0:
@@ -407,6 +412,14 @@ class _Tracer:
             self.w.exp_circuit.add_event(base, exponent, identifier)
         self.gas_left -= GAS_COST_EXP_PER_BYTE * _byte_size(exponent)
         self.pc += 1
+
+
+def signextend(i: int, x: int) -> int:
+    """SIGNEXTEND: x with the sign bit of its byte i extended (i < 31)."""
+    if i >= 31:
+        return x
+    mask = (1 << (8 * i + 8)) - 1
+    return x | (U256M - mask) if (x >> (8 * i + 7)) & 1 else x & mask
 
 
 _ALU_BINARY = {
@@ -449,7 +462,7 @@ _STATE_BY_OPCODE = {
     Opcode.ISZERO: _ES.ISZERO, Opcode.NOT: _ES.NOT,
     Opcode.AND: _ES.BITWISE, Opcode.OR: _ES.BITWISE, Opcode.XOR: _ES.BITWISE,
     Opcode.BYTE: _ES.BYTE, Opcode.SHL: _ES.SHL_SHR, Opcode.SHR: _ES.SHL_SHR,
-    Opcode.SAR: _ES.SAR,
+    Opcode.SAR: _ES.SAR, Opcode.SIGNEXTEND: _ES.SIGNEXTEND,
 }
 
 # -- hot-path dispatch tables: 256-entry arrays indexed by the raw byte ------
@@ -471,7 +484,8 @@ for _o in Opcode:
         _STATE[_raw] = _STATE_BY_OPCODE[_o]
         _HANDLER[_raw] = {Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
                           Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
-                          Opcode.EXP: _Tracer.op_exp}.get(_o, _Tracer.op_alu)
+                          Opcode.EXP: _Tracer.op_exp,
+                          Opcode.SIGNEXTEND: _Tracer.op_signextend}.get(_o, _Tracer.op_alu)
 
 
 def trace_block(

@@ -6,7 +6,9 @@ payload; and two blocks traced by the port's tracer for the block
 verifier, the ALU block (``build_alu_block``) and the arithmetic block
 (``build_arith_block``).
 
-``build_add_workload`` is the flagship group of the JAX package's entry
+``build_alu_group`` builds the groups of the last eight ALU gadgets
+(``ALU_GROUPS``: LT, SLT, ISZERO, NOT, AND, BYTE, SIGNEXTEND, SAR) on the
+same seeded words.  ``build_add_workload`` is the flagship group of the JAX package's entry
 point (``__graft_entry__._build_add_workload``): ADD steps over random
 256-bit words from ``numpy.random.RandomState(seed)``, drawn in the same
 order, so both packages see the same words.  ``build_mul_workload`` is the
@@ -16,7 +18,7 @@ that lane's pushed result wrong by one, so exactly that lane must fail.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +27,7 @@ from .evm.opcode import Opcode, constant_gas_cost
 from .evm.step import StepState
 from .tables.container import Tables
 from .tables.schemas import RW, AccountFieldTag, BytecodeFieldTag
+from .witness.tracer import _ALU_BINARY, signextend, trace_block
 from .witness.typing import Block, Bytecode, RWDictionary, Transaction, Withdrawal
 
 WORD = 1 << 256
@@ -56,27 +59,36 @@ def random_word_pairs(n_steps: int, seed: int = 0) -> List[Tuple[int, int]]:
     return out
 
 
-def build_binop_workload(state: ExecutionState, op_name: str, result_of: Callable[[int, int], int],
-                         n_steps: int, seed: int = 0, corrupt_lane: Optional[int] = None):
-    """(tables, steps, next_steps) for n_steps of one 2-pop/1-push opcode
-    sharing one bytecode, with per-lane rw rows."""
-    bytecode = getattr(Bytecode(), op_name.lower())(1, 2).stop()
+def build_op_workload(state: ExecutionState, op_name: str, result_of: Callable[..., int],
+                      operands: List[Tuple[int, ...]], corrupt_lane: Optional[int] = None,
+                      corrupt: str = "result"):
+    """(tables, steps, next_steps) for one opcode that pops the operands of
+    each lane (one or two words) and pushes ``result_of(*operands)``, the
+    lanes sharing one bytecode, each with its own rw rows.
+    ``corrupt_lane``'s pushed result is wrong by one (``corrupt="result"``)
+    or its step's gas_left one too high (``"gas_left"``)."""
+    n_pops = len(operands[0])
+    bytecode = getattr(Bytecode(), op_name.lower())(*range(1, n_pops + 1)).stop()
     h = bytecode.hash()
     gas = constant_gas_cost(Opcode[op_name])
+    sp0, pc = 1024 - n_pops, 33 * n_pops
     rw = RWDictionary(9)
     steps, nexts = [], []
     rwc = 9
-    for i, (a, b) in enumerate(random_word_pairs(n_steps, seed)):
-        c = result_of(a, b)
-        if i == corrupt_lane:
+    for i, pops in enumerate(operands):
+        c = result_of(*pops)
+        if i == corrupt_lane and corrupt == "result":
             c = (c + 1) % WORD
-        rw.stack_read(1, 1022, a).stack_read(1, 1023, b).stack_write(1, 1023, c)
+        for k, v in enumerate(pops):
+            rw.stack_read(1, sp0 + k, v)
+        rw.stack_write(1, 1023, c)
         steps.append(StepState(state, rwc, call_id=1, is_root=True, code_hash=h,
-                               program_counter=66, stack_pointer=1022, gas_left=gas))
-        nexts.append(StepState(ExecutionState.STOP, rwc + 3, call_id=1, is_root=True,
-                               code_hash=h, program_counter=67, stack_pointer=1023,
+                               program_counter=pc, stack_pointer=sp0,
+                               gas_left=gas + (i == corrupt_lane and corrupt == "gas_left")))
+        nexts.append(StepState(ExecutionState.STOP, rwc + n_pops + 1, call_id=1, is_root=True,
+                               code_hash=h, program_counter=pc + 1, stack_pointer=1023,
                                gas_left=0))
-        rwc += 3
+        rwc += n_pops + 1
     tables = Tables(
         block_table=Block().table_assignments(),
         bytecode_table=bytecode.table_assignments(),
@@ -85,16 +97,53 @@ def build_binop_workload(state: ExecutionState, op_name: str, result_of: Callabl
     return tables, steps, nexts
 
 
+# the last eight ALU gadgets' groups, one representative opcode each:
+# (execution state, opcode, operands of a lane from its seeded word pair,
+# result, as the tracer computes it, and what ``corrupt_lane`` makes wrong:
+# the pushed result, or for SIGNEXTEND, whose gadget leaves the result bytes
+# unconstrained (as the JAX package's does, so a wrong result passes in
+# both), the step's gas_left).  An index or shift is cut to a small range
+# from its word, so that both sides of the gadget's selectors occur (a BYTE
+# index past 31, a SIGNEXTEND index of 31 or more, a SAR shift of 256 or
+# more); ISZERO's operand is zero on every fourth lane.
+ALU_GROUPS = {
+    "LT": (ExecutionState.CMP, "LT", lambda i, a, b: (a, b), _ALU_BINARY[Opcode.LT], "result"),
+    "SLT": (ExecutionState.SCMP, "SLT", lambda i, a, b: (a, b), _ALU_BINARY[Opcode.SLT],
+            "result"),
+    "ISZERO": (ExecutionState.ISZERO, "ISZERO", lambda i, a, b: (0 if i % 4 == 0 else a,),
+               lambda a: int(a == 0), "result"),
+    "NOT": (ExecutionState.NOT, "NOT", lambda i, a, b: (a,), lambda a: a ^ (WORD - 1), "result"),
+    "AND": (ExecutionState.BITWISE, "AND", lambda i, a, b: (a, b), _ALU_BINARY[Opcode.AND],
+            "result"),
+    "BYTE": (ExecutionState.BYTE, "BYTE", lambda i, a, b: (a % 40, b), _ALU_BINARY[Opcode.BYTE],
+             "result"),
+    "SIGNEXTEND": (ExecutionState.SIGNEXTEND, "SIGNEXTEND", lambda i, a, b: (a % 34, b),
+                   signextend, "gas_left"),
+    "SAR": (ExecutionState.SAR, "SAR", lambda i, a, b: (a % 288, b), _ALU_BINARY[Opcode.SAR],
+            "result"),
+}
+
+
+def build_alu_group(name: str, n_steps: int, seed: int = 0, corrupt_lane: Optional[int] = None):
+    """(tables, steps, next_steps) of ``ALU_GROUPS[name]`` on n_steps lanes of
+    seeded words (``random_word_pairs``).  ``corrupt_lane``'s pushed result
+    is wrong by one, or its gas_left one too high, as the group's entry
+    says."""
+    state, op_name, operands_of, result_of, corrupt = ALU_GROUPS[name]
+    operands = [operands_of(i, a, b) for i, (a, b) in enumerate(random_word_pairs(n_steps, seed))]
+    return build_op_workload(state, op_name, result_of, operands, corrupt_lane, corrupt)
+
+
 def build_add_workload(n_steps: int, seed: int = 0, corrupt_lane: Optional[int] = None):
     """The ADD group: c = (a + b) mod 2^256."""
-    return build_binop_workload(ExecutionState.ADD, "ADD", lambda a, b: (a + b) % WORD,
-                                n_steps, seed, corrupt_lane)
+    return build_op_workload(ExecutionState.ADD, "ADD", lambda a, b: (a + b) % WORD,
+                             random_word_pairs(n_steps, seed), corrupt_lane)
 
 
 def build_mul_workload(n_steps: int, seed: int = 0, corrupt_lane: Optional[int] = None):
     """The MUL group: c = (a * b) mod 2^256."""
-    return build_binop_workload(ExecutionState.MUL, "MUL", lambda a, b: (a * b) % WORD,
-                                n_steps, seed, corrupt_lane)
+    return build_op_workload(ExecutionState.MUL, "MUL", lambda a, b: (a * b) % WORD,
+                             random_word_pairs(n_steps, seed), corrupt_lane)
 
 
 # -- state circuit --------------------------------------------------------------
@@ -228,14 +277,18 @@ def alu_block_txs(n_txs: int, ops_per_tx: int) -> List[Tuple[Transaction, Byteco
     return txs
 
 
-def build_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS):
+def build_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS,
+                    call_data: Sequence[bytes] = ()):
     """The ALU block's witness, as bench.py's ``_run_block_once`` traces it
     (``Block(base_fee=10**9, gas_limit=30 * 10**6)``), unsigned: the port
-    does not have the tx and sig circuits a signed block feeds."""
-    from .witness.tracer import trace_block
-
-    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
-                       alu_block_txs(n_txs, ops_per_tx), sign=False)
+    does not have the tx and sig circuits a signed block feeds.
+    ``call_data`` gives the first txs calldata, for the pi circuit's
+    calldata region (bench.py's txs have none; a tx's 1000 spare gas covers
+    up to 62 nonzero bytes)."""
+    txs = alu_block_txs(n_txs, ops_per_tx)
+    for (tx, _), data in zip(txs, call_data):
+        tx.call_data = data
+    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6), txs, sign=False)
 
 
 # -- the arithmetic block --------------------------------------------------------------
@@ -291,8 +344,6 @@ def build_arith_block(n_txs: int = ARITH_BLOCK_TXS, cycles: int = ARITH_BLOCK_CY
     """The arithmetic block's witness, traced unsigned by the port's tracer
     under ``Block(base_fee=10**9, gas_limit=30 * 10**6)`` (the ALU block's
     header)."""
-    from .witness.tracer import trace_block
-
     return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
                        arith_block_txs(n_txs, cycles, seed), sign=False)
 
