@@ -46,8 +46,12 @@ script exits non-zero):
 7. withdrawal: the withdrawal circuit (``withdrawal_kernel``) at mainnet's
    16 rows, the same steps with one corrupted amount;
 8. block: the whole ALU block (``workloads.build_alu_block(8, 11000)``,
-   ``bench.py:_alu_heavy_txs(8, 11000)`` traced by the port, unsigned)
-   through the port's ``CompiledBlockVerifier``: trace, build, cold and
+   ``bench.py:_alu_heavy_txs(8, 11000)`` traced and signed by the port, as
+   ``bench.py:_run_block_once`` traces it, caller 0xFE becoming each tx's
+   own key's address) through the port's ``CompiledBlockVerifier``, the tx
+   and sig circuits included (``"sign": true``; the host seconds of the
+   signing and of the tx and sig witnesses, each timed again on its own):
+   trace, build, cold and
    warm ``prepare`` (one upload through K9), then, with every count set to
    0 just before and read just after, a warm ``prepare`` and the first
    ``run_device_combined`` (the capture of the whole device pass into one
@@ -66,15 +70,21 @@ script exits non-zero):
    one ADD step's gas_left + 1 that must fail at that step or its
    predecessor only; the built verifier's pi-kernel inputs with one row's
    rpi_value_lc + 1, uploaded by a new ``prepare``, that must fail at
-   ("pi", row) keys only; the keccak and pi checks' shares; and a 2 x 6 block,
-   its two txs with calldata (so that pi's calldata region and its
-   calldata-gas lookup have enabled rows on the card), whose failure dicts
-   on the card and on the CPU must be equal, clean and corrupted.  Every circuit is ported (``"not_ported": []``), pi on
-   every block;
-9. arith: the arithmetic block (``workloads.build_arith_block(40, 37)``:
-   1110840 gas of MUL, DIV, MOD, SDIV, SMOD, ADDMOD, MULMOD, EXP, SHL and
-   SHR on seeded words, 1480 EXP events in the exp circuit) through the
-   same steps, the exp circuit's share beside the keccak and pi checks', and
+   ("pi", row) keys only, and likewise one lane's ECDSA verdict flipped in
+   the tx and then the sig inputs, failing at ("tx", lane) and ("sig",
+   lane) only; the keccak, tx, sig and pi checks' shares; and a 2 x 6
+   block, signed, its two txs with calldata (so that pi's calldata region
+   and its calldata-gas lookup have enabled rows on the card), whose
+   failure dicts on the card and on the CPU must be equal, clean, with the
+   gas_left edit and with tx 0 re-signed with key 0xBAD (failing at ("tx",
+   0) only).  Every circuit is ported (``"not_ported": []``), pi on every
+   block;
+9. arith: the arithmetic block at half its txs
+   (``workloads.build_arith_block(20, 37)``: MUL, DIV, MOD, SDIV, SMOD,
+   ADDMOD, MULMOD, EXP, SHL and SHR on seeded words, 740 EXP events in the
+   exp circuit; signed, one caller 0xFE; the 40-tx block, 1110840 gas, is
+   cut to half so that the run keeps its time) through the same steps, the exp circuit's share beside the
+   keccak, tx, sig and pi checks', the tx and sig edits, and
    the pi edit above, and two corruptions each on its own rebuild (one
    MULMOD step's pushed result + 1; one exp-circuit row's d + 1) that must
    fail exactly where the JAX
@@ -93,7 +103,29 @@ script exits non-zero):
    an alpha equal to a table fingerprint giving a zero partial sum on the
    card and in the plain version; and on the small block the same
    verdicts and lhs/rhs limbs on the card and on the CPU;
-10. kernels: each kernel against its plain version on the card at a shape
+10. sstore: the SSTORE-heavy block (``workloads.build_sstore_block(7)`` =
+   ``bench.py:_sstore_heavy_txs(7)``, signed: 1080653 gas, six cold
+   SSTOREs, warm SLOADs and a SHA3 a tx, its copy circuit and the Storage,
+   access-list and refund rows of the state circuit) through the same
+   steps, the copy check's share beside the keccak, tx, sig and pi checks',
+   two rebuilds (the middle SSTORE's written value + 1, failing at that
+   step and the state row of the SLOAD that reads it back; one copy row's
+   rlc_acc + 1, failing at that row and the one before, as the JAX
+   verifier fails on the same edits of a 2-tx block), its logUp line (the
+   copy and keccak families among them), and the 2-tx block's failure
+   dicts on the card and the CPU, clean and with the SSTORE edit;
+11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 1428 signed transfers
+   (``workloads.signed_transfers``: 30000000 // 21000, the most a 30 M-gas
+   block holds, ``bench.py:bench_sig``'s shape, chain 1337): the host
+   seconds of the signing, ``txs2witness``, ``sig_witness_from_txs`` and
+   ``verify_batch`` (all Python ints, as in the JAX package), the build and
+   the upload; one counted check of each with every lane passing (K8 at
+   ``[64, 1428]``, K6 on the prebuilt keccak index, no index built on the
+   card), 10 timed checks, signed txs verified a second (``bench_sig``'s
+   terms, and on the card alone); lane 700's ECDSA verdict flipped in the
+   uploaded inputs, failing alone in each check; and the checks at 4
+   transfers on the card and the CPU, clean and with one lane flipped;
+12. kernels: each kernel against its plain version on the card at a shape
    of the path (bit-exact: they are integer functions), with the median of
    25 timed launches, the plain version's time and the bound; K1, K3 and
    K8 also at every distinct shape and mode the state, bytecode, keccak and
@@ -101,8 +133,10 @@ script exits non-zero):
    (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", 10 timed launches each, each entry with its count in the
-   pass, the pi check's K1, K3 and K6 calls among them; and likewise at
+   "block", "arith" or "sstore", 10 timed launches each, each entry with
+   its count in the pass, the pi, tx, sig and copy checks' K1, K3, K4, K6
+   and K8 calls among them, and at tx_sig's shapes, labelled "tx_sig";
+   and likewise at
    each distinct shape of the eight ALU groups' replays, labelled with the
    group; K4 also with a bound that reads the table in whole 32-byte
    sectors, and at every gather-only shape ``torch.index_select`` a part
@@ -123,7 +157,8 @@ script exits non-zero):
    on Python ints.  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    2048 steps of the same rows (1024 at the block verifier's table), which
-   the line says; at every K8 shape of every path the whole output is
+   the line says (at the blocks' shapes its plain time is that of the one
+   held call: it takes seconds); at every K8 shape of every path the whole output is
    also held against the Python-int Horner, and the entry gives the
    chunked schedule (``horner_schedule``: chunk, work items, launches,
    the kernels' resident blocks an SM) and its chain bound; K8's
@@ -181,13 +216,17 @@ if not torch.cuda.is_available():
 from zkevm_specs_tpu_torch import workloads  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import bytecode as bytecode_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import keccak as keccak_circuit  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import sig as sig_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import state  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import super_circuit  # noqa: E402
+from zkevm_specs_tpu_torch.circuits import tx as tx_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.circuits import withdrawal as withdrawal_circuit  # noqa: E402
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E402
 from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
+from zkevm_specs_tpu_torch.ops.ecc import secp256k1  # noqa: E402
 from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
@@ -203,6 +242,7 @@ from zkevm_specs_tpu_torch.runtime.timing import time_on_card_ms  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
 from zkevm_specs_tpu_torch.tables import logup  # noqa: E402
 from zkevm_specs_tpu_torch.tables.schemas import RW, BytecodeFieldTag, Target  # noqa: E402
+from zkevm_specs_tpu_torch.witness import tracer  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
 LANES = workloads.GROUP_LANES
@@ -228,8 +268,17 @@ BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third 
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 # its txs' calldata: zero and nonzero bytes, 43 in all
 SMALL_BLOCK_CALL_DATA = (bytes([0, 1, 2, 0]), bytes(range(1, 40)))
-ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS, workloads.ARITH_BLOCK_CYCLES
+# the arithmetic block at half its txs (workloads.ARITH_BLOCK_TXS is 40): with
+# the SSTORE and tx_sig phases the whole block ran past the time the run has
+ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 2, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
+SSTORE_TXS = workloads.SSTORE_BLOCK_TXS
+SMALL_SSTORE = 2          # txs of the SSTORE block held against the CPU
+TX_SIG_TXS = workloads.TX_SIG_TXS
+SMALL_TX_SIG = 4          # signed transfers of the tx and sig checks held against the CPU
+TX_SIG_CORRUPT_LANE = 700
+# the label of each block phase in workloads.LOGUP_SIDES
+BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore"}
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
@@ -287,6 +336,10 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "arith": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
                           "lookup_fingerprint", "keccak_sponge", "horner_rlc", "mul_add_words"),
+                "sstore": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_addsub",
+                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                           "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
+                "tx_sig": ("horner_rlc", "lookup_search_eq"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
 # the last eight ALU gadgets' groups: every one reaches K3 and K4 (their
@@ -505,6 +558,7 @@ BLOCK_CAPTURES = (
     ("keccak_sponge", keccak_circuit, "keccak_sponge", lambda a: shapes(a)),
     ("horner_rlc", keccak_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
     ("horner_rlc", withdrawal_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
+    ("horner_rlc", sig_circuit, "horner_rlc", lambda a: (shapes(a[:2]), a[2])),
     ("mul_add_words", word_mul, "mul_add_words", word_mul_key),
 )
 
@@ -820,7 +874,7 @@ def run_withdrawal(card):
     return counts, captured
 
 
-# -- phases 8 and 9: the ALU block and the arithmetic block through the block verifier
+# -- phases 8-11: the three blocks through the block verifier, and the tx and sig checks
 
 def host_ms(fn, repeats):
     """Median host wall time of ``fn()`` ending in a synchronise, and its
@@ -924,37 +978,127 @@ def corrupt_pi_value_lc(bv):
             undo)
 
 
+def corrupt_ecdsa_ok(bv, name):
+    """One lane's host ECDSA verdict flipped in the built verifier's tx- or
+    sig-kernel inputs, before a new ``prepare``: exactly (name, lane)
+    fails."""
+    k = next(k for n, k in bv.circuit_kernels if n == name)
+    ok = k.args[2]["ecdsa_ok"]
+    lane = k.n // 2
+    ok[lane] ^= 1
+
+    def undo():
+        ok[lane] ^= 1
+
+    return {f"corrupt_{name}_ecdsa_lane": lane}, lambda f: set(f) == {(name, lane)}, undo
+
+
+def corrupt_sstore_value(w):
+    """The written value of the middle SSTORE step's storage row + 1:
+    exactly that step and the state row of the SLOAD that reads the slot
+    back fail, as the JAX verifier's keys on the same edit of the 2-tx
+    block (tests/test_torch_block_signed.py, sstore_value)."""
+    sstores = [i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.SSTORE]
+    bad = sstores[len(sstores) // 2]
+    rows = w.rw.rws
+    k = next(k for k, r in enumerate(rows) if r["key0"] == int(Target.AccountStorage)
+             and r["rw"] == int(RW.Write) and r["rw_counter"] >= w.steps[bad].rw_counter)
+    row = rows[k]
+    read = next(r for r in rows[k + 1:] if r["key0"] == int(Target.AccountStorage)
+                and r["rw"] == int(RW.Read) and r["address"] == row["address"]
+                and r["storage_key"] == row["storage_key"])
+    row["value"] += 1
+
+    def expected(bv, f):
+        read_row = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == read["rw_counter"]]
+        return set(f) == {bad, ("state", read_row[0])}
+
+    def undo():
+        row["value"] -= 1
+
+    return {"corrupt_sstore_step": bad}, expected, undo
+
+
+def corrupt_copy_rlc(w):
+    """One copy row's rlc_acc + 1, the sixth row of the middle SHA3 copy
+    event: exactly it and its predecessor fail (the accumulator is no
+    longer constant across them), as the JAX verifier's keys on the same
+    edit (tests/test_torch_block_signed.py, sha3_copy_rlc)."""
+    rows = w.copy_circuit.rows
+    firsts = [i for i, r in enumerate(rows) if r["is_first"]]
+    k = firsts[len(firsts) // 2] + 5
+    old = rows[k]["rlc_acc"]
+    rows[k]["rlc_acc"] = (old + 1) % fr.P
+
+    def undo():
+        rows[k]["rlc_acc"] = old
+
+    return {"corrupt_copy_row": k}, lambda bv, f: set(f) == {("copy", k - 1), ("copy", k)}, undo
+
+
+def corrupt_wrong_key(w):
+    """Tx 0 re-signed with key 0xBAD over the same payload: its recovered
+    signer is no longer the EVM-side sender, so the tx check's lane 0
+    fails (tests/test_block_jit.py:test_block_jit_corrupt_signature_rejected)."""
+    w.signed_txs[0] = tx_circuit.sign_tx(0xBAD, w.signed_txs[0], w.chain_id)
+
+
 # the block phases: the witness builder and its sizes, the circuit checks
 # whose share of the device time is reported, the corruptions, and the
-# small block held against the CPU with the corruption it gets there
+# small block held against the CPU with the corruptions it gets there
+# (None: the clean block)
 BLOCK_PHASES = {
     "block": dict(build=lambda: workloads.build_alu_block(ALU_TXS, ALU_OPS),
-                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS}, shares=("keccak", "pi"),
+                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS},
+                  shares=("keccak", "tx", "sig", "pi"),
                   corruptions=(corrupt_gas_left,),
                   small=lambda: workloads.build_alu_block(*SMALL_BLOCK,
                                                           call_data=SMALL_BLOCK_CALL_DATA),
                   small_size=SMALL_BLOCK,
-                  small_corruption=corrupt_gas_left),
+                  small_corruptions=(None, corrupt_gas_left, corrupt_wrong_key)),
     "arith": dict(build=lambda: workloads.build_arith_block(ARITH_TXS, ARITH_CYCLES),
                   sizes={"txs": ARITH_TXS, "cycles_per_tx": ARITH_CYCLES},
-                  shares=("exp", "keccak", "pi"),
+                  shares=("exp", "keccak", "tx", "sig", "pi"),
                   corruptions=(corrupt_mulmod_push, corrupt_exp_row_d),
                   small=lambda: workloads.build_arith_block(*SMALL_ARITH), small_size=SMALL_ARITH,
-                  small_corruption=corrupt_mulmod_push),
+                  small_corruptions=(None, corrupt_mulmod_push)),
+    "sstore": dict(build=lambda: workloads.build_sstore_block(SSTORE_TXS),
+                   sizes={"txs": SSTORE_TXS},
+                   shares=("copy", "keccak", "tx", "sig", "pi"),
+                   corruptions=(corrupt_sstore_value, corrupt_copy_rlc),
+                   small=lambda: workloads.build_sstore_block(SMALL_SSTORE),
+                   small_size=(SMALL_SSTORE,),
+                   small_corruptions=(None, corrupt_sstore_value)),
 }
 
 
 def run_block(path, card):
     """One block through the port's ``CompiledBlockVerifier`` (see phases 8
-    and 9 of the module docstring)."""
+    to 10 of the module docstring)."""
     spec = BLOCK_PHASES[path]
     CBV = block_runtime.CompiledBlockVerifier
-    out = {"phase": path, **spec["sizes"], "sign": False, "not_ported": list(CBV.not_ported),
+    out = {"phase": path, **spec["sizes"], "sign": True, "not_ported": list(CBV.not_ported),
            "card": card}
     assert not CBV.not_ported, CBV.not_ported
     t_phase = t0 = time.perf_counter()
     witness = spec["build"]()
     t_trace = time.perf_counter() - t0
+    # the host seconds of the signing (part of the trace) and of the tx and
+    # sig witnesses the verifier builds, each timed again on its own
+    signed = list(witness.signed_txs)
+    t0 = time.perf_counter()
+    tracer.sign_block_txs(witness)
+    t_sign = time.perf_counter() - t0
+    assert [tuple(t) for t in witness.signed_txs] == [tuple(t) for t in signed]
+    max_txs, max_cd, chain_id = block_runtime.DEFAULT_CONFIG.tx_circuit_params()
+    r = block_runtime.DEFAULT_CONFIG.keccak_randomness
+    t0 = time.perf_counter()
+    tx_circuit.txs2witness(signed, chain_id, max(max_txs, len(signed)),
+                           max(max_cd, sum(len(t.data) for t in signed)), r)
+    t_tx_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    super_circuit.sig_witness_from_txs(signed, chain_id, r)
+    t_sig_witness = time.perf_counter() - t0
     gas = workloads.receipt_gas_used(witness)
     n_steps = len(witness.steps)
     t0 = time.perf_counter()
@@ -1021,7 +1165,8 @@ def run_block(path, card):
     out.update({
         "steps": n_steps, "rw_rows": len(witness.rw.rws), "gas_used": gas,
         "groups_on_card": groups_card, "groups_on_host": len(bv.groups) - groups_card,
-        "trace_s": t_trace, "build_s": t_build, "prepare_cold_s": t_prepare_cold,
+        "trace_s": t_trace, "sign_s": t_sign, "tx_witness_s": t_tx_witness,
+        "sig_witness_s": t_sig_witness, "build_s": t_build, "prepare_cold_s": t_prepare_cold,
         "prepare_s": t_prepare, "upload": bv.upload_stats,
         "per_kernel_pass_ms_median": per_kernel_ms, "per_kernel_pass_ms_min": per_kernel_min,
         "per_kernel_pass_launches": pass_counts,
@@ -1076,6 +1221,13 @@ def run_block(path, card):
     assert expected(failures), f"{path}: {info}, failures {sorted(failures, key=str)[:8]}"
     out["corruptions"] = [{**info, "failing_keys": sorted(failures, key=str)}]
     undo()
+    # one lane's ECDSA verdict flipped in the tx and then the sig inputs
+    for name in ("tx", "sig"):
+        info, expected, undo = corrupt_ecdsa_ok(bv, name)
+        failures = bv.run_device_combined(bv.prepare())
+        assert expected(failures), f"{path}: {info}, failures {sorted(failures, key=str)[:8]}"
+        out["corruptions"].append({**info, "failing_keys": sorted(failures, key=str)})
+        undo()
     del bv, prepared, up, leaves, fails
     torch.cuda.empty_cache()
 
@@ -1092,19 +1244,25 @@ def run_block(path, card):
         torch.cuda.empty_cache()
     del witness
 
-    # the card's failure dicts against the CPU's on a small block
-    for corrupt in (False, True):
+    # the card's failure dicts against the CPU's on a small block, clean and
+    # with each of its corruptions
+    out["small_block_variants"] = {}
+    for corrupt in spec["small_corruptions"]:
         small = spec["small"]()
-        if corrupt:
-            spec["small_corruption"](small)
+        if corrupt is not None:
+            corrupt(small)
         on_card = CBV(small)
         p = on_card.prepare()
         f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
         on_cpu = CBV(small, device="cpu")
         f_cpu = on_cpu.run_device(on_cpu.prepare())
         assert f_card == f_graph == f_cpu, f"{path}: card {f_card}, graph {f_graph}, CPU {f_cpu}"
-        assert bool(f_cpu) == corrupt
-        if not corrupt:
+        assert bool(f_cpu) == (corrupt is not None)
+        if corrupt is corrupt_wrong_key:
+            assert set(f_cpu) == {("tx", 0)}, f_cpu
+        out["small_block_variants"][corrupt.__name__ if corrupt else "clean"] = \
+            sorted(f_cpu, key=str)
+        if corrupt is None:
             # the logUp argument of the clean small block: the same verdicts
             # and the same lhs and rhs limbs on the card and on the CPU
             lu_card, lu_cpu = logup_limbs(on_card, p), logup_limbs(on_cpu, on_cpu.prepare())
@@ -1116,6 +1274,100 @@ def run_block(path, card):
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return counts, captured, logup_counts, logup_captured
+
+
+def run_tx_sig(card):
+    """The tx and sig checks on the most signed transfers a 30 M-gas block
+    holds (see phase 11 of the module docstring)."""
+    n, chain, r = TX_SIG_TXS, workloads.TX_SIG_CHAIN_ID, 0x64
+    max_cd = workloads.TX_SIG_MAX_CALLDATA
+    out = {"phase": "tx_sig", "txs": n, "chain_id": chain, "max_calldata_bytes": max_cd,
+           "card": card}
+    t_phase = t0 = time.perf_counter()
+    txs = workloads.signed_transfers(n)
+    t_sign = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tw = tx_circuit.txs2witness(txs, chain, n, max_cd, r)
+    t_tx_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sw = super_circuit.sig_witness_from_txs(txs, chain, r)
+    t_sig_witness = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verdicts = secp256k1.verify_batch([(c.msg_hash_int, *c.signature, c.pub_key)
+                                       for c in tw.sign_verifications])
+    t_verify = time.perf_counter() - t0
+    assert all(verdicts)
+    # the kernels' construction runs verify_batch once for each check
+    t0 = time.perf_counter()
+    tk = tx_circuit.tx_kernel(tw, n, r)                       # device "cuda"
+    sk = sig_circuit.sig_kernel(sw, r)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ta, sa = tk.device_args(), sk.device_args()
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before one check of each, read
+    # just after; every lane passes
+    reset_counts()
+    t0 = time.perf_counter()
+    f_tx, f_sig = tk(ta), sk(sa)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    counts = read_counts()
+    assert not f_tx.any() and not f_sig.any(), "tx_sig: a clean signed transfer failed"
+    for name in PATH_KERNELS["tx_sig"]:
+        assert counts[name] > 0, f"tx_sig: kernel {name} was not launched on the main path"
+    assert counts["lookup_fingerprint"] == 0, "tx_sig: an index was built on the card"
+    check_ms = time_on_card_ms(lambda: (tk(ta), sk(sa)), repeats=REPLAY_REPEATS)
+    tx_ms = time_on_card_ms(lambda: tk(ta), repeats=REPLAY_REPEATS)
+    sig_ms = time_on_card_ms(lambda: sk(sa), repeats=REPLAY_REPEATS)
+    # bench.py:bench_sig's terms: the witnesses, then the checks' build and
+    # run (here with the upload)
+    total_s = t_tx_witness + t_sig_witness + t_build + t_upload + check_ms / 1e3
+    out.update({
+        "sign_s": t_sign, "tx_witness_s": t_tx_witness, "sig_witness_s": t_sig_witness,
+        "verify_batch_s": t_verify, "build_s": t_build, "upload_s": t_upload,
+        "first_check_s": t_first, "check_ms_median": check_ms, "tx_check_ms_median": tx_ms,
+        "sig_check_ms_median": sig_ms, "main_path_launches": counts,
+        "signed_txs_verified_per_s": n / total_s,
+        "device_signed_txs_per_s": n / (check_ms / 1e3),
+    })
+
+    # one corrupted lane: its ECDSA verdict flipped in the uploaded inputs
+    lane = TX_SIG_CORRUPT_LANE
+    out["corruptions"] = []
+    for name, k, a in (("tx", tk, ta), ("sig", sk, sa)):
+        a[2]["ecdsa_ok"][lane] ^= 1
+        bad = torch.nonzero(k(a)).flatten().tolist()
+        a[2]["ecdsa_ok"][lane] ^= 1
+        assert bad == [lane], f"tx_sig: {name} lane {lane} edited, failures {bad[:8]}"
+        out["corruptions"].append({f"corrupt_{name}_ecdsa_lane": lane, "failing_lanes": bad})
+    _, calls = capture_pass(lambda: (tk(ta), sk(sa)))
+    out["distinct_kernel_shapes"] = {name: len(c) for name, c in calls.items()}
+
+    # the checks at SMALL_TX_SIG transfers on the card and on the CPU, clean
+    # and with one lane's verdict flipped
+    small = workloads.signed_transfers(SMALL_TX_SIG)
+    stw = tx_circuit.txs2witness(small, chain, SMALL_TX_SIG, max_cd, r)
+    ssw = super_circuit.sig_witness_from_txs(small, chain, r)
+    for corrupt in (False, True):
+        for name, make in (("tx", lambda d: tx_circuit.tx_kernel(stw, SMALL_TX_SIG, r, device=d)),
+                           ("sig", lambda d: sig_circuit.sig_kernel(ssw, r, device=d))):
+            got = []
+            for dev in ("cuda", "cpu"):
+                k = make(dev)
+                a = k.device_args()
+                if corrupt:
+                    a[2]["ecdsa_ok"][1] ^= 1
+                got.append(torch.nonzero(k(a)).flatten().tolist())
+            assert got[0] == got[1] == ([1] if corrupt else []), f"tx_sig: {name} {got}"
+    out["small_matches_cpu"] = SMALL_TX_SIG
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    del tk, sk, ta, sa
+    torch.cuda.empty_cache()
+    return counts, {"calls": calls, "instances": {}}
 
 
 def logup_families(bv):
@@ -1258,10 +1510,10 @@ def run_logup(path, bv, prepared, card):
     return counts, {"calls": calls}
 
 
-def block_kernel_rows(launches, captured, arith_captured):
-    """K9 at the ALU block's upload and K10 at the verdict vectors of both
-    blocks, with the pinned host-to-device copy rate of the same staged
-    bytes."""
+def block_kernel_rows(launches, captured, others):
+    """K9 at the ALU block's upload and K10 at the verdict vectors of every
+    block (``others``: the other block phases' captures, by phase), with the
+    pinned host-to-device copy rate of the same staged bytes."""
     dev = torch.device("cuda")
     plan = captured["plan"]
     staged = transfer.stage(plan, dev)
@@ -1291,8 +1543,8 @@ def block_kernel_rows(launches, captured, arith_captured):
     k10 = {"name": "verdict_pack", "route": "cuda", "source": SOURCES["verdict_pack"],
            "replaces": REPLACES["verdict_pack"], "launches": launches["verdict_pack"],
            **verdict_entry("ALU block", captured["fails"]), "pass": "block", "count": 1,
-           "path_shapes": [{**verdict_entry("arithmetic block", arith_captured["fails"]),
-                            "pass": "arith", "count": 1}]}
+           "path_shapes": [{**verdict_entry(f"{BLOCK_LABELS[p]} block", c["fails"]),
+                            "pass": p, "count": 1} for p, c in others.items()]}
     return [k9, k10]
 
 
@@ -1393,7 +1645,7 @@ def block_path_shapes(calls, label):
             plain_repeats=0), **pass_of(label, kw)})
     for args, kw in calls.get("horner_rlc", []):
         out.setdefault("horner_rlc", []).append(
-            {**horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=3),
+            {**horner_entry(label, *args, K8_BLOCK_HELD_STEPS, clock_hz, plain_repeats=0),
              **pass_of(label, kw)})
     for args, kw in calls.get("mul_add_words", []):
         add("mul_add_words", kw, *word_mul_entry(args)[:4], kernel_repeats=KERNEL_REPEATS)
@@ -1594,7 +1846,7 @@ def word_mul_entry(args):
             wide)
 
 
-# -- phase 10: the kernels against their plain versions ---------------------------
+# -- phase 12: the kernels against their plain versions ---------------------------
 
 def seeded_limbs(rng, rows, n, bound_bits, device):
     """[rows, n] canonical limbs of random values below 2^bound_bits (and
@@ -2278,7 +2530,7 @@ def logup_kernel_rows(launches, captured):
                                   lambda: logup_sum_ints(fps, alpha, m))
                 k13.append({**entry, **logup_plan_entry(fps, alpha, m),
                             **pass_of(f"logup_{path}", kw)})
-    sides = sorted((f"{'ALU' if path == 'block' else 'arith'} {family} "
+    sides = sorted((f"{BLOCK_LABELS[path]} {family} "
                     f"{'query' if args[2].shape[1] == 1 else 'table'}",
                     args[0].shape[0], args[2].shape[1])
                    for path in BLOCK_PHASES
@@ -2335,16 +2587,18 @@ def main():
     for path in BLOCK_PHASES:
         (by_path[path], captured[path], by_path[f"logup_{path}"],
          captured[f"logup_{path}"]) = run_block(path, card)
+    by_path["tx_sig"], captured["tx_sig"] = run_tx_sig(card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
     rows = (kernel_phase(launches, mul_inputs, captured["arith"]["calls"])
             + slice_kernel_rows(launches, captured) + keccak_kernel_rows(launches, captured)
-            + block_kernel_rows(launches, captured["block"], captured["arith"])
+            + block_kernel_rows(launches, captured["block"],
+                                {p: captured[p] for p in BLOCK_PHASES if p != "block"})
             + logup_kernel_rows(launches, captured))
     for name, entries in path_shape_entries(captured).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
     shape_calls = [(path, captured[path]["calls"])
-                   for path in (*workloads.ALU_GROUPS, *BLOCK_PHASES)]
+                   for path in (*workloads.ALU_GROUPS, *BLOCK_PHASES, "tx_sig")]
     shape_calls += [(f"logup_{path} {family}", calls) for path in BLOCK_PHASES
                     for family, calls in captured[f"logup_{path}"]["calls"].items()]
     for label, calls in shape_calls:

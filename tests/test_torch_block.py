@@ -24,6 +24,19 @@ which needs no XLA compile:
 Two more blocks exercise the pi circuit: one whose txs carry calldata, and
 one whose pi witness has a row's ``rpi_value_lc`` + 1 in both packages.
 
+Signed blocks (``trace_block``'s default) add the tx and sig circuits
+(their kinds run in tests/test_torch_block_signed.py, through this file's
+checks):
+the 2 x 6 block, one shared caller (each tx still gets its own key's
+address, so it passes), calldata, and tx 0 re-signed with key 0xBAD
+(tests/test_block_jit.py:test_block_jit_corrupt_signature_rejected; it
+must fail).  The SSTORE-mix block (``workloads.sstore_block_txs`` at 2
+txs) adds the copy circuit, the storage gadgets and the Storage,
+TxAccessListAccountStorage and TxRefund rows of the state circuit; it is
+held clean, with one SSTORE's written rw value + 1 and with one copy row's
+``rlc_acc`` + 1 (both must fail).  The arithmetic block is traced signed,
+as ``workloads.build_arith_block`` traces it.
+
 Also K9's and K10's plain versions against the per-leaf upload and
 ``torch.cat``, the narrowing against the JAX ``_ship_leaves``, and what the
 verifier refuses."""
@@ -35,6 +48,7 @@ import torch
 
 from zkevm_specs_tpu.circuits import pi as jpi
 from zkevm_specs_tpu.circuits import state as jst
+from zkevm_specs_tpu.circuits import tx as jtx
 from zkevm_specs_tpu.dsl.cs import ConstraintSystem as JCS
 from zkevm_specs_tpu.dsl.value import Ctx as JCtx
 from zkevm_specs_tpu.runtime import block as jblock
@@ -44,6 +58,8 @@ from zkevm_specs_tpu.tables.engine import Table as JTable
 from zkevm_specs_tpu.witness import tracer as JT
 from zkevm_specs_tpu.witness import typing as JY
 from zkevm_specs_tpu_torch.circuits import pi as ppi
+from zkevm_specs_tpu_torch.circuits import tx as ptx
+from zkevm_specs_tpu_torch.ops.fr import P as FR_P
 from zkevm_specs_tpu_torch.runtime import transfer
 from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 from zkevm_specs_tpu_torch.runtime.convert import to_device
@@ -56,7 +72,8 @@ from test_torch_tracer import _jax_txs, txs_of
 
 torch.set_num_threads(1)
 
-CIRCUITS = ("prologue", "bytecode", "keccak", "withdrawal", "pi")
+CIRCUITS = ("prologue", "bytecode", "keccak", "copy", "tx", "sig", "withdrawal", "pi")
+COPY_CORRUPT_ROW = 5
 PI_CORRUPT_ROW = 37
 
 
@@ -88,6 +105,17 @@ def _corrupt(w, kind):
     elif kind == "exp_row_d":
         row = w.exp_circuit.rows[4]
         row["d"] = (row["d"] + 1) % (1 << 256)
+    elif kind == "wrong_key":
+        # tx 0 re-signed with another valid key over the same payload
+        sign_tx = ptx.sign_tx if isinstance(w, PT.BlockWitness) else jtx.sign_tx
+        w.signed_txs[0] = sign_tx(0xBAD, w.signed_txs[0], w.chain_id)
+    elif kind == "sstore_value":
+        row = next(r for r in w.rw.rws if r["key0"] == int(js.Target.AccountStorage)
+                   and r["rw"] == int(js.RW.Write))
+        row["value"] += 1
+    elif kind == "copy_rlc":
+        row = w.copy_circuit.rows[COPY_CORRUPT_ROW]
+        row["rlc_acc"] = (row["rlc_acc"] + 1) % FR_P
 
 
 def _calldata_txs(Y):
@@ -119,30 +147,53 @@ def _arith_txs(Y, n_txs=4, cycles=1):
     return txs if Y is PY else _jax_txs(txs)
 
 
-BLOCKS = {   # kind: (txs_of arguments or a txs builder, corruption, withdrawals)
-    "clean": (dict(), None, 0),
-    "gas_left": (dict(), "gas_left", 0),
-    "stack_value": (dict(), "stack_value", 0),
-    "coinbase_balance": (dict(), "coinbase_balance", 0),
-    "prologue_value": (dict(), "prologue_value", 0),
-    "sub_mul_div_mod": (dict(n_ops=8, ops=("add", "sub", "mul", "div", "mod")), None, 0),
-    "shared_caller": (dict(shared_caller=True), None, 0),
-    "withdrawals": (dict(), None, 3),
-    "calldata": (_calldata_txs, None, 0),
+def _sstore_txs(Y, n_txs=2):
+    """``workloads.sstore_block_txs`` (bench.py's SSTORE-heavy pattern) in
+    the package ``Y``'s classes."""
+    txs = workloads.sstore_block_txs(n_txs)
+    return txs if Y is PY else _jax_txs(txs)
+
+
+BLOCKS = {   # kind: (txs_of arguments or a txs builder, corruption, withdrawals, signed)
+    "clean": (dict(), None, 0, False),
+    "gas_left": (dict(), "gas_left", 0, False),
+    "stack_value": (dict(), "stack_value", 0, False),
+    "coinbase_balance": (dict(), "coinbase_balance", 0, False),
+    "prologue_value": (dict(), "prologue_value", 0, False),
+    "sub_mul_div_mod": (dict(n_ops=8, ops=("add", "sub", "mul", "div", "mod")), None, 0, False),
+    "shared_caller": (dict(shared_caller=True), None, 0, False),
+    "withdrawals": (dict(), None, 3, False),
+    "calldata": (_calldata_txs, None, 0, False),
     # the last eight ALU gadgets' opcodes through the block verifier
     "alu_gadgets": (dict(n_ops=14, ops=("gt", "sgt", "eq", "slt", "iszero", "not", "or", "xor",
                                         "byte", "signextend", "sar", "and_", "lt", "shr")),
-                    None, 0),
-    "pi_value_lc": (dict(), "pi_value_lc", 0),
-    # the arithmetic block (4 txs x 1 cycle), clean and with chip_smoke.py's
-    # two corruptions
-    "arith": (_arith_txs, None, 0),
-    "arith_mulmod_push": (_arith_txs, "mulmod_push", 0),
-    "arith_exp_row_d": (_arith_txs, "exp_row_d", 0),
+                    None, 0, False),
+    "pi_value_lc": (dict(), "pi_value_lc", 0, False),
+    # the arithmetic block (4 txs x 1 cycle, one caller, signed), clean and
+    # with chip_smoke.py's two corruptions
+    "arith": (_arith_txs, None, 0, True),
+    "arith_mulmod_push": (_arith_txs, "mulmod_push", 0, True),
+    "arith_exp_row_d": (_arith_txs, "exp_row_d", 0, True),
+    # signed blocks: the tx and sig circuits
+    "signed": (dict(), None, 0, True),
+    "signed_shared_caller": (dict(shared_caller=True), None, 0, True),
+    "signed_calldata": (_calldata_txs, None, 0, True),
+    "signed_wrong_key": (dict(), "wrong_key", 0, True),
+    # the SSTORE-heavy mix: storage gadgets, SHA3 and the copy circuit
+    "sstore": (_sstore_txs, None, 0, True),
+    "sstore_value": (_sstore_txs, "sstore_value", 0, True),
+    "sha3_copy_rlc": (_sstore_txs, "copy_rlc", 0, True),
 }
+# the signed and SSTORE-mix kinds, held by the same checks in
+# test_torch_block_signed.py (a file of its own, so that a run spread by
+# file keeps them off this file's worker)
+SIGNED_KINDS = ("signed", "signed_shared_caller", "signed_calldata", "signed_wrong_key",
+                "sstore", "sstore_value", "sha3_copy_rlc")
+OWN_KINDS = [k for k in sorted(BLOCKS) if k not in SIGNED_KINDS]
 # the blocks whose verdict must hold a failure
 MUST_FAIL = {"gas_left", "stack_value", "coinbase_balance", "prologue_value", "shared_caller",
-             "arith_mulmod_push", "arith_exp_row_d", "pi_value_lc"}
+             "arith_mulmod_push", "arith_exp_row_d", "pi_value_lc", "signed_wrong_key",
+             "sstore_value", "sha3_copy_rlc"}
 
 _CACHE = {}
 
@@ -188,9 +239,9 @@ class JaxSide:
 
 def _sides(kind, monkeypatch):
     if kind not in _CACHE:
-        kw, corruption, n_wd = BLOCKS[kind]
+        kw, corruption, n_wd, signed = BLOCKS[kind]
         jw, pw = (T.trace_block(Y.Block(base_fee=int(1e9)),
-                                kw(Y) if callable(kw) else txs_of(Y, **kw), sign=False,
+                                kw(Y) if callable(kw) else txs_of(Y, **kw), sign=signed,
                                 withdrawals=[Y.Withdrawal(id=i, validator_id=i, address=0xCAFE + i,
                                                           amount=10 + i) for i in range(n_wd)])
                   for T, Y in ((JT, JY), (PT, PY)))
@@ -207,7 +258,7 @@ def _sides(kind, monkeypatch):
     return _CACHE[kind]
 
 
-@pytest.mark.parametrize("kind", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", OWN_KINDS)
 def test_partition_matches_jax(kind, monkeypatch):
     jax_side, pbv, _, _ = _sides(kind, monkeypatch)
 
@@ -219,7 +270,7 @@ def test_partition_matches_jax(kind, monkeypatch):
     assert all(g["verifier"] is None for g in jax_side.bv.groups)
 
 
-@pytest.mark.parametrize("kind", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", OWN_KINDS)
 def test_group_lane_bits_match_jax(kind, monkeypatch):
     jax_side, pbv, _, outs = _sides(kind, monkeypatch)
     device_outs = iter(outs)
@@ -234,12 +285,16 @@ def test_group_lane_bits_match_jax(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("circuit", ("state",) + CIRCUITS)
-@pytest.mark.parametrize("kind", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", OWN_KINDS)
 def test_circuit_rows_match_jax(kind, circuit, monkeypatch):
     jax_side, pbv, _, outs = _sides(kind, monkeypatch)
     names = ["state"] + [name for name, _ in pbv.circuit_kernels]
-    assert [n for n in names if n != "exp"] == ["state", *CIRCUITS]
+    assert names == list(jax_side.rows)
     assert ("exp" in names) == kind.startswith("arith")
+    assert ("copy" in names) == kind.startswith(("sstore", "sha3"))
+    assert ("tx" in names) == ("sig" in names) == BLOCKS[kind][3]
+    if circuit not in names:
+        return
     got = outs[len(outs) - len(names) + names.index(circuit)]
     np.testing.assert_array_equal(got.numpy(), jax_side.rows[circuit])
 
@@ -257,7 +312,7 @@ def test_exp_circuit_rows_match_jax(kind, monkeypatch):
     assert got.any() == (kind == "arith_exp_row_d")
 
 
-@pytest.mark.parametrize("kind", sorted(BLOCKS))
+@pytest.mark.parametrize("kind", OWN_KINDS)
 def test_failures_match_jax(kind, monkeypatch):
     jax_side, pbv, prepared, _ = _sides(kind, monkeypatch)
     want = jax_side.failures()
@@ -270,6 +325,12 @@ def test_failures_match_jax(kind, monkeypatch):
     if kind == "pi_value_lc":
         # the corrupted row and the row whose chain reads it, nothing else
         assert set(want) <= {("pi", PI_CORRUPT_ROW - 1), ("pi", PI_CORRUPT_ROW)} and want
+    if kind == "signed_wrong_key":
+        # the re-signed tx's lane of the tx circuit: its signer is not the
+        # EVM-side sender
+        assert set(want) == {("tx", 0)}
+    if kind == "sha3_copy_rlc":
+        assert ("copy", COPY_CORRUPT_ROW) in want
     if want:
         with pytest.raises(AssertionError, match="block verification failed"):
             pbv.verify()
@@ -398,8 +459,7 @@ def test_default_device_is_the_card_and_never_falls_back():
         CompiledBlockVerifier(w)
 
 
-@pytest.mark.parametrize("field,value", [("signed_txs", []), ("copy_circuit", object()),
-                                         ("ecc_circuit", object()), ("sig_rows", [object()])])
+@pytest.mark.parametrize("field,value", [("ecc_circuit", object()), ("sig_rows", [object()])])
 def test_unported_circuits_raise(field, value):
     w = PT.trace_block(PY.Block(), txs_of(PY, n_txs=1, n_ops=1), sign=False)
     setattr(w, field, value)

@@ -464,9 +464,12 @@ def _stage_reads(T, n, s, rg, cg, stage):
 
 
 # the K8 shapes of the paths: the ALU block's keccak table, the arithmetic
-# block's, the SHA3 mix, the withdrawal circuit; and edges
+# block's, the SHA3 mix, the withdrawal circuit, the tx and sig checks'
+# [64, n] key bytes (the SSTORE block's 7 txs, the ALU block's 8, the
+# arithmetic block's 40, the 1428-transfer block, the CPU comparison's 4);
+# and edges
 SCHEDULE_SHAPES = [(66001, 8), (24162, 40), (300, 65536), (42, 16), (0, 3), (1, 1), (70000, 1),
-                   (1025, 40000)]
+                   (1025, 40000), (64, 7), (64, 8), (64, 40), (64, 1428), (64, 4), (64, 2)]
 
 
 @pytest.mark.parametrize("T,n", SCHEDULE_SHAPES)

@@ -629,6 +629,57 @@ def test_horner_rlc_chunked_schedules(dev, T, n, mask):
     assert L.limbs_to_ints(got.cpu()) == want, s
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 1428])
+def test_horner_rlc_at_the_sig_shapes(dev, n):
+    """K8 at the tx and sig checks' ``[64, n]`` public-key bytes, every step
+    active (the signed blocks' txs and the 1428-transfer block), against
+    its plain version and the Python-int Horner."""
+    from zkevm_specs_tpu_torch.circuits import keccak
+
+    rng = np.random.RandomState(n)
+    byte_cols = torch.from_numpy(rng.randint(0, 256, size=(64, n)).astype(np.uint8)).to(dev)
+    active = torch.ones((64, n), dtype=torch.bool, device=dev)
+    before = L.LAUNCHES["horner_rlc"]
+    got = keccak.horner_rlc(byte_cols, active, 0x64)
+    assert L.LAUNCHES["horner_rlc"] == before + keccak.horner_schedule(64, n).launches
+    _equal(got, keccak.horner_rlc_plain(byte_cols, active, 0x64))
+    assert L.limbs_to_ints(got.cpu()) == _horner_ints(byte_cols, active, 0x64)
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+@pytest.mark.parametrize("n", [4, 64])
+def test_tx_and_sig_checks_on_the_card(dev, n, corrupt):
+    """``tx_kernel`` and ``sig_kernel`` on signed transfers: the card's fail
+    bits equal the CPU's (K8 at ``[64, n]``, K6 at the keccak lookup,
+    searching the index built on the host), with one lane's ECDSA verdict
+    flipped in the uploaded inputs or none."""
+    from zkevm_specs_tpu_torch import workloads
+    from zkevm_specs_tpu_torch.circuits import sig, super_circuit, tx
+    from zkevm_specs_tpu_torch.circuits.keccak import horner_schedule
+
+    txs = workloads.signed_transfers(n)
+    chain = workloads.TX_SIG_CHAIN_ID
+    tw = tx.txs2witness(txs, chain, n, 64, 0x64)
+    sw = super_circuit.sig_witness_from_txs(txs, chain, 0x64)
+    for name, make in (("tx", lambda d: tx.tx_kernel(tw, n, 0x64, device=d)),
+                       ("sig", lambda d: sig.sig_kernel(sw, 0x64, device=d))):
+        k_dev, k_cpu = make("cuda"), make("cpu")
+        args_dev, args_cpu = k_dev.device_args(), k_cpu.device_args()
+        if corrupt:
+            for extra in (args_dev[2], args_cpu[2]):
+                extra["ecdsa_ok"][n // 2] ^= 1
+        before = {k: L.LAUNCHES[k] for k in ("horner_rlc", "lookup_search_eq",
+                                             "lookup_fingerprint")}
+        got = k_dev(args_dev)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES["horner_rlc"] == before["horner_rlc"] + horner_schedule(64, n).launches
+        assert L.LAUNCHES["lookup_search_eq"] == before["lookup_search_eq"] + 1, name
+        assert L.LAUNCHES["lookup_fingerprint"] == before["lookup_fingerprint"], name
+        want = k_cpu(args_cpu)
+        assert torch.equal(got.cpu(), want)
+        assert torch.nonzero(want).flatten().tolist() == ([n // 2] if corrupt else [])
+
+
 def test_horner_rlc_replays_in_a_graph(dev):
     """K8's two launches captured in a CUDA graph give the same limbs on
     every replay (the power table is uploaded by the warm-up call)."""
@@ -761,17 +812,19 @@ def test_mul_add_words_at_group_lanes(dev, case, wide):
 def _small_block(kind="alu"):
     from zkevm_specs_tpu_torch import workloads
 
+    if kind == "sstore":
+        return workloads.build_sstore_block(2)
     return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
-@pytest.mark.parametrize("kind", ["alu", "arith"])
+@pytest.mark.parametrize("kind", ["alu", "arith", "sstore"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 
     w = _small_block(kind)
     if corrupt:
-        name = "ADD" if kind == "alu" else "MULMOD"
+        name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE"}[kind]
         next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()

@@ -213,8 +213,10 @@ _CACHE = {}
 
 
 def _witnesses(kind):
-    """(JAX witness, port witness) of a block, traced alike."""
-    return tuple(T.trace_block(Y.Block(base_fee=int(1e9)), BLOCKS[kind](Y), sign=False)
+    """(JAX witness, port witness) of a block, traced alike; the arithmetic
+    block signed, as ``workloads.build_arith_block`` traces it (its txs
+    share one caller)."""
+    return tuple(T.trace_block(Y.Block(base_fee=int(1e9)), BLOCKS[kind](Y), sign=kind == "arith")
                  for T, Y in ((JT, JY), (PT, PY)))
 
 

@@ -1,11 +1,14 @@
 """The port's tracer (zkevm_specs_tpu_torch.witness.tracer, the ALU subset
-with SIGNEXTEND, ADDMOD, MULMOD and EXP) against the JAX package's ``trace_block(...,
-sign=False)``, tolerance 0: every field of every step, every rw row, the
-tables' rows, the exp circuit's rows and the per-tx outcome bookkeeping are
-equal on the same transactions.  Also the host
-witness classes it emits through (``Transaction``, ``Account``,
-``RWDictionary``'s call-context, account, access-list, refund and receipt
-rows), the ALU block's builder, and what the subset refuses to trace."""
+with SIGNEXTEND, ADDMOD, MULMOD and EXP, memory, storage and SHA3) against
+the JAX package's ``trace_block``, unsigned and signed, tolerance 0: every
+field of every step, every rw row, the tables' rows, the exp and copy
+circuits' rows, the per-tx outcome bookkeeping and, signed, the caller
+addresses and every field of ``signed_txs`` are equal on the same
+transactions (the default callers, one shared caller, calldata, an account
+pinned to the pre-signing sender, a small SSTORE-mix block).  Also the
+host witness classes it emits through (``Transaction``, ``Account``,
+``RWDictionary``'s rows, the copy circuit's), the blocks' builders, and
+what the subset refuses to trace."""
 import numpy as np
 import pytest
 import torch
@@ -56,6 +59,13 @@ def assert_same_witness(jw, pw):
     assert pw.tx_code_hashes == jw.tx_code_hashes
     assert [bytes(b.code) for b in pw.bytecodes] == [bytes(b.code) for b in jw.bytecodes]
     assert pw.block.table_assignments() == jw.block.table_assignments()
+    assert pw.sha3_preimages == jw.sha3_preimages
+    assert (pw.copy_circuit is None) == (jw.copy_circuit is None)
+    if pw.copy_circuit is not None:
+        assert pw.copy_circuit.rows == jw.copy_circuit.rows
+    assert (pw.signed_txs is None) == (jw.signed_txs is None)
+    if pw.signed_txs is not None:
+        assert [tuple(t) for t in pw.signed_txs] == [tuple(t) for t in jw.signed_txs]
 
 
 CASES = {
@@ -105,8 +115,9 @@ def test_signextend_rows_match_jax(index, value):
 
 def test_alu_block_builder_is_bench_mix_traced_unsigned():
     """``workloads.build_alu_block`` is ``bench.py:_alu_heavy_txs``'s
-    bytecodes and gas under ``Block(base_fee=10**9, gas_limit=30*10**6)``,
-    with a caller per tx (unsigned, a shared caller's nonces go stale)."""
+    bytecodes, gas and caller 0xFE under ``Block(base_fee=10**9,
+    gas_limit=30*10**6)``, traced signed as bench.py traces it (each tx's
+    caller becomes its own key's address)."""
     n_txs, n_ops = 3, 70           # j & 0xFF wraps nothing here; the codes are bench's
     jtxs = []
     for i, (ptx, pbc) in enumerate(workloads.alu_block_txs(n_txs, n_ops)):
@@ -119,10 +130,13 @@ def test_alu_block_builder_is_bench_mix_traced_unsigned():
         jtxs.append((JY.Transaction(id=ptx.id, gas=ptx.gas, gas_price=ptx.gas_price,
                                     caller_address=ptx.caller_address,
                                     callee_address=ptx.callee_address), bc))
-    jw = JT.trace_block(JY.Block(base_fee=10**9, gas_limit=30 * 10**6), jtxs, sign=False)
+    assert {t.caller_address for t, _ in jtxs} == {0xFE}
+    jw = JT.trace_block(JY.Block(base_fee=10**9, gas_limit=30 * 10**6), jtxs)
     pw = workloads.build_alu_block(n_txs, n_ops)
     assert_same_witness(jw, pw)
     assert workloads.receipt_gas_used(pw) == n_txs * (21000 + 11 * n_ops) > 0
+    assert [t.caller_address for t in pw.txs] == [PT.tx_sender_address(i + 1)
+                                                  for i in range(n_txs)]
 
 
 def _jax_txs(ptxs):
@@ -138,7 +152,7 @@ def test_arith_block_matches_jax(n_txs, cycles, seed):
     steps, rw rows and tables, and the same exp circuit row for row (one
     event per EXP, its identifier the EXP step's rw counter + 3)."""
     jw = JT.trace_block(JY.Block(base_fee=10**9, gas_limit=30 * 10**6),
-                        _jax_txs(workloads.arith_block_txs(n_txs, cycles, seed)), sign=False)
+                        _jax_txs(workloads.arith_block_txs(n_txs, cycles, seed)))
     pw = workloads.build_arith_block(n_txs, cycles, seed)
     assert_same_witness(jw, pw)
     assert pw.exp_circuit.rows == jw.exp_circuit.rows
@@ -176,12 +190,19 @@ def test_exp_out_of_gas_raises():
 
 
 def test_signed_block_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sign"):
-        PT.trace_block(PY.Block(), txs_of(PY))
+    """Signing is ported: the default ``sign=True`` gives the JAX signed
+    witness, and ``sign=False`` still traces the callers as given."""
+    jw = JT.trace_block(JY.Block(), txs_of(JY))
+    pw = PT.trace_block(PY.Block(), txs_of(PY))
+    assert_same_witness(jw, pw)
+    assert len(pw.signed_txs) == 2
+    unsigned = PT.trace_block(PY.Block(), txs_of(PY), sign=False)
+    assert unsigned.signed_txs is None
+    assert [t.caller_address for t in unsigned.txs] == [0xFE, 0x1FE]
 
 
 @pytest.mark.parametrize("code,what", [
-    (lambda: PY.Bytecode().push1(1).push1(0).sstore().stop(), "no handler"),
+    (lambda: PY.Bytecode().push1(1).push1(0).log0().stop(), "no handler"),
     (lambda: PY.Bytecode().pop().stop(), "ErrorStack"),
     (lambda: PY.Bytecode(bytearray([0x0C])), "ErrorInvalidOpcode"),
 ])
@@ -249,8 +270,10 @@ def test_rw_dictionary_rows_match_jax():
 
 
 def test_block_witness_carries_nothing_unported():
+    """The ALU block carries its signed txs and no ecc circuit or
+    ecRecover sig rows (the unported precompiles' witnesses)."""
     w = workloads.build_alu_block(1, 2)
-    assert w.signed_txs is None and w.copy_circuit is None and w.exp_circuit is None
+    assert len(w.signed_txs) == 1 and w.copy_circuit is None and w.exp_circuit is None
     assert w.ecc_circuit is None and w.sig_rows == [] and w.withdrawals == []
     assert np.array_equal([s.execution_state.name for s in w.steps[:2]], ["BeginTx", "PUSH"])
 
@@ -267,3 +290,111 @@ def test_prefunded_accounts_match_jax():
                              sign=False)
 
     assert_same_witness(trace(JT, JY), trace(PT, PY))
+
+
+# -- signed blocks and the storage subset -----------------------------------------------
+
+def _sstore_txs(Y, n_txs=2):
+    """``bench.py:_sstore_heavy_txs``'s pattern in the package ``Y``'s
+    classes (``workloads.sstore_block_txs``)."""
+    ptxs = workloads.sstore_block_txs(n_txs)
+    return ptxs if Y is PY else _jax_txs(ptxs)
+
+
+def _storage_memory_txs(Y):
+    """MSTORE, MSTORE8, MLOAD across word boundaries, SSTORE over a
+    prefilled slot (clear, dirty re-set, restore), warm and cold SLOADs and
+    SHA3s of zero, one and several words."""
+    bc = Y.Bytecode()
+    bc.push32((1 << 256) - 5).push1(3).mstore().push1(0xAB).push1(40).mstore8()
+    bc.push1(31).mload().pop().push2(0x200).mload().pop()
+    bc.push1(0).push1(7).sstore().push1(9).push1(8).sstore().push1(0).push1(8).sstore()
+    bc.push1(5).push1(8).sstore().push1(7).sload().pop().push1(99).sload().pop()
+    bc.push1(0).push1(0).sha3().pop().push1(1).push1(40).sha3().pop()
+    bc.push1(100).push1(3).sha3().pop().stop()
+    tx = Y.Transaction(id=1, gas=300000, gas_price=int(2e9), caller_address=0xFE,
+                       callee_address=0xFF)
+    acct = Y.Account(address=0xFF, storage={7: 1234, 8: 5})
+    return [(tx, bc)], {0xFF: acct}
+
+
+SIGNED_CASES = {
+    "default_callers": lambda Y: (txs_of(Y), None),
+    "shared_caller": lambda Y: (txs_of(Y, n_txs=3, shared_caller=True), None),
+    "calldata": lambda Y: ([(tx, bc) for (tx, bc), data in zip(
+        txs_of(Y, n_txs=3, n_ops=2), (bytes([0, 1, 2, 0]), b"", bytes(range(1, 40))))
+        if setattr(tx, "call_data", data) is None], None),
+    "pinned_account": lambda Y: (txs_of(Y, n_txs=1, shared_caller=True),
+                                 {0xFE: Y.Account(address=0xFE, nonce=0, balance=10**19)}),
+    "sstore_mix": lambda Y: (_sstore_txs(Y), None),
+    "storage_memory": _storage_memory_txs,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SIGNED_CASES))
+def test_signed_trace_matches_jax(case):
+    (jtxs, jacc), (ptxs, pacc) = SIGNED_CASES[case](JY), SIGNED_CASES[case](PY)
+    jw = JT.trace_block(JY.Block(base_fee=int(1e9)), jtxs, accounts=jacc)
+    pw = PT.trace_block(PY.Block(base_fee=int(1e9)), ptxs, accounts=pacc)
+    assert_same_witness(jw, pw)
+    assert [t.caller_address for t in pw.txs] == [PT.tx_sender_address(t.id) for t in pw.txs]
+    assert [t.caller_address for t, _ in ptxs] == [t.caller_address for t, _ in jtxs]
+    assert PT.tx_sender_address(1) == JT.tx_sender_address(1)
+    assert len(pw.signed_txs) == len(ptxs)
+    if case == "pinned_account":
+        # the account pinned to 0xFE followed its tx to the key's address
+        assert list(pacc) == [pw.txs[0].caller_address] and list(jacc) == list(pacc)
+        balance = next(r for r in pw.rw.rws if r["key0"] == int(ps.Target.Account)
+                       and r["field_tag"] == int(ps.AccountFieldTag.Balance))
+        assert balance["value_prev"] == 10**19
+    if case in ("sstore_mix", "storage_memory"):
+        assert pw.copy_circuit is not None and pw.copy_circuit.rows
+        names = {s.execution_state.name for s in pw.steps}
+        assert {"SSTORE", "SLOAD", "SHA3"} <= names
+
+
+def test_sstore_block_builder_is_bench_mix():
+    """``workloads.build_sstore_block`` is ``bench.py:_sstore_heavy_txs``
+    traced signed under bench's header: 154379 gas a tx, so its 7 txs are
+    about 1.08 M gas."""
+    n = 2
+    jw = JT.trace_block(JY.Block(base_fee=10**9, gas_limit=30 * 10**6), _sstore_txs(JY, n))
+    pw = workloads.build_sstore_block(n)
+    assert_same_witness(jw, pw)
+    per_tx = workloads.receipt_gas_used(pw) // n
+    assert per_tx == 154379
+    assert len(pw.copy_circuit.rows) == 2 * 32 * n
+
+
+def test_storage_errors_raise():
+    """The dynamic out-of-gas cases of the new handlers are error states,
+    not ported."""
+    def trace(code, gas):
+        tx = PY.Transaction(id=1, gas=gas, caller_address=0xFE, callee_address=0xFF)
+        PT.trace_block(PY.Block(), [(tx, code)], sign=False)
+
+    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSloadSstore"):
+        trace(PY.Bytecode().push1(1).push1(0).sstore().stop(), 21000 + 6 + 2300)
+    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSloadSstore"):
+        trace(PY.Bytecode().push1(0).sload().stop(), 21000 + 3 + 2000)
+    with pytest.raises(NotImplementedError, match="ErrorOutOfGasStaticMemoryExpansion"):
+        trace(PY.Bytecode().push2(0x4000).mload().stop(), 21000 + 3 + 100)
+    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSHA3"):
+        trace(PY.Bytecode().push2(0x4000).push1(0).sha3().stop(), 21000 + 6 + 100)
+
+
+def _rw_storage_calls(Y, s):
+    rw = Y.RWDictionary(5)
+    rw.memory_write(3, 40, 0xAB).memory_read(3, 41, 0)
+    rw.account_storage_read(0xCAFE, 1 << 200, 7, 1, 7)
+    rw.account_storage_write(0xCAFE, 3, 9, 7, 1, 5)
+    rw.account_storage_write(0xCAFE, 3, 0, 9, 1, 5, rw_counter_of_reversion=90)
+    rw.tx_access_list_account_storage_write(1, 0xCAFE, 3, True, False)
+    rw.tx_access_list_account_storage_write(1, 0xCAFE, 4, True, True, rw_counter_of_reversion=91)
+    rw.tx_refund_write(1, 4800, 0).tx_refund_write(1, 0, 4800, rw_counter_of_reversion=92)
+    rw.tx_log_write(1, 2, s.TxLogFieldTag.Data, 5, 0x11)
+    return rw.rws, rw.rw_counter
+
+
+def test_rw_dictionary_storage_rows_match_jax():
+    assert _rw_storage_calls(PY, ps) == _rw_storage_calls(JY, js)

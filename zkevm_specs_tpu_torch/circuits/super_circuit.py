@@ -283,3 +283,22 @@ def prologue_kernel(witness: BlockWitness, tables: Tables, device="cuda"):
     cols, ktables, extra = build_prologue_inputs(witness, tables)
     return CircuitKernel("prologue", check_prologue, cols, ktables,
                          {"header_tag": int(BytecodeFieldTag.Header)}, extra, device=device)
+
+
+def sig_witness_from_txs(signed_txs, chain_id: int, keccak_randomness: int):
+    """The sig-circuit rows of a block's signed txs (the JAX package's
+    ``super_circuit.sig_witness_from_txs``, :157-176; reference
+    sig_circuit.py)."""
+    from ..ops.ecc import secp256k1
+    from ..ops.keccak import keccak256
+    from .sig import KeccakTable, SigRow, Witness
+
+    kt = KeccakTable()
+    rows = []
+    for tx in signed_txs:
+        h = keccak256(tx.sign_data(chain_id))
+        parity = tx.sig_v - 35 - chain_id * 2
+        pk = secp256k1.recover(int.from_bytes(h, "big"), parity, tx.sig_r, tx.sig_s)
+        kt.add(secp256k1.pubkey_bytes(pk), keccak_randomness)
+        rows.append(SigRow.assign((parity, tx.sig_r, tx.sig_s), pk, h))
+    return Witness(rows, kt)

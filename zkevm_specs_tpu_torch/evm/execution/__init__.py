@@ -11,10 +11,12 @@ from .begin_tx import begin_tx
 from .bitwise import bitwise
 from .byte import byte
 from .comparator import cmp
+from .copy_family import sha3
 from .end_block import end_block
 from .end_tx import end_tx
 from .exp import exp
 from .iszero import iszero
+from .memory import memory
 from .mul_div_mod import mul_div_mod
 from .mulmod import mulmod
 from .not_ import not_opcode
@@ -26,6 +28,7 @@ from .shl_shr import shl_shr
 from .signextend import signextend
 from .slt_sgt import scmp
 from .stop import stop
+from .storage import sload, sstore
 
 EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.BeginTx: begin_tx,
@@ -46,6 +49,10 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.BITWISE: bitwise,
     ExecutionState.BYTE: byte,
     ExecutionState.SIGNEXTEND: signextend,
+    ExecutionState.MEMORY: memory,
+    ExecutionState.SLOAD: sload,
+    ExecutionState.SSTORE: sstore,
+    ExecutionState.SHA3: sha3,
     ExecutionState.PUSH: push,
     ExecutionState.POP: pop,
     ExecutionState.STOP: stop,

@@ -1,7 +1,7 @@
 """The batched EVM-step constraint builder (the part the ported gadgets use:
 ADD/SUB, MUL/DIV/MOD, SDIV/SMOD, ADDMOD, MULMOD, EXP, SHL/SHR, SAR,
-LT/GT/EQ, SLT/SGT, ISZERO, NOT, AND/OR/XOR, BYTE, SIGNEXTEND, PUSH, POP,
-STOP, BeginTx, EndTx, EndBlock).
+LT/GT/EQ, SLT/SGT, ISZERO, NOT, AND/OR/XOR, BYTE, SIGNEXTEND, MLOAD/MSTORE/
+MSTORE8, SLOAD, SSTORE, SHA3, PUSH, POP, STOP, BeginTx, EndTx, EndBlock).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -24,7 +24,16 @@ from ..dsl.cs import ConstraintSystem
 from ..dsl.value import Ctx, F, Word, WordOrValue, trim, width_for_bits
 from ..ops import limbs as L
 from ..ops import word_mul
-from ..utils.param import MAX_N_BYTES, N_BYTES_ACCOUNT_ADDRESS, N_BYTES_GAS
+from ..utils.param import (
+    GAS_COST_COPY,
+    MAX_N_BYTES,
+    MEMORY_EXPANSION_LINEAR_COEFF,
+    MEMORY_EXPANSION_QUAD_DENOMINATOR,
+    N_BYTES_ACCOUNT_ADDRESS,
+    N_BYTES_GAS,
+    N_BYTES_MEMORY_ADDRESS,
+    N_BYTES_MEMORY_WORD_SIZE,
+)
 from ..tables.container import Tables
 from ..tables.schemas import (
     RW,
@@ -32,9 +41,11 @@ from ..tables.schemas import (
     BlockContextFieldTag,
     BytecodeFieldTag,
     CallContextFieldTag,
+    CopyDataTypeTag,
     FixedTableTag,
     Target,
     TxContextFieldTag,
+    TxLogFieldTag,
     TxReceiptFieldTag,
 )
 from .execution_state import ExecutionState
@@ -480,6 +491,10 @@ class Instruction:
         lt, _ = self.compare(lhs, rhs, n_bytes)
         return self.select(lt, lhs, rhs)
 
+    def max(self, lhs: F, rhs: F, n_bytes: int) -> F:
+        lt, _ = self.compare(lhs, rhs, n_bytes)
+        return self.select(lt, rhs, lhs)
+
     def word_to_fq(self, word: Word, n_bytes: int) -> F:
         """Constrain the word to fit n_bytes and return its value
         (reference instruction.py:480-484)."""
@@ -670,6 +685,24 @@ class Instruction:
             self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Header), self.fq(0), self.fq(0))
         return row.value
 
+    def copy_lookup(self, src_id, src_tag: CopyDataTypeTag, dst_id, dst_tag: CopyDataTypeTag,
+                    src_addr: F, src_addr_end: F, dst_addr: F, length: F,
+                    rw_counter: F, log_id: Optional[F] = None) -> Tuple[F, F]:
+        """The copy event's (rwc_inc, rlc_acc) from the copy table."""
+        if dst_tag == CopyDataTypeTag.TxLog:
+            assert log_id is not None
+            dst_addr = (self._f(dst_addr) + self.fq(int(TxLogFieldTag.Data) << 32)
+                        + self._f(log_id) * F.const(self.ctx, 1 << 48))
+        row = self.tables.copy_lookup(
+            self.cs, src_id, self.fq(src_tag), dst_id, self.fq(dst_tag),
+            self._f(src_addr), self._f(src_addr_end), self._f(dst_addr),
+            self._f(length), self._f(rw_counter))
+        return row.rwc_inc, row.rlc_acc
+
+    def keccak_lookup(self, length: F, value_rlc: F) -> Word:
+        row = self.tables.keccak_lookup(self.cs, self._f(length), self._f(value_rlc))
+        return row.output
+
     def exp_lookup(self, identifier: F, is_last: F, base_limbs, exponent: Word) -> Word:
         row = self.tables.exp_lookup(self.cs, self._f(identifier), self._f(is_last), base_limbs,
                                      exponent)
@@ -772,6 +805,29 @@ class Instruction:
         row = self.rw_lookup(RW.Read, Target.TxRefund, self._f(tx_id))
         return WordOrValue(row.value).value()
 
+    def tx_refund_write(self, tx_id: F,
+                        reversion_info: Optional[ReversionInfo] = None) -> Tuple[F, F]:
+        row = self.state_write(Target.TxRefund, self._f(tx_id), reversion_info=reversion_info)
+        return WordOrValue(row.value).value(), WordOrValue(row.value_prev).value()
+
+    def memory_lookup(self, rw: RW, memory_address: F, call_id: Optional[F] = None) -> F:
+        if call_id is None:
+            call_id = self.curr.call_id
+        row = self.rw_lookup(rw, Target.Memory, self._f(call_id), self._f(memory_address))
+        return WordOrValue(row.value).value()
+
+    def account_storage_read(self, account_address: F, storage_key: Word, tx_id: F) -> Word:
+        row = self.rw_lookup(RW.Read, Target.AccountStorage, self._f(tx_id),
+                             self._f(account_address), field_tag=None, storage_key=storage_key)
+        return row.value
+
+    def account_storage_write(self, account_address: F, storage_key: Word, tx_id: F,
+                              reversion_info: Optional[ReversionInfo] = None
+                              ) -> Tuple[Word, Word, Word]:
+        row = self.state_write(Target.AccountStorage, self._f(tx_id), self._f(account_address),
+                               storage_key=storage_key, reversion_info=reversion_info)
+        return row.value, row.value_prev, row.aux0
+
     def account_read_word(self, account_address: F,
                           account_field_tag: AccountFieldTag) -> WordOrValue:
         row = self.rw_lookup(RW.Read, Target.Account, address=self._f(account_address),
@@ -815,6 +871,14 @@ class Instruction:
                                reversion_info=reversion_info)
         return WordOrValue(row.value_prev).value()
 
+    def add_account_storage_to_access_list(self, tx_id: F, account_address: F,
+                                           storage_key: Word,
+                                           reversion_info: Optional[ReversionInfo] = None) -> F:
+        row = self.state_write(Target.TxAccessListAccountStorage, self._f(tx_id),
+                               self._f(account_address), storage_key=storage_key,
+                               value=self.fq(1), reversion_info=reversion_info)
+        return WordOrValue(row.value_prev).value()
+
     def transfer_with_gas_fee(self, sender_address: F, receiver_address: F, value: Word,
                               gas_fee: Word, reversion_info: Optional[ReversionInfo] = None):
         sender = self.sub_balance(sender_address, [value, gas_fee], reversion_info)
@@ -834,6 +898,57 @@ class Instruction:
         stack_pointer = self.curr.stack_pointer + self._f(stack_pointer_offset)
         row = self.rw_lookup(rw, Target.Stack, self.curr.call_id, stack_pointer)
         return row.value
+
+    # -- memory sizing and gas (go-ethereum's, reference instruction.py:
+    # 1122-1336) ------------------------------------------------------------
+
+    def memory_offset_and_length(self, offset_word: Word, length_word: Word) -> Tuple[F, F]:
+        length = self.word_to_fq(length_word, N_BYTES_MEMORY_ADDRESS)
+        if self.branch(self.is_zero(length)):
+            return self.fq(0), self.fq(0)
+        offset = self.word_to_fq(offset_word, N_BYTES_MEMORY_ADDRESS)
+        return offset, length
+
+    def memory_gas_cost(self, memory_size: F) -> F:
+        memory_size = self._f(memory_size)
+        quadratic_cost, _ = self.constant_divmod(
+            memory_size * memory_size, MEMORY_EXPANSION_QUAD_DENOMINATOR, N_BYTES_GAS)
+        return quadratic_cost + memory_size * MEMORY_EXPANSION_LINEAR_COEFF
+
+    def memory_expansion(self, offset: F, length: F) -> Tuple[F, F]:
+        if self.branch(~self._f(length).is_zero_mask()):
+            memory_size, _ = self.constant_divmod(
+                self._f(length) + self._f(offset) + 31, 32, N_BYTES_MEMORY_WORD_SIZE)
+        else:
+            memory_size = self.fq(0)
+        next_memory_size = self.max(self.curr.memory_word_size, memory_size,
+                                    N_BYTES_MEMORY_WORD_SIZE)
+        gas_now = self.memory_gas_cost(self.curr.memory_word_size)
+        gas_next = self.memory_gas_cost(next_memory_size)
+        return next_memory_size, gas_next - gas_now
+
+    def memory_expansion_dynamic_length(self, cd_offset: F, cd_length: F,
+                                        rd_offset: Optional[F] = None,
+                                        rd_length: Optional[F] = None) -> Tuple[F, F]:
+        cd_memory_size, _ = self.constant_divmod(
+            self._f(cd_offset) + self._f(cd_length) + 31, 32, N_BYTES_MEMORY_WORD_SIZE)
+        next_memory_size = self.max(self.curr.memory_word_size, cd_memory_size,
+                                    N_BYTES_MEMORY_WORD_SIZE)
+        if rd_offset is not None and rd_length is not None:
+            rd_memory_size, _ = self.constant_divmod(
+                self._f(rd_offset) + self._f(rd_length) + 31, 32, N_BYTES_MEMORY_WORD_SIZE)
+            next_memory_size = self.max(next_memory_size, rd_memory_size,
+                                        N_BYTES_MEMORY_WORD_SIZE)
+        gas_now = self.memory_gas_cost(self.curr.memory_word_size)
+        gas_next = self.memory_gas_cost(next_memory_size)
+        return next_memory_size, gas_next - gas_now
+
+    def memory_copier_gas_cost(self, length: F, memory_expansion_gas_cost: F,
+                               gas_cost_copy: int = GAS_COST_COPY) -> F:
+        word_size, _ = self.constant_divmod(self._f(length) + 31, 32, N_BYTES_MEMORY_WORD_SIZE)
+        gas_cost = word_size * gas_cost_copy + self._f(memory_expansion_gas_cost)
+        self.range_check(gas_cost, N_BYTES_GAS)
+        return gas_cost
 
     # -- CREATE address derivation (host hint) ------------------------------
 

@@ -158,10 +158,9 @@ def block_lookup_log(witness):
     from ..config import DEFAULT_CONFIG
     from ..evm.main import verify_steps
     from ..tables.container import Tables
-    from ..witness.typing import exp_circuit_to_table
+    from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
 
-    for name, present in (("copy", witness.copy_circuit is not None),
-                          ("ecc", witness.ecc_circuit is not None),
+    for name, present in (("ecc", witness.ecc_circuit is not None),
                           ("sig (ecRecover)", bool(witness.sig_rows))):
         if present:
             raise NotImplementedError(f"block_lookup_log: the {name} table is not ported")
@@ -169,6 +168,8 @@ def block_lookup_log(witness):
     kwargs = witness.tables_kwargs()
     kwargs["keccak_table"] = assign_keccak_table(codes + list(witness.sha3_preimages),
                                                  DEFAULT_CONFIG.keccak_randomness)
+    if witness.copy_circuit is not None:
+        kwargs["copy_table"] = copy_circuit_to_table(witness.copy_circuit)
     if witness.exp_circuit is not None:
         kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
     tables = Tables(**kwargs)

@@ -10,8 +10,9 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    repeated) to powers of two; a chunk of fewer than ``min_jit_lanes``
    lanes is verified on the host, as the JAX package does;
 3. the state circuit proves the rw table, and the prologue, bytecode,
-   keccak, exp (when the block ran an EXP), withdrawal and pi circuits run
-   as ``CircuitKernel`` checks, the withdrawal and pi circuits on every
+   keccak, copy (when the block ran a SHA3), exp (when it ran an EXP), tx
+   and sig (when its txs are signed), withdrawal and pi circuits run as
+   ``CircuitKernel`` checks, the withdrawal and pi circuits on every
    block;
 4. ``prepare`` uploads every input leaf once (kernel K9, ``transfer.py``);
    ``run_device`` runs the checks one by one and reads each verdict back;
@@ -22,9 +23,10 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    (``parallel/logup_shard.py``) from the lookups that step 2's eager pass
    logged (``lookup_log``) and the table columns ``prepare`` uploaded.
 
-Not ported: the tx, sig, copy and ecc circuits; a witness that carries
-one of them raises ``NotImplementedError``.  The verdicts are the JAX
-verifier's, key for key, its ``("pi", row)`` keys included.
+Not ported: the ecc circuit and the sig rows of traced ecRecover calls; a
+witness that carries one of them raises ``NotImplementedError``.  The
+verdicts are the JAX verifier's, key for key, its ``("pi", row)`` keys
+included.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 
 from ..circuits import pi as pi_circuit
 from ..circuits.bytecode import assign_bytecode_circuit, assign_keccak_table, bytecode_kernel, unroll
+from ..circuits.copy import copy_kernel
 from ..circuits.exp import exp_kernel
 from ..circuits.keccak import keccak_kernel
 from ..circuits.state import (
@@ -48,7 +51,10 @@ from ..circuits.super_circuit import (
     prologue_kernel,
     public_data_from_witness,
     rw_rows_to_state_ops,
+    sig_witness_from_txs,
 )
+from ..circuits.sig import sig_kernel
+from ..circuits.tx import tx_kernel, txs2witness
 from ..circuits.withdrawal import withdrawal_kernel, withdrawals2witness
 from ..config import DEFAULT_CONFIG
 from ..dsl.cs import ConstraintSystem, LaneSplit
@@ -60,7 +66,7 @@ from ..evm.step import StepState, StepStateBatch
 from ..ops import limbs as L
 from ..tables.container import Tables
 from ..witness.tracer import BlockWitness
-from ..witness.typing import exp_circuit_to_table
+from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
 from .jit import CompiledGroupVerifier, tables_meta, tables_to_pytree
 from .kernels import require_device
 from .transfer import upload, verdict_pack, verdict_table, verdict_unpack
@@ -135,18 +141,18 @@ def _remap(tree, by_id: Dict[int, torch.Tensor]):
 class CompiledBlockVerifier:
     """Whole-block witness verification on ``device`` ("cuda" unless the
     caller asks for "cpu"; there is no fallback): every EVM step group, the
-    state circuit over the rw table, and the prologue, bytecode, keccak, exp,
-    withdrawal and pi circuits.  Every circuit the JAX verifier runs on an
-    unsigned block is ported (``not_ported`` is empty)."""
+    state circuit over the rw table, and the prologue, bytecode, keccak,
+    copy, exp, tx, sig, withdrawal and pi circuits.  Every circuit the JAX
+    verifier runs on a block of the ported opcodes, signed or not, is
+    ported (``not_ported`` is empty); the ecc circuit and the sig rows of
+    ecRecover calls, which only the unported precompiles produce, raise."""
 
     not_ported = ()
 
     def __init__(self, witness: BlockWitness, min_jit_lanes: int = 4,
                  max_group_lanes: int = 1 << 16, device="cuda"):
         self.device = require_device(device, "CompiledBlockVerifier")
-        for name, present in (("tx and sig", witness.signed_txs is not None),
-                              ("copy", witness.copy_circuit is not None),
-                              ("ecc", witness.ecc_circuit is not None),
+        for name, present in (("ecc", witness.ecc_circuit is not None),
                               ("sig (ecRecover)", bool(witness.sig_rows))):
             if present:
                 raise NotImplementedError(f"CompiledBlockVerifier: the {name} circuit is not ported")
@@ -162,15 +168,17 @@ class CompiledBlockVerifier:
         keccak_data = codes + list(witness.sha3_preimages)
         keccak_rows = assign_keccak_table(keccak_data, r)
         kwargs = witness.tables_kwargs()
+        if witness.copy_circuit is not None:
+            kwargs["copy_table"] = copy_circuit_to_table(witness.copy_circuit)
         if witness.exp_circuit is not None:
             kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
         kwargs["keccak_table"] = keccak_rows
         self.tables = Tables(**kwargs)
 
         # in-circuit prologue, then the producer circuits of the tables the
-        # EVM circuit reads (the JAX verifier's order), then the withdrawal
-        # and pi circuits (run on every block, one padding withdrawal when
-        # the block has none)
+        # EVM circuit reads and the tx and sig circuits (the JAX verifier's
+        # order), then the withdrawal and pi circuits (run on every block,
+        # one padding withdrawal when the block has none)
         self.circuit_kernels: List[Tuple[str, object]] = [
             ("prologue", prologue_kernel(witness, self.tables, device=self.device))]
         bc_rows = assign_bytecode_circuit(k_bytecode, [unroll(c) for c in codes], r)
@@ -179,9 +187,26 @@ class CompiledBlockVerifier:
         kk = keccak_kernel(keccak_data, keccak_rows, r, device=self.device)
         if kk is not None:
             self.circuit_kernels.append(("keccak", kk))
+        if witness.copy_circuit is not None:
+            self.circuit_kernels.append(("copy", copy_kernel(witness.copy_circuit, self.tables, r,
+                                                             device=self.device)))
         if witness.exp_circuit is not None:
             self.circuit_kernels.append(("exp", exp_kernel(witness.exp_circuit,
                                                            device=self.device)))
+        signed = witness.signed_txs
+        if signed is not None:
+            # the tx circuit's capacities scale to the block (the config's
+            # are floors)
+            max_txs, max_cd, chain_id = DEFAULT_CONFIG.tx_circuit_params()
+            max_txs = max(max_txs, len(signed))
+            max_cd = max(max_cd, sum(len(t.data) for t in signed))
+            tx_witness = txs2witness(signed, chain_id, max_txs, max_cd, r)
+            self.circuit_kernels.append(("tx", tx_kernel(
+                tx_witness, max_txs, r, evm_callers=[tx.caller_address for tx in witness.txs],
+                device=self.device)))
+            sk = sig_kernel(sig_witness_from_txs(signed, chain_id, r), r, device=self.device)
+            if sk is not None:
+                self.circuit_kernels.append(("sig", sk))
         n_wd = max(1, len(witness.withdrawals))
         wd_witness = withdrawals2witness(witness.withdrawals, n_wd, r, kwargs["block_table"])
         self.circuit_kernels.append(("withdrawal", withdrawal_kernel(wd_witness, n_wd, r,

@@ -4,7 +4,8 @@ Counterpart of ``zkevm_specs_tpu/tables/container.py`` (reference:
 src/zkevm_specs/evm_circuit/table.py:578-858): tables are built once from
 host-side witness rows (dicts of ints) on the CPU; the fixed tables are
 computed predicates (see fixed.py).  Only the typed lookups of the ported
-gadgets are here (fixed, block, tx, bytecode, rw, exp).
+gadgets and circuits are here (fixed, block, tx, bytecode, rw, copy,
+keccak, exp).
 """
 from __future__ import annotations
 
@@ -159,6 +160,28 @@ class Tables:
             enabled=enabled,
         )
 
+    def copy_lookup(self, cs, src_id, src_tag: F, dst_id, dst_tag: F, src_addr: F,
+                    src_addr_end: F, dst_addr: F, length: F, rw_counter: F,
+                    enabled=None) -> Row:
+        def wv(x):
+            return x if isinstance(x, Word) else WordOrValue(x)
+
+        return self.copy.lookup(
+            cs,
+            {"src_id": wv(src_id), "src_tag": src_tag, "dst_id": wv(dst_id), "dst_tag": dst_tag,
+             "src_addr": src_addr, "src_addr_end": src_addr_end, "dst_addr": dst_addr,
+             "length": length, "rw_counter": rw_counter},
+            enabled=enabled,
+        )
+
+    def keccak_lookup(self, cs, length: F, value_rlc: F, enabled=None) -> Row:
+        return self.keccak.lookup(
+            cs,
+            {"state_tag": F.const(length.ctx, 2),  # Finalize
+             "input_len": length, "input_rlc": value_rlc},
+            enabled=enabled,
+        )
+
     def exp_lookup(self, cs, identifier: F, is_last: F, base_limbs, exponent: Word,
                    enabled=None) -> Row:
         ctx = identifier.ctx
@@ -170,3 +193,14 @@ class Tables:
              "exponent": exponent},
             enabled=enabled,
         )
+
+
+class TablesView(Tables):
+    """Some of the tables under their usual attribute names, so that a
+    circuit check that is given only the tables it reads can use the typed
+    lookups above (the JAX package's ``TablesView``)."""
+
+    def __init__(self, ctx: Ctx, tables: Mapping[str, Table]):
+        self.ctx = ctx
+        for k, v in tables.items():
+            setattr(self, k, v)

@@ -1,18 +1,21 @@
-"""Mini EVM tracer, the ALU subset: builds a coherent block witness (steps
-and rw rows, and the exp circuit's squaring trace) for blocks of PUSH /
-ALU / SIGNEXTEND / ADDMOD / MULMOD / EXP / POP / STOP bytecodes.
+"""Mini EVM tracer, the ALU and storage subset: builds a coherent block
+witness (steps and rw rows, the exp circuit's squaring trace and the copy
+circuit's rows) for blocks of PUSH / ALU / SIGNEXTEND / ADDMOD / MULMOD /
+EXP / MLOAD / MSTORE / MSTORE8 / SLOAD / SSTORE / SHA3 / POP / STOP
+bytecodes, and signs its txs.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer.run_tx`` :374-548,
-``step_op`` :721-749, the handlers :1861-1942 and ``trace_block``
-:2629-2754).  Each executed opcode emits exactly the rw rows its gadget
-looks up, with the JAX tracer's rw_counter / gas / stack-pointer
-bookkeeping, so the witness equals the JAX tracer's row for row.
+``step_op`` :721-749, the handlers :1861-2076 and :2320-2336, the signing
+:2585-2626 and ``trace_block`` :2629-2754).  Each executed opcode emits
+exactly the rw rows its gadget looks up, with the JAX tracer's rw_counter /
+gas / stack-pointer / memory-size / refund bookkeeping, so the witness
+equals the JAX tracer's row for row.
 
 Not ported, and raising ``NotImplementedError`` where a block reaches
 them: the error states (invalid opcode, stack under/overflow, out of gas,
-EXP's dynamic out of gas), every opcode without a handler here, and signed
-blocks (``sign=True``: the tx and sig circuits).
+the dynamic out-of-gas cases of EXP, memory, storage and SHA3) and every
+opcode without a handler here.
 """
 from __future__ import annotations
 
@@ -28,14 +31,31 @@ from ..evm.opcode import (
     min_stack_pointer,
 )
 from ..evm.step import StepState
-from ..tables.schemas import AccountFieldTag, CallContextFieldTag, Target, TxReceiptFieldTag
+from ..ops.keccak import keccak256
+from ..tables.schemas import (
+    AccountFieldTag,
+    CallContextFieldTag,
+    CopyDataTypeTag,
+    Target,
+    TxReceiptFieldTag,
+)
 from ..utils.param import (
+    COLD_SLOAD_COST,
+    GAS_COST_COPY_SHA3,
     GAS_COST_EXP_PER_BYTE,
+    GAS_COST_FASTEST,
+    GAS_COST_SHA3,
     GAS_COST_SLOW,
+    GAS_COST_SSTORE_SENTRY_EIP2200,
     GAS_COST_TX,
     MAX_REFUND_QUOTIENT_OF_GAS_USED,
+    SLOAD_GAS,
+    SSTORE_CLEARS_SCHEDULE,
+    SSTORE_RESET_GAS,
+    SSTORE_SET_GAS,
+    WARM_STORAGE_READ_COST,
 )
-from .typing import Account, Block, Bytecode, ExpCircuit, RWDictionary, Transaction
+from .typing import Account, Block, Bytecode, CopyCircuit, ExpCircuit, RWDictionary, Transaction
 
 U256M = (1 << 256) - 1
 U255 = 1 << 255
@@ -50,11 +70,12 @@ class BlockWitness:
         self.bytecodes: List[Bytecode] = []
         self.withdrawals: List = []        # EIP-4895 withdrawals (withdrawal circuit)
         self.exp_circuit: Optional[ExpCircuit] = None  # EXP events (None: none)
-        # sub-circuit witnesses of the JAX tracer that the ALU subset never
-        # fills; the block verifier refuses a witness that carries one
-        self.copy_circuit = None
+        self.copy_circuit: Optional[CopyCircuit] = None  # SHA3 copy events (None: none)
+        self.signed_txs = None             # signed tx list (tx + sig circuits)
+        # sub-circuit witnesses of the JAX tracer that this subset never
+        # fills (the ecRecover precompile's and the ecc circuit's); the block
+        # verifier refuses a witness that carries one
         self.ecc_circuit = None
-        self.signed_txs = None
         self.sig_rows: List = []
         self.sha3_preimages: List[bytes] = []
         self.tx_code_hashes: List[int] = []    # per-tx root code hash
@@ -114,7 +135,9 @@ class _Tracer:
         self.w.block = block
         self.w.rw = RWDictionary(start_counter)
         self.w.exp_circuit = ExpCircuit()
+        self.w.copy_circuit = CopyCircuit()
         self.rw = self.w.rw
+        self.copy_r = 0x64  # randomness of the copy events' RLC (the JAX tracer's)
         self.block = block
         self.cumulative_gas = 0
         self.call_ids: List[int] = []
@@ -134,11 +157,14 @@ class _Tracer:
         # world state
         self.balances: Dict[int, int] = {}
         self.nonces: Dict[int, int] = {}
+        self.storage: Dict[Tuple[int, int], int] = {}
         for addr, acct in (accounts or {}).items():
             self.balances[addr] = acct.balance
             self.nonces[addr] = acct.nonce
             if len(acct.code.code):
                 self._register_code(acct.code)
+            for k, v in acct.storage.items():
+                self.storage[(addr, k)] = v
 
     # -- helpers ------------------------------------------------------------
 
@@ -184,15 +210,20 @@ class _Tracer:
         self.call_ids.append(call_id)
 
         self.tx = tx
+        self.tx_id = tx_id
         self.call_id = call_id
         self.code_hash = code_hash
         self.code = bytecode
+        self.callee_address = tx.callee_address
         # precompile addresses are always warm (EIP-2929)
         self.warm_addr = set(range(1, 10))
+        self.warm_slot = set()
+        self.committed: Dict[Tuple[int, int], int] = {}
         self.refund = 0
         self.log_count = 0
         self.rev = 0          # reversible_write_counter
         self.stack: List[int] = []
+        self.memory: Dict[int, int] = {}
         self.mws = 0          # memory_word_size
         self.pc = 0
         self.stopped = False
@@ -202,6 +233,7 @@ class _Tracer:
         # root-frame reversion machinery
         idx, success = self._frame_outcome()
         self.frame_idx = idx
+        self.persistent = success  # root frame: persistent == own success
         self.pending: List[dict] = []
         self.anchor = {"own": None, "parent": None, "poffset": 0,
                        "persistent": success, "failed": not success}
@@ -310,23 +342,59 @@ class _Tracer:
 
     # -- opcode dispatch ----------------------------------------------------
 
+    def _expansion_gas(self, offset: int, length: int) -> int:
+        """Memory-expansion gas, without changing the memory size."""
+        if length == 0:
+            return 0
+        size = (offset + length + 31) // 32
+        new = max(self.mws, size)
+        return 3 * (new - self.mws) + new * new // 512 - self.mws * self.mws // 512
+
     def _detect_error(self, raw: int) -> Optional[ExecutionState]:
         """The pre-dispatch error classes an opcode with a ported handler can
         hit, in geth's order: invalid opcode, stack validation, constant
-        gas, then EXP's dynamic gas.  (Write protection needs a static frame
-        and the other dynamic-gas checks belong to opcodes without a handler
-        here.)"""
+        gas, then the dynamic checks of EXP, MLOAD / MSTORE / MSTORE8,
+        SLOAD / SSTORE and SHA3 (the JAX tracer's ``_detect_error``,
+        :564-714).  Write protection needs a static frame, which no ported
+        opcode makes."""
         E = ExecutionState
-        if _OP_BY_RAW[raw] is None:
+        op = _OP_BY_RAW[raw]
+        if op is None:
             return E.ErrorInvalidOpcode
         sp = 1024 - len(self.stack)
         if sp < _MIN_SP[raw] or sp > _MAX_SP[raw]:
             return E.ErrorStack
-        if self.gas_left < _CONST_GAS[raw]:
+        gas = self.gas_left
+        if gas < _CONST_GAS[raw]:
             return E.ErrorOutOfGasConstant
-        if (raw == Opcode.EXP and self.gas_left
-                < GAS_COST_SLOW + GAS_COST_EXP_PER_BYTE * _byte_size(self.stack[-2])):
-            return E.ErrorOutOfGasEXP
+        st = self.stack  # top is st[-1]
+        if op == Opcode.EXP:
+            if gas < GAS_COST_SLOW + GAS_COST_EXP_PER_BYTE * _byte_size(st[-2]):
+                return E.ErrorOutOfGasEXP
+        elif op in (Opcode.MLOAD, Opcode.MSTORE, Opcode.MSTORE8):
+            size = 1 if op == Opcode.MSTORE8 else 32
+            if st[-1] + size > (1 << 64) - 1:
+                return E.ErrorGasUintOverflow
+            if gas < GAS_COST_FASTEST + self._expansion_gas(st[-1], size):
+                return E.ErrorOutOfGasStaticMemoryExpansion
+        elif op in (Opcode.SLOAD, Opcode.SSTORE):
+            if op == Opcode.SSTORE and gas <= GAS_COST_SSTORE_SENTRY_EIP2200:
+                return E.ErrorOutOfGasSloadSstore
+            skey = (self.callee_address, st[-1])
+            warm = skey in self.warm_slot
+            if op == Opcode.SLOAD:
+                need = WARM_STORAGE_READ_COST if warm else COLD_SLOAD_COST
+            else:
+                need = _sstore_gas(st[-2], self.storage.get(skey, 0),
+                                   self.committed.get(skey, self.storage.get(skey, 0)), warm)
+            if gas < need:
+                return E.ErrorOutOfGasSloadSstore
+        elif op == Opcode.SHA3:
+            off, size = st[-1], st[-2]
+            need = (GAS_COST_SHA3 + GAS_COST_COPY_SHA3 * ((size + 31) // 32)
+                    + self._expansion_gas(off if size else 0, size))
+            if gas < need:
+                return E.ErrorOutOfGasSHA3
         return None
 
     def step_op(self):
@@ -360,6 +428,23 @@ class _Tracer:
         v = self.stack.pop()
         self.rw.stack_read(self.call_id, 1023 - len(self.stack), v)
         return v
+
+    def cc_read(self, tag, value):
+        self.rw.call_context_read(self.call_id, tag, value)
+
+    def reversion_reads(self):
+        self.cc_read(CallContextFieldTag.RwCounterEndOfReversion, 0)
+        self._fix_rwceor(self.anchor)
+        self.cc_read(CallContextFieldTag.IsPersistent, int(self.persistent))
+
+    def _expand_dyn(self, offset: int, length: int):
+        """Dynamic-length memory expansion: deducts its gas."""
+        if length:
+            self.gas_left -= self._expansion_gas(offset, length)
+            self.mws = max(self.mws, (offset + length + 31) // 32)
+
+    def _mem_bytes(self, offset: int, length: int) -> bytes:
+        return bytes(self.memory.get(offset + i, 0) for i in range(length))
 
     # -- handlers -----------------------------------------------------------
 
@@ -404,6 +489,110 @@ class _Tracer:
         self.spush(out)
         self.pc += 1
 
+    def op_memory(self, op):
+        rw, call_id = self.rw, self.call_id
+        offset = self.spop()
+        if op == Opcode.MLOAD:
+            self.spush(int.from_bytes(self._mem_bytes(offset, 32), "big"))
+            for i in range(32):
+                rw.memory_read(call_id, offset + i, self.memory.get(offset + i, 0))
+            address = offset + 32
+        else:
+            value = self.spop()
+            if op == Opcode.MSTORE8:
+                self.memory[offset] = value & 0xFF
+                rw.memory_write(call_id, offset, value & 0xFF)
+                address = offset + 1
+            else:
+                for i in range(32):
+                    b = (value >> (8 * (31 - i))) & 0xFF
+                    self.memory[offset + i] = b
+                    rw.memory_write(call_id, offset + i, b)
+                address = offset + 32
+        # the MEMORY gadget passes curr.memory_word_size as the "offset" of
+        # memory_expansion (reference memory.py:22-24, instruction.py:
+        # 1138-1145), so the expansion target includes the current size
+        next_size = max(self.mws, (address + self.mws + 31) // 32)
+        self.gas_left -= (3 * (next_size - self.mws)
+                          + next_size * next_size // 512 - self.mws * self.mws // 512)
+        self.mws = next_size
+        self.pc += 1
+
+    def op_sload(self, op):
+        addr = self.callee_address
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.reversion_reads()
+        self.cc_read(CallContextFieldTag.CalleeAddress, addr)
+        key = self.spop()
+        skey = (addr, key)
+        value = self.storage.get(skey, 0)
+        committed = self.committed.setdefault(skey, value)
+        self.rw.account_storage_read(addr, key, value, self.tx_id, committed)
+        self.spush(value)
+        warm = skey in self.warm_slot
+        self.rw.tx_access_list_account_storage_write(self.tx_id, addr, key, True, warm)
+        self._mirror_last()
+        self.warm_slot.add(skey)
+        self.rev += 1
+        self.gas_left -= WARM_STORAGE_READ_COST if warm else COLD_SLOAD_COST
+        self.pc += 1
+
+    def op_sstore(self, op):
+        addr = self.callee_address
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.cc_read(CallContextFieldTag.IsStatic, 0)
+        self.reversion_reads()
+        self.cc_read(CallContextFieldTag.CalleeAddress, addr)
+        key = self.spop()
+        value = self.spop()
+        skey = (addr, key)
+        value_prev = self.storage.get(skey, 0)
+        original = self.committed.setdefault(skey, value_prev)
+        self.rw.account_storage_write(addr, key, value, value_prev, self.tx_id, original)
+        self._mirror_last()
+        self.storage[skey] = value
+        warm = skey in self.warm_slot
+        self.rw.tx_access_list_account_storage_write(self.tx_id, addr, key, True, warm)
+        self._mirror_last()
+        self.warm_slot.add(skey)
+
+        # EIP-3529 refund schedule (reference storage.py:88-131)
+        refund_prev = self.refund
+        refund = refund_prev
+        if value != value_prev:
+            if original == value_prev:
+                if original != 0 and value == 0:
+                    refund += SSTORE_CLEARS_SCHEDULE
+            else:
+                if original != 0:
+                    if value_prev == 0:
+                        refund -= SSTORE_CLEARS_SCHEDULE
+                    if value == 0:
+                        refund += SSTORE_CLEARS_SCHEDULE
+                if original == value:
+                    refund += (SSTORE_SET_GAS if original == 0 else SSTORE_RESET_GAS) - SLOAD_GAS
+        self.rw.tx_refund_write(self.tx_id, refund, refund_prev)
+        self._mirror_last()
+        self.refund = refund
+        self.rev += 3
+        self.gas_left -= _sstore_gas(value, value_prev, original, warm)
+        self.pc += 1
+
+    def op_sha3(self, op):
+        offset = self.spop()
+        length = self.spop()
+        data = self._mem_bytes(offset, length)
+        self.spush(int.from_bytes(keccak256(data), "big"))
+        if length:
+            self.w.copy_circuit.copy(
+                self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory,
+                self.call_id, CopyDataTypeTag.RlcAcc, offset, offset + length,
+                0, length, {offset + i: data[i] for i in range(length)})
+        self.w.sha3_preimages.append(data)
+        self._expand_dyn(offset if length else 0, length)
+        self.gas_left -= GAS_COST_COPY_SHA3 * ((length + 31) // 32)
+        self.pc += 1
+
     def op_exp(self, op):
         base, exponent = self.spop(), self.spop()
         self.spush(pow(base, exponent, 1 << 256))
@@ -412,6 +601,17 @@ class _Tracer:
             self.w.exp_circuit.add_event(base, exponent, identifier)
         self.gas_left -= GAS_COST_EXP_PER_BYTE * _byte_size(exponent)
         self.pc += 1
+
+
+def _sstore_gas(value: int, value_prev: int, original: int, warm: bool) -> int:
+    """SSTORE's dynamic gas (EIP-2200 with EIP-2929's cold surcharge)."""
+    if value == value_prev or value_prev != original:
+        gas = SLOAD_GAS
+    elif original == 0:
+        gas = SSTORE_SET_GAS
+    else:
+        gas = SSTORE_RESET_GAS
+    return gas if warm else gas + COLD_SLOAD_COST
 
 
 def signextend(i: int, x: int) -> int:
@@ -463,6 +663,8 @@ _STATE_BY_OPCODE = {
     Opcode.AND: _ES.BITWISE, Opcode.OR: _ES.BITWISE, Opcode.XOR: _ES.BITWISE,
     Opcode.BYTE: _ES.BYTE, Opcode.SHL: _ES.SHL_SHR, Opcode.SHR: _ES.SHL_SHR,
     Opcode.SAR: _ES.SAR, Opcode.SIGNEXTEND: _ES.SIGNEXTEND,
+    Opcode.MLOAD: _ES.MEMORY, Opcode.MSTORE: _ES.MEMORY, Opcode.MSTORE8: _ES.MEMORY,
+    Opcode.SLOAD: _ES.SLOAD, Opcode.SSTORE: _ES.SSTORE, Opcode.SHA3: _ES.SHA3,
 }
 
 # -- hot-path dispatch tables: 256-entry arrays indexed by the raw byte ------
@@ -485,7 +687,50 @@ for _o in Opcode:
         _HANDLER[_raw] = {Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
                           Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
                           Opcode.EXP: _Tracer.op_exp,
-                          Opcode.SIGNEXTEND: _Tracer.op_signextend}.get(_o, _Tracer.op_alu)
+                          Opcode.SIGNEXTEND: _Tracer.op_signextend,
+                          Opcode.MLOAD: _Tracer.op_memory, Opcode.MSTORE: _Tracer.op_memory,
+                          Opcode.MSTORE8: _Tracer.op_memory, Opcode.SLOAD: _Tracer.op_sload,
+                          Opcode.SSTORE: _Tracer.op_sstore,
+                          Opcode.SHA3: _Tracer.op_sha3}.get(_o, _Tracer.op_alu)
+
+
+def _derive_tx_key(tx_id: int) -> int:
+    """The deterministic secp256k1 secret key of tx ``tx_id`` (the traced
+    block's senders are real key pairs, as in the reference's tests that
+    sign with eth_keys, tests/test_tx_circuit.py)."""
+    from ..ops.ecc import secp256k1
+
+    sk = int.from_bytes(keccak256(b"zkevm-specs-tpu tx key #%d" % tx_id), "big") % secp256k1.N
+    return sk or 1
+
+
+def tx_sender_address(tx_id: int) -> int:
+    """The address of tx ``tx_id``'s key, keccak(pk)[-20:] (reference
+    tx_circuit.py:341-349)."""
+    from ..ops.ecc import secp256k1
+
+    pk = secp256k1.priv_to_pub(_derive_tx_key(tx_id))
+    return int.from_bytes(keccak256(secp256k1.pubkey_bytes(pk))[-20:], "big")
+
+
+def sign_block_txs(w: BlockWitness) -> None:
+    """Sign every tx of a traced witness with its deterministic key and
+    attach ``signed_txs``, so that the tx and sig circuits run on the block
+    (reference tx_circuit.py:253-291 verifies real ECDSA for every tx).
+    The tracer has already set each caller to its key's address, so the tx
+    circuit's recovered-address constraint binds the signatures to the
+    EVM-side tx table."""
+    from ..circuits.tx import Transaction as SignedTx, sign_tx
+
+    signed = []
+    for tx in w.txs:
+        stx = SignedTx(nonce=tx.nonce, gas_price=tx.gas_price, gas=tx.gas,
+                       to=tx.callee_address, value=tx.value, data=bytes(tx.call_data),
+                       sig_v=0, sig_r=0, sig_s=0)
+        signed.append(sign_tx(_derive_tx_key(tx.id), stx, w.chain_id))
+        assert tx_sender_address(tx.id) == tx.caller_address, (
+            "signed-tx sender does not match the traced caller address")
+    w.signed_txs = signed
 
 
 def trace_block(
@@ -497,17 +742,25 @@ def trace_block(
     sign: bool = True,
 ) -> BlockWitness:
     """Execute txs (each a call to a contract with the given bytecode) and
-    emit the full witness, as the JAX ``trace_block`` does with
-    ``sign=False``: two passes (the frame-outcome oracle, then the replay
-    with the prologue budget reserved), EndBlock, the rw table's Start
-    padding row and the call-context setup prologue at rw counters
-    1..11*n_txs (verified in-circuit by ``circuits/super_circuit.py``).
+    emit the full witness, as the JAX ``trace_block`` does: two passes (the
+    frame-outcome oracle, then the replay with the prologue budget
+    reserved), EndBlock, the rw table's Start padding row and the
+    call-context setup prologue at rw counters 1..11*n_txs (verified
+    in-circuit by ``circuits/super_circuit.py``).
 
-    ``sign=True`` (the JAX default) raises: the tx and sig circuits that a
-    signed block feeds are not ported."""
+    With ``sign`` (the default) each tx's caller becomes the address of its
+    deterministic key before tracing (``tx_sender_address``; the txs are
+    changed in place, as in the JAX package), an ``accounts`` entry pinned
+    to the old sender follows it, and the traced txs are signed into
+    ``signed_txs`` for the tx and sig circuits."""
     if sign:
-        raise NotImplementedError(
-            "trace_block(sign=True): the tx and sig circuits are not ported; pass sign=False")
+        for tx, _bc in txs:
+            old = tx.caller_address
+            tx.caller_address = tx_sender_address(tx.id)
+            if accounts and old in accounts and tx.caller_address not in accounts:
+                acct = accounts.pop(old)
+                acct.address = tx.caller_address
+                accounts[tx.caller_address] = acct
     if withdrawals:
         # chain the mock MPT withdrawal roots up front so the block table's
         # WithdrawalRoot matches the withdrawal circuit's final root
@@ -579,6 +832,10 @@ def trace_block(
     w.rw.rws = start_rows + prologue.rws + w.rw.rws
 
     w.withdrawals = list(withdrawals or [])
+    if not w.copy_circuit.rows:
+        w.copy_circuit = None
     if not w.exp_circuit.rows:
         w.exp_circuit = None
+    if sign:
+        sign_block_txs(w)
     return w

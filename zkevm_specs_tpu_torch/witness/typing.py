@@ -1,14 +1,14 @@
 """Host-side witness rows (the part the ported paths need).
 
 ``Block``, ``Transaction``, ``Withdrawal``, ``Bytecode``, ``Account``,
-``RWDictionary``, ``KeccakCircuit`` and ``ExpCircuit`` emit plain row dicts (Python ints,
+``RWDictionary``, ``KeccakCircuit``, ``ExpCircuit`` and ``CopyCircuit`` emit plain row dicts (Python ints,
 words as ints < 2^256) that feed the columnar ``Tables``; they are copies
 of the JAX package's classes of the same names (reference:
 src/zkevm_specs/evm_circuit/typing.py:64-845).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 from ..ops.fr import P
 from ..ops.keccak import EMPTY_HASH, keccak256
@@ -18,8 +18,10 @@ from ..tables.schemas import (
     BlockContextFieldTag,
     BytecodeFieldTag,
     CallContextFieldTag,
+    CopyDataTypeTag,
     Target,
     TxContextFieldTag,
+    TxLogFieldTag,
     TxReceiptFieldTag,
 )
 from ..utils.param import (
@@ -329,12 +331,26 @@ class RWDictionary:
     def stack_write(self, call_id, stack_pointer, value) -> "RWDictionary":
         return self._append(RW.Write, Target.Stack, id=call_id, address=stack_pointer, value=value)
 
+    def memory_read(self, call_id, memory_address, byte) -> "RWDictionary":
+        return self._append(RW.Read, Target.Memory, id=call_id, address=memory_address,
+                            value=byte)
+
+    def memory_write(self, call_id, memory_address, byte) -> "RWDictionary":
+        return self._append(RW.Write, Target.Memory, id=call_id, address=memory_address,
+                            value=byte)
+
     def call_context_read(self, call_id, field_tag: CallContextFieldTag, value) -> "RWDictionary":
         return self._append(RW.Read, Target.CallContext, id=call_id, address=int(field_tag),
                             value=value)
 
     def call_context_write(self, call_id, field_tag: CallContextFieldTag, value) -> "RWDictionary":
         return self._append(RW.Write, Target.CallContext, id=call_id, address=int(field_tag),
+                            value=value)
+
+    def tx_log_write(self, tx_id, log_id: int, field_tag: TxLogFieldTag, index,
+                     value) -> "RWDictionary":
+        return self._append(RW.Write, Target.TxLog, id=tx_id,
+                            address=int(index) + (int(field_tag) << 32) + (int(log_id) << 48),
                             value=value)
 
     def tx_receipt_read(self, tx_id, field_tag: TxReceiptFieldTag, value) -> "RWDictionary":
@@ -348,9 +364,23 @@ class RWDictionary:
     def tx_refund_read(self, tx_id, refund) -> "RWDictionary":
         return self._append(RW.Read, Target.TxRefund, id=tx_id, value=refund, value_prev=refund)
 
+    def tx_refund_write(self, tx_id, refund, refund_prev,
+                        rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
+        return self._state_write(Target.TxRefund, id=tx_id, value=refund, value_prev=refund_prev,
+                                 rw_counter_of_reversion=rw_counter_of_reversion)
+
     def tx_access_list_account_write(self, tx_id, account_address, value: bool, value_prev: bool,
                                      rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
         return self._state_write(Target.TxAccessListAccount, id=tx_id, address=account_address,
+                                 value=int(value), value_prev=int(value_prev),
+                                 rw_counter_of_reversion=rw_counter_of_reversion)
+
+    def tx_access_list_account_storage_write(self, tx_id, account_address, storage_key,
+                                             value: bool, value_prev: bool,
+                                             rw_counter_of_reversion: Optional[int] = None
+                                             ) -> "RWDictionary":
+        return self._state_write(Target.TxAccessListAccountStorage, id=tx_id,
+                                 address=account_address, storage_key=storage_key,
                                  value=int(value), value_prev=int(value_prev),
                                  rw_counter_of_reversion=rw_counter_of_reversion)
 
@@ -362,6 +392,21 @@ class RWDictionary:
                       rw_counter_of_reversion: Optional[int] = None) -> "RWDictionary":
         return self._state_write(Target.Account, address=account_address,
                                  field_tag=int(field_tag), value=value, value_prev=value_prev,
+                                 rw_counter_of_reversion=rw_counter_of_reversion)
+
+
+    def account_storage_read(self, account_address, storage_key, value, tx_id,
+                             value_committed) -> "RWDictionary":
+        return self._append(RW.Read, Target.AccountStorage, id=tx_id, address=account_address,
+                            storage_key=storage_key, value=value, value_prev=value,
+                            aux0=value_committed)
+
+    def account_storage_write(self, account_address, storage_key, value, value_prev, tx_id,
+                              value_committed, rw_counter_of_reversion: Optional[int] = None
+                              ) -> "RWDictionary":
+        return self._state_write(Target.AccountStorage, id=tx_id, address=account_address,
+                                 storage_key=storage_key, value=value, value_prev=value_prev,
+                                 aux0=value_committed,
                                  rw_counter_of_reversion=rw_counter_of_reversion)
 
 
@@ -441,6 +486,122 @@ class ExpCircuit:
                 "a": 1, "b": 1, "c": 0, "d": 1, "q": 0, "r": 1,
             })
         return self
+
+
+class CopyCircuit:
+    """Paired read/write copy-event rows (reference typing.py:997-1151; the
+    JAX package's ``witness/typing.py:572-664``)."""
+
+    def __init__(self, pad_rows: Optional[List[dict]] = None) -> None:
+        self.rows: List[dict] = []
+        self.pad_rows: List[dict] = pad_rows or []
+
+    def table(self) -> List[dict]:
+        return self.rows + self.pad_rows
+
+    def copy(self, r: int, rw_dict: RWDictionary, src_id, src_tag: CopyDataTypeTag,
+             dst_id, dst_tag: CopyDataTypeTag, src_addr: int, src_addr_end: int,
+             dst_addr: int, copy_length: int,
+             src_data: Mapping[int, Union[int, Tuple[int, int]]],
+             log_id: int = 0) -> "CopyCircuit":
+        """One copy event: a read row and a write row a byte, the source's
+        memory and log rows emitted into ``rw_dict`` as they are read and
+        written; an RlcAcc destination accumulates the bytes' RLC by r."""
+        new_rows: List[dict] = []
+        rlc_acc = 0
+        for i in range(int(copy_length)):
+            if int(src_addr + i) < int(src_addr_end):
+                is_pad = False
+                assert src_addr + i in src_data, f"Cannot find data at the offset {src_addr + i}"
+                value = src_data[src_addr + i]
+                if src_tag == CopyDataTypeTag.Bytecode or dst_tag == CopyDataTypeTag.Bytecode:
+                    value, is_code = value
+                else:
+                    is_code = 0
+            else:
+                is_pad = True
+                value = 0
+                is_code = 0
+            self._append_row(new_rows, rw_dict, False, i == 0, False, src_id, src_tag,
+                             src_addr + i, value, 0, is_code, is_pad,
+                             src_addr_end=src_addr_end, bytes_left=copy_length - i)
+            if dst_tag == CopyDataTypeTag.RlcAcc:
+                rlc_acc = (rlc_acc * r + _to_int(value)) % P
+            self._append_row(new_rows, rw_dict, True, False, i == copy_length - 1, dst_id,
+                             dst_tag, dst_addr + i,
+                             rlc_acc if dst_tag == CopyDataTypeTag.RlcAcc else value,
+                             0, is_code, False, log_id=log_id)
+        rw_counter = rw_dict.rw_counter
+        for row in new_rows:
+            row["rwc_inc_left"] = rw_counter - row["rw_counter"]
+            if dst_tag == CopyDataTypeTag.RlcAcc:
+                row["rlc_acc"] = rlc_acc
+        self.rows.extend(new_rows)
+        return self
+
+    def _append_row(self, rows, rw_dict: RWDictionary, is_write: bool, is_first: bool,
+                    is_last: bool, id, tag: CopyDataTypeTag, addr, value, rlc_acc,
+                    is_code, is_pad: bool, src_addr_end=0, bytes_left=0, log_id: int = 0):
+        is_memory = tag == CopyDataTypeTag.Memory
+        is_tx_log = tag == CopyDataTypeTag.TxLog
+        rw_counter = rw_dict.rw_counter
+        if is_memory:
+            if is_write:
+                rw_dict.memory_write(_to_int(id), addr, value)
+            elif not is_pad:
+                rw_dict.memory_read(_to_int(id), addr, value)
+        elif is_tx_log:
+            assert is_write
+            rw_dict.tx_log_write(_to_int(id), log_id, TxLogFieldTag.Data, addr, value)
+            addr = int(addr) + (int(TxLogFieldTag.Data) << 32) + (log_id << 48)
+        rows.append({
+            "q_step": int(not is_write),
+            "is_first": int(is_first),
+            "is_last": int(is_last),
+            "id": _to_int(id),
+            "tag": int(tag),
+            "addr": _to_int(addr),
+            "src_addr_end": _to_int(src_addr_end),
+            "bytes_left": _to_int(bytes_left),
+            "value": _to_int(value),
+            "rlc_acc": _to_int(rlc_acc),
+            "is_code": _to_int(is_code),
+            "is_pad": int(is_pad),
+            "rw_counter": rw_counter,
+            "rwc_inc_left": 0,  # back-patched by copy()
+            "is_memory": int(is_memory),
+            "is_bytecode": int(tag == CopyDataTypeTag.Bytecode),
+            "is_tx_calldata": int(tag == CopyDataTypeTag.TxCalldata),
+            "is_tx_log": int(is_tx_log),
+            "is_rlc_acc": int(tag == CopyDataTypeTag.RlcAcc),
+        })
+
+
+def copy_circuit_to_table(copy_circuit: CopyCircuit) -> List[dict]:
+    """Copy-table rows from the circuit's first read row of each event and
+    the write row after it (reference table.py:627-652)."""
+    rows = copy_circuit.table()
+    out = []
+    for i, row in enumerate(rows):
+        if row["is_first"] == 1:
+            assert i + 1 < len(rows), "Not enough rows in copy circuit"
+            nxt = rows[i + 1]
+            assert nxt["q_step"] == 0, "Invalid copy circuit"
+            out.append({
+                "is_first": row["is_first"],
+                "src_id": row["id"],
+                "src_tag": row["tag"],
+                "dst_id": nxt["id"],
+                "dst_tag": nxt["tag"],
+                "src_addr": row["addr"],
+                "src_addr_end": row["src_addr_end"],
+                "dst_addr": nxt["addr"],
+                "length": row["bytes_left"],
+                "rlc_acc": row["rlc_acc"],
+                "rw_counter": row["rw_counter"],
+                "rwc_inc": row["rwc_inc_left"],
+            })
+    return out
 
 
 def exp_circuit_to_table(exp_circuit: ExpCircuit) -> List[dict]:

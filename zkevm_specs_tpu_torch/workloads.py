@@ -2,9 +2,11 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload; and two blocks traced by the port's tracer for the block
-verifier, the ALU block (``build_alu_block``) and the arithmetic block
-(``build_arith_block``).
+payload; three blocks traced and signed by the port's tracer for the
+block verifier, the ALU block (``build_alu_block``), the arithmetic block
+(``build_arith_block``) and the SSTORE-heavy block (``build_sstore_block``);
+and the signed transfers of the tx and sig circuits' largest block
+(``signed_transfers``).
 
 ``build_alu_group`` builds the groups of the last eight ALU gadgets
 (``ALU_GROUPS``: LT, SLT, ISZERO, NOT, AND, BYTE, SIGNEXTEND, SAR) on the
@@ -261,10 +263,8 @@ def build_alu_bytecodes(n_txs: int, ops_per_tx: int, k: Optional[int] = None, se
 def alu_block_txs(n_txs: int, ops_per_tx: int) -> List[Tuple[Transaction, Bytecode]]:
     """``bench.py:_alu_heavy_txs`` (:474-490): per tx, ``ops_per_tx`` rounds
     of PUSH1 j, PUSH1 j+1, ADD, POP, then STOP, with 21000 + 11 gas a round
-    + 1000.  bench.py traces them signed, which gives every tx the address
-    of its own key as caller; traced unsigned, each tx here has its own
-    caller address (0xFE + 0x100 i) instead, so that every tx's nonce 0 is
-    valid (with one shared caller, txs 2.. fail BeginTx's nonce check)."""
+    + 1000, every tx from caller 0xFE (signing gives each tx its own key's
+    address)."""
     txs = []
     for i in range(n_txs):
         bc = Bytecode()
@@ -272,23 +272,25 @@ def alu_block_txs(n_txs: int, ops_per_tx: int) -> List[Tuple[Transaction, Byteco
             bc.push1(j & 0xFF).push1((j + 1) & 0xFF).add().pop()
         bc.stop()
         txs.append((Transaction(id=i + 1, gas=21000 + 11 * ops_per_tx + 1000,
-                                gas_price=int(2e9), caller_address=0xFE + 0x100 * i,
+                                gas_price=int(2e9), caller_address=0xFE,
                                 callee_address=0xFF + i), bc))
     return txs
 
 
+BLOCK_HEADER = dict(base_fee=10**9, gas_limit=30 * 10**6)  # bench.py:_run_block_once's
+
+
 def build_alu_block(n_txs: int = ALU_BLOCK_TXS, ops_per_tx: int = ALU_BLOCK_OPS,
                     call_data: Sequence[bytes] = ()):
-    """The ALU block's witness, as bench.py's ``_run_block_once`` traces it
-    (``Block(base_fee=10**9, gas_limit=30 * 10**6)``), unsigned: the port
-    does not have the tx and sig circuits a signed block feeds.
-    ``call_data`` gives the first txs calldata, for the pi circuit's
-    calldata region (bench.py's txs have none; a tx's 1000 spare gas covers
-    up to 62 nonzero bytes)."""
+    """The ALU block's witness, as bench.py's ``_run_block_once`` traces it:
+    ``Block(base_fee=10**9, gas_limit=30 * 10**6)``, signed.  ``call_data``
+    gives the first txs calldata, for the pi circuit's calldata region
+    (bench.py's txs have none; a tx's 1000 spare gas covers up to 62
+    nonzero bytes)."""
     txs = alu_block_txs(n_txs, ops_per_tx)
     for (tx, _), data in zip(txs, call_data):
         tx.call_data = data
-    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6), txs, sign=False)
+    return trace_block(Block(**BLOCK_HEADER), txs)
 
 
 # -- the arithmetic block --------------------------------------------------------------
@@ -318,8 +320,8 @@ def _arith_operand(rng: np.random.RandomState) -> int:
 
 def arith_block_txs(n_txs: int, cycles: int, seed: int = 0) -> List[Tuple[Transaction, Bytecode]]:
     """The arithmetic block's txs, operands from ``numpy.random.RandomState
-    (seed)``; a caller per tx (0xFE + 0x100 i, unsigned, as the ALU block)
-    and the tx's gas for its cycles plus 1000."""
+    (seed)``; every tx from caller 0xFE, as the ALU block's, and with the
+    gas of its cycles plus 1000."""
     rng = np.random.RandomState(seed)
     txs = []
     for i in range(n_txs):
@@ -334,35 +336,93 @@ def arith_block_txs(n_txs: int, cycles: int, seed: int = 0) -> List[Tuple[Transa
                 getattr(bc.push32(_arith_operand(rng)).push1(int(rng.randint(256))), op)().pop()
         bc.stop()
         txs.append((Transaction(id=i + 1, gas=21000 + ARITH_CYCLE_GAS * cycles + 1000,
-                                gas_price=int(2e9), caller_address=0xFE + 0x100 * i,
+                                gas_price=int(2e9), caller_address=0xFE,
                                 callee_address=0xFF + i), bc))
     return txs
 
 
 def build_arith_block(n_txs: int = ARITH_BLOCK_TXS, cycles: int = ARITH_BLOCK_CYCLES,
                       seed: int = 0):
-    """The arithmetic block's witness, traced unsigned by the port's tracer
-    under ``Block(base_fee=10**9, gas_limit=30 * 10**6)`` (the ALU block's
-    header)."""
-    return trace_block(Block(base_fee=10**9, gas_limit=30 * 10**6),
-                       arith_block_txs(n_txs, cycles, seed), sign=False)
+    """The arithmetic block's witness, traced and signed by the port's
+    tracer under the ALU block's header."""
+    return trace_block(Block(**BLOCK_HEADER), arith_block_txs(n_txs, cycles, seed))
 
 
-# (side, elements, m limbs) of every logUp partial sum (K13 call) of the two
-# blocks' checks: a query side's m is en (one limb), a table side's the
-# multiplicities (four limbs).  chip_smoke.py checks these against the
-# blocks it builds; profile_replay.py --logup times K13 at them without
-# building the blocks.
+# -- the SSTORE-heavy block ------------------------------------------------------------
+
+SSTORE_BLOCK_TXS = 7   # bench.py:bench_super_jit_1m's default BENCH_TXS
+
+
+def sstore_block_txs(n_txs: int) -> List[Tuple[Transaction, Bytecode]]:
+    """``bench.py:_sstore_heavy_txs`` (:454-471): per tx, six rounds of a
+    cold SSTORE of j + 1 to slot 64 i + j, a warm SLOAD of it and an
+    ADD, then a SHA3 of the first 32 bytes of memory and STOP; 200000 gas,
+    caller 0xFE, callee 0xFF + i."""
+    txs = []
+    for i in range(n_txs):
+        bc = Bytecode()
+        for j in range(6):
+            bc.push1(j + 1).push2(i * 64 + j).sstore()
+            bc.push2(i * 64 + j).sload().pop()
+            bc.push1(3).push1(5).add().pop()
+        bc.push1(32).push1(0).sha3().pop()
+        bc.stop()
+        txs.append((Transaction(id=i + 1, gas=200000, gas_price=int(2e9),
+                                caller_address=0xFE, callee_address=0xFF + i), bc))
+    return txs
+
+
+def build_sstore_block(n_txs: int = SSTORE_BLOCK_TXS):
+    """The SSTORE-heavy block's witness, as bench.py's ``_run_block_once``
+    traces it (the ALU block's header, signed): about 1 M gas at 7 txs."""
+    return trace_block(Block(**BLOCK_HEADER), sstore_block_txs(n_txs))
+
+
+# -- signed transfers: the tx and sig circuits' largest block ----------------------------
+
+TX_SIG_CHAIN_ID = 1337                        # bench.py:bench_sig's
+TX_SIG_TXS = 30_000_000 // 21_000             # the most transfers a 30 M-gas block holds
+TX_SIG_MAX_CALLDATA = 64
+
+
+def signed_transfers(n: int):
+    """``bench.py:bench_sig``'s txs: transfer i signed with key 1000 + i,
+    nonce i, gas price 2e9, gas 21000, to 0xFF, value i, no data, chain
+    1337 (``circuits.tx.Transaction``s, for ``txs2witness`` and
+    ``sig_witness_from_txs``)."""
+    from .circuits.tx import Transaction as SignedTx, sign_tx
+
+    return [sign_tx(1000 + i, SignedTx(nonce=i, gas_price=int(2e9), gas=21000, to=0xFF,
+                                       value=i, data=b"", sig_v=0, sig_r=0, sig_s=0),
+                    TX_SIG_CHAIN_ID)
+            for i in range(n)]
+
+
+# (side, elements, m limbs) of every logUp partial sum (K13 call) of the
+# checks of chip_smoke.py's three blocks: the ALU block, the arithmetic block
+# at half its txs (build_arith_block(20, 37)) and the SSTORE block.  A query
+# side's m is en (one limb), a table side's the multiplicities (four limbs).
+# A side of the same shape as one an earlier family of its block gave is
+# listed once (the SSTORE block's keccak query side is its copy query side's
+# shape, its block table its keccak table's).  chip_smoke.py checks these
+# against the blocks it builds; profile_replay.py --logup times K13 at them
+# without building the blocks.
 LOGUP_SIDES = (
     ("ALU rw query", 528401, 1), ("ALU rw table", 528369, 4),
     ("ALU bytecode query", 6160016, 1), ("ALU bytecode table", 66002, 4),
     ("ALU tx query", 180, 1), ("ALU tx table", 96, 4),
     ("ALU block query", 55, 1), ("ALU block table", 8, 4),
-    ("arith rw query", 136713, 1), ("arith rw table", 96561, 4),
-    ("arith bytecode query", 1150040, 1), ("arith bytecode table", 966520, 4),
-    ("arith exp query", 2960, 1), ("arith exp table", 13365, 4),
-    ("arith tx query", 916, 1), ("arith tx table", 480, 4),
-    ("arith block query", 279, 1), ("arith block table", 8, 4))
+    ("arith rw query", 68353, 1), ("arith rw table", 48281, 4),
+    ("arith bytecode query", 575020, 1), ("arith bytecode table", 483260, 4),
+    ("arith exp query", 1480, 1), ("arith exp table", 6702, 4),
+    ("arith tx query", 456, 1), ("arith tx table", 240, 4),
+    ("arith block query", 139, 1), ("arith block table", 8, 4),
+    ("sstore rw query", 1568, 1), ("sstore rw table", 1765, 4),
+    ("sstore bytecode query", 7854, 1), ("sstore bytecode table", 770, 4),
+    ("sstore copy query", 7, 1), ("sstore copy table", 7, 4),
+    ("sstore keccak table", 8, 4),
+    ("sstore tx query", 157, 1), ("sstore tx table", 84, 4),
+    ("sstore block query", 48, 1))
 
 
 def receipt_gas_used(witness) -> int:
