@@ -16,8 +16,8 @@ script exits non-zero):
 3. slice: the compiled EVM group verifier on the ADD and MUL groups
    (``slice`` lines), then on the groups of the last eight ALU gadgets
    (``alu_group`` lines, ``workloads.ALU_GROUPS``: LT, SLT, ISZERO, NOT,
-   AND, BYTE, SIGNEXTEND, SAR), each at 131072 lanes (``bench.py``'s
-   ``BENCH_STEPS``): host trace, upload, one replay on the card with every
+   AND, BYTE, SIGNEXTEND, SAR), ADD and MUL at 131072 lanes (``bench.py``'s
+   ``BENCH_STEPS``), the eight at 32768 (cut for the run's time): host trace, upload, one replay on the card with every
    kernel launch count set to 0 just before it and read just after, every
    lane passing, then the replay timed, the arguments of every kernel at
    each distinct shape of one more replay, and one corrupted lane, an edit
@@ -79,11 +79,11 @@ script exits non-zero):
    gas_left edit and with tx 0 re-signed with key 0xBAD (failing at ("tx",
    0) only).  Every circuit is ported (``"not_ported": []``), pi on every
    block;
-9. arith: the arithmetic block at half its txs
-   (``workloads.build_arith_block(20, 37)``: MUL, DIV, MOD, SDIV, SMOD,
-   ADDMOD, MULMOD, EXP, SHL and SHR on seeded words, 740 EXP events in the
+9. arith: the arithmetic block at a quarter of its txs
+   (``workloads.build_arith_block(10, 37)``: MUL, DIV, MOD, SDIV, SMOD,
+   ADDMOD, MULMOD, EXP, SHL and SHR on seeded words, 370 EXP events in the
    exp circuit; signed, one caller 0xFE; the 40-tx block, 1110840 gas, is
-   cut to half so that the run keeps its time) through the same steps, the exp circuit's share beside the
+   cut to a quarter so that the run keeps its time) through the same steps, the exp circuit's share beside the
    keccak, tx, sig and pi checks', the tx and sig edits, and
    the pi edit above, and two corruptions each on its own rebuild (one
    MULMOD step's pushed result + 1; one exp-circuit row's d + 1) that must
@@ -114,6 +114,20 @@ script exits non-zero):
    verifier fails on the same edits of a 2-tx block), its logUp line (the
    copy and keccak families among them), and the 2-tx block's failure
    dicts on the card and the CPU, clean and with the SSTORE edit;
+10b. flow: the loop block (``workloads.build_flow_block(8, 1600)``, signed:
+   218265 steps, 476025 rw rows, 986488 gas; each tx reads every context
+   value, queries 0xCAFE's account cold and warm, copies from its code, the
+   calldata and its own code, then runs 1600 rounds of a Solidity-shaped
+   for-loop over a calldata word (JUMPDEST, DUP, PUSH, GT, ISZERO, JUMPI,
+   CALLDATALOAD, SWAP, ADD, JUMP) and ends in a LOG1) through the same
+   steps, the copy check's share beside the keccak, tx, sig and pi checks',
+   two rebuilds (tx 3's LOG1 topic + 1, failing at its LOG step alone; the
+   middle CALLDATALOAD's pushed word + 1, failing at that step and the
+   state row of the SWAP1 that reads it, as the JAX verifier fails on the
+   same edits of a 2 x 8 block), its logUp line, and the 2 x 8 block's
+   failure dicts on the card and the CPU, clean and with both edits, and
+   the conformance block's (``workloads.build_conformance_block``: 50
+   execution states in one frame), clean;
 11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 1428 signed transfers
    (``workloads.signed_transfers``: 30000000 // 21000, the most a 30 M-gas
    block holds, ``bench.py:bench_sig``'s shape, chain 1337): the host
@@ -133,7 +147,7 @@ script exits non-zero):
    (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", "arith" or "sstore", 10 timed launches each, each entry with
+   "block", "arith", "sstore" or "flow", 10 timed launches each, each entry with
    its count in the pass, the pi, tx, sig and copy checks' K1, K3, K4, K6
    and K8 calls among them, and at tx_sig's shapes, labelled "tx_sig";
    and likewise at
@@ -153,7 +167,7 @@ script exits non-zero):
    and rippled alone), and at every shape the logUp checks give it, each
    against Python ints, its bound the larger of its bytes and its chain
    (``runtime/bounds.py:reduce_chain``).  K5 at both state mixes' 2^19
-   rows and at both blocks' 528369, each also against the keys compared
+   rows and at every block's state rows, each also against the keys compared
    on Python ints.  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
    2048 steps of the same rows (1024 at the block verifier's table), which
@@ -165,17 +179,19 @@ script exits non-zero):
    ``bound_ms`` counts the least work (``K8_OPS_PER_STEP``), not the
    kernel's own.  K9 at the
    ALU block's upload, beside the pinned host-to-device copy rate of the
-   same bytes, and K10 at both blocks' verdict vectors (``torch.cat`` of
+   same bytes, and K10 at every block's verdict vectors (``torch.cat`` of
    the same vectors as its library call);
    K9 is held on the leaves and timed on its arena alone, the host's
    building of the leaf views timed on its own.  K12 at the logUp checks'
    one-lane inversion and at 131072 lanes, with its bounds from the least
    sliding-window chain for p - 2 (the kernel runs the width-4 chain);
-   K13 at every partial sum of every family of both blocks (table and
+   K13 at every partial sum of every family of every block (table and
    query side, up to the ALU block's 6160016 bytecode queries), with its
    plan (levels, tile, resident blocks) and the device launches of one
    call by entry, counted where each kernel is launched and held against
-   the plan, and K1-K4 at each distinct shape of every family's check
+   the plan (each kernel's first logUp call held against its own plain
+   call, timed, its others against one plain call over them all:
+   ``logup_kernel_rows``), and K1-K4 at each distinct shape of every family's check
    (``path_shapes`` labelled "logup_block <family>"/"logup_arith
    <family>").  The bounds of K1, K8 (its chain), K12 and K13 count a
    field product at its least work on 32-bit words (``FR_PRODUCT_OPS``,
@@ -241,11 +257,16 @@ from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E40
 from zkevm_specs_tpu_torch.runtime.timing import time_on_card_ms  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
 from zkevm_specs_tpu_torch.tables import logup  # noqa: E402
-from zkevm_specs_tpu_torch.tables.schemas import RW, BytecodeFieldTag, Target  # noqa: E402
+from zkevm_specs_tpu_torch.tables.schemas import (  # noqa: E402
+    RW, BytecodeFieldTag, Target, TxLogFieldTag)
 from zkevm_specs_tpu_torch.witness import tracer  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
 LANES = workloads.GROUP_LANES
+# the eight ALU gadgets' groups at a quarter of bench.py's BENCH_STEPS: with
+# the loop block's phase the whole run went past the time it has (the
+# replays are bound by their launches, not their lanes)
+ALU_GROUP_LANES = LANES // 4
 SMALL_LANES = 256
 CORRUPT_LANE = 77_777
 REPLAY_REPEATS = 10
@@ -268,17 +289,20 @@ BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third 
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 # its txs' calldata: zero and nonzero bytes, 43 in all
 SMALL_BLOCK_CALL_DATA = (bytes([0, 1, 2, 0]), bytes(range(1, 40)))
-# the arithmetic block at half its txs (workloads.ARITH_BLOCK_TXS is 40): with
-# the SSTORE and tx_sig phases the whole block ran past the time the run has
-ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 2, workloads.ARITH_BLOCK_CYCLES
+# the arithmetic block at a quarter of its txs (workloads.ARITH_BLOCK_TXS is
+# 40): with the SSTORE, tx_sig and loop-block phases the whole block ran
+# past the time the run has
+ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 4, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 SSTORE_TXS = workloads.SSTORE_BLOCK_TXS
 SMALL_SSTORE = 2          # txs of the SSTORE block held against the CPU
 TX_SIG_TXS = workloads.TX_SIG_TXS
 SMALL_TX_SIG = 4          # signed transfers of the tx and sig checks held against the CPU
 TX_SIG_CORRUPT_LANE = 700
+FLOW_TXS, FLOW_ITERATIONS = workloads.FLOW_BLOCK_TXS, workloads.FLOW_BLOCK_ITERATIONS
+SMALL_FLOW = (2, 8)       # txs x rounds of the loop block held against the CPU
 # the label of each block phase in workloads.LOGUP_SIDES
-BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore"}
+BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore", "flow": "flow"}
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
@@ -339,6 +363,9 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "sstore": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_addsub",
                            "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
                            "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
+                "flow": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
+                         "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                         "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
                 "tx_sig": ("horner_rlc", "lookup_search_eq"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
@@ -377,14 +404,14 @@ def card_line():
 
 # -- phase 3: the slice ---------------------------------------------------------
 
-def run_group(name, exec_state, build, n_pops, corrupt, card, phase):
+def run_group(name, exec_state, build, n_pops, corrupt, card, phase, lanes=LANES):
     """One group of ``n_pops``-operand steps through the compiled group
-    verifier at LANES lanes (phase 3 of the module docstring); returns the
-    main path's launch counts and (the uploaded inputs, every kernel's
+    verifier at ``lanes`` lanes (phase 3 of the module docstring); returns
+    the main path's launch counts and (the uploaded inputs, every kernel's
     arguments at each distinct shape of one more replay)."""
-    out = {"phase": phase, "group": name, "lanes": LANES, "card": card}
+    out = {"phase": phase, "group": name, "lanes": lanes, "card": card}
     t_phase = t0 = time.perf_counter()
-    tables, steps, nexts = build(LANES)
+    tables, steps, nexts = build(lanes)
     t1 = time.perf_counter()
     verifier = CompiledGroupVerifier(tables, exec_state, steps, nexts)   # device "cuda"
     t2 = time.perf_counter()
@@ -398,7 +425,7 @@ def run_group(name, exec_state, build, n_pops, corrupt, card, phase):
     fail = verifier(*inputs)
     torch.cuda.synchronize()
     counts = read_counts()
-    assert fail.device.type == "cuda" and fail.dtype == torch.bool and fail.shape == (LANES,)
+    assert fail.device.type == "cuda" and fail.dtype == torch.bool and fail.shape == (lanes,)
     assert not bool(fail.any()), f"{name}: {int(fail.sum())} lanes failed on a valid witness"
     for k in PATH_KERNELS[name]:
         assert counts[k] > 0, f"{name}: kernel {k} was not launched on the main path"
@@ -414,15 +441,15 @@ def run_group(name, exec_state, build, n_pops, corrupt, card, phase):
         "workload_build_s": t1 - t0, "host_trace_s": t2 - t1, "upload_s": t3 - t2,
         "n_constraints": verifier.n_constraints, "n_lookups": verifier.n_hints,
         "launches": counts, "replay_ms_median": med, "replay_ms_min": min(replay_ms),
-        "steps_per_s": LANES / (med / 1e3),
-        "constraint_evals_per_s": LANES * verifier.n_constraints / (med / 1e3),
+        "steps_per_s": lanes / (med / 1e3),
+        "constraint_evals_per_s": lanes * verifier.n_constraints / (med / 1e3),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
     _, calls = capture_pass(lambda: verifier(*inputs))
     out["distinct_kernel_shapes"] = {k: len(c) for k, c in calls.items()}
     # the corrupted lane as an edit of the uploaded inputs, the clean trace
     # reused (the builder's own corrupt_lane runs at 256 lanes below)
-    corrupt_lane = CORRUPT_LANE % LANES
+    corrupt_lane = CORRUPT_LANE % lanes
     with corrupted_upload(inputs, corrupt_lane, n_pops, corrupt):
         fail = verifier(*inputs)
     bad = torch.nonzero(fail).flatten().tolist()
@@ -874,7 +901,7 @@ def run_withdrawal(card):
     return counts, captured
 
 
-# -- phases 8-11: the three blocks through the block verifier, and the tx and sig checks
+# -- phases 8-11: the four blocks through the block verifier, and the tx and sig checks
 
 def host_ms(fn, repeats):
     """Median host wall time of ``fn()`` ending in a synchronise, and its
@@ -1036,6 +1063,52 @@ def corrupt_copy_rlc(w):
     return {"corrupt_copy_row": k}, lambda bv, f: set(f) == {("copy", k - 1), ("copy", k)}, undo
 
 
+def _step_rw_row(w, step, offset, key0, rw):
+    rwc = w.steps[step].rw_counter + offset
+    row = next(r for r in w.rw.rws if r["rw_counter"] == rwc)
+    assert row["key0"] == int(key0) and row["rw"] == int(rw), row
+    return row
+
+
+def corrupt_log_topic(w):
+    """The LOG1 topic of tx 3 (of the last tx, when the block has fewer) + 1:
+    exactly that tx's LOG step fails, as the JAX verifier's keys on the same
+    edit of the 2 x 8 block (tests/test_torch_block_flow.py, flow_log_topic)."""
+    tx_id = min(3, len(w.txs))
+    bad = [i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.LOG][tx_id - 1]
+    row = next(r for r in w.rw.rws if r["key0"] == int(Target.TxLog) and r["id"] == tx_id
+               and (r["address"] >> 32) & 0xFFFF == int(TxLogFieldTag.Topic))
+    old = row["value"]
+    row["value"] = (old + 1) % (1 << 256)
+
+    def undo():
+        row["value"] = old
+
+    return {"corrupt_log_step": bad, "tx": tx_id}, lambda bv, f: set(f) == {bad}, undo
+
+
+def corrupt_calldataload_word(w):
+    """The word pushed by the middle CALLDATALOAD step (its fourth rw row) +
+    1: exactly that step and the state row of the SWAP1 that reads the word
+    fail, as the JAX verifier's keys on the same edit of the 2 x 8 block
+    (tests/test_torch_block_flow.py, flow_calldataload_word)."""
+    loads = [i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.CALLDATALOAD]
+    bad = loads[len(loads) // 2]
+    row = _step_rw_row(w, bad, 3, Target.Stack, RW.Write)
+    old = row["value"]
+    row["value"] = (old + 1) % (1 << 256)
+
+    def expected(bv, f):
+        rwc = row["rw_counter"] + 1
+        read = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == rwc]
+        return set(f) == {bad, ("state", read[0])}
+
+    def undo():
+        row["value"] = old
+
+    return {"corrupt_calldataload_step": bad}, expected, undo
+
+
 def corrupt_wrong_key(w):
     """Tx 0 re-signed with key 0xBAD over the same payload: its recovered
     signer is no longer the EVM-side sender, so the tx check's lane 0
@@ -1069,6 +1142,14 @@ BLOCK_PHASES = {
                    small=lambda: workloads.build_sstore_block(SMALL_SSTORE),
                    small_size=(SMALL_SSTORE,),
                    small_corruptions=(None, corrupt_sstore_value)),
+    "flow": dict(build=lambda: workloads.build_flow_block(FLOW_TXS, FLOW_ITERATIONS),
+                 sizes={"txs": FLOW_TXS, "iterations_per_tx": FLOW_ITERATIONS},
+                 shares=("copy", "keccak", "tx", "sig", "pi"),
+                 corruptions=(corrupt_log_topic, corrupt_calldataload_word),
+                 small=lambda: workloads.build_flow_block(*SMALL_FLOW), small_size=SMALL_FLOW,
+                 small_corruptions=(None, corrupt_log_topic, corrupt_calldataload_word),
+                 # held clean against the CPU too: every root-frame state in one frame
+                 also_small={"conformance": workloads.build_conformance_block}),
 }
 
 
@@ -1269,6 +1350,18 @@ def run_block(path, card):
             assert lu_card == lu_cpu, f"{path}: logUp on the card {lu_card}, on the CPU {lu_cpu}"
             assert all(ok for ok, _, _ in lu_cpu.values()), lu_cpu
             out["small_block_logup_matches_cpu"] = sorted(lu_cpu)
+    for name, build in spec.get("also_small", {}).items():
+        other = build()
+        on_card = CBV(other)
+        p = on_card.prepare()
+        f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
+        on_cpu = CBV(other, device="cpu")
+        f_cpu = on_cpu.run_device(on_cpu.prepare())
+        assert f_card == f_graph == f_cpu == {}, \
+            f"{path}: {name} block: card {f_card}, graph {f_graph}, CPU {f_cpu}"
+        out["small_block_variants"][name] = {
+            "steps": len(other.steps), "states": len({s.execution_state for s in other.steps}),
+            "failing_keys": []}
     out["small_block_matches_cpu"] = list(spec["small_size"])
     out["small_block_calldata_bytes"] = sum(len(tx.call_data) for tx in small.txs)
     out["seconds"] = time.perf_counter() - t_phase
@@ -1857,26 +1950,36 @@ def seeded_limbs(rng, rows, n, bound_bits, device):
     return L.ints_to_limbs(vals, n).to(device)
 
 
+def plain_call(plain_fn):
+    """A plain version's output and the ms of its one call (CUDA events
+    around the host-issued call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = plain_fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
-            kernel_repeats=KERNEL_REPEATS, plain_repeats=5, timed=None, launches_per_call=1):
+            kernel_repeats=KERNEL_REPEATS, plain_repeats=5, timed=None, launches_per_call=1,
+            plain_result=None):
     """One call of a kernel held against its plain version on the same
     inputs (bit-exact), then both timed, and the bound of the work.  With
     ``plain_repeats`` 0 the plain version's time is that of the one call
     it was held on (for plain versions that take seconds).  ``timed``: the
     (kernel, plain) calls to time instead of the held ones, where those
-    add host work after the launch that the events would count."""
+    add host work after the launch that the events would count.
+    ``plain_result``: the plain version's output on these inputs from a
+    call made for several shapes at once (``plain_fn`` None), so no plain
+    time of this shape alone (``plain_ms`` None)."""
     torch.cuda.synchronize()
     before = L.LAUNCHES[name]
     got = kernel_fn()
     torch.cuda.synchronize()
     assert L.LAUNCHES[name] == before + launches_per_call, \
         f"{name}: the wrapper did not launch its kernel"
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain_fn()
-    end.record()
-    end.synchronize()
-    plain_once_ms = start.elapsed_time(end)
+    want, plain_once_ms = (plain_result, None) if plain_fn is None else plain_call(plain_fn)
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     err = 0
@@ -1889,8 +1992,8 @@ def measure(name, kernel_fn, plain_fn, bytes_moved, int_ops, shape_note,
                   f"(max abs err {err})"
     time_kernel, time_plain = timed or (kernel_fn, plain_fn)
     ms = time_on_card_ms(time_kernel, repeats=kernel_repeats)
-    plain_ms = (time_on_card_ms(time_plain, repeats=plain_repeats, warmup=1) if plain_repeats
-                else plain_once_ms)
+    plain_ms = (time_on_card_ms(time_plain, repeats=plain_repeats, warmup=1)
+                if plain_repeats and plain_fn is not None else plain_once_ms)
     b_ms, b_by = bound(bytes_moved, int_ops)
     return {"shape": shape_note, "exact": exact, "tolerance": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_moved,
@@ -2450,16 +2553,29 @@ def python_ints_check(entry, note, got, want_fn):
     entry["python_ints_s"] = time.perf_counter() - t0
 
 
-def fr_inv_entry(label, a, clock_hz, plain_repeats):
-    """K12 at one shape, held against its plain version and every lane
-    against Python ints, with its latency bound: the least sliding-window
-    chain's dependent squarings and products, each at least its chain of
-    dependent instructions at the card's top clock."""
+def inverses_ints(vals):
+    """Each value's inverse mod p on Python ints (0 for 0 mod p), by
+    Montgomery's batch inverse of the nonzero ones
+    (``logup.batch_inverse_ints``: three products a value, where a ``pow``
+    a value took 23.5 s at 131072 lanes)."""
+    vals = [v % fr.P for v in vals]
+    inv = iter(logup.batch_inverse_ints([v for v in vals if v]))
+    return [next(inv) if v else 0 for v in vals]
+
+
+def fr_inv_entry(label, a, clock_hz, plain_result=None):
+    """K12 at one shape, held against its plain version (timed on its one
+    call; or ``plain_result``, its output from a plain call over several
+    shapes' lanes, see ``measure``) and every lane against Python ints,
+    with its latency bound: the least sliding-window chain's dependent
+    squarings and products, each at least its chain of dependent
+    instructions at the card's top clock."""
     note = f"{label}: {a.shape[0]} lanes x {a.shape[1]} limbs"
-    entry = measure("fr_inv", lambda: fr.inv(a), lambda: fr.inv_plain(a), *fr_inv_cost(a),
-                    note, plain_repeats=plain_repeats)
+    entry = measure("fr_inv", lambda: fr.inv(a),
+                    None if plain_result is not None else lambda: fr.inv_plain(a),
+                    *fr_inv_cost(a), note, plain_repeats=0, plain_result=plain_result)
     python_ints_check(entry, note, rows_to_ints(fr.inv(a)),
-                      lambda: [pow(v, fr.P - 2, fr.P) for v in rows_to_ints(a)])
+                      lambda: inverses_ints(rows_to_ints(a)))
     _, windows, _ = fr.INV_SCHEDULE
     table_multiplies = (1 << (fr.INV_WINDOW - 1)) - 1
     entry.update({"kernel_squares_multiplies": [1 + sum(sq for sq, _ in windows),
@@ -2503,51 +2619,69 @@ def logup_plan_entry(fps, alpha, m):
 def logup_kernel_rows(launches, captured):
     """K12 at the one-lane inversion of each block's logUp checks and at
     FR_INV_LANES lanes; K13 at every partial sum of every family (table and
-    query side of both blocks), each held against its plain version, whose
-    time is that of the one call (a plain chain of 309 launch-bound
-    products takes seconds), with the plan of its tiles and the device
-    launches of one call, counted (``logup_plan_entry``)."""
+    query side of every block), with the plan of its tiles and the device
+    launches of one call, counted (``logup_plan_entry``).  Each kernel's
+    first logUp call, and K12's seeded lanes, are held against their own
+    plain call, timed; the other logUp calls of each kernel against one
+    plain call over all of them (``fr.inv_plain`` of every one-lane total;
+    ``logup.logup_partial_sums_plain`` of every side, one inverse for all):
+    a plain chain of 309 launch-bound products takes about 3 s whatever
+    its lanes, so one a call took most of the kernels phase."""
+    listed = sorted((f"{BLOCK_LABELS[path]} {family} "
+                     f"{'query' if args[2].shape[1] == 1 else 'table'}",
+                     args[0].shape[0], args[2].shape[1])
+                    for path in BLOCK_PHASES
+                    for family, calls in captured[f"logup_{path}"]["calls"].items()
+                    for args, _ in calls.get("logup_sum", []))
+    assert listed == sorted(workloads.LOGUP_SIDES), \
+        f"the blocks' logUp sides are not workloads.LOGUP_SIDES: {listed}"
     clock_hz = sm_clock_max_hz()
-    k12, k13 = [], []
+    totals, sides = [], []
     for path in BLOCK_PHASES:
         for family, calls in captured[f"logup_{path}"]["calls"].items():
-            for (a,), kw in calls.get("fr_inv", []):
-                k12.append({**fr_inv_entry(f"logup_{path}: the {family} check's total", a,
-                                           clock_hz, 0), **pass_of(f"logup_{path}", kw)})
+            where = f"logup_{path}"
+            totals += [(f"{where}: the {family} check's total", a, pass_of(where, kw))
+                       for (a,), kw in calls.get("fr_inv", [])]
             for args, kw in calls.get("logup_sum", []):
                 fps, alpha = args[:2]
                 m = args[2] if len(args) > 2 else None
-                side = "query side (m = en)" if m is not None and m.shape[1] == 1 else "table side"
-                note = (f"logup_{path}: {family} {side}, {fps.shape[0]} elements, m "
+                side = ("query side (m = en)" if m is not None and m.shape[1] == 1
+                        else "table side")
+                note = (f"{where}: {family} {side}, {fps.shape[0]} elements, m "
                         f"{None if m is None else list(m.shape)}")
-                entry = measure(
-                    "logup_sum", lambda: logup.logup_partial_sum(fps, alpha, m),
-                    lambda: logup.logup_partial_sum_plain(fps, alpha, m),
-                    *logup_sum_cost(fps, m), note,
-                    kernel_repeats=10, plain_repeats=0, launches_per_call=2)
-                python_ints_check(entry, note,
-                                  rows_to_ints(logup.logup_partial_sum(fps, alpha, m)[None])[0],
-                                  lambda: logup_sum_ints(fps, alpha, m))
-                k13.append({**entry, **logup_plan_entry(fps, alpha, m),
-                            **pass_of(f"logup_{path}", kw)})
-    sides = sorted((f"{BLOCK_LABELS[path]} {family} "
-                    f"{'query' if args[2].shape[1] == 1 else 'table'}",
-                    args[0].shape[0], args[2].shape[1])
-                   for path in BLOCK_PHASES
-                   for family, calls in captured[f"logup_{path}"]["calls"].items()
-                   for args, _ in calls.get("logup_sum", []))
-    assert sides == sorted(workloads.LOGUP_SIDES), \
-        f"the blocks' logUp sides are not workloads.LOGUP_SIDES: {sides}"
+                sides.append((note, fps, alpha, m, pass_of(where, kw)))
+    k12 = [{**fr_inv_entry(totals[0][0], totals[0][1], clock_hz), **totals[0][2]}]
+    plain_totals, totals_ms = plain_call(
+        lambda: fr.inv_plain(torch.cat([L.pad_limbs(a, fr.NL) for _, a, _ in totals[1:]])))
+    k12 += [{**fr_inv_entry(label, a, clock_hz, plain_totals[i:i + 1]), **where}
+            for i, (label, a, where) in enumerate(totals[1:])]
+    plain_sides, sides_ms = plain_call(
+        lambda: logup.logup_partial_sums_plain([(fps, alpha, m)
+                                                for _, fps, alpha, m, _ in sides[1:]]))
+    k13 = []
+    for i, (note, fps, alpha, m, where) in enumerate(sides):
+        entry = measure(
+            "logup_sum", lambda: logup.logup_partial_sum(fps, alpha, m),
+            None if i else lambda: logup.logup_partial_sum_plain(fps, alpha, m),
+            *logup_sum_cost(fps, m), note, kernel_repeats=10, plain_repeats=0,
+            launches_per_call=2, plain_result=plain_sides[i - 1] if i else None)
+        python_ints_check(entry, note,
+                          rows_to_ints(logup.logup_partial_sum(fps, alpha, m)[None])[0],
+                          lambda: logup_sum_ints(fps, alpha, m))
+        k13.append({**entry, **logup_plan_entry(fps, alpha, m), **where})
     rng = np.random.RandomState(6)
     wide = seeded_limbs(rng, FR_INV_LANES, 16, 254, torch.device("cuda"))
-    k12.append(fr_inv_entry("seeded", wide, clock_hz, 0))
+    k12.append(fr_inv_entry("seeded", wide, clock_hz))
     rows = []
-    for name, entries, library in (("fr_inv", k12, "none: no PyTorch call inverts mod p"),
-                                   ("logup_sum", k13, "none: no PyTorch call computes a batch "
-                                                      "inverse or a sum of inverses mod p")):
+    for name, entries, shared_ms, library in (
+            ("fr_inv", k12, totals_ms, "none: no PyTorch call inverts mod p"),
+            ("logup_sum", k13, sides_ms, "none: no PyTorch call computes a batch inverse or a "
+                                         "sum of inverses mod p")):
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name], **entries[0],
-                     "library_ms": None, "library": library, "path_shapes": entries[1:]})
+                     "library_ms": None, "library": library, "path_shapes": entries[1:],
+                     "shared_plain": {"calls": sum(e["plain_ms"] is None for e in entries),
+                                      "ms": shared_ms}})
     return rows
 
 
@@ -2566,14 +2700,14 @@ def main():
 
     # the groups: (name, state, builder, pops a step, what corrupt_lane
     # makes wrong, phase)
-    groups = [("ADD", ExecutionState.ADD, build_add_workload, 2, "result", "slice"),
-              ("MUL", ExecutionState.MUL, build_mul_workload, 2, "result", "slice")]
+    groups = [("ADD", ExecutionState.ADD, build_add_workload, 2, "result", "slice", LANES),
+              ("MUL", ExecutionState.MUL, build_mul_workload, 2, "result", "slice", LANES)]
     groups += [(name, exec_state, functools.partial(workloads.build_alu_group, name),
-                len(operands_of(0, 0, 0)), corrupt, "alu_group")
+                len(operands_of(0, 0, 0)), corrupt, "alu_group", ALU_GROUP_LANES)
                for name, (exec_state, _, operands_of, _, corrupt) in workloads.ALU_GROUPS.items()]
     by_path, captured = {}, {}
     for name, *group in groups:
-        by_path[name], (inputs, calls) = run_group(name, *group[:4], card, group[4])
+        by_path[name], (inputs, calls) = run_group(name, *group[:4], card, *group[4:])
         captured[name] = {"calls": calls}
         if name == "MUL":
             mul_inputs = (inputs, calls["mul_add_words"])
@@ -2590,12 +2724,23 @@ def main():
     by_path["tx_sig"], captured["tx_sig"] = run_tx_sig(card)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
-    rows = (kernel_phase(launches, mul_inputs, captured["arith"]["calls"])
-            + slice_kernel_rows(launches, captured) + keccak_kernel_rows(launches, captured)
-            + block_kernel_rows(launches, captured["block"],
-                                {p: captured[p] for p in BLOCK_PHASES if p != "block"})
-            + logup_kernel_rows(launches, captured))
-    for name, entries in path_shape_entries(captured).items():
+    # the kernels phase, the seconds of each of its parts in a kernel_rows line
+    parts_s, t0 = {}, time.perf_counter()
+
+    def part(name, value):
+        nonlocal t0
+        parts_s[name] = parts_s.get(name, 0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        return value
+
+    rows = (part("main_shapes", kernel_phase(launches, mul_inputs, captured["arith"]["calls"]))
+            + part("state_bytecode", slice_kernel_rows(launches, captured))
+            + part("keccak", keccak_kernel_rows(launches, captured))
+            + part("upload_verdicts", block_kernel_rows(
+                launches, captured["block"],
+                {p: captured[p] for p in BLOCK_PHASES if p != "block"}))
+            + part("logup", logup_kernel_rows(launches, captured)))
+    for name, entries in part("path_shapes", path_shape_entries(captured)).items():
         next(r for r in rows if r["name"] == name)["path_shapes"] = entries
     shape_calls = [(path, captured[path]["calls"])
                    for path in (*workloads.ALU_GROUPS, *BLOCK_PHASES, "tx_sig")]
@@ -2605,6 +2750,8 @@ def main():
         for name, entries in block_path_shapes(calls, label).items():
             row = next(r for r in rows if r["name"] == name)
             row["path_shapes"] = row.get("path_shapes", []) + entries
+        part(label.split(" ")[0], None)
+    emit({"phase": "kernel_rows", "seconds": parts_s, "card": card})
     sums = pass_sums(rows, {path: captured[path]["instances"] for path in BLOCK_PHASES})
     emit({"phase": "pass_sums", "passes": sums, "card": card})
     for r in rows:

@@ -472,6 +472,29 @@ def test_logup_partial_sum_ints(m_width):
     assert fr.to_ints(plain[None])[0] == want
 
 
+def test_logup_partial_sums_plain_equal_each_side():
+    """The plain sums of several sides with one shared inverse equal each
+    side's own plain sum and its Python-int sum: a side of one element,
+    sides with m of one and four limbs, and a side holding alpha (its
+    denominator 0 zeroes the side, not the others)."""
+    rng = np.random.RandomState(14)
+    alpha = 0xA1FA
+    sides = []
+    for n, m_width, fps in ((1, None, _seeded(15, 1)), (9, 1, _seeded(16, 9)),
+                            (17, 4, _seeded(17, 17)), (5, None, _seeded(18, 4) + [alpha])):
+        m = (None if m_width is None else torch.from_numpy(
+            rng.randint(0, 2 if m_width == 1 else 1 << 16, size=(n, m_width)).astype(np.int64)))
+        sides.append((fr.from_ints(fps), fr.from_ints([alpha]), m))
+    got = logup.logup_partial_sums_plain(sides)
+    assert len(got) == len(sides)
+    for g, (fps, a, m) in zip(got, sides):
+        assert torch.equal(g, logup.logup_partial_sum_plain(fps, a, m))
+        want = logup.logup_partial_sum_ints(fr.to_ints(fps), alpha,
+                                            None if m is None else fr.to_ints(m))
+        assert fr.to_ints(g[None])[0] == want
+    assert fr.to_ints(got[3][None])[0] == 0
+
+
 # -- K11's chain on the 32-bit words (csrc/mul_add_words.cu) ------------------------
 
 WORDMUL_SOURCE = (CSRC / "mul_add_words.cu").read_text()

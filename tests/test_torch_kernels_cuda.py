@@ -814,17 +814,22 @@ def _small_block(kind="alu"):
 
     if kind == "sstore":
         return workloads.build_sstore_block(2)
+    if kind == "flow":
+        return workloads.build_flow_block(2, 8)
+    if kind == "conformance":
+        return workloads.build_conformance_block()
     return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
-@pytest.mark.parametrize("kind", ["alu", "arith", "sstore"])
+@pytest.mark.parametrize("kind", ["alu", "arith", "sstore", "flow", "conformance"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 
     w = _small_block(kind)
     if corrupt:
-        name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE"}[kind]
+        name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE", "flow": "CALLDATALOAD",
+                "conformance": "EXTCODECOPY"}[kind]
         next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()
@@ -838,6 +843,64 @@ def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     on_cpu = CompiledBlockVerifier(w, device="cpu")
     assert on_cpu.run_device(on_cpu.prepare()) == per_kernel
     assert bool(per_kernel) == corrupt
+
+
+def _flow_kernel_plain():
+    """(module, wrapper, plain version) of every kernel the block verifier's
+    device pass launches."""
+    from zkevm_specs_tpu_torch.circuits import keccak as keccak_circuit
+    from zkevm_specs_tpu_torch.circuits import state
+    from zkevm_specs_tpu_torch.ops import keccak as keccak_ops
+
+    return (
+        (fr, "fr_mul", fr.fr_mul_plain),
+        (L, "limb_mul", L.mul_plain),
+        (L, "limb_addsub", lambda a, b, mode, out_n=0: L.addsub_plain(a, b, mode, out_n)),
+        (engine, "lookup_gather_eq",
+         lambda *a, want_ok=True, **kw: engine.lookup_gather_eq_plain(*a, **kw)),
+        (engine, "lookup_search_eq", engine.lookup_search_eq_plain),
+        (engine, "lookup_fingerprint", engine.fingerprint_plain),
+        (state, "state_order_lt", state.state_order_lt_plain),
+        (keccak_circuit, "keccak_sponge", keccak_ops.keccak_sponge_plain),
+        (keccak_circuit, "horner_rlc", keccak_circuit.horner_rlc_plain),
+    )
+
+
+def _flatten(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flatten(o)]
+    return [out]
+
+
+@pytest.mark.parametrize("kind", ["flow", "conformance"])
+def test_flow_block_kernel_shapes_equal_plain(dev, kind, monkeypatch):
+    """Every kernel call of the loop block's and the conformance block's
+    per-kernel pass (the flow, context, account, copy and log gadgets'
+    groups among them), each held against its plain version on the same
+    arguments, bit-exact."""
+    from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
+
+    bv = CompiledBlockVerifier(_small_block(kind))
+    prepared = bv.prepare()
+    calls = []
+    for module, name, plain in _flow_kernel_plain():
+        orig = getattr(module, name)
+
+        def record(*a, _orig=orig, _plain=plain, _name=name, **kw):
+            out = _orig(*a, **kw)
+            calls.append((_name, out, _plain, a, kw))
+            return out
+
+        monkeypatch.setattr(module, name, record)
+    assert not bv.run_device(prepared)
+    monkeypatch.undo()
+    names = {name for name, *_ in calls}
+    assert {"limb_addsub", "lookup_gather_eq", "fr_mul", "limb_mul", "lookup_search_eq"} <= names, \
+        names
+    for name, out, plain, a, kw in calls:
+        for got, want in zip(_flatten(out), _flatten(plain(*a, **kw))):
+            if isinstance(got, torch.Tensor):
+                _equal(got, want.expand(got.shape) if want.dim() else want)
 
 
 # -- K12 (field inverse) and K13 (batch inverse, logUp partial sum) ------------------

@@ -1,22 +1,44 @@
 """Execution-gadget registry (reference: execution/__init__.py:86-171).
 
-Only the gadgets ported so far are registered; ``verify_steps`` raises
-``NotImplementedError`` for any other execution state."""
+Only the gadgets ported so far are registered (every state a root frame
+runs without a call, a create, a precompile or an error); ``verify_steps``
+raises ``NotImplementedError`` for any other execution state."""
 from typing import Callable, Dict
 
 from ..execution_state import ExecutionState
 from .add_sub import add_sub
 from .addmod import addmod
+from .balance import balance
 from .begin_tx import begin_tx
 from .bitwise import bitwise
 from .byte import byte
+from .calldataload import calldataload
 from .comparator import cmp
-from .copy_family import sha3
+from .context import (
+    address,
+    blockctx,
+    blockhash,
+    caller,
+    calldatasize,
+    callvalue,
+    codesize,
+    gasprice,
+    origin,
+    returndatasize,
+    selfbalance,
+)
+from .copy_family import calldatacopy, codecopy, extcodecopy, returndatacopy, sha3
 from .end_block import end_block
 from .end_tx import end_tx
 from .exp import exp
+from .extcode import extcodehash, extcodesize
+from .gas import gas
 from .iszero import iszero
+from .jump import jump
+from .jumpi import jumpi
+from .log import log
 from .memory import memory
+from .msize import msize
 from .mul_div_mod import mul_div_mod
 from .mulmod import mulmod
 from .not_ import not_opcode
@@ -27,6 +49,7 @@ from .sdiv_smod import sdiv_smod
 from .shl_shr import shl_shr
 from .signextend import signextend
 from .slt_sgt import scmp
+from .stack_family import dup, jumpdest, pc, swap
 from .stop import stop
 from .storage import sload, sstore
 
@@ -56,4 +79,34 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.PUSH: push,
     ExecutionState.POP: pop,
     ExecutionState.STOP: stop,
+    ExecutionState.ADDRESS: address,
+    ExecutionState.BALANCE: balance,
+    ExecutionState.BLOCKHASH: blockhash,
+    ExecutionState.BlockCtx: blockctx,
+    ExecutionState.CALLDATACOPY: calldatacopy,
+    ExecutionState.CALLDATALOAD: calldataload,
+    ExecutionState.CALLDATASIZE: calldatasize,
+    ExecutionState.CODECOPY: codecopy,
+    ExecutionState.EXTCODECOPY: extcodecopy,
+    ExecutionState.EXTCODEHASH: extcodehash,
+    ExecutionState.EXTCODESIZE: extcodesize,
+    ExecutionState.LOG: log,
+    ExecutionState.RETURNDATACOPY: returndatacopy,
+    ExecutionState.CALLER: caller,
+    ExecutionState.CALLVALUE: callvalue,
+    ExecutionState.CODESIZE: codesize,
+    ExecutionState.GASPRICE: gasprice,
+    ExecutionState.ORIGIN: origin,
+    ExecutionState.RETURNDATASIZE: returndatasize,
+    ExecutionState.SELFBALANCE: selfbalance,
+    ExecutionState.GAS: gas,
+    ExecutionState.JUMP: jump,
+    ExecutionState.JUMPI: jumpi,
+    ExecutionState.MSIZE: msize,
+    # beyond the reference: DUP/SWAP/PC/JUMPDEST exist in its enum but are
+    # never registered there (execution/__init__.py:86-171)
+    ExecutionState.DUP: dup,
+    ExecutionState.SWAP: swap,
+    ExecutionState.PC: pc,
+    ExecutionState.JUMPDEST: jumpdest,
 }

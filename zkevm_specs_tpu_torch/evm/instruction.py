@@ -1,7 +1,10 @@
 """The batched EVM-step constraint builder (the part the ported gadgets use:
 ADD/SUB, MUL/DIV/MOD, SDIV/SMOD, ADDMOD, MULMOD, EXP, SHL/SHR, SAR,
 LT/GT/EQ, SLT/SGT, ISZERO, NOT, AND/OR/XOR, BYTE, SIGNEXTEND, MLOAD/MSTORE/
-MSTORE8, SLOAD, SSTORE, SHA3, PUSH, POP, STOP, BeginTx, EndTx, EndBlock).
+MSTORE8, SLOAD, SSTORE, SHA3, PUSH, POP, STOP, BeginTx, EndTx, EndBlock,
+DUP/SWAP/PC/JUMPDEST, JUMP/JUMPI, GAS, MSIZE, the context queries, BALANCE,
+EXTCODESIZE/EXTCODEHASH, CALLDATALOAD, CALLDATACOPY/CODECOPY/EXTCODECOPY/
+RETURNDATACOPY and LOG0-LOG4).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -241,6 +244,9 @@ class Instruction:
     def range_check(self, value: F, n_bytes: int):
         assert n_bytes <= MAX_N_BYTES
         self.cs.range_check(self._f(value), n_bytes)
+
+    def range_lookup(self, value: F, rng: int):
+        self.fixed_lookup(FixedTableTag.range_table_tag(rng), value)
 
     # -- branching ---------------------------------------------------------
 
@@ -511,6 +517,9 @@ class Instruction:
     def word_to_address(self, word: Word) -> F:
         return self.word_to_fq(word, N_BYTES_ACCOUNT_ADDRESS)
 
+    def word_to_u64(self, word: Word) -> F:
+        return self.word_to_fq(word, 8)
+
     def address_to_word(self, addr: F) -> Word:
         """Verify 160 bits and split into lo/hi (reference instruction.py:509-513)."""
         addr = self._f(addr)
@@ -658,8 +667,26 @@ class Instruction:
         row = self.tables.tx_lookup(self.cs, self._f(tx_id), self.fq(field_tag), self.fq(0))
         return WordOrValue(row.value)
 
+    def tx_calldata_lookup(self, tx_id: F, call_data_index: F) -> F:
+        row = self.tables.tx_lookup(self.cs, self._f(tx_id), self.fq(TxContextFieldTag.CallData),
+                                    self._f(call_data_index))
+        return WordOrValue(row.value).value()
+
     def tx_gas_price(self, tx_id: F) -> Word:
         return self.tx_context_lookup_word(tx_id, TxContextFieldTag.GasPrice)
+
+    def tx_log_lookup(self, tx_id: F, log_id: F, field_tag: TxLogFieldTag, index: int = 0) -> F:
+        return self.tx_log_lookup_word(tx_id, log_id, field_tag, index).value()
+
+    def tx_log_lookup_word(self, tx_id: F, log_id: F, field_tag: TxLogFieldTag,
+                           index: int = 0) -> WordOrValue:
+        """A TxLog row: the address packs (log_id, field_tag, index) as
+        index + field_tag * 2^32 + log_id * 2^48."""
+        address = (self._f(log_id) * F.const(self.ctx, 1 << 48)
+                   + self.fq((int(field_tag) << 32) + index))
+        row = self.rw_lookup(RW.Write, Target.TxLog, id=self._f(tx_id), address=address,
+                             field_tag=self.fq(0), storage_key=self.word(0))
+        return WordOrValue(row.value)
 
     def tx_receipt_read(self, tx_id: F, field_tag: TxReceiptFieldTag,
                         rw_counter: Optional[F] = None) -> F:

@@ -63,30 +63,31 @@ def _scan_mul(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _inverse_parts(x: torch.Tensor):
+    """``batch_inverse_plain`` before its inverse: ``(prefix[i-1] *
+    suffix[i+1], the total [1, 16])``."""
+    x = L.pad_limbs(x, NL)
+    prefix = _scan_mul(x)
+    suffix = _scan_mul(x.flip(0)).flip(0)
+    one = L.int_to_limbs(1, NL)[None, :].to(x.device)
+    prefix_shift = torch.cat([one, prefix[:-1]])
+    suffix_shift = torch.cat([suffix[1:], one])
+    return fr.fr_mul_plain(prefix_shift, suffix_shift), prefix[-1:]
+
+
 def batch_inverse_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K13's batch inverse: the JAX package's jit branch
     (logup.py:71-84), prefix and suffix products by a log-depth scan, one
     inverse of the total, ``inv[i] = prefix[i-1] * suffix[i+1] *
     total_inv``.  One zero element zeroes every output."""
-    x = L.pad_limbs(x, NL)
-    prefix = _scan_mul(x)
-    total_inv = fr.inv_plain(prefix[-1:])
-    suffix = _scan_mul(x.flip(0)).flip(0)
-    one = L.int_to_limbs(1, NL)[None, :].to(x.device)
-    prefix_shift = torch.cat([one, prefix[:-1]])
-    suffix_shift = torch.cat([suffix[1:], one])
-    return fr.fr_mul_plain(fr.fr_mul_plain(prefix_shift, suffix_shift), total_inv)
+    shifted, total = _inverse_parts(x)
+    return fr.fr_mul_plain(shifted, fr.inv_plain(total))
 
 
-def logup_partial_sum_plain(fps: torch.Tensor, alpha: torch.Tensor,
-                            multiplicities: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K13's partial sum: ``sum_i m_i / (alpha - fp_i)``
-    with the JAX package's pairwise tree of Fr adds (logup.py:87-106);
-    ``[16]``."""
-    denom = L.addsub_plain(alpha.reshape(1, -1), fps, L.FR_SUB, NL)
-    total = batch_inverse_plain(denom)
-    if multiplicities is not None:
-        total = fr.fr_mul_plain(total, multiplicities)
+def _pairwise_sum_plain(inv: torch.Tensor, multiplicities: Optional[torch.Tensor]) -> torch.Tensor:
+    """``sum_i m_i * inv_i`` by the JAX package's pairwise tree of Fr adds
+    (logup.py:87-106); ``[16]``."""
+    total = inv if multiplicities is None else fr.fr_mul_plain(inv, multiplicities)
     while total.shape[0] > 1:
         half = total.shape[0] // 2
         lead = L.addsub_plain(total[:half], total[half:2 * half], L.FR_ADD, NL)
@@ -95,6 +96,28 @@ def logup_partial_sum_plain(fps: torch.Tensor, alpha: torch.Tensor,
             lead = torch.cat([lead[:-1], last])
         total = lead
     return total[0]
+
+
+def logup_partial_sum_plain(fps: torch.Tensor, alpha: torch.Tensor,
+                            multiplicities: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K13's partial sum: ``sum_i m_i / (alpha - fp_i)``
+    with the JAX package's pairwise tree of Fr adds (logup.py:87-106);
+    ``[16]``."""
+    denom = L.addsub_plain(alpha.reshape(1, -1), fps, L.FR_SUB, NL)
+    return _pairwise_sum_plain(batch_inverse_plain(denom), multiplicities)
+
+
+def logup_partial_sums_plain(sides) -> List[torch.Tensor]:
+    """``logup_partial_sum_plain`` at several sides ``(fps, alpha, m)``:
+    each side's scans, one ``fr.inv_plain`` over every side's total (a lane
+    each: the plain chain's 309 products cost their launches, whatever the
+    lanes), each side's sum; a ``[16]`` a side, each equal to
+    ``logup_partial_sum_plain`` at its side."""
+    parts = [_inverse_parts(L.addsub_plain(alpha.reshape(1, -1), fps, L.FR_SUB, NL))
+             for fps, alpha, _ in sides]
+    total_inv = fr.inv_plain(torch.cat([total for _, total in parts]))
+    return [_pairwise_sum_plain(fr.fr_mul_plain(shifted, total_inv[i:i + 1]), m)
+            for i, ((shifted, _), (_, _, m)) in enumerate(zip(parts, sides))]
 
 
 def batch_inverse_ints(vals: List[int]) -> List[int]:

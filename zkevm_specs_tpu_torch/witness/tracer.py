@@ -1,21 +1,28 @@
-"""Mini EVM tracer, the ALU and storage subset: builds a coherent block
-witness (steps and rw rows, the exp circuit's squaring trace and the copy
-circuit's rows) for blocks of PUSH / ALU / SIGNEXTEND / ADDMOD / MULMOD /
-EXP / MLOAD / MSTORE / MSTORE8 / SLOAD / SSTORE / SHA3 / POP / STOP
+"""Mini EVM tracer, the root-frame subset: builds a coherent block witness
+(steps and rw rows, the exp circuit's squaring trace and the copy circuit's
+rows) for blocks of PUSH / DUP / SWAP / POP / ALU / SIGNEXTEND / ADDMOD /
+MULMOD / EXP / MLOAD / MSTORE / MSTORE8 / MSIZE / SLOAD / SSTORE / SHA3 /
+JUMP / JUMPI / JUMPDEST / PC / GAS / ADDRESS / CALLER / CALLVALUE /
+CALLDATASIZE / CALLDATALOAD / CALLDATACOPY / CODESIZE / CODECOPY / GASPRICE /
+ORIGIN / SELFBALANCE / RETURNDATASIZE / RETURNDATACOPY / COINBASE /
+TIMESTAMP / NUMBER / GASLIMIT / PREVRANDAO / BASEFEE / CHAINID / BLOCKHASH /
+BALANCE / EXTCODESIZE / EXTCODEHASH / EXTCODECOPY / LOG0-LOG4 / STOP
 bytecodes, and signs its txs.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer.run_tx`` :374-548,
-``step_op`` :721-749, the handlers :1861-2076 and :2320-2336, the signing
-:2585-2626 and ``trace_block`` :2629-2754).  Each executed opcode emits
-exactly the rw rows its gadget looks up, with the JAX tracer's rw_counter /
-gas / stack-pointer / memory-size / refund bookkeeping, so the witness
-equals the JAX tracer's row for row.
+``_detect_error`` :564-714, ``_valid_jumpdest`` :716, ``step_op``
+:721-749, the handlers :1835-2373, the signing :2585-2626 and
+``trace_block`` :2629-2754).  Each executed opcode emits exactly the rw
+rows its gadget looks up, with the JAX tracer's rw_counter / gas /
+stack-pointer / memory-size / refund bookkeeping, so the witness equals the
+JAX tracer's row for row.
 
 Not ported, and raising ``NotImplementedError`` where a block reaches
-them: the error states (invalid opcode, stack under/overflow, out of gas,
-the dynamic out-of-gas cases of EXP, memory, storage and SHA3) and every
-opcode without a handler here.
+them: the error states (invalid opcode, stack under/overflow, invalid jump,
+out of gas, return data out of bound; ``_detect_error`` classifies them as
+the JAX tracer does), RETURN / REVERT, the CALL family, CREATE /
+CREATE2 and SELFDESTRUCT.  Every frame is a root frame, never static.
 """
 from __future__ import annotations
 
@@ -31,23 +38,30 @@ from ..evm.opcode import (
     min_stack_pointer,
 )
 from ..evm.step import StepState
-from ..ops.keccak import keccak256
+from ..ops.keccak import EMPTY_HASH, keccak256
 from ..tables.schemas import (
     AccountFieldTag,
     CallContextFieldTag,
     CopyDataTypeTag,
     Target,
+    TxLogFieldTag,
     TxReceiptFieldTag,
 )
 from ..utils.param import (
     COLD_SLOAD_COST,
+    EXTRA_GAS_COST_ACCOUNT_COLD_ACCESS,
+    GAS_COST_ACCOUNT_COLD_ACCESS,
+    GAS_COST_COPY,
     GAS_COST_COPY_SHA3,
     GAS_COST_EXP_PER_BYTE,
     GAS_COST_FASTEST,
+    GAS_COST_LOG,
+    GAS_COST_LOGDATA,
     GAS_COST_SHA3,
     GAS_COST_SLOW,
     GAS_COST_SSTORE_SENTRY_EIP2200,
     GAS_COST_TX,
+    GAS_COST_WARM_ACCESS,
     MAX_REFUND_QUOTIENT_OF_GAS_USED,
     SLOAD_GAS,
     SSTORE_CLEARS_SCHEDULE,
@@ -58,6 +72,7 @@ from ..utils.param import (
 from .typing import Account, Block, Bytecode, CopyCircuit, ExpCircuit, RWDictionary, Transaction
 
 U256M = (1 << 256) - 1
+_ADDR_MASK = (1 << 160) - 1  # geth truncates address operands to 160 bits
 U255 = 1 << 255
 
 
@@ -157,11 +172,13 @@ class _Tracer:
         # world state
         self.balances: Dict[int, int] = {}
         self.nonces: Dict[int, int] = {}
+        self.codes: Dict[int, Bytecode] = {}   # address -> deployed code
         self.storage: Dict[Tuple[int, int], int] = {}
         for addr, acct in (accounts or {}).items():
             self.balances[addr] = acct.balance
             self.nonces[addr] = acct.nonce
             if len(acct.code.code):
+                self.codes[addr] = acct.code
                 self._register_code(acct.code)
             for k, v in acct.storage.items():
                 self.storage[(addr, k)] = v
@@ -174,6 +191,14 @@ class _Tracer:
             self._code_hashes[h] = bytecode
             self.w.bytecodes.append(bytecode)
         return h
+
+    def _account_code_hash(self, addr: int) -> int:
+        """The account table's CodeHash: 0 when the account does not exist."""
+        if addr in self.codes:
+            return self.codes[addr].hash()
+        if self.balances.get(addr, 0) or self.nonces.get(addr, 0):
+            return EMPTY_HASH
+        return 0
 
     # -- frame outcome / reversion machinery --------------------------------
 
@@ -206,6 +231,7 @@ class _Tracer:
         self.w.txs.append(tx)
         code_hash = self._register_code(bytecode)
         self.w.tx_code_hashes.append(code_hash)
+        self.codes.setdefault(tx.callee_address, bytecode)
         call_id = rw.rw_counter
         self.call_ids.append(call_id)
 
@@ -215,6 +241,11 @@ class _Tracer:
         self.code_hash = code_hash
         self.code = bytecode
         self.callee_address = tx.callee_address
+        self.caller_address = tx.caller_address
+        self.value = tx.value
+        self.calldata = bytes(tx.call_data)
+        # (id, return data offset, length) of the last callee: none in a root frame
+        self.last_callee = (0, 0, 0)
         # precompile addresses are always warm (EIP-2929)
         self.warm_addr = set(range(1, 10))
         self.warm_slot = set()
@@ -353,10 +384,13 @@ class _Tracer:
     def _detect_error(self, raw: int) -> Optional[ExecutionState]:
         """The pre-dispatch error classes an opcode with a ported handler can
         hit, in geth's order: invalid opcode, stack validation, constant
-        gas, then the dynamic checks of EXP, MLOAD / MSTORE / MSTORE8,
-        SLOAD / SSTORE and SHA3 (the JAX tracer's ``_detect_error``,
-        :564-714).  Write protection needs a static frame, which no ported
-        opcode makes."""
+        gas, then the per-opcode dynamic checks (the JAX tracer's
+        ``_detect_error``, :564-714): an invalid JUMP / JUMPI destination,
+        account-access gas, static memory expansion, copy gas and
+        RETURNDATACOPY's bounds, SLOAD / SSTORE gas, LOG gas, EXP gas and
+        SHA3 gas.  Write protection needs a static frame, which a root frame
+        never is.  One table lookup a check and an immediate exit for the
+        opcodes with no dynamic check: the tracer runs this every step."""
         E = ExecutionState
         op = _OP_BY_RAW[raw]
         if op is None:
@@ -367,16 +401,40 @@ class _Tracer:
         gas = self.gas_left
         if gas < _CONST_GAS[raw]:
             return E.ErrorOutOfGasConstant
+        if not _HAS_DYNAMIC_CHECK[raw]:
+            return None
         st = self.stack  # top is st[-1]
-        if op == Opcode.EXP:
-            if gas < GAS_COST_SLOW + GAS_COST_EXP_PER_BYTE * _byte_size(st[-2]):
-                return E.ErrorOutOfGasEXP
+        if op in (Opcode.JUMP, Opcode.JUMPI):
+            jumps = op == Opcode.JUMP or st[-2] != 0
+            if jumps and not self._valid_jumpdest(st[-1]):
+                return E.ErrorInvalidJump
+        elif op in (Opcode.BALANCE, Opcode.EXTCODESIZE, Opcode.EXTCODEHASH):
+            warm = (st[-1] & _ADDR_MASK) in self.warm_addr
+            if gas < (GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS):
+                return E.ErrorOutOfGasAccountAccess
         elif op in (Opcode.MLOAD, Opcode.MSTORE, Opcode.MSTORE8):
             size = 1 if op == Opcode.MSTORE8 else 32
             if st[-1] + size > (1 << 64) - 1:
                 return E.ErrorGasUintOverflow
             if gas < GAS_COST_FASTEST + self._expansion_gas(st[-1], size):
                 return E.ErrorOutOfGasStaticMemoryExpansion
+        elif op in (Opcode.CALLDATACOPY, Opcode.CODECOPY, Opcode.EXTCODECOPY,
+                    Opcode.RETURNDATACOPY):
+            base = -2 if op == Opcode.EXTCODECOPY else -1
+            mem_off, length = st[base], st[base - 2]
+            if op == Opcode.EXTCODECOPY:
+                warm = (st[-1] & _ADDR_MASK) in self.warm_addr
+                const = GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS
+            else:
+                const = GAS_COST_FASTEST
+            dyn = (GAS_COST_COPY * ((length + 31) // 32)
+                   + self._expansion_gas(mem_off if length else 0, length))
+            if gas < const + dyn:
+                return E.ErrorOutOfGasMemoryCopy
+            if op == Opcode.RETURNDATACOPY:
+                data_off, length = st[-2], st[-3]
+                if data_off + length > self.last_callee[2]:
+                    return E.ErrorReturnDataOutOfBound
         elif op in (Opcode.SLOAD, Opcode.SSTORE):
             if op == Opcode.SSTORE and gas <= GAS_COST_SSTORE_SENTRY_EIP2200:
                 return E.ErrorOutOfGasSloadSstore
@@ -389,6 +447,16 @@ class _Tracer:
                                    self.committed.get(skey, self.storage.get(skey, 0)), warm)
             if gas < need:
                 return E.ErrorOutOfGasSloadSstore
+        elif op in _LOG_OPS:
+            n = int(op) - int(Opcode.LOG0)
+            mstart, msize = st[-1], st[-2]
+            need = (GAS_COST_LOG * (1 + n) + GAS_COST_LOGDATA * msize
+                    + self._expansion_gas(mstart, msize))
+            if gas < need:
+                return E.ErrorOutOfGasLOG
+        elif op == Opcode.EXP:
+            if gas < GAS_COST_SLOW + GAS_COST_EXP_PER_BYTE * _byte_size(st[-2]):
+                return E.ErrorOutOfGasEXP
         elif op == Opcode.SHA3:
             off, size = st[-1], st[-2]
             need = (GAS_COST_SHA3 + GAS_COST_COPY_SHA3 * ((size + 31) // 32)
@@ -396,6 +464,11 @@ class _Tracer:
             if gas < need:
                 return E.ErrorOutOfGasSHA3
         return None
+
+    def _valid_jumpdest(self, dest: int) -> bool:
+        """A JUMPDEST byte that is code, not PUSH data."""
+        code = self.code.code
+        return dest < len(code) and code[dest] == int(Opcode.JUMPDEST) and self.code.is_code[dest]
 
     def step_op(self):
         code = self.code.code
@@ -443,8 +516,24 @@ class _Tracer:
             self.gas_left -= self._expansion_gas(offset, length)
             self.mws = max(self.mws, (offset + length + 31) // 32)
 
+    def _copier_gas(self, length: int, per_word: int = GAS_COST_COPY):
+        self.gas_left -= per_word * ((length + 31) // 32)
+
     def _mem_bytes(self, offset: int, length: int) -> bytes:
         return bytes(self.memory.get(offset + i, 0) for i in range(length))
+
+    def _access_account(self, addr: int) -> bool:
+        """TxId, the reversion reads and the access-list write; returns
+        whether the account was warm."""
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.reversion_reads()
+        warm = addr in self.warm_addr
+        self.rw.tx_access_list_account_write(self.tx_id, addr, True, warm)
+        self._mirror_last()
+        self.rev += 1
+        self.warm_addr.add(addr)
+        self.gas_left -= 0 if warm else EXTRA_GAS_COST_ACCOUNT_COLD_ACCESS
+        return warm
 
     # -- handlers -----------------------------------------------------------
 
@@ -458,6 +547,25 @@ class _Tracer:
         v = int.from_bytes(self.code.code[self.pc + 1: self.pc + 1 + n], "big")
         self.spush(v)
         self.pc += 1 + n
+
+    def op_dup(self, op):
+        x = int(op) - int(Opcode.DUP1) + 1
+        sp = 1024 - len(self.stack)
+        v = self.stack[-x]
+        self.rw.stack_read(self.call_id, sp + x - 1, v)
+        self.spush(v)
+        self.pc += 1
+
+    def op_swap(self, op):
+        n = int(op) - int(Opcode.SWAP1) + 1
+        sp = 1024 - len(self.stack)
+        top, deep = self.stack[-1], self.stack[-1 - n]
+        self.rw.stack_read(self.call_id, sp, top)
+        self.rw.stack_read(self.call_id, sp + n, deep)
+        self.rw.stack_write(self.call_id, sp, deep)
+        self.rw.stack_write(self.call_id, sp + n, top)
+        self.stack[-1], self.stack[-1 - n] = deep, top
+        self.pc += 1
 
     def op_pop(self, op):
         self.spop()
@@ -516,6 +624,255 @@ class _Tracer:
         self.gas_left -= (3 * (next_size - self.mws)
                           + next_size * next_size // 512 - self.mws * self.mws // 512)
         self.mws = next_size
+        self.pc += 1
+
+    def op_msize(self, op):
+        self.spush(self.mws * 32)
+        self.pc += 1
+
+    def op_gas(self, op):
+        self.spush(self.gas_left)  # gas after the constant cost
+        self.pc += 1
+
+    def op_pc(self, op):
+        self.spush(self.pc)
+        self.pc += 1
+
+    def op_jumpdest(self, op):
+        self.pc += 1
+
+    def op_jump(self, op):
+        self.pc = self.spop()
+
+    def op_jumpi(self, op):
+        dest = self.spop()
+        cond = self.spop()
+        self.pc = dest if cond != 0 else self.pc + 1
+
+    def op_address(self, op):
+        self.cc_read(CallContextFieldTag.CalleeAddress, self.callee_address)
+        self.spush(self.callee_address)
+        self.pc += 1
+
+    def op_caller(self, op):
+        self.cc_read(CallContextFieldTag.CallerAddress, self.caller_address)
+        self.spush(self.caller_address)
+        self.pc += 1
+
+    def op_callvalue(self, op):
+        self.cc_read(CallContextFieldTag.Value, self.value)
+        self.spush(self.value)
+        self.pc += 1
+
+    def op_calldatasize(self, op):
+        self.cc_read(CallContextFieldTag.CallDataLength, len(self.calldata))
+        self.spush(len(self.calldata))
+        self.pc += 1
+
+    def op_returndatasize(self, op):
+        self.cc_read(CallContextFieldTag.LastCalleeReturnDataLength, self.last_callee[2])
+        self.spush(self.last_callee[2])
+        self.pc += 1
+
+    def op_codesize(self, op):
+        self.spush(len(self.code.code))
+        self.pc += 1
+
+    def op_gasprice(self, op):
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.spush(self.tx.gas_price)
+        self.pc += 1
+
+    def op_origin(self, op):
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.spush(self.tx.caller_address)
+        self.pc += 1
+
+    def op_selfbalance(self, op):
+        addr = self.callee_address
+        self.cc_read(CallContextFieldTag.CalleeAddress, addr)
+        bal = self.balances.get(addr, 0)
+        self.rw.account_read(addr, AccountFieldTag.Balance, bal)
+        self.spush(bal)
+        self.pc += 1
+
+    def op_blockctx(self, op):
+        b = self.block
+        self.spush({Opcode.COINBASE: b.coinbase, Opcode.TIMESTAMP: b.timestamp,
+                    Opcode.NUMBER: b.number, Opcode.GASLIMIT: b.gas_limit,
+                    Opcode.PREVRANDAO: b.prev_randao, Opcode.BASEFEE: b.base_fee,
+                    Opcode.CHAINID: b.chainid}[op])
+        self.pc += 1
+
+    def op_blockhash(self, op):
+        number = self.spop()
+        cur = self.block.number
+        if number < cur and cur <= 256 + number:
+            idx = cur - number - 1  # history_hashes is most-recent-last
+            assert idx < len(self.block.history_hashes), (
+                f"tracer: BLOCKHASH of block {number} is inside the 256-block window but the "
+                f"Block witness records only {len(self.block.history_hashes)} history hashes; "
+                "the gadget's block-table lookup needs the hash: extend "
+                "Block(history_hashes=...)")
+            value = self.block.history_hashes[-1 - idx]
+        else:
+            value = 0
+        self.spush(value)
+        self.pc += 1
+
+    def op_balance(self, op):
+        addr = self.spop()
+        self._access_account(addr)
+        code_hash = self._account_code_hash(addr)
+        self.rw.account_read(addr, AccountFieldTag.CodeHash, code_hash)
+        if code_hash != 0:
+            bal = self.balances.get(addr, 0)
+            self.rw.account_read(addr, AccountFieldTag.Balance, bal)
+        else:
+            bal = 0
+        self.spush(bal)
+        self.pc += 1
+
+    def op_extcodesize(self, op):
+        addr = self.spop()
+        self._access_account(addr)
+        code_hash = self._account_code_hash(addr)
+        self.rw.account_read(addr, AccountFieldTag.CodeHash, code_hash)
+        size = len(self.codes[addr].code) if code_hash != 0 and addr in self.codes else 0
+        if code_hash != 0 and addr not in self.codes:
+            # an existing account without code: bytecode_length of the empty hash
+            self._register_code(Bytecode(bytearray()))
+        self.spush(size)
+        self.pc += 1
+
+    def op_extcodehash(self, op):
+        addr = self.spop()
+        self._access_account(addr)
+        code_hash = self._account_code_hash(addr)
+        self.rw.account_read(addr, AccountFieldTag.CodeHash, code_hash)
+        self.spush(code_hash)
+        self.pc += 1
+
+    def op_calldataload(self, op):
+        offset = self.spop()
+        data = self.calldata
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.cc_read(CallContextFieldTag.CallDataLength, len(data))
+        word = bytes(data[offset + i] if offset + i < len(data) else 0 for i in range(32))
+        # the gadget packs the read-order bytes little-endian into the word,
+        # as the reference does (calldataload.py:49-52)
+        self.spush(int.from_bytes(word, "little"))
+        self.pc += 1
+
+    def op_calldatacopy(self, op):
+        memory_offset = self.spop()
+        data_offset = self.spop()
+        length = self.spop()
+        data = self.calldata
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.cc_read(CallContextFieldTag.CallDataLength, len(data))
+        self._expand_dyn(memory_offset if length else 0, length)
+        self._copier_gas(length)
+        if length:
+            src_data = {data_offset + i: data[data_offset + i]
+                        for i in range(length) if data_offset + i < len(data)}
+            self.w.copy_circuit.copy(
+                self.copy_r, self.rw, self.tx_id, CopyDataTypeTag.TxCalldata,
+                self.call_id, CopyDataTypeTag.Memory, data_offset, len(data),
+                memory_offset, length, src_data)
+            for i in range(length):
+                self.memory[memory_offset + i] = (data[data_offset + i]
+                                                  if data_offset + i < len(data) else 0)
+        self.pc += 1
+
+    def _copy_code(self, code_hash: int, code: Optional[Bytecode], memory_offset: int,
+                   code_offset: int, size: int):
+        """A Bytecode -> Memory copy event of ``size`` bytes, zero-padded
+        past the code's end (CODECOPY, EXTCODECOPY)."""
+        raw = code.code if code is not None else b""
+        is_code = code.is_code if code is not None else []
+        src_data = {code_offset + i: (raw[code_offset + i], int(is_code[code_offset + i]))
+                    for i in range(size) if code_offset + i < len(raw)}
+        self.w.copy_circuit.copy(
+            self.copy_r, self.rw, code_hash, CopyDataTypeTag.Bytecode,
+            self.call_id, CopyDataTypeTag.Memory, code_offset, len(raw),
+            memory_offset, size, src_data)
+        for i in range(size):
+            self.memory[memory_offset + i] = (raw[code_offset + i]
+                                              if code_offset + i < len(raw) else 0)
+
+    def op_codecopy(self, op):
+        memory_offset = self.spop()
+        code_offset = self.spop()
+        size = self.spop()
+        self._expand_dyn(memory_offset if size else 0, size)
+        self._copier_gas(size)
+        if size:
+            self._copy_code(self.code_hash, self.code, memory_offset, code_offset, size)
+        self.pc += 1
+
+    def op_extcodecopy(self, op):
+        addr = self.spop()
+        memory_offset = self.spop()
+        code_offset = self.spop()
+        size = self.spop()
+        self._access_account(addr)
+        code_hash = self._account_code_hash(addr)
+        self.rw.account_read(addr, AccountFieldTag.CodeHash, code_hash)
+        self._expand_dyn(memory_offset if size else 0, size)
+        self._copier_gas(size)
+        ext = self.codes.get(addr)
+        if code_hash != 0 and ext is None:
+            self._register_code(Bytecode(bytearray()))
+        if size:
+            self._copy_code(code_hash, ext, memory_offset, code_offset, size)
+        self.pc += 1
+
+    def op_returndatacopy(self, op):
+        memory_offset = self.spop()
+        self.spop()                       # data offset
+        size = self.spop()
+        last_id, rdo, rdl = self.last_callee
+        self.cc_read(CallContextFieldTag.LastCalleeId, last_id)
+        self.cc_read(CallContextFieldTag.LastCalleeReturnDataLength, rdl)
+        self.cc_read(CallContextFieldTag.LastCalleeReturnDataOffset, rdo)
+        self._expand_dyn(memory_offset if size else 0, size)
+        self._copier_gas(size)
+        # a root frame has no callee, so its return data is empty and only
+        # a zero size passes _detect_error's bound check: no copy event
+        assert size == 0, "tracer: RETURNDATACOPY of return data in a root frame"
+        self.pc += 1
+
+    def op_log(self, op):
+        mstart = self.spop()
+        msize = self.spop()
+        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+        self.cc_read(CallContextFieldTag.IsStatic, 0)
+        self.cc_read(CallContextFieldTag.CalleeAddress, self.callee_address)
+        persistent = self.persistent
+        self.cc_read(CallContextFieldTag.IsPersistent, int(persistent))
+        log_id = self.log_count + 1
+        # logs of non-persistent frames are discarded: the gadget skips the
+        # TxLog lookups and the data copy, and log_id does not advance
+        if persistent:
+            self.rw.tx_log_write(self.tx_id, log_id, TxLogFieldTag.Address, 0,
+                                 self.callee_address)
+        n_topics = int(op) - int(Opcode.LOG0)
+        for i in range(n_topics):
+            topic = self.spop()
+            if persistent:
+                self.rw.tx_log_write(self.tx_id, log_id, TxLogFieldTag.Topic, i, topic)
+        if msize and persistent:
+            data = self._mem_bytes(mstart, msize)
+            self.w.copy_circuit.copy(
+                self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory,
+                self.tx_id, CopyDataTypeTag.TxLog, mstart, mstart + msize,
+                0, msize, {mstart + i: data[i] for i in range(msize)}, log_id=log_id)
+        self._expand_dyn(mstart if msize else 0, msize)
+        # the dynamic gas carries the base 375 too (the opcode's constant gas is 0)
+        self.gas_left -= GAS_COST_LOG * (1 + n_topics) + GAS_COST_LOGDATA * msize
+        if persistent:
+            self.log_count = log_id
         self.pc += 1
 
     def op_sload(self, op):
@@ -590,7 +947,7 @@ class _Tracer:
                 0, length, {offset + i: data[i] for i in range(length)})
         self.w.sha3_preimages.append(data)
         self._expand_dyn(offset if length else 0, length)
-        self.gas_left -= GAS_COST_COPY_SHA3 * ((length + 31) // 32)
+        self._copier_gas(length, GAS_COST_COPY_SHA3)
         self.pc += 1
 
     def op_exp(self, op):
@@ -665,6 +1022,49 @@ _STATE_BY_OPCODE = {
     Opcode.SAR: _ES.SAR, Opcode.SIGNEXTEND: _ES.SIGNEXTEND,
     Opcode.MLOAD: _ES.MEMORY, Opcode.MSTORE: _ES.MEMORY, Opcode.MSTORE8: _ES.MEMORY,
     Opcode.SLOAD: _ES.SLOAD, Opcode.SSTORE: _ES.SSTORE, Opcode.SHA3: _ES.SHA3,
+    Opcode.ADDRESS: _ES.ADDRESS, Opcode.BALANCE: _ES.BALANCE, Opcode.ORIGIN: _ES.ORIGIN,
+    Opcode.CALLER: _ES.CALLER, Opcode.CALLVALUE: _ES.CALLVALUE,
+    Opcode.CALLDATALOAD: _ES.CALLDATALOAD, Opcode.CALLDATASIZE: _ES.CALLDATASIZE,
+    Opcode.CALLDATACOPY: _ES.CALLDATACOPY, Opcode.CODESIZE: _ES.CODESIZE,
+    Opcode.CODECOPY: _ES.CODECOPY, Opcode.GASPRICE: _ES.GASPRICE,
+    Opcode.EXTCODESIZE: _ES.EXTCODESIZE, Opcode.EXTCODECOPY: _ES.EXTCODECOPY,
+    Opcode.EXTCODEHASH: _ES.EXTCODEHASH, Opcode.RETURNDATASIZE: _ES.RETURNDATASIZE,
+    Opcode.RETURNDATACOPY: _ES.RETURNDATACOPY, Opcode.BLOCKHASH: _ES.BLOCKHASH,
+    Opcode.COINBASE: _ES.BlockCtx, Opcode.TIMESTAMP: _ES.BlockCtx, Opcode.NUMBER: _ES.BlockCtx,
+    Opcode.GASLIMIT: _ES.BlockCtx, Opcode.PREVRANDAO: _ES.BlockCtx,
+    Opcode.BASEFEE: _ES.BlockCtx, Opcode.CHAINID: _ES.BlockCtx,
+    Opcode.SELFBALANCE: _ES.SELFBALANCE,
+    Opcode.JUMP: _ES.JUMP, Opcode.JUMPI: _ES.JUMPI, Opcode.PC: _ES.PC,
+    Opcode.MSIZE: _ES.MSIZE, Opcode.GAS: _ES.GAS, Opcode.JUMPDEST: _ES.JUMPDEST,
+    Opcode.LOG0: _ES.LOG, Opcode.LOG1: _ES.LOG, Opcode.LOG2: _ES.LOG, Opcode.LOG3: _ES.LOG,
+    Opcode.LOG4: _ES.LOG,
+}
+for _i in range(1, 17):
+    _STATE_BY_OPCODE[Opcode[f"DUP{_i}"]] = _ES.DUP
+    _STATE_BY_OPCODE[Opcode[f"SWAP{_i}"]] = _ES.SWAP
+
+_LOG_OPS = (Opcode.LOG0, Opcode.LOG1, Opcode.LOG2, Opcode.LOG3, Opcode.LOG4)
+_HANDLERS = {
+    Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
+    Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
+    Opcode.EXP: _Tracer.op_exp, Opcode.SIGNEXTEND: _Tracer.op_signextend,
+    Opcode.MLOAD: _Tracer.op_memory, Opcode.MSTORE: _Tracer.op_memory,
+    Opcode.MSTORE8: _Tracer.op_memory, Opcode.MSIZE: _Tracer.op_msize,
+    Opcode.SLOAD: _Tracer.op_sload, Opcode.SSTORE: _Tracer.op_sstore,
+    Opcode.SHA3: _Tracer.op_sha3,
+    Opcode.GAS: _Tracer.op_gas, Opcode.PC: _Tracer.op_pc, Opcode.JUMPDEST: _Tracer.op_jumpdest,
+    Opcode.JUMP: _Tracer.op_jump, Opcode.JUMPI: _Tracer.op_jumpi,
+    Opcode.ADDRESS: _Tracer.op_address, Opcode.CALLER: _Tracer.op_caller,
+    Opcode.CALLVALUE: _Tracer.op_callvalue, Opcode.CALLDATASIZE: _Tracer.op_calldatasize,
+    Opcode.CALLDATALOAD: _Tracer.op_calldataload, Opcode.CALLDATACOPY: _Tracer.op_calldatacopy,
+    Opcode.RETURNDATASIZE: _Tracer.op_returndatasize,
+    Opcode.RETURNDATACOPY: _Tracer.op_returndatacopy,
+    Opcode.CODESIZE: _Tracer.op_codesize, Opcode.CODECOPY: _Tracer.op_codecopy,
+    Opcode.GASPRICE: _Tracer.op_gasprice, Opcode.ORIGIN: _Tracer.op_origin,
+    Opcode.SELFBALANCE: _Tracer.op_selfbalance, Opcode.BLOCKHASH: _Tracer.op_blockhash,
+    Opcode.BALANCE: _Tracer.op_balance, Opcode.EXTCODESIZE: _Tracer.op_extcodesize,
+    Opcode.EXTCODECOPY: _Tracer.op_extcodecopy, Opcode.EXTCODEHASH: _Tracer.op_extcodehash,
+    **{_o: _Tracer.op_log for _o in _LOG_OPS},
 }
 
 # -- hot-path dispatch tables: 256-entry arrays indexed by the raw byte ------
@@ -674,6 +1074,8 @@ _MAX_SP = [1024] * 256
 _CONST_GAS = [0] * 256
 _STATE: List[Optional[ExecutionState]] = [None] * 256
 _HANDLER: List[Optional[object]] = [None] * 256
+# raw bytes with a per-opcode dynamic check in _detect_error
+_HAS_DYNAMIC_CHECK = [False] * 256
 for _o in Opcode:
     _raw = int(_o)
     _OP_BY_RAW[_raw] = _o
@@ -684,14 +1086,21 @@ for _o in Opcode:
         _STATE[_raw], _HANDLER[_raw] = _ES.PUSH, _Tracer.op_push
     elif _o in _STATE_BY_OPCODE:
         _STATE[_raw] = _STATE_BY_OPCODE[_o]
-        _HANDLER[_raw] = {Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
-                          Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
-                          Opcode.EXP: _Tracer.op_exp,
-                          Opcode.SIGNEXTEND: _Tracer.op_signextend,
-                          Opcode.MLOAD: _Tracer.op_memory, Opcode.MSTORE: _Tracer.op_memory,
-                          Opcode.MSTORE8: _Tracer.op_memory, Opcode.SLOAD: _Tracer.op_sload,
-                          Opcode.SSTORE: _Tracer.op_sstore,
-                          Opcode.SHA3: _Tracer.op_sha3}.get(_o, _Tracer.op_alu)
+        if _o in _HANDLERS:
+            _HANDLER[_raw] = _HANDLERS[_o]
+        elif Opcode.DUP1 <= _o <= Opcode.DUP16:
+            _HANDLER[_raw] = _Tracer.op_dup
+        elif Opcode.SWAP1 <= _o <= Opcode.SWAP16:
+            _HANDLER[_raw] = _Tracer.op_swap
+        elif _STATE[_raw] is _ES.BlockCtx:
+            _HANDLER[_raw] = _Tracer.op_blockctx
+        else:
+            _HANDLER[_raw] = _Tracer.op_alu
+for _o in (Opcode.JUMP, Opcode.JUMPI, Opcode.BALANCE, Opcode.EXTCODESIZE, Opcode.EXTCODEHASH,
+           Opcode.MLOAD, Opcode.MSTORE, Opcode.MSTORE8, Opcode.CALLDATACOPY, Opcode.CODECOPY,
+           Opcode.EXTCODECOPY, Opcode.RETURNDATACOPY, Opcode.SLOAD, Opcode.SSTORE, *_LOG_OPS,
+           Opcode.EXP, Opcode.SHA3):
+    _HAS_DYNAMIC_CHECK[int(_o)] = True
 
 
 def _derive_tx_key(tx_id: int) -> int:

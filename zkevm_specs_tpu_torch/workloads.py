@@ -2,10 +2,13 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload; three blocks traced and signed by the port's tracer for the
+payload; four blocks traced and signed by the port's tracer for the
 block verifier, the ALU block (``build_alu_block``), the arithmetic block
-(``build_arith_block``) and the SSTORE-heavy block (``build_sstore_block``);
-and the signed transfers of the tx and sig circuits' largest block
+(``build_arith_block``), the SSTORE-heavy block (``build_sstore_block``)
+and the loop block (``build_flow_block``: the root frame's context,
+account, copy and log opcodes, then a for-loop over a calldata word), with
+the small block that runs every root-frame execution state
+(``build_conformance_block``); and the signed transfers of the tx and sig circuits' largest block
 (``signed_transfers``).
 
 ``build_alu_group`` builds the groups of the last eight ALU gadgets
@@ -30,7 +33,7 @@ from .evm.step import StepState
 from .tables.container import Tables
 from .tables.schemas import RW, AccountFieldTag, BytecodeFieldTag
 from .witness.tracer import _ALU_BINARY, signextend, trace_block
-from .witness.typing import Block, Bytecode, RWDictionary, Transaction, Withdrawal
+from .witness.typing import Account, Block, Bytecode, RWDictionary, Transaction, Withdrawal
 
 WORD = 1 << 256
 
@@ -378,6 +381,169 @@ def build_sstore_block(n_txs: int = SSTORE_BLOCK_TXS):
     return trace_block(Block(**BLOCK_HEADER), sstore_block_txs(n_txs))
 
 
+# -- the loop block -------------------------------------------------------------------
+#
+# A ~1 M-gas block (bench.py's headline unit) shaped like the code users run:
+# a Solidity for-loop over a calldata argument that ends in a log.  Each tx
+# calls its own contract (0xFF + i, the same code) with 36 bytes of calldata
+# (a 4-byte selector, then one 32-byte word, from numpy.random.RandomState
+# (seed)).  The code reads every context value once, queries 0xCAFE's
+# account (cold, then warm), copies from its code, the calldata and its own
+# code, runs ``iterations`` rounds of ``acc += CALLDATALOAD(4)`` and stores
+# the sum in a LOG1.  RETURNDATACOPY is left out: a root frame has no return
+# data, so a nonzero size is an error state, and the gadget's copy lookup is
+# not masked by the size, so a zero-length copy fails verification in the
+# JAX package too.
+
+FLOW_BLOCK_TXS, FLOW_BLOCK_ITERATIONS = 8, 1600
+FLOW_ITERATION_STEPS, FLOW_ITERATION_GAS = 17, 61
+FLOW_EXT_ACCOUNT = 0xCAFE
+FLOW_TOPIC = 0x71
+# tests/test_block_conformance.py:96's block: BLOCKHASH reads its history
+FLOW_BLOCK_HEADER = dict(base_fee=10**9, number=256,
+                         history_hashes=[0x1000 + i for i in range(256)])
+_FLOW_CONTEXT_OPS = ("address", "caller", "callvalue", "calldatasize", "codesize", "gasprice",
+                     "origin", "selfbalance", "returndatasize", "coinbase", "timestamp",
+                     "number", "gaslimit", "prevrandao", "basefee", "chainid", "gas", "pc",
+                     "msize")
+
+
+def flow_accounts():
+    """The account the loop block's prologue queries: 0xCAFE with a balance
+    and two bytes of code (tests/test_block_conformance.py:104-107)."""
+    return {FLOW_EXT_ACCOUNT: Account(address=FLOW_EXT_ACCOUNT, balance=1234,
+                                      code=Bytecode().push1(1).stop())}
+
+
+def flow_code(iterations: int) -> Bytecode:
+    """The loop block's contract: the prologue, each push followed by POP;
+    then, with the stack holding (acc, i), ``iterations`` rounds of
+
+        top:  JUMPDEST DUP1 PUSH2 n GT ISZERO PUSH2 exit JUMPI
+              PUSH1 4 CALLDATALOAD SWAP1 SWAP2 ADD SWAP1 PUSH1 1 ADD PUSH2 top JUMP
+
+    (17 steps and 61 gas a round, the check of the last round 7 more), and
+    ``exit: JUMPDEST POP PUSH1 0 MSTORE PUSH1 topic PUSH1 32 PUSH1 0 LOG1
+    STOP``."""
+    assert 0 <= iterations < 1 << 16
+    bc = Bytecode()
+    for op in _FLOW_CONTEXT_OPS:
+        getattr(bc, op)().pop()
+    bc.push1(255).blockhash().pop()
+    for op in ("balance", "extcodesize", "extcodehash"):
+        getattr(bc.push2(FLOW_EXT_ACCOUNT), op)().pop()
+    bc.push1(2).push1(0).push1(128).push2(FLOW_EXT_ACCOUNT).extcodecopy()
+    bc.push1(8).push1(4).push1(64).calldatacopy()
+    bc.push1(16).push1(0).push1(96).codecopy()
+    bc.push1(0).push1(0)                              # acc, i
+    top = len(bc.code)
+    exit_pc = top + 25                                # the loop's 25 bytes
+    bc.jumpdest().dup1().push2(iterations).gt().iszero().push2(exit_pc).jumpi()
+    bc.push1(4).calldataload().swap1().swap2().add().swap1().push1(1).add()
+    bc.push2(top).jump()
+    assert len(bc.code) == exit_pc
+    bc.jumpdest().pop().push1(0).mstore()
+    bc.push1(FLOW_TOPIC).push1(32).push1(0).log1().stop()
+    return bc
+
+
+def flow_block_txs(n_txs: int, iterations: int, seed: int = 0
+                   ) -> List[Tuple[Transaction, Bytecode]]:
+    """The loop block's txs: caller 0xFE (signing gives each tx its own
+    key's address), callee 0xFF + i, 36 bytes of seeded calldata, and the
+    gas of the loop plus 10000 for the prologue, the log and the calldata."""
+    rng = np.random.RandomState(seed)
+    code = flow_code(iterations)
+    txs = []
+    for i in range(n_txs):
+        call_data = rng.bytes(4) + rng.bytes(32)
+        txs.append((Transaction(id=i + 1,
+                                gas=21000 + FLOW_ITERATION_GAS * iterations + 10000,
+                                gas_price=int(2e9), caller_address=0xFE, callee_address=0xFF + i,
+                                call_data=call_data),
+                    Bytecode(bytearray(code.code))))
+    return txs
+
+
+def build_flow_block(n_txs: int = FLOW_BLOCK_TXS, iterations: int = FLOW_BLOCK_ITERATIONS,
+                     seed: int = 0):
+    """The loop block's witness, signed: about 123 k gas a tx at 1600
+    rounds, so about 1 M gas at 8 txs."""
+    return trace_block(Block(**FLOW_BLOCK_HEADER), flow_block_txs(n_txs, iterations, seed),
+                       accounts=flow_accounts())
+
+
+def conformance_code() -> Bytecode:
+    """tests/test_block_conformance.py:wide_program and its STOP: the ALU,
+    comparison, shift, memory, storage, context, copy, log and flow
+    families in one root frame."""
+    bc = Bytecode()
+    bc.push1(3).push1(5).add().pop()
+    bc.push1(7).push1(3).sub().pop()
+    bc.push1(6).push1(7).mul().pop()
+    bc.push1(3).push1(40).div().pop()
+    bc.push1(7).push1(40).mod().pop()
+    bc.push2(0x0100).push1(2).sdiv().pop()
+    bc.push1(7).push1(45).smod().pop()
+    bc.push1(5).push1(9).push1(13).addmod().pop()
+    bc.push1(5).push1(9).push1(13).mulmod().pop()
+    bc.push1(3).push1(2).exp().pop()
+    bc.push1(0xFF).push1(0).signextend().pop()
+    bc.push1(1).push1(2).lt().pop()
+    bc.push1(1).push1(2).gt().pop()
+    bc.push1(5).push1(5).eq().pop()
+    bc.push1(5).push1(3).slt().pop()
+    bc.push1(5).push1(3).sgt().pop()
+    bc.push1(0).iszero().pop()
+    bc.push1(0b1100).push1(0b1010).and_().pop()
+    bc.push1(0b1100).push1(0b1010).or_().pop()
+    bc.push1(0b1100).push1(0b1010).xor_().pop()
+    bc.push1(5).not_().pop()
+    bc.push1(0xAB).push1(31).byte().pop()
+    bc.push1(0xF0).push1(4).shl().pop()
+    bc.push1(0xF0).push1(4).shr().pop()
+    bc.push1(0xF0).push1(2).sar().pop()
+    bc.push1(11).push1(22).dup2().swap1().pop().pop().pop()
+    bc.push1(0x42).push1(0).mstore()
+    bc.push1(0).mload().pop()
+    bc.push1(0x99).push1(33).mstore8()
+    bc.msize().pop()
+    bc.push1(0x11).push1(0x01).sstore()
+    bc.push1(0x22).push1(0x01).sstore()
+    bc.push1(0x01).sload().pop()
+    for op in ("address", "caller", "callvalue", "calldatasize"):
+        getattr(bc, op)().pop()
+    bc.push1(1).calldataload().pop()
+    for op in ("codesize", "gasprice", "origin", "selfbalance", "returndatasize", "coinbase",
+               "timestamp", "number", "gaslimit", "prevrandao", "basefee", "chainid", "gas",
+               "pc"):
+        getattr(bc, op)().pop()
+    bc.push1(100).blockhash().pop()
+    bc.push2(0xCAFE).balance().pop()
+    bc.push2(0xCAFE).extcodesize().pop()
+    bc.push2(0xCAFE).extcodehash().pop()
+    bc.push1(2).push1(0).push1(128).push2(0xCAFE).extcodecopy()
+    bc.push2(0xBEEF).balance().pop()      # an account that does not exist
+    bc.push1(8).push1(2).push1(64).calldatacopy()
+    bc.push1(16).push1(0).push1(96).codecopy()
+    bc.push1(8).push1(64).sha3().pop()
+    bc.push1(4).push1(0).log0()
+    bc.push1(0x71).push1(4).push1(0).log1()
+    bc.push1(0x72).push1(0x71).push1(4).push1(0).log2()
+    bc.jumpdest()
+    return bc.stop()
+
+
+def build_conformance_block():
+    """tests/test_block_conformance.py:test_block_conformance_wide's block
+    (:93-108): one tx of value 10 with 32 calldata bytes running
+    ``conformance_code``, signed."""
+    tx = Transaction(id=1, gas=1000000, gas_price=int(2e9), caller_address=0xFE,
+                     callee_address=0xFF, value=10, call_data=bytes(range(1, 33)))
+    return trace_block(Block(**FLOW_BLOCK_HEADER), [(tx, conformance_code())],
+                       accounts=flow_accounts())
+
+
 # -- signed transfers: the tx and sig circuits' largest block ----------------------------
 
 TX_SIG_CHAIN_ID = 1337                        # bench.py:bench_sig's
@@ -399,30 +565,37 @@ def signed_transfers(n: int):
 
 
 # (side, elements, m limbs) of every logUp partial sum (K13 call) of the
-# checks of chip_smoke.py's three blocks: the ALU block, the arithmetic block
-# at half its txs (build_arith_block(20, 37)) and the SSTORE block.  A query
-# side's m is en (one limb), a table side's the multiplicities (four limbs).
-# A side of the same shape as one an earlier family of its block gave is
-# listed once (the SSTORE block's keccak query side is its copy query side's
-# shape, its block table its keccak table's).  chip_smoke.py checks these
-# against the blocks it builds; profile_replay.py --logup times K13 at them
-# without building the blocks.
+# checks of chip_smoke.py's four blocks: the ALU block (build_alu_block(8,
+# 11000)), the arithmetic block at a quarter of its txs
+# (build_arith_block(10, 37)), the SSTORE block and the loop block
+# (build_flow_block(8, 1600)).  A query side's m is en (one
+# limb), a table side's the multiplicities (four limbs).  A side of the same
+# shape as one an earlier family of its block gave is listed once (the
+# SSTORE block's keccak query side is its copy query side's shape, its block
+# table its keccak table's).  chip_smoke.py checks these against the blocks
+# it builds; profile_replay.py --logup times K13 at them without building
+# the blocks.
 LOGUP_SIDES = (
     ("ALU rw query", 528401, 1), ("ALU rw table", 528369, 4),
     ("ALU bytecode query", 6160016, 1), ("ALU bytecode table", 66002, 4),
     ("ALU tx query", 180, 1), ("ALU tx table", 96, 4),
     ("ALU block query", 55, 1), ("ALU block table", 8, 4),
-    ("arith rw query", 68353, 1), ("arith rw table", 48281, 4),
-    ("arith bytecode query", 575020, 1), ("arith bytecode table", 483260, 4),
-    ("arith exp query", 1480, 1), ("arith exp table", 6702, 4),
-    ("arith tx query", 456, 1), ("arith tx table", 240, 4),
-    ("arith block query", 139, 1), ("arith block table", 8, 4),
+    ("arith rw query", 34173, 1), ("arith rw table", 24141, 4),
+    ("arith bytecode query", 287510, 1), ("arith bytecode table", 241630, 4),
+    ("arith exp query", 740, 1), ("arith exp table", 3349, 4),
+    ("arith tx query", 226, 1), ("arith tx table", 120, 4),
+    ("arith block query", 69, 1), ("arith block table", 8, 4),
     ("sstore rw query", 1568, 1), ("sstore rw table", 1765, 4),
     ("sstore bytecode query", 7854, 1), ("sstore bytecode table", 770, 4),
     ("sstore copy query", 7, 1), ("sstore copy table", 7, 4),
     ("sstore keccak table", 8, 4),
     ("sstore tx query", 157, 1), ("sstore tx table", 84, 4),
-    ("sstore block query", 48, 1))
+    ("sstore block query", 48, 1),
+    ("flow rw query", 475337, 1), ("flow rw table", 476025, 4),
+    ("flow bytecode query", 2361920, 1), ("flow bytecode table", 128, 4),
+    ("flow copy query", 32, 1), ("flow copy table", 32, 4),
+    ("flow tx query", 409796, 1), ("flow tx table", 384, 4),
+    ("flow block query", 127, 1), ("flow block table", 264, 4))
 
 
 def receipt_gas_used(witness) -> int:
