@@ -45,8 +45,9 @@ script exits non-zero):
    CPU;
 7. withdrawal: the withdrawal circuit (``withdrawal_kernel``) at mainnet's
    16 rows, the same steps with one corrupted amount;
-8. block: the whole ALU block (``workloads.build_alu_block(8, 11000)``,
-   ``bench.py:_alu_heavy_txs(8, 11000)`` traced and signed by the port, as
+8. block: the ALU block at half its rounds (``workloads.build_alu_block(8,
+   5500)``; ``bench.py:_alu_heavy_txs(8, 11000)``, cut so that the run keeps
+   its time; the bytecode and keccak phases keep its full codes) traced and signed by the port, as
    ``bench.py:_run_block_once`` traces it, caller 0xFE becoming each tx's
    own key's address) through the port's ``CompiledBlockVerifier``, the tx
    and sig circuits included (``"sign": true``; the host seconds of the
@@ -114,13 +115,14 @@ script exits non-zero):
    verifier fails on the same edits of a 2-tx block), its logUp line (the
    copy and keccak families among them), and the 2-tx block's failure
    dicts on the card and the CPU, clean and with the SSTORE edit;
-10b. flow: the loop block (``workloads.build_flow_block(8, 1600)``, signed:
-   218265 steps, 476025 rw rows, 986488 gas; each tx reads every context
-   value, queries 0xCAFE's account cold and warm, copies from its code, the
-   calldata and its own code, then runs 1600 rounds of a Solidity-shaped
-   for-loop over a calldata word (JUMPDEST, DUP, PUSH, GT, ISZERO, JUMPI,
-   CALLDATALOAD, SWAP, ADD, JUMP) and ends in a LOG1) through the same
-   steps, the copy check's share beside the keccak, tx, sig and pi checks',
+10b. flow: the loop block at half its txs and half its rounds
+   (``workloads.build_flow_block(4, 800)``, signed: 54733 steps, 119613 rw
+   rows; the 8 x 1600 block, 986488 gas, is cut so that the run keeps its
+   time): each tx reads every context value, queries 0xCAFE's account cold
+   and warm, copies from its code, the calldata and its own code, then runs
+   800 rounds of a Solidity-shaped for-loop over a calldata word (JUMPDEST,
+   DUP, PUSH, GT, ISZERO, JUMPI, CALLDATALOAD, SWAP, ADD, JUMP) and ends in
+   a LOG1; the block goes through the same steps, the copy check's share beside the keccak, tx, sig and pi checks',
    two rebuilds (tx 3's LOG1 topic + 1, failing at its LOG step alone; the
    middle CALLDATALOAD's pushed word + 1, failing at that step and the
    state row of the SWAP1 that reads it, as the JAX verifier fails on the
@@ -128,13 +130,29 @@ script exits non-zero):
    failure dicts on the card and the CPU, clean and with both edits, and
    the conformance block's (``workloads.build_conformance_block``: 50
    execution states in one frame), clean;
-11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 1428 signed transfers
-   (``workloads.signed_transfers``: 30000000 // 21000, the most a 30 M-gas
-   block holds, ``bench.py:bench_sig``'s shape, chain 1337): the host
+10c. calls: the call block (``workloads.build_call_block(8, 316)``, signed:
+   87969 steps, 661833 rw rows, 1000488 gas, 163840 copy rows; each tx a
+   router calling 0xC0DE 316 times with CALL, STATICCALL, DELEGATECALL or
+   CALLCODE, each round's return data copied into the next round's args,
+   then a CALL with value, a 3-deep call through 0xB0B and a call to 0xDEAD,
+   which writes and reverts; the last tx reverts at its root) through the
+   same steps, the copy check's share beside the keccak, tx, sig and pi
+   checks', two rebuilds (the first restored caller GasLeft + 1, failing at
+   that CALL step and the state row of the halt that reads it back; the
+   first tx's mirror of 0xDEAD's SSTORE + 1, failing at that SSTORE step,
+   as the JAX verifier fails on the same edits of a 4 x 3 block), its logUp
+   line, the 4 x 3 block's failure dicts on the card and the CPU, clean and
+   with both edits, and the mega conformance block's
+   (``workloads.build_conformance_mega_block``: 55 execution states, the
+   four call opcodes among them), clean and with the GasLeft edit;
+11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 714 signed transfers
+   (``workloads.signed_transfers``: half of 30000000 // 21000, the most a
+   30 M-gas block holds, cut so that the run keeps its time;
+   ``bench.py:bench_sig``'s shape, chain 1337): the host
    seconds of the signing, ``txs2witness``, ``sig_witness_from_txs`` and
    ``verify_batch`` (all Python ints, as in the JAX package), the build and
    the upload; one counted check of each with every lane passing (K8 at
-   ``[64, 1428]``, K6 on the prebuilt keccak index, no index built on the
+   ``[64, 714]``, K6 on the prebuilt keccak index, no index built on the
    card), 10 timed checks, signed txs verified a second (``bench_sig``'s
    terms, and on the card alone); lane 700's ECDSA verdict flipped in the
    uploaded inputs, failing alone in each check; and the checks at 4
@@ -147,7 +165,7 @@ script exits non-zero):
    (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", "arith", "sstore" or "flow", 10 timed launches each, each entry with
+   "block", "arith", "sstore", "flow" or "calls", 10 timed launches each, each entry with
    its count in the pass, the pi, tx, sig and copy checks' K1, K3, K4, K6
    and K8 calls among them, and at tx_sig's shapes, labelled "tx_sig";
    and likewise at
@@ -170,7 +188,7 @@ script exits non-zero):
    rows and at every block's state rows, each also against the keys compared
    on Python ints.  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
-   2048 steps of the same rows (1024 at the block verifier's table), which
+   1024 steps of the same rows (512 at the block verifier's tables), which
    the line says (at the blocks' shapes its plain time is that of the one
    held call: it takes seconds); at every K8 shape of every path the whole output is
    also held against the Python-int Horner, and the entry gives the
@@ -214,10 +232,12 @@ The last three lines are the kernels line (every row with its
 package beside it, the script exits non-zero before printing anything.
 """
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -258,7 +278,7 @@ from zkevm_specs_tpu_torch.runtime.timing import time_on_card_ms  # noqa: E402
 from zkevm_specs_tpu_torch.tables import engine  # noqa: E402
 from zkevm_specs_tpu_torch.tables import logup  # noqa: E402
 from zkevm_specs_tpu_torch.tables.schemas import (  # noqa: E402
-    RW, BytecodeFieldTag, Target, TxLogFieldTag)
+    RW, BytecodeFieldTag, CallContextFieldTag, Target, TxLogFieldTag)
 from zkevm_specs_tpu_torch.witness import tracer  # noqa: E402
 from zkevm_specs_tpu_torch.workloads import build_add_workload, build_mul_workload  # noqa: E402
 
@@ -278,12 +298,18 @@ STATE_ROWS = workloads.ALU_BLOCK_STATE_ROWS
 SMALL_STATE_ROWS = 512
 CORRUPT_ROW = 77_777
 ALU_TXS, ALU_OPS = workloads.ALU_BLOCK_TXS, workloads.ALU_BLOCK_OPS
+# the block verifier's ALU block at half its rounds (the bytecode and keccak
+# phases keep its full codes): with the call block's phase the whole run went
+# past the time it has
+BLOCK_ALU_OPS = ALU_OPS // 2
 SMALL_K = 10
 SHA3_PREIMAGES = workloads.SHA3_MIX_PREIMAGES
 SMALL_SHA3 = 512
 WITHDRAWALS = workloads.MAX_WITHDRAWALS_PER_PAYLOAD
-K8_HELD_STEPS = 2048      # K8's plain version at the ALU block: the first steps only
-K8_BLOCK_HELD_STEPS = 1024  # ... and at the block verifier's keccak table (another r)
+# K8's plain version at the ALU block: the first steps only (its plain
+# version takes about 12 ms a step; the run's time)
+K8_HELD_STEPS = 1024
+K8_BLOCK_HELD_STEPS = 512  # ... and at the block verifiers' keccak tables (another r)
 BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
 BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
@@ -296,13 +322,22 @@ ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 4, workloads.ARITH_BLOCK_
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 SSTORE_TXS = workloads.SSTORE_BLOCK_TXS
 SMALL_SSTORE = 2          # txs of the SSTORE block held against the CPU
-TX_SIG_TXS = workloads.TX_SIG_TXS
+# half of the most signed transfers a 30 M-gas block holds: with the call
+# block's phase the whole run went past the time it has
+TX_SIG_TXS = workloads.TX_SIG_TXS // 2
 SMALL_TX_SIG = 4          # signed transfers of the tx and sig checks held against the CPU
 TX_SIG_CORRUPT_LANE = 700
-FLOW_TXS, FLOW_ITERATIONS = workloads.FLOW_BLOCK_TXS, workloads.FLOW_BLOCK_ITERATIONS
+# the loop block at half its txs and half its rounds (workloads.FLOW_BLOCK_TXS
+# x FLOW_BLOCK_ITERATIONS is 8 x 1600): with the call block's phase the whole
+# run went past the time it has; the call block runs the same loop gadgets
+FLOW_TXS = workloads.FLOW_BLOCK_TXS // 2
+FLOW_ITERATIONS = workloads.FLOW_BLOCK_ITERATIONS // 2
 SMALL_FLOW = (2, 8)       # txs x rounds of the loop block held against the CPU
+CALL_TXS, CALL_ROUNDS = workloads.CALL_BLOCK_TXS, workloads.CALL_BLOCK_ROUNDS
+SMALL_CALLS = (4, 3)      # txs x rounds of the call block held against the CPU
 # the label of each block phase in workloads.LOGUP_SIDES
-BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore", "flow": "flow"}
+BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore", "flow": "flow",
+                "calls": "calls"}
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
@@ -366,6 +401,9 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "flow": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
                          "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
                          "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
+                "calls": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
+                          "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                          "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
                 "tx_sig": ("horner_rlc", "lookup_search_eq"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
@@ -901,7 +939,7 @@ def run_withdrawal(card):
     return counts, captured
 
 
-# -- phases 8-11: the four blocks through the block verifier, and the tx and sig checks
+# -- phases 8-11: the five blocks through the block verifier, and the tx and sig checks
 
 def host_ms(fn, repeats):
     """Median host wall time of ``fn()`` ending in a synchronise, and its
@@ -1109,6 +1147,60 @@ def corrupt_calldataload_word(w):
     return {"corrupt_calldataload_step": bad}, expected, undo
 
 
+def _step_holding(w, rw_counter, state):
+    """The step of ``state`` whose rw rows hold ``rw_counter``."""
+    return max(i for i, s in enumerate(w.steps)
+               if s.execution_state == state and s.rw_counter <= rw_counter)
+
+
+def corrupt_restored_gas_left(w):
+    """The first restored caller GasLeft row + 1 (the first call-context
+    write of a GasLeft: the first CALL saves it, its callee's halt reads it
+    back): exactly that CALL step and the state row of the read fail, as
+    the JAX verifier's keys on the same edit of the 4 x 3 block
+    (tests/test_torch_block_call_block.py, restored_gas_left)."""
+    rows = w.rw.rws
+    k = next(k for k, r in enumerate(rows) if r["key0"] == int(Target.CallContext)
+             and r["rw"] == int(RW.Write) and r["address"] == int(CallContextFieldTag.GasLeft))
+    row = rows[k]
+    read = next(r for r in rows[k + 1:] if r["key0"] == int(Target.CallContext)
+                and r["rw"] == int(RW.Read) and r["id"] == row["id"]
+                and r["address"] == int(CallContextFieldTag.GasLeft))
+    bad = _step_holding(w, row["rw_counter"], ExecutionState.CALL_OP)
+    row["value"] += 1
+
+    def expected(bv, f):
+        read_row = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == read["rw_counter"]]
+        return set(f) == {bad, ("state", read_row[0])}
+
+    def undo():
+        row["value"] -= 1
+
+    return {"corrupt_call_step": bad}, expected, undo
+
+
+def corrupt_dead_sstore_mirror(w):
+    """The value of the first tx's mirror of 0xDEAD's SSTORE (its write back
+    to 0) + 1: exactly the SSTORE step that looks the mirror up fails, as the
+    JAX verifier's keys on the same edit of the 4 x 3 block
+    (tests/test_torch_block_call_block.py, dead_sstore_mirror)."""
+    rows = w.rw.rws
+    mirror = next(r for r in rows if r["key0"] == int(Target.AccountStorage)
+                  and r["rw"] == int(RW.Write) and r["address"] == workloads.CALL_REVERTING
+                  and r["value_prev"] == 1)
+    write = next(r for r in rows if r["key0"] == mirror["key0"] and r["rw"] == int(RW.Write)
+                 and r["id"] == mirror["id"] and r["address"] == mirror["address"]
+                 and r["storage_key"] == mirror["storage_key"] and r["value"] == 1)
+    bad = _step_holding(w, write["rw_counter"], ExecutionState.SSTORE)
+    mirror["value"] += 1
+
+    def undo():
+        mirror["value"] -= 1
+
+    return ({"corrupt_sstore_step": bad, "mirror_rw_counter": mirror["rw_counter"]},
+            lambda bv, f: set(f) == {bad}, undo)
+
+
 def corrupt_wrong_key(w):
     """Tx 0 re-signed with key 0xBAD over the same payload: its recovered
     signer is no longer the EVM-side sender, so the tx check's lane 0
@@ -1121,8 +1213,8 @@ def corrupt_wrong_key(w):
 # small block held against the CPU with the corruptions it gets there
 # (None: the clean block)
 BLOCK_PHASES = {
-    "block": dict(build=lambda: workloads.build_alu_block(ALU_TXS, ALU_OPS),
-                  sizes={"txs": ALU_TXS, "ops_per_tx": ALU_OPS},
+    "block": dict(build=lambda: workloads.build_alu_block(ALU_TXS, BLOCK_ALU_OPS),
+                  sizes={"txs": ALU_TXS, "ops_per_tx": BLOCK_ALU_OPS},
                   shares=("keccak", "tx", "sig", "pi"),
                   corruptions=(corrupt_gas_left,),
                   small=lambda: workloads.build_alu_block(*SMALL_BLOCK,
@@ -1149,13 +1241,62 @@ BLOCK_PHASES = {
                  small=lambda: workloads.build_flow_block(*SMALL_FLOW), small_size=SMALL_FLOW,
                  small_corruptions=(None, corrupt_log_topic, corrupt_calldataload_word),
                  # held clean against the CPU too: every root-frame state in one frame
-                 also_small={"conformance": workloads.build_conformance_block}),
+                 also_small={"conformance": (workloads.build_conformance_block, (None,))}),
+    "calls": dict(build=lambda: workloads.build_call_block(CALL_TXS, CALL_ROUNDS),
+                  sizes={"txs": CALL_TXS, "rounds_per_tx": CALL_ROUNDS},
+                  shares=("copy", "keccak", "tx", "sig", "pi"),
+                  corruptions=(corrupt_restored_gas_left, corrupt_dead_sstore_mirror),
+                  small=lambda: workloads.build_call_block(*SMALL_CALLS), small_size=SMALL_CALLS,
+                  small_corruptions=(None, corrupt_restored_gas_left,
+                                     corrupt_dead_sstore_mirror),
+                  # tests/test_block_conformance.py's mega block: the wide
+                  # program and the four call opcodes into a returning callee
+                  also_small={"conformance_mega": (workloads.build_conformance_mega_block,
+                                                   (None, corrupt_restored_gas_left))}),
 }
+
+
+# the small blocks' CPU side runs in one worker process, started with the
+# run, while the card works in this one; its torch threads
+CPU_SIDE_THREADS = 2
+CPU_SIDE = {}   # (path, block, corruption's name) -> the future of cpu_side's result
+
+
+def cpu_side_keys():
+    """Every small block a block phase holds against the CPU, in the order
+    the phases reach them: (path, "small" or an ``also_small`` name, the
+    corruption's name or None)."""
+    keys = []
+    for path, spec in BLOCK_PHASES.items():
+        keys += [(path, "small", c and c.__name__) for c in spec["small_corruptions"]]
+        for name, (_, corruptions) in spec.get("also_small", {}).items():
+            keys += [(path, name, c and c.__name__) for c in corruptions]
+    return keys
+
+
+def cpu_side(path, which, corruption):
+    """One small block built, corrupted and verified on the CPU alone (the
+    plain versions; no card work): its failure dict, and for a phase's clean
+    small block the logUp verdicts and limbs of every family."""
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    spec = BLOCK_PHASES[path]
+    w = (spec["small"] if which == "small" else spec["also_small"][which][0])()
+    if corruption is not None:
+        globals()[corruption](w)
+    bv = block_runtime.CompiledBlockVerifier(w, device="cpu")
+    prepared = bv.prepare()
+    limbs = logup_limbs(bv, prepared) if which == "small" and corruption is None else None
+    return bv.run_device(prepared), limbs
+
+
+def cpu_result(path, which, corrupt):
+    """The worker's ``cpu_side`` result for a small block (waits for it)."""
+    return CPU_SIDE[(path, which, corrupt and corrupt.__name__)].result()
 
 
 def run_block(path, card):
     """One block through the port's ``CompiledBlockVerifier`` (see phases 8
-    to 10 of the module docstring)."""
+    to 10c of the module docstring)."""
     spec = BLOCK_PHASES[path]
     CBV = block_runtime.CompiledBlockVerifier
     out = {"phase": path, **spec["sizes"], "sign": True, "not_ported": list(CBV.not_ported),
@@ -1335,8 +1476,7 @@ def run_block(path, card):
         on_card = CBV(small)
         p = on_card.prepare()
         f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
-        on_cpu = CBV(small, device="cpu")
-        f_cpu = on_cpu.run_device(on_cpu.prepare())
+        f_cpu, lu_cpu = cpu_result(path, "small", corrupt)
         assert f_card == f_graph == f_cpu, f"{path}: card {f_card}, graph {f_graph}, CPU {f_cpu}"
         assert bool(f_cpu) == (corrupt is not None)
         if corrupt is corrupt_wrong_key:
@@ -1346,22 +1486,27 @@ def run_block(path, card):
         if corrupt is None:
             # the logUp argument of the clean small block: the same verdicts
             # and the same lhs and rhs limbs on the card and on the CPU
-            lu_card, lu_cpu = logup_limbs(on_card, p), logup_limbs(on_cpu, on_cpu.prepare())
+            lu_card = logup_limbs(on_card, p)
             assert lu_card == lu_cpu, f"{path}: logUp on the card {lu_card}, on the CPU {lu_cpu}"
             assert all(ok for ok, _, _ in lu_cpu.values()), lu_cpu
             out["small_block_logup_matches_cpu"] = sorted(lu_cpu)
-    for name, build in spec.get("also_small", {}).items():
-        other = build()
-        on_card = CBV(other)
-        p = on_card.prepare()
-        f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
-        on_cpu = CBV(other, device="cpu")
-        f_cpu = on_cpu.run_device(on_cpu.prepare())
-        assert f_card == f_graph == f_cpu == {}, \
-            f"{path}: {name} block: card {f_card}, graph {f_graph}, CPU {f_cpu}"
-        out["small_block_variants"][name] = {
-            "steps": len(other.steps), "states": len({s.execution_state for s in other.steps}),
-            "failing_keys": []}
+    for name, (build, corruptions) in spec.get("also_small", {}).items():
+        for corrupt in corruptions:
+            other = build()
+            if corrupt is not None:
+                corrupt(other)
+            on_card = CBV(other)
+            p = on_card.prepare()
+            f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
+            f_cpu, _ = cpu_result(path, name, corrupt)
+            assert f_card == f_graph == f_cpu, \
+                f"{path}: {name} block: card {f_card}, graph {f_graph}, CPU {f_cpu}"
+            assert bool(f_cpu) == (corrupt is not None), f"{path}: {name} block: {f_cpu}"
+            out["small_block_variants"][name + ("" if corrupt is None else
+                                                f" {corrupt.__name__}")] = {
+                "steps": len(other.steps),
+                "states": len({s.execution_state for s in other.steps}),
+                "failing_keys": sorted(f_cpu, key=str)}
     out["small_block_matches_cpu"] = list(spec["small_size"])
     out["small_block_calldata_bytes"] = sum(len(tx.call_data) for tx in small.txs)
     out["seconds"] = time.perf_counter() - t_phase
@@ -2686,6 +2831,17 @@ def logup_kernel_rows(launches, captured):
 
 
 def main():
+    # the small blocks' CPU side, in a worker process while the card works here
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        CPU_SIDE.update({key: pool.submit(cpu_side, *key) for key in cpu_side_keys()})
+        run_all()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_all():
     card = card_line()
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,

@@ -100,6 +100,14 @@ def single_log(topics, mstart, msize):
     return build
 
 
+def reverted_log(Y):
+    """tests/test_block_logs.py:test_reverted_log_not_counted: a LOG1 in a
+    root frame that then reverts."""
+    bc = Y.Bytecode().push32(0xAA).push1(0).mstore()
+    bc = _emit_log(bc, [0x030201], 0, 4).push1(0).push1(0).revert()
+    return Y.Block(base_fee=int(1e9)), [(_log_tx(Y, 1), bc)]
+
+
 def multi_logs_one_tx(Y):
     bc = Y.Bytecode().push32(0x1122334455).push1(0).mstore()
     bc = _emit_log(bc, [], 10, 2)
@@ -178,11 +186,13 @@ LOGS = {
     "corrupt_topic": (two_topics_no_data, corrupt_topic),
     "corrupt_log_length": (one_topic_no_data, corrupt_log_length),
 }
+# held by test_torch_block_flow_logs.py:test_reverted_log_is_not_traced
+REVERTED_LOGS = {"reverted_log": (reverted_log, None)}
 MUST_FAIL = {"ctx_corrupt_timestamp", "corrupt_topic", "corrupt_log_length"}
 
 
 def traced(kind):
-    build, corruption = {**SWEEPS, **LOGS}[kind]
+    build, corruption = {**SWEEPS, **LOGS, **REVERTED_LOGS}[kind]
     out = []
     for T, Y in ((JT, JY), (PT, PY)):
         block, txs = build(Y)
@@ -203,6 +213,7 @@ def check(kind, monkeypatch):
     assert pbv.run_device(prepared) == want
     assert pbv.run_device_combined(prepared) == want
     assert bool(want) == (kind in MUST_FAIL), sorted(want, key=str)
+    return pw
 
 
 @pytest.mark.parametrize("kind", sorted(SWEEPS))

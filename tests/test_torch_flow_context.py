@@ -67,10 +67,11 @@ SOURCES = (
 )
 
 
-def _cases():
-    """(id, module, function, kwargs) for every parametrised case."""
+def _cases(sources=SOURCES):
+    """(id, module, function, kwargs) for every parametrised case of
+    ``sources``."""
     out = []
-    for module, names in SOURCES:
+    for module, names in sources:
         names = names or sorted(n for n in vars(module) if n.startswith("test_"))
         for name in names:
             fn = getattr(module, name)

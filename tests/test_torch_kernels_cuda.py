@@ -818,10 +818,15 @@ def _small_block(kind="alu"):
         return workloads.build_flow_block(2, 8)
     if kind == "conformance":
         return workloads.build_conformance_block()
+    if kind == "calls":
+        return workloads.build_call_block(4, 3)
+    if kind == "mega":
+        return workloads.build_conformance_mega_block()
     return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
-@pytest.mark.parametrize("kind", ["alu", "arith", "sstore", "flow", "conformance"])
+@pytest.mark.parametrize("kind", ["alu", "arith", "sstore", "flow", "conformance", "calls",
+                                  "mega"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
@@ -829,7 +834,7 @@ def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     w = _small_block(kind)
     if corrupt:
         name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE", "flow": "CALLDATALOAD",
-                "conformance": "EXTCODECOPY"}[kind]
+                "conformance": "EXTCODECOPY", "calls": "CALL_OP", "mega": "CALL_OP"}[kind]
         next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()
@@ -872,12 +877,13 @@ def _flatten(out):
     return [out]
 
 
-@pytest.mark.parametrize("kind", ["flow", "conformance"])
+@pytest.mark.parametrize("kind", ["flow", "conformance", "calls", "mega"])
 def test_flow_block_kernel_shapes_equal_plain(dev, kind, monkeypatch):
-    """Every kernel call of the loop block's and the conformance block's
-    per-kernel pass (the flow, context, account, copy and log gadgets'
-    groups among them), each held against its plain version on the same
-    arguments, bit-exact."""
+    """Every kernel call of the loop block's, the conformance block's, the
+    call block's and the mega conformance block's per-kernel pass (the
+    flow, context, account, copy, log, call and halt gadgets' groups among
+    them), each held against its plain version on the same arguments,
+    bit-exact."""
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
 
     bv = CompiledBlockVerifier(_small_block(kind))

@@ -202,7 +202,7 @@ def test_signed_block_is_not_ported():
 
 
 @pytest.mark.parametrize("code,what", [
-    (lambda: PY.Bytecode().push1(0).push1(0).return_(), "no handler"),
+    (lambda: PY.Bytecode().push1(0).push1(0).push1(0).create(), "no handler"),
     (lambda: PY.Bytecode().pop().stop(), "ErrorStack"),
     (lambda: PY.Bytecode(bytearray([0x0C])), "ErrorInvalidOpcode"),
 ])

@@ -1,8 +1,9 @@
 """Execution-gadget registry (reference: execution/__init__.py:86-171).
 
-Only the gadgets ported so far are registered (every state a root frame
-runs without a call, a create, a precompile or an error); ``verify_steps``
-raises ``NotImplementedError`` for any other execution state."""
+Only the gadgets ported so far are registered (every state a frame runs
+without a create, a precompile or an error, the CALL family and
+RETURN/REVERT included); ``verify_steps`` raises ``NotImplementedError``
+for any other execution state."""
 from typing import Callable, Dict
 
 from ..execution_state import ExecutionState
@@ -13,6 +14,7 @@ from .begin_tx import begin_tx
 from .bitwise import bitwise
 from .byte import byte
 from .calldataload import calldataload
+from .callop import callop
 from .comparator import cmp
 from .context import (
     address,
@@ -44,6 +46,7 @@ from .mulmod import mulmod
 from .not_ import not_opcode
 from .pop import pop
 from .push import push
+from .return_revert import return_revert
 from .sar import sar
 from .sdiv_smod import sdiv_smod
 from .shl_shr import shl_shr
@@ -57,6 +60,8 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.BeginTx: begin_tx,
     ExecutionState.EndTx: end_tx,
     ExecutionState.EndBlock: end_block,
+    ExecutionState.CALL_OP: callop,
+    ExecutionState.RETURN: return_revert,
     ExecutionState.ADD: add_sub,
     ExecutionState.MUL: mul_div_mod,
     ExecutionState.SDIV_SMOD: sdiv_smod,

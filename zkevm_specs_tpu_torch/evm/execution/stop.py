@@ -1,6 +1,6 @@
-"""STOP gadget (reference: evm_circuit/execution/stop.py:7-52).  The
-return to a caller's restored context (a STOP inside a sub-call) is not
-ported; a lane that takes it raises."""
+"""STOP gadget (reference: evm_circuit/execution/stop.py:7-52): the end of
+the tx at the root, the return to the caller's restored context in a
+sub-call."""
 from ...tables.schemas import CallContextFieldTag
 from ...utils.param import N_BYTES_PROGRAM_COUNTER
 from ..execution_state import ExecutionState
@@ -30,5 +30,9 @@ def stop(instruction: Instruction):
             call_id=Transition.same(),
         )
     else:
-        raise NotImplementedError(
-            "STOP in a sub-call (step_state_transition_to_restored_context) is not ported")
+        instruction.step_state_transition_to_restored_context(
+            rw_counter_delta=1,
+            return_data_offset=instruction.fq(0),
+            return_data_length=instruction.fq(0),
+            gas_left=instruction.curr.gas_left,
+        )

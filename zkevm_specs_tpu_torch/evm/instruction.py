@@ -4,7 +4,8 @@ LT/GT/EQ, SLT/SGT, ISZERO, NOT, AND/OR/XOR, BYTE, SIGNEXTEND, MLOAD/MSTORE/
 MSTORE8, SLOAD, SSTORE, SHA3, PUSH, POP, STOP, BeginTx, EndTx, EndBlock,
 DUP/SWAP/PC/JUMPDEST, JUMP/JUMPI, GAS, MSIZE, the context queries, BALANCE,
 EXTCODESIZE/EXTCODEHASH, CALLDATALOAD, CALLDATACOPY/CODECOPY/EXTCODECOPY/
-RETURNDATACOPY and LOG0-LOG4).
+RETURNDATACOPY, LOG0-LOG4, the CALL family and RETURN/REVERT, with the
+return to a caller's restored context).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -53,6 +54,7 @@ from ..tables.schemas import (
 )
 from .execution_state import ExecutionState
 from .opcode import constant_gas_cost, valid_opcodes
+from .precompile import Precompile
 from .step import StepStateBatch
 
 IntOrF = Union[int, F]
@@ -198,8 +200,18 @@ class Instruction:
         self.is_first_step = is_first_step
         self.is_last_step = is_last_step
         self.rw_counter_offset = 0
+        # the per-lane offset added by looked-up copy-event sizes (the
+        # reference's ``rw_counter_offset += int(copy_rwc_inc)``,
+        # return_revert.py:66): a tensor addend for batched lanes
+        self.rw_counter_dyn: Union[int, F] = 0
         self.program_counter_offset = 0
         self.stack_pointer_offset = 0
+
+    def add_rw_counter_dyn(self, inc: F):
+        self.rw_counter_dyn = self._f(self.rw_counter_dyn) + inc
+
+    def rw_offset_f(self) -> F:
+        return self._f(self.rw_counter_offset) + self._f(self.rw_counter_dyn)
 
     # -- small helpers -----------------------------------------------------
 
@@ -309,6 +321,14 @@ class Instruction:
             vals = vals * self.ctx.batch
         return vals
 
+    def aux_ints(self, extract: Callable) -> list:
+        """Per-lane host values taken from the steps' ``aux_data`` in the
+        eager pass; one inert placeholder in the replay, which takes the
+        real values from the hint stream (see ``ints_of``)."""
+        if self.ctx.eager:
+            return [extract(a) for a in self.curr.aux_data]
+        return [_DUMMY]
+
     def word_hint(self, values: Sequence[int]) -> Word:
         """A 256-bit witness hint column: built from host ints in the eager
         pass (and recorded), replayed from the hint stream otherwise."""
@@ -403,6 +423,72 @@ class Instruction:
             memory_word_size=Transition.to(0),
         )
 
+    def step_state_transition_to_restored_context(
+        self,
+        rw_counter_delta: IntOrF,
+        return_data_offset: F,
+        return_data_length: F,
+        gas_left: F,
+        caller_id: Optional[F] = None,
+        accumulated_reversible: Optional[F] = None,
+    ):
+        """The caller's context restored at a callee's halt (reference
+        instruction.py:316-365): its saved fields read back, its last-callee
+        fields written, and the step moved to them."""
+        rw_counter_delta = rw_counter_delta + 11 + int(caller_id is None)
+        if caller_id is None:
+            caller_id = self.call_context_lookup(CallContextFieldTag.CallerId)
+
+        (
+            caller_is_root, caller_is_create, caller_code_hash,
+            caller_program_counter, caller_stack_pointer, caller_gas_left,
+            caller_memory_size, caller_reversible_write_counter,
+        ) = [
+            self.call_context_lookup_word(tag, call_id=caller_id)
+            for tag in (
+                CallContextFieldTag.IsRoot,
+                CallContextFieldTag.IsCreate,
+                CallContextFieldTag.CodeHash,
+                CallContextFieldTag.ProgramCounter,
+                CallContextFieldTag.StackPointer,
+                CallContextFieldTag.GasLeft,
+                CallContextFieldTag.MemorySize,
+                CallContextFieldTag.ReversibleWriteCounter,
+            )
+        ]
+
+        for field_tag, expected in (
+            (CallContextFieldTag.LastCalleeId, self.curr.call_id),
+            (CallContextFieldTag.LastCalleeReturnDataOffset, return_data_offset),
+            (CallContextFieldTag.LastCalleeReturnDataLength, return_data_length),
+        ):
+            self.constrain_equal(
+                self.call_context_lookup(field_tag, RW.Write, call_id=caller_id), expected)
+
+        # the callee's reversible writes accumulate into the caller only on a
+        # halt in success; RETURN/REVERT pass the per-lane amount (a REVERT
+        # lane's writes are already mirrored), as the JAX package does
+        if accumulated_reversible is not None:
+            reversible_write_counter = accumulated_reversible
+        else:
+            reversible_write_counter = self.fq(0)
+            if self.curr.execution_state_static.halts_in_success():
+                reversible_write_counter = self.curr.reversible_write_counter
+
+        self.constrain_step_state_transition(
+            rw_counter=Transition.delta(rw_counter_delta),
+            call_id=Transition.to(caller_id),
+            is_root=Transition.to(caller_is_root.value()),
+            is_create=Transition.to(caller_is_create.value()),
+            code_hash=Transition.to_word(caller_code_hash),
+            program_counter=Transition.to(caller_program_counter.value()),
+            stack_pointer=Transition.to(caller_stack_pointer.value()),
+            gas_left=Transition.to(caller_gas_left.value() + self._f(gas_left)),
+            memory_word_size=Transition.to(caller_memory_size.value()),
+            reversible_write_counter=Transition.to(
+                caller_reversible_write_counter.value() + reversible_write_counter),
+        )
+
     def step_state_transition_in_same_context(
         self,
         opcode: F,
@@ -475,6 +561,9 @@ class Instruction:
     def pair_select(self, value: F, lhs: IntOrF, rhs: IntOrF) -> Tuple[F, F]:
         return self.is_equal(value, lhs), self.is_equal(value, rhs)
 
+    def multiple_select(self, value: F, options) -> Tuple[F, ...]:
+        return tuple(self.is_equal(value, o) for o in options)
+
     def compare(self, lhs: F, rhs: F, n_bytes: int) -> Tuple[F, F]:
         assert n_bytes <= MAX_N_BYTES
         lhs, rhs = self._f(lhs), self._f(rhs)
@@ -493,6 +582,12 @@ class Instruction:
         self.range_check(q, n_bytes)
         return q, r
 
+    def constant_divmod_nocheck(self, numerator: IntOrF, denominator: int) -> Tuple[F, F]:
+        """``constant_divmod`` without the quotient's range check."""
+        num = self._f(numerator)
+        q_arr, r_arr = L.divmod_small(num.limbs, int(denominator))
+        return F(self.ctx, q_arr, num.bits), F(self.ctx, r_arr[..., None], 16)
+
     def min(self, lhs: F, rhs: F, n_bytes: int) -> F:
         lt, _ = self.compare(lhs, rhs, n_bytes)
         return self.select(lt, lhs, rhs)
@@ -500,6 +595,14 @@ class Instruction:
     def max(self, lhs: F, rhs: F, n_bytes: int) -> F:
         lt, _ = self.compare(lhs, rhs, n_bytes)
         return self.select(lt, rhs, lhs)
+
+    def precompile(self, address: F) -> F:
+        """1 where the address is a precompile's (0x01-0x09)."""
+        mask = None
+        for p in Precompile:
+            m = self._f(address).eq_mask(int(p))
+            mask = m if mask is None else (mask | m)
+        return F.from_bool(self.ctx, mask)
 
     def word_to_fq(self, word: Word, n_bytes: int) -> F:
         """Constrain the word to fit n_bytes and return its value
@@ -772,6 +875,8 @@ class Instruction:
     ):
         if rw_counter is None:
             rw_counter = self.curr.rw_counter + self.rw_counter_offset
+            if not (isinstance(self.rw_counter_dyn, int) and self.rw_counter_dyn == 0):
+                rw_counter = rw_counter + self.rw_counter_dyn
             self.rw_counter_offset += 1
         return self.tables.rw_lookup(
             self.cs, self._f(rw_counter), self.fq(rw), self.fq(tag),
@@ -909,6 +1014,12 @@ class Instruction:
     def transfer_with_gas_fee(self, sender_address: F, receiver_address: F, value: Word,
                               gas_fee: Word, reversion_info: Optional[ReversionInfo] = None):
         sender = self.sub_balance(sender_address, [value, gas_fee], reversion_info)
+        receiver = self.add_balance(receiver_address, [value], reversion_info)
+        return sender, receiver
+
+    def transfer(self, sender_address: F, receiver_address: F, value: Word,
+                 reversion_info: Optional[ReversionInfo] = None):
+        sender = self.sub_balance(sender_address, [value], reversion_info)
         receiver = self.add_balance(receiver_address, [value], reversion_info)
         return sender, receiver
 

@@ -1,28 +1,33 @@
-"""Mini EVM tracer, the root-frame subset: builds a coherent block witness
-(steps and rw rows, the exp circuit's squaring trace and the copy circuit's
-rows) for blocks of PUSH / DUP / SWAP / POP / ALU / SIGNEXTEND / ADDMOD /
-MULMOD / EXP / MLOAD / MSTORE / MSTORE8 / MSIZE / SLOAD / SSTORE / SHA3 /
-JUMP / JUMPI / JUMPDEST / PC / GAS / ADDRESS / CALLER / CALLVALUE /
-CALLDATASIZE / CALLDATALOAD / CALLDATACOPY / CODESIZE / CODECOPY / GASPRICE /
-ORIGIN / SELFBALANCE / RETURNDATASIZE / RETURNDATACOPY / COINBASE /
-TIMESTAMP / NUMBER / GASLIMIT / PREVRANDAO / BASEFEE / CHAINID / BLOCKHASH /
-BALANCE / EXTCODESIZE / EXTCODEHASH / EXTCODECOPY / LOG0-LOG4 / STOP
-bytecodes, and signs its txs.
+"""Mini EVM tracer: builds a coherent block witness (steps and rw rows, the
+exp circuit's squaring trace and the copy circuit's rows) for blocks of
+PUSH / DUP / SWAP / POP / ALU / SIGNEXTEND / ADDMOD / MULMOD / EXP / MLOAD /
+MSTORE / MSTORE8 / MSIZE / SLOAD / SSTORE / SHA3 / JUMP / JUMPI / JUMPDEST /
+PC / GAS / ADDRESS / CALLER / CALLVALUE / CALLDATASIZE / CALLDATALOAD /
+CALLDATACOPY / CODESIZE / CODECOPY / GASPRICE / ORIGIN / SELFBALANCE /
+RETURNDATASIZE / RETURNDATACOPY / COINBASE / TIMESTAMP / NUMBER / GASLIMIT /
+PREVRANDAO / BASEFEE / CHAINID / BLOCKHASH / BALANCE / EXTCODESIZE /
+EXTCODEHASH / EXTCODECOPY / LOG0-LOG4 / CALL / CALLCODE / DELEGATECALL /
+STATICCALL / RETURN / REVERT / STOP bytecodes, and signs its txs.  A call
+enters its callee's frame (its calldata a slice of the caller's memory);
+STOP, RETURN and REVERT in a sub-call restore the caller's context, and a
+REVERT mirrors its frame's reversible writes, at the root or in a
+sub-call.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
-:167-201, ``_resolve_anchor`` :207-218, ``_Tracer.run_tx`` :374-548,
-``_detect_error`` :564-714, ``_valid_jumpdest`` :716, ``step_op``
-:721-749, the handlers :1835-2373, the signing :2585-2626 and
-``trace_block`` :2629-2754).  Each executed opcode emits exactly the rw
-rows its gadget looks up, with the JAX tracer's rw_counter / gas /
-stack-pointer / memory-size / refund bookkeeping, so the witness equals the
-JAX tracer's row for row.
+:167-201, ``_resolve_anchor`` :207-218, ``_Tracer`` :246-366, ``run_tx``
+:374-548, ``_detect_error`` :564-714, ``_valid_jumpdest`` :716, ``step_op``
+:721-749, the frames :914-974, ``op_callop`` :976-1252, the handlers
+:1835-2584, the signing :2585-2626 and ``trace_block`` :2629-2754).  Each
+executed opcode emits exactly the rw rows its gadget looks up, with the JAX
+tracer's rw_counter / gas / stack-pointer / memory-size / refund /
+reversion bookkeeping, so the witness equals the JAX tracer's row for row.
 
 Not ported, and raising ``NotImplementedError`` where a block reaches
-them: the error states (invalid opcode, stack under/overflow, invalid jump,
-out of gas, return data out of bound; ``_detect_error`` classifies them as
-the JAX tracer does), RETURN / REVERT, the CALL family, CREATE /
-CREATE2 and SELFDESTRUCT.  Every frame is a root frame, never static.
+them: the error states (invalid opcode, stack under/overflow, write
+protection, invalid jump, out of gas, return data out of bound;
+``_detect_error`` classifies them as the JAX tracer does), a call to a
+precompile, a create frame's RETURN / REVERT, CREATE / CREATE2 and
+SELFDESTRUCT.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..evm.opcode import (
     max_stack_pointer,
     min_stack_pointer,
 )
+from ..evm.precompile import Precompile
 from ..evm.step import StepState
 from ..ops.keccak import EMPTY_HASH, keccak256
 from ..tables.schemas import (
@@ -51,17 +57,23 @@ from ..utils.param import (
     COLD_SLOAD_COST,
     EXTRA_GAS_COST_ACCOUNT_COLD_ACCESS,
     GAS_COST_ACCOUNT_COLD_ACCESS,
+    GAS_COST_CALL_WITH_VALUE,
+    GAS_COST_CODE_DEPOSIT,
     GAS_COST_COPY,
     GAS_COST_COPY_SHA3,
     GAS_COST_EXP_PER_BYTE,
     GAS_COST_FASTEST,
     GAS_COST_LOG,
     GAS_COST_LOGDATA,
+    GAS_COST_NEW_ACCOUNT,
     GAS_COST_SHA3,
     GAS_COST_SLOW,
     GAS_COST_SSTORE_SENTRY_EIP2200,
     GAS_COST_TX,
     GAS_COST_WARM_ACCESS,
+    GAS_STIPEND_CALL_WITH_VALUE,
+    INVALID_FIRST_BYTE_CONTRACT_CODE,
+    MAX_CODE_SIZE,
     MAX_REFUND_QUOTIENT_OF_GAS_USED,
     SLOAD_GAS,
     SSTORE_CLEARS_SCHEDULE,
@@ -94,7 +106,7 @@ class BlockWitness:
         self.sig_rows: List = []
         self.sha3_preimages: List[bytes] = []
         self.tx_code_hashes: List[int] = []    # per-tx root code hash
-        self.subcall_setups: List[List[Tuple[int, object, int]]] = []
+        self.subcall_setups: List[List[Tuple[int, object, object]]] = []
         self.memory_setups: List[Tuple[int, int, int]] = []  # (call_id, addr, byte)
         self.tx_success: List[bool] = []   # per-tx root-frame outcome
         self.tx_rwceor: List[int] = []     # per-tx root RwCounterEndOfReversion
@@ -206,18 +218,53 @@ class _Tracer:
         idx = self.fseq
         self.fseq += 1
         if self.outcomes is None:
-            self.discovered.append(True)  # optimistic; no ported halt fails
+            self.discovered.append(True)  # optimistic; patched at a failing halt
             return idx, True
         return idx, self.outcomes[idx]
 
-    def _mirror_last(self):
+    def _mark_failed(self):
+        if self.outcomes is None:
+            self.discovered[self.frame_idx] = False
+
+    def _mirror_last(self, pending: Optional[List[dict]] = None):
         """Record the reversion mirror of the rw row just emitted (value and
-        value_prev swapped); it would be placed at the owning frame's
-        failing halt, and is dropped when the frame never fails."""
+        value_prev swapped); it is placed at the owning frame's failing
+        halt, and dropped when the frame never fails."""
         base = self.rw.rws[-1]
         m = dict(base)
         m["value"], m["value_prev"] = base["value_prev"], base["value"]
-        self.pending.append(m)
+        (self.pending if pending is None else pending).append(m)
+
+    def _materialize_reversion(self):
+        """Place this frame's mirror section in the rw counters its halting
+        gadget skipped: the write of offset c lands at
+        RwCounterEndOfReversion - c (last in, first out)."""
+        n = len(self.pending)
+        end = self.rw.rw_counter
+        rwceor = end + n - 1
+        for c, row in enumerate(self.pending):
+            row["rw_counter"] = rwceor - c
+            self.rw.rws.append(row)
+        self.rw.rw_counter = end + n
+        self.anchor["own"] = rwceor
+        self.anchor["failed"] = True
+        self.pending = []
+
+    def _snapshot(self) -> dict:
+        return dict(balances=dict(self.balances), nonces=dict(self.nonces),
+                    codes=dict(self.codes), storage=dict(self.storage),
+                    warm_addr=set(self.warm_addr), warm_slot=set(self.warm_slot),
+                    refund=self.refund, log_count=self.log_count)
+
+    def _rollback(self, s: dict):
+        self.balances = dict(s["balances"])
+        self.nonces = dict(s["nonces"])
+        self.codes = dict(s["codes"])
+        self.storage = dict(s["storage"])
+        self.warm_addr = set(s["warm_addr"])
+        self.warm_slot = set(s["warm_slot"])
+        self.refund = s["refund"]
+        self.log_count = s["log_count"]
 
     def _fix_rwceor(self, anchor: dict):
         """Defer the value of the RwCounterEndOfReversion row just emitted."""
@@ -240,12 +287,6 @@ class _Tracer:
         self.call_id = call_id
         self.code_hash = code_hash
         self.code = bytecode
-        self.callee_address = tx.callee_address
-        self.caller_address = tx.caller_address
-        self.value = tx.value
-        self.calldata = bytes(tx.call_data)
-        # (id, return data offset, length) of the last callee: none in a root frame
-        self.last_callee = (0, 0, 0)
         # precompile addresses are always warm (EIP-2929)
         self.warm_addr = set(range(1, 10))
         self.warm_slot = set()
@@ -258,8 +299,22 @@ class _Tracer:
         self.mws = 0          # memory_word_size
         self.pc = 0
         self.stopped = False
+        # the frame's context (the root's; a call saves and restores the
+        # _FRAME_FIELDS)
         self.is_root = True
-        self.is_create_frame = False
+        self.callee_address = tx.callee_address
+        self.caller_address = tx.caller_address
+        self.value = tx.value
+        self.is_static = 0
+        self.depth = 1
+        self.calldata = bytes(tx.call_data)
+        self.cd_offset_abs = 0        # the calldata's offset in the caller's memory
+        self.caller_frame_id = 0
+        self.rd_offset_abs = 0        # the return region the caller asked for
+        self.rd_length = 0
+        self.last_callee = (0, 0, 0)  # (id, return data offset, length)
+        self.frames: List[dict] = []
+        self.memories: Dict[int, Dict[int, int]] = {}  # the finished frames' memories
 
         # root-frame reversion machinery
         idx, success = self._frame_outcome()
@@ -268,6 +323,8 @@ class _Tracer:
         self.pending: List[dict] = []
         self.anchor = {"own": None, "parent": None, "poffset": 0,
                        "persistent": success, "failed": not success}
+        self.is_create_frame = False
+        self.snapshot: dict = {}
         self.root_anchors.append(self.anchor)
         self.w.tx_success.append(success)
 
@@ -291,6 +348,7 @@ class _Tracer:
             self.warm_addr.add(addr)
         # the transfer pair is reversible, bound to the root frame; begin_tx
         # masks the amounts to zero for invalid txs (the rows still exist)
+        self.snapshot = self._snapshot()
         tx_value = 0 if is_invalid else tx.value
         gas_fee = 0 if is_invalid else tx.gas * tx.gas_price
         caller_bal_prev = self.balances.get(tx.caller_address, 0)
@@ -381,16 +439,21 @@ class _Tracer:
         new = max(self.mws, size)
         return 3 * (new - self.mws) + new * new // 512 - self.mws * self.mws // 512
 
+    _WRITE_PROTECTED = frozenset(
+        [Opcode.SSTORE, Opcode.CREATE, Opcode.CREATE2, Opcode.SELFDESTRUCT, Opcode.LOG0,
+         Opcode.LOG1, Opcode.LOG2, Opcode.LOG3, Opcode.LOG4])
+
     def _detect_error(self, raw: int) -> Optional[ExecutionState]:
         """The pre-dispatch error classes an opcode with a ported handler can
-        hit, in geth's order: invalid opcode, stack validation, constant
-        gas, then the per-opcode dynamic checks (the JAX tracer's
-        ``_detect_error``, :564-714): an invalid JUMP / JUMPI destination,
-        account-access gas, static memory expansion, copy gas and
-        RETURNDATACOPY's bounds, SLOAD / SSTORE gas, LOG gas, EXP gas and
-        SHA3 gas.  Write protection needs a static frame, which a root frame
-        never is.  One table lookup a check and an immediate exit for the
-        opcodes with no dynamic check: the tracer runs this every step."""
+        hit, in geth's order: invalid opcode, stack validation, write
+        protection in a static frame, constant gas, then the per-opcode
+        dynamic checks (the JAX tracer's ``_detect_error``, :564-714): an
+        invalid JUMP / JUMPI destination, account-access gas, static memory
+        expansion, RETURN / REVERT memory gas (and a create frame's code
+        checks), copy gas and RETURNDATACOPY's bounds, SLOAD / SSTORE gas,
+        LOG gas, EXP gas, SHA3 gas and the CALL family's gas.  One table
+        lookup a check and an immediate exit for the opcodes with no dynamic
+        check: the tracer runs this every step."""
         E = ExecutionState
         op = _OP_BY_RAW[raw]
         if op is None:
@@ -398,6 +461,9 @@ class _Tracer:
         sp = 1024 - len(self.stack)
         if sp < _MIN_SP[raw] or sp > _MAX_SP[raw]:
             return E.ErrorStack
+        if self.is_static and (op in self._WRITE_PROTECTED
+                               or (op is Opcode.CALL and self.stack[-3] != 0)):
+            return E.ErrorWriteProtection
         gas = self.gas_left
         if gas < _CONST_GAS[raw]:
             return E.ErrorOutOfGasConstant
@@ -418,6 +484,18 @@ class _Tracer:
                 return E.ErrorGasUintOverflow
             if gas < GAS_COST_FASTEST + self._expansion_gas(st[-1], size):
                 return E.ErrorOutOfGasStaticMemoryExpansion
+        elif op in (Opcode.RETURN, Opcode.REVERT):
+            offset, length = st[-1], st[-2]
+            exp_gas = self._expansion_gas(offset if length else 0, length)
+            if gas < exp_gas:
+                return E.ErrorOutOfGasDynamicMemoryExpansion
+            if op == Opcode.RETURN and self.is_create_frame:
+                if length and self.memory.get(offset, 0) == INVALID_FIRST_BYTE_CONTRACT_CODE:
+                    return E.ErrorInvalidCreationCode
+                if length > MAX_CODE_SIZE:
+                    return E.ErrorMaxCodeSizeExceeded
+                if gas - exp_gas < length * GAS_COST_CODE_DEPOSIT:
+                    return E.ErrorOutOfGasCodeStore
         elif op in (Opcode.CALLDATACOPY, Opcode.CODECOPY, Opcode.EXTCODECOPY,
                     Opcode.RETURNDATACOPY):
             base = -2 if op == Opcode.EXTCODECOPY else -1
@@ -463,7 +541,35 @@ class _Tracer:
                     + self._expansion_gas(off if size else 0, size))
             if gas < need:
                 return E.ErrorOutOfGasSHA3
+        elif op in _CALL_OPS:
+            has_val = op in (Opcode.CALL, Opcode.CALLCODE)
+            target = st[-2]
+            value = st[-3] if has_val else 0
+            cdo, cdl = (st[-4], st[-5]) if has_val else (st[-3], st[-4])
+            rdo, rdl = (st[-6], st[-7]) if has_val else (st[-5], st[-6])
+            warm = target in self.warm_addr
+            mem = self._call_expansion_gas(cdo, cdl, rdo, rdl)[1]
+            callee_missing = self._account_code_hash(target) == 0
+            need = ((GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS)
+                    + (GAS_COST_CALL_WITH_VALUE
+                       + (GAS_COST_NEW_ACCOUNT if op == Opcode.CALL and callee_missing else 0)
+                       if value != 0 else 0)
+                    + mem)
+            if gas < need:
+                return E.ErrorOutOfGasCall
         return None
+
+    def _call_expansion_gas(self, cd_offset: int, cd_length: int, rd_offset: int,
+                            rd_length: int) -> Tuple[int, int]:
+        """The memory size after a call's calldata and return regions, and
+        its expansion gas (CallGadget's ``memory_expansion_dynamic_length``)."""
+        sizes = [self.mws]
+        if cd_length:
+            sizes.append((cd_offset + cd_length + 31) // 32)
+        if rd_length:
+            sizes.append((rd_offset + rd_length + 31) // 32)
+        new = max(sizes)
+        return new, 3 * (new - self.mws) + new * new // 512 - self.mws * self.mws // 512
 
     def _valid_jumpdest(self, dest: int) -> bool:
         """A JUMPDEST byte that is code, not PUSH data."""
@@ -535,12 +641,318 @@ class _Tracer:
         self.gas_left -= 0 if warm else EXTRA_GAS_COST_ACCOUNT_COLD_ACCESS
         return warm
 
+    # -- call frames ----------------------------------------------------------
+
+    _FRAME_FIELDS = (
+        "call_id", "code_hash", "code", "stack", "memory", "mws", "pc",
+        "gas_left", "rev", "is_root", "callee_address", "caller_address",
+        "value", "is_static", "depth", "calldata", "cd_offset_abs",
+        "caller_frame_id", "rd_offset_abs", "rd_length", "last_callee",
+        "frame_idx", "persistent", "pending", "anchor", "snapshot",
+        "is_create_frame",
+    )
+
+    def _push_frame(self) -> dict:
+        saved = {f: getattr(self, f) for f in self._FRAME_FIELDS}
+        self.frames.append(saved)
+        return saved
+
+    def _pop_frame(self, last_callee, success: bool = True):
+        self.memories[self.call_id] = self.memory
+        callee_gas = self.gas_left
+        callee_rev = self.rev
+        callee_pending = self.pending
+        saved = self.frames.pop()
+        for f in self._FRAME_FIELDS:
+            setattr(self, f, saved[f])
+        self.pc = saved["resume_pc"]
+        self.gas_left = saved["resume_gas"] + callee_gas
+        self.mws = saved["resume_mws"]
+        if success:
+            # a halt in success: the callee's reversible writes accumulate
+            # into the caller, and its pending mirrors join the caller's
+            # section at the offsets the reversion chaining reserved
+            self.rev = saved["resume_rev"] + callee_rev
+            self.pending = self.pending + callee_pending
+        else:
+            self.rev = saved["resume_rev"]
+        self.last_callee = last_callee
+
+    def _restore_context_rows(self, saved: dict, last_callee):
+        """The 12 rows of ``step_state_transition_to_restored_context``
+        (evm/instruction.py): the CallerId read, the caller's saved fields
+        and its last-callee writes."""
+        caller_id = saved["call_id"]
+        CC = CallContextFieldTag
+        self.rw.call_context_read(self.call_id, CC.CallerId, caller_id)
+        for tag, value in (
+            (CC.IsRoot, int(saved["is_root"])),
+            (CC.IsCreate, 0),
+            (CC.CodeHash, saved["code_hash"]),
+            (CC.ProgramCounter, saved["resume_pc"]),
+            (CC.StackPointer, 1024 - len(saved["stack"])),
+            (CC.GasLeft, saved["resume_gas"]),
+            (CC.MemorySize, saved["resume_mws"]),
+            (CC.ReversibleWriteCounter, saved["resume_rev"]),
+        ):
+            self.rw.call_context_read(caller_id, tag, value)
+        for tag, value in zip((CC.LastCalleeId, CC.LastCalleeReturnDataOffset,
+                               CC.LastCalleeReturnDataLength), last_callee):
+            self.rw.call_context_write(caller_id, tag, value)
+
+    def op_callop(self, op):
+        """CALL / CALLCODE / DELEGATECALL / STATICCALL: the call into a
+        callee's frame, and the no-code and precheck-fail calls that stay in
+        the caller (evm/execution/callop.py's row order).  A call to a
+        precompile raises."""
+        is_call = op == Opcode.CALL
+        is_callcode = op == Opcode.CALLCODE
+        is_delegatecall = op == Opcode.DELEGATECALL
+        is_staticcall = op == Opcode.STATICCALL
+        rw = self.rw
+        CC = CallContextFieldTag
+        callee_call_id = self.w.steps[-1].rw_counter
+        # the gadget charges the access cost dynamically and no constant
+        # cost: undo step_op's
+        self.gas_left += constant_gas_cost(op)
+
+        self.cc_read(CC.TxId, self.tx_id)
+        self.reversion_reads()
+        self.cc_read(CC.CalleeAddress, self.callee_address)
+        self.cc_read(CC.IsStatic, self.is_static)
+        self.cc_read(CC.Depth, self.depth)
+        if is_delegatecall:
+            self.cc_read(CC.CallerAddress, self.caller_address)
+            self.cc_read(CC.Value, self.value)
+
+        gas_arg = self.spop()
+        target = self.spop()
+        value = self.spop() if (is_call or is_callcode) else 0
+        cd_offset_w = self.spop()
+        cd_length = self.spop()
+        rd_offset_w = self.spop()
+        rd_length = self.spop()
+        cd_offset = cd_offset_w if cd_length else 0
+        rd_offset = rd_offset_w if rd_length else 0
+
+        # the precheck (callop.py's depth and balance) and the outcome
+        callee_code = self.codes.get(target)
+        code_hash = self._account_code_hash(target)
+        callee_not_exists = int(code_hash == 0)
+        no_code = code_hash in (0, EMPTY_HASH) or callee_code is None
+        balance_ok = (not (is_call or is_callcode)
+                      or self.balances.get(self.callee_address, 0) >= value)
+        precheck_ok = self.depth < 1025 and balance_ok
+        if 1 <= target <= 9 and precheck_ok:
+            raise NotImplementedError(
+                f"tracer: a call to the {Precompile(target).name} precompile (tx {self.tx.id}, "
+                f"pc {self.pc}) is not ported")
+        enters_callee = precheck_ok and not no_code
+        if enters_callee:
+            cidx, csucc = self._frame_outcome()
+        else:
+            cidx, csucc = None, bool(precheck_ok)
+        self.spush(int(csucc))
+        next_mws, mem_gas = self._call_expansion_gas(cd_offset, cd_length, rd_offset, rd_length)
+
+        rw.account_read(target, AccountFieldTag.CodeHash, code_hash)
+        warm = target in self.warm_addr
+        rw.tx_access_list_account_write(self.tx_id, target, True, warm)
+        al_row = rw.rws[-1]
+        self._mirror_last()
+        self.rev += 1
+        self.warm_addr.add(target)
+
+        callee_persistent = self.persistent and csucc
+        callee_anchor = {"own": None, "parent": self.anchor, "poffset": self.rev,
+                         "persistent": callee_persistent,
+                         "failed": enters_callee and not csucc}
+        rw.call_context_read(callee_call_id, CC.RwCounterEndOfReversion, 0)
+        self._fix_rwceor(callee_anchor)
+        rw.call_context_read(callee_call_id, CC.IsPersistent, int(callee_persistent))
+        # the state circuit wants the first access of each callee context key
+        # to be a write: the block's prologue writes these (the anchor
+        # resolves after the trace)
+        setup = [(callee_call_id, CC.RwCounterEndOfReversion, callee_anchor),
+                 (callee_call_id, CC.IsPersistent, int(callee_persistent))]
+        self.w.subcall_setups.append(setup)
+
+        has_value = int(value != 0) if not (is_delegatecall or is_staticcall) else 0
+        # the callee frame's addresses and value (callop.py:48-55)
+        ctx_callee = self.callee_address if (is_callcode or is_delegatecall) else target
+        ctx_caller = self.caller_address if is_delegatecall else self.callee_address
+        ctx_value = self.value if is_delegatecall else value
+
+        if is_call or is_callcode:
+            rw.account_read(ctx_caller if is_callcode else self.callee_address,
+                            AccountFieldTag.Balance, self.balances.get(self.callee_address, 0))
+        snapshot = self._snapshot()  # the callee rolls back to before the transfer
+        callee_pending: List[dict] = []
+        if is_call and precheck_ok:
+            # the value transfer, reversible and bound to the callee's frame
+            src, dst = self.callee_address, target
+            src_prev = self.balances.get(src, 0)
+            rw.account_write(src, AccountFieldTag.Balance, src_prev - value, src_prev)
+            self._mirror_last(callee_pending)
+            self.balances[src] = src_prev - value
+            dst_prev = self.balances.get(dst, 0)
+            rw.account_write(dst, AccountFieldTag.Balance, dst_prev + value, dst_prev)
+            self._mirror_last(callee_pending)
+            self.balances[dst] = dst_prev + value
+        # the gadget sets the callee's reversible_write_counter to 2 with or
+        # without the transfer rows (callop.py:300, and the caller's delta 3):
+        # the missing offsets get no-op rewrites of the access-list row, so
+        # the skipped rw range has no gap for EndBlock's count
+        while len(callee_pending) < 2:
+            pad = dict(al_row)
+            pad["value"] = pad["value_prev"] = 1
+            callee_pending.append(pad)
+
+        gas_cost = ((GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS)
+                    + has_value * (GAS_COST_CALL_WITH_VALUE
+                                   + (GAS_COST_NEW_ACCOUNT if is_call and callee_not_exists
+                                      else 0))
+                    + mem_gas)
+        gas_available = self.gas_left - gas_cost
+        all_but_64th = gas_available - gas_available // 64
+        callee_gas = min(all_but_64th, gas_arg) if gas_arg < (1 << 64) else all_but_64th
+
+        if not enters_callee:
+            # the call stays in the caller's frame (callop.py:120-142), whose
+            # reversible delta is 3 either way: a failed precheck's two
+            # transfer mirrors are the no-op rewrites above
+            for tag in (CC.LastCalleeId, CC.LastCalleeReturnDataOffset,
+                        CC.LastCalleeReturnDataLength):
+                rw.call_context_write(self.call_id, tag, 0)
+            self.pending += callee_pending
+            self.rev += 2
+            self.last_callee = (0, 0, 0)
+            # the gadget refunds the stipend in this branch, a failed
+            # precheck too (callop.py:135)
+            self.gas_left += has_value * GAS_STIPEND_CALL_WITH_VALUE - gas_cost
+            self.mws = next_mws
+            self.pc += 1
+            return
+
+        # the caller's context, saved (5 writes)
+        resume_gas = self.gas_left - gas_cost - callee_gas
+        for tag, v in ((CC.ProgramCounter, self.pc + 1),
+                       (CC.StackPointer, 1024 - len(self.stack)),
+                       (CC.GasLeft, resume_gas),
+                       (CC.MemorySize, next_mws),
+                       (CC.ReversibleWriteCounter, self.rev)):
+            rw.call_context_write(self.call_id, tag, v)
+
+        # the callee is static if the caller is or this is a STATICCALL
+        callee_static = 1 if (self.is_static or is_staticcall) else 0
+        for tag, v in ((CC.CallerId, self.call_id), (CC.TxId, self.tx_id),
+                       (CC.Depth, self.depth + 1), (CC.CallerAddress, ctx_caller),
+                       (CC.CalleeAddress, ctx_callee), (CC.CallDataOffset, cd_offset),
+                       (CC.CallDataLength, cd_length), (CC.ReturnDataOffset, rd_offset),
+                       (CC.ReturnDataLength, rd_length), (CC.Value, ctx_value),
+                       (CC.IsSuccess, int(csucc)), (CC.IsStatic, callee_static),
+                       (CC.LastCalleeId, 0), (CC.LastCalleeReturnDataOffset, 0),
+                       (CC.LastCalleeReturnDataLength, 0), (CC.IsRoot, 0), (CC.IsCreate, 0),
+                       (CC.CodeHash, code_hash)):
+            rw.call_context_read(callee_call_id, tag, v)
+            setup.append((callee_call_id, tag, v))
+
+        # enter the callee's frame
+        calldata = bytes(self.memory.get(cd_offset + i, 0) for i in range(cd_length))
+        saved = self._push_frame()
+        saved["resume_pc"] = self.pc + 1
+        saved["resume_gas"] = resume_gas
+        saved["resume_mws"] = next_mws
+        saved["resume_rev"] = self.rev
+        self.call_id = callee_call_id
+        self.code = callee_code
+        self.code_hash = callee_code.hash()
+        self.stack = []
+        self.memory = {}
+        self.mws = 0
+        self.pc = 0
+        self.gas_left = callee_gas + has_value * GAS_STIPEND_CALL_WITH_VALUE
+        self.rev = 2
+        self.is_root = False
+        self.callee_address = ctx_callee
+        self.caller_address = ctx_caller
+        self.value = ctx_value
+        self.is_static = callee_static
+        self.depth = self.depth + 1
+        self.calldata = calldata
+        self.cd_offset_abs = cd_offset
+        self.caller_frame_id = saved["call_id"]
+        self.rd_offset_abs = rd_offset
+        self.rd_length = rd_length
+        self.last_callee = (0, 0, 0)
+        self.frame_idx = cidx
+        self.persistent = callee_persistent
+        self.pending = callee_pending
+        self.anchor = callee_anchor
+        self.snapshot = snapshot
+        self.is_create_frame = False
+
+    def op_return_revert(self, op):
+        """RETURN / REVERT (evm/execution/return_revert.py's row order): at
+        the root the tx ends; in a sub-call the returned chunk is copied
+        into the caller's return region and the caller's context restored.
+        A REVERT places its frame's mirror section and rolls the world state
+        back to the frame's entry.  A create frame's halt raises."""
+        is_return = op == Opcode.RETURN
+        if not is_return:
+            self._mark_failed()
+        # the gadget reads IsSuccess before its pops
+        self.cc_read(CallContextFieldTag.IsSuccess, int(is_return))
+        offset = self.spop()
+        length = self.spop()
+        if self.is_create_frame:
+            raise NotImplementedError(
+                f"tracer: {op.name} in a create frame (tx {self.tx.id}, pc {self.pc}) is not "
+                "ported")
+
+        if self.is_root:
+            self.cc_read(CallContextFieldTag.IsPersistent, int(is_return))
+            self._expand_dyn(offset if length else 0, length)
+            if not is_return:
+                self._materialize_reversion()
+                self._rollback(self.snapshot)
+            self.stopped = True
+            return
+
+        # the returned chunk, copied into the caller's return region
+        saved = self.frames[-1]
+        self.cc_read(CallContextFieldTag.ReturnDataOffset, self.rd_offset_abs)
+        self.cc_read(CallContextFieldTag.ReturnDataLength, self.rd_length)
+        copy_length = min(length, self.rd_length)
+        if copy_length:
+            src_data = {offset + i: self.memory.get(offset + i, 0) for i in range(copy_length)}
+            self.w.copy_circuit.copy(
+                self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory, saved["call_id"],
+                CopyDataTypeTag.Memory, offset, offset + length, self.rd_offset_abs, copy_length,
+                src_data)
+            for i in range(copy_length):
+                saved["memory"][self.rd_offset_abs + i] = self.memory.get(offset + i, 0)
+        self._expand_dyn(offset if length else 0, length)
+        last_callee = (self.call_id, offset, length)
+        self._restore_context_rows(saved, last_callee)
+        if is_return:
+            self._pop_frame(last_callee)
+        else:
+            self._materialize_reversion()
+            self._rollback(self.snapshot)
+            self._pop_frame(last_callee, success=False)
+
     # -- handlers -----------------------------------------------------------
 
     def op_stop(self, op):
-        self.rw.call_context_read(self.call_id, CallContextFieldTag.IsSuccess, 1)
-        # every ported frame is a root frame (no CALL / CREATE handler)
-        self.stopped = True
+        self.cc_read(CallContextFieldTag.IsSuccess, 1)
+        if self.is_root:
+            self.stopped = True
+            return
+        saved = self.frames[-1]
+        last_callee = (self.call_id, 0, 0)
+        self._restore_context_rows(saved, last_callee)
+        self._pop_frame(last_callee)
 
     def op_push(self, op):
         n = get_push_size(op)
@@ -753,11 +1165,30 @@ class _Tracer:
         self.spush(code_hash)
         self.pc += 1
 
+    def _calldata_reads(self):
+        """The calldata's context reads: the tx's in a root frame, the
+        caller's memory region in a sub-call."""
+        if self.is_root:
+            self.cc_read(CallContextFieldTag.TxId, self.tx_id)
+            self.cc_read(CallContextFieldTag.CallDataLength, len(self.calldata))
+        else:
+            self.cc_read(CallContextFieldTag.CallerId, self.caller_frame_id)
+            self.cc_read(CallContextFieldTag.CallDataLength, len(self.calldata))
+            self.cc_read(CallContextFieldTag.CallDataOffset, self.cd_offset_abs)
+
     def op_calldataload(self, op):
         offset = self.spop()
         data = self.calldata
-        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
-        self.cc_read(CallContextFieldTag.CallDataLength, len(data))
+        self._calldata_reads()
+        if not self.is_root:
+            # a callee's in-bounds bytes are read from its caller's memory
+            src_addr = self.cd_offset_abs + offset
+            src_end = self.cd_offset_abs + len(data)
+            caller_mem = self.frames[-1]["memory"]
+            for i in range(32):
+                if src_addr + i < src_end:
+                    self.rw.memory_read(self.caller_frame_id, src_addr + i,
+                                        caller_mem.get(src_addr + i, 0))
         word = bytes(data[offset + i] if offset + i < len(data) else 0 for i in range(32))
         # the gadget packs the read-order bytes little-endian into the word,
         # as the reference does (calldataload.py:49-52)
@@ -769,17 +1200,27 @@ class _Tracer:
         data_offset = self.spop()
         length = self.spop()
         data = self.calldata
-        self.cc_read(CallContextFieldTag.TxId, self.tx_id)
-        self.cc_read(CallContextFieldTag.CallDataLength, len(data))
+        self._calldata_reads()
         self._expand_dyn(memory_offset if length else 0, length)
         self._copier_gas(length)
         if length:
-            src_data = {data_offset + i: data[data_offset + i]
-                        for i in range(length) if data_offset + i < len(data)}
-            self.w.copy_circuit.copy(
-                self.copy_r, self.rw, self.tx_id, CopyDataTypeTag.TxCalldata,
-                self.call_id, CopyDataTypeTag.Memory, data_offset, len(data),
-                memory_offset, length, src_data)
+            if self.is_root:
+                src_data = {data_offset + i: data[data_offset + i]
+                            for i in range(length) if data_offset + i < len(data)}
+                self.w.copy_circuit.copy(
+                    self.copy_r, self.rw, self.tx_id, CopyDataTypeTag.TxCalldata,
+                    self.call_id, CopyDataTypeTag.Memory, data_offset, len(data),
+                    memory_offset, length, src_data)
+            else:
+                caller_mem = self.frames[-1]["memory"]
+                src_base = self.cd_offset_abs + data_offset
+                src_end = self.cd_offset_abs + len(data)
+                src_data = {src_base + i: caller_mem.get(src_base + i, 0)
+                            for i in range(length) if src_base + i < src_end}
+                self.w.copy_circuit.copy(
+                    self.copy_r, self.rw, self.caller_frame_id, CopyDataTypeTag.Memory,
+                    self.call_id, CopyDataTypeTag.Memory, src_base, src_end,
+                    memory_offset, length, src_data)
             for i in range(length):
                 self.memory[memory_offset + i] = (data[data_offset + i]
                                                   if data_offset + i < len(data) else 0)
@@ -830,7 +1271,7 @@ class _Tracer:
 
     def op_returndatacopy(self, op):
         memory_offset = self.spop()
-        self.spop()                       # data offset
+        data_offset = self.spop()
         size = self.spop()
         last_id, rdo, rdl = self.last_callee
         self.cc_read(CallContextFieldTag.LastCalleeId, last_id)
@@ -838,16 +1279,23 @@ class _Tracer:
         self.cc_read(CallContextFieldTag.LastCalleeReturnDataOffset, rdo)
         self._expand_dyn(memory_offset if size else 0, size)
         self._copier_gas(size)
-        # a root frame has no callee, so its return data is empty and only
-        # a zero size passes _detect_error's bound check: no copy event
-        assert size == 0, "tracer: RETURNDATACOPY of return data in a root frame"
+        if size:
+            # the last callee's memory, from its return region
+            src_mem = self.memories[last_id]
+            src_base = rdo + data_offset
+            src_data = {src_base + i: src_mem.get(src_base + i, 0) for i in range(size)}
+            self.w.copy_circuit.copy(
+                self.copy_r, self.rw, last_id, CopyDataTypeTag.Memory, self.call_id,
+                CopyDataTypeTag.Memory, src_base, rdo + size, memory_offset, size, src_data)
+            for i in range(size):
+                self.memory[memory_offset + i] = src_mem.get(src_base + i, 0)
         self.pc += 1
 
     def op_log(self, op):
         mstart = self.spop()
         msize = self.spop()
         self.cc_read(CallContextFieldTag.TxId, self.tx_id)
-        self.cc_read(CallContextFieldTag.IsStatic, 0)
+        self.cc_read(CallContextFieldTag.IsStatic, self.is_static)
         self.cc_read(CallContextFieldTag.CalleeAddress, self.callee_address)
         persistent = self.persistent
         self.cc_read(CallContextFieldTag.IsPersistent, int(persistent))
@@ -897,7 +1345,7 @@ class _Tracer:
     def op_sstore(self, op):
         addr = self.callee_address
         self.cc_read(CallContextFieldTag.TxId, self.tx_id)
-        self.cc_read(CallContextFieldTag.IsStatic, 0)
+        self.cc_read(CallContextFieldTag.IsStatic, self.is_static)
         self.reversion_reads()
         self.cc_read(CallContextFieldTag.CalleeAddress, addr)
         key = self.spop()
@@ -1038,12 +1486,16 @@ _STATE_BY_OPCODE = {
     Opcode.MSIZE: _ES.MSIZE, Opcode.GAS: _ES.GAS, Opcode.JUMPDEST: _ES.JUMPDEST,
     Opcode.LOG0: _ES.LOG, Opcode.LOG1: _ES.LOG, Opcode.LOG2: _ES.LOG, Opcode.LOG3: _ES.LOG,
     Opcode.LOG4: _ES.LOG,
+    Opcode.RETURN: _ES.RETURN, Opcode.REVERT: _ES.RETURN,
+    Opcode.CALL: _ES.CALL_OP, Opcode.CALLCODE: _ES.CALL_OP, Opcode.DELEGATECALL: _ES.CALL_OP,
+    Opcode.STATICCALL: _ES.CALL_OP,
 }
 for _i in range(1, 17):
     _STATE_BY_OPCODE[Opcode[f"DUP{_i}"]] = _ES.DUP
     _STATE_BY_OPCODE[Opcode[f"SWAP{_i}"]] = _ES.SWAP
 
 _LOG_OPS = (Opcode.LOG0, Opcode.LOG1, Opcode.LOG2, Opcode.LOG3, Opcode.LOG4)
+_CALL_OPS = (Opcode.CALL, Opcode.CALLCODE, Opcode.DELEGATECALL, Opcode.STATICCALL)
 _HANDLERS = {
     Opcode.STOP: _Tracer.op_stop, Opcode.POP: _Tracer.op_pop,
     Opcode.ADDMOD: _Tracer.op_mod3, Opcode.MULMOD: _Tracer.op_mod3,
@@ -1065,6 +1517,8 @@ _HANDLERS = {
     Opcode.BALANCE: _Tracer.op_balance, Opcode.EXTCODESIZE: _Tracer.op_extcodesize,
     Opcode.EXTCODECOPY: _Tracer.op_extcodecopy, Opcode.EXTCODEHASH: _Tracer.op_extcodehash,
     **{_o: _Tracer.op_log for _o in _LOG_OPS},
+    Opcode.RETURN: _Tracer.op_return_revert, Opcode.REVERT: _Tracer.op_return_revert,
+    **{_o: _Tracer.op_callop for _o in _CALL_OPS},
 }
 
 # -- hot-path dispatch tables: 256-entry arrays indexed by the raw byte ------
@@ -1099,7 +1553,7 @@ for _o in Opcode:
 for _o in (Opcode.JUMP, Opcode.JUMPI, Opcode.BALANCE, Opcode.EXTCODESIZE, Opcode.EXTCODEHASH,
            Opcode.MLOAD, Opcode.MSTORE, Opcode.MSTORE8, Opcode.CALLDATACOPY, Opcode.CODECOPY,
            Opcode.EXTCODECOPY, Opcode.RETURNDATACOPY, Opcode.SLOAD, Opcode.SSTORE, *_LOG_OPS,
-           Opcode.EXP, Opcode.SHA3):
+           Opcode.EXP, Opcode.SHA3, Opcode.RETURN, Opcode.REVERT, *_CALL_OPS):
     _HAS_DYNAMIC_CHECK[int(_o)] = True
 
 
@@ -1201,6 +1655,10 @@ def trace_block(
     for row, anchor in tracer.fixups:
         row["value"] = _resolve_anchor(anchor)
     w.tx_rwceor = [_resolve_anchor(a) for a in tracer.root_anchors]
+    for setup in w.subcall_setups:
+        for i, (callee_id, tag, value) in enumerate(setup):
+            if isinstance(value, dict):
+                setup[i] = (callee_id, tag, _resolve_anchor(value))
 
     # --- EndBlock ---
     final_rwc = rw.rw_counter
@@ -1218,7 +1676,8 @@ def trace_block(
                    "value_prev": 0, "aux0": 0}]
 
     # --- call-context setup prologue: rw counters 1..11*n_txs for the root
-    # frames (the subcall and memory regions stay empty: no CALL handler) ---
+    # frames, then one write a sub-call context key (the memory region of
+    # the precompiles' outputs stays empty: no precompile is traced) ---
     prologue = RWDictionary(1)
     CC = CallContextFieldTag
     for i, ((tx, bytecode), call_id) in enumerate(zip(txs, tracer.call_ids)):
@@ -1237,6 +1696,9 @@ def trace_block(
             (CC.CodeHash, bytecode.hash()),
         ):
             prologue.call_context_write(call_id, tag, value)
+    for setup in w.subcall_setups:
+        for callee_id, tag, value in setup:
+            prologue.call_context_write(callee_id, tag, value)
     assert prologue.rw_counter == start + n_setup_rows
     w.rw.rws = start_rows + prologue.rws + w.rw.rws
 

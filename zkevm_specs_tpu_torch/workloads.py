@@ -2,13 +2,16 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload; four blocks traced and signed by the port's tracer for the
+payload; five blocks traced and signed by the port's tracer for the
 block verifier, the ALU block (``build_alu_block``), the arithmetic block
-(``build_arith_block``), the SSTORE-heavy block (``build_sstore_block``)
-and the loop block (``build_flow_block``: the root frame's context,
-account, copy and log opcodes, then a for-loop over a calldata word), with
-the small block that runs every root-frame execution state
-(``build_conformance_block``); and the signed transfers of the tx and sig circuits' largest block
+(``build_arith_block``), the SSTORE-heavy block (``build_sstore_block``),
+the loop block (``build_flow_block``: the root frame's context, account,
+copy and log opcodes, then a for-loop over a calldata word) and the call
+block (``build_call_block``: routers calling other contracts with the four
+call opcodes, a 3-deep call and a reverting callee), with the small blocks
+that run every root-frame execution state (``build_conformance_block``)
+and the four call opcodes besides (``build_conformance_mega_block``); and
+the signed transfers of the tx and sig circuits' largest block
 (``signed_transfers``).
 
 ``build_alu_group`` builds the groups of the last eight ALU gadgets
@@ -477,6 +480,11 @@ def conformance_code() -> Bytecode:
     """tests/test_block_conformance.py:wide_program and its STOP: the ALU,
     comparison, shift, memory, storage, context, copy, log and flow
     families in one root frame."""
+    return _wide_program().stop()
+
+
+def _wide_program() -> Bytecode:
+    """tests/test_block_conformance.py:wide_program."""
     bc = Bytecode()
     bc.push1(3).push1(5).add().pop()
     bc.push1(7).push1(3).sub().pop()
@@ -531,7 +539,7 @@ def conformance_code() -> Bytecode:
     bc.push1(0x71).push1(4).push1(0).log1()
     bc.push1(0x72).push1(0x71).push1(4).push1(0).log2()
     bc.jumpdest()
-    return bc.stop()
+    return bc
 
 
 def build_conformance_block():
@@ -542,6 +550,142 @@ def build_conformance_block():
                      callee_address=0xFF, value=10, call_data=bytes(range(1, 33)))
     return trace_block(Block(**FLOW_BLOCK_HEADER), [(tx, conformance_code())],
                        accounts=flow_accounts())
+
+
+def build_conformance_mega_block():
+    """tests/test_block_conformance.py:test_block_conformance_mega's block
+    (:183-218): the wide program, then CALL with value, STATICCALL,
+    DELEGATECALL and CALLCODE into a callee that returns 32 bytes, a
+    RETURNDATACOPY, a JUMP over a STOP and a JUMPI not taken; one tx of
+    value 10 with 32 calldata bytes, signed."""
+    bc = _wide_program()
+    callee = Bytecode().push1(0x42).push1(0).mstore().push1(32).push1(0).return_()
+    bc.push1(32).push1(0).push1(0).push1(0).push1(5).push2(0x5000).push2(0xFFFF).call().pop()
+    bc.push1(8).push1(0).push2(0x0100).returndatacopy()
+    bc.push1(32).push1(0).push1(0).push1(0).push2(0x5000).push2(0xFFFF).staticcall().pop()
+    bc.push1(32).push1(0).push1(0).push1(0).push2(0x5000).push2(0xFFFF).delegatecall().pop()
+    bc.push1(32).push1(0).push1(0).push1(0).push1(0).push2(0x5000).push2(0xFFFF).callcode().pop()
+    target = len(bc.code) + 5
+    bc.push2(target).jump()
+    bc.stop()
+    bc.jumpdest()
+    bc.push1(0).push2(target + 9).jumpi()
+    bc.stop()
+    tx = Transaction(id=1, gas=2000000, gas_price=int(2e9), caller_address=0xFE,
+                     callee_address=0xFF, value=10, call_data=bytes(range(1, 33)))
+    accounts = {**flow_accounts(), 0x5000: Account(address=0x5000, balance=0, code=callee)}
+    return trace_block(Block(**FLOW_BLOCK_HEADER), [(tx, bc)], accounts=accounts)
+
+
+# -- the call block: a router calling other contracts, about 1 M gas -----------------------
+
+# 316 rounds: 1000488 gas at 8 txs (58755 gas a tx at one round, and 1684
+# a round over the block, from the tracer at 1 and 3 rounds)
+CALL_BLOCK_TXS, CALL_BLOCK_ROUNDS = 8, 316
+# a round's gas with CALL and CALLCODE (DELEGATECALL and STATICCALL push no
+# value: 209), and the gas of the rest of a tx (the intrinsic 21000, the
+# prologue, the first call's cold access, the three calls after the loop:
+# 58545 at most) with room to spare
+CALL_ROUND_GAS = 212
+CALL_TAIL_GAS = 81000
+CALL_LEAF, CALL_MIDDLE, CALL_REVERTING = 0xC0DE, 0xB0B, 0xDEAD
+CALL_OPS = ("call", "staticcall", "delegatecall", "callcode")
+CALL_ROUTER_BALANCE = 10**18
+
+
+def _call(bc: Bytecode, op: str, target: int, value: int = 0, args=(0, 32),
+          ret=(0, 0)) -> Bytecode:
+    """``op(gas 0xFFFF, target, value, args, ret)``, its stack pushed in the
+    order the opcode pops it (no value for DELEGATECALL and STATICCALL)."""
+    bc.push1(ret[1]).push1(ret[0]).push1(args[1]).push1(args[0])
+    if op in ("call", "callcode"):
+        bc.push1(value)
+    return getattr(bc.push2(target).push2(0xFFFF), op)()
+
+
+def call_accounts(n_txs: int):
+    """The callees and the routers' balances: 0xC0DE reads its calldata (the
+    caller's memory) and returns it + 1 as 32 bytes; 0xB0B copies its
+    calldata, calls 0xC0DE with it and returns what it got back; 0xDEAD
+    writes 1 to the slot its caller's address names and reverts with 32
+    bytes.  Router 0xFF + i holds a balance, so that a CALL with value
+    succeeds.  (0xDEAD keys its slot by its caller: the JAX verifier's mock
+    MPT keeps one update a slot, so a slot written in two txs fails its
+    state circuit; ROADMAP.md §C.)"""
+    leaf = (Bytecode().push1(0).calldataload().push1(1).add().push1(0).mstore()
+            .push1(32).push1(0).return_())
+    middle = Bytecode().push1(32).push1(0).push1(0).calldatacopy()
+    _call(middle, "call", CALL_LEAF).pop()
+    middle.push1(32).push1(0).push1(0).returndatacopy().push1(32).push1(0).return_()
+    reverting = Bytecode().push1(1).caller().sstore().push1(32).push1(0).revert()
+    accounts = {addr: Account(address=addr, code=code)
+                for addr, code in ((CALL_LEAF, leaf), (CALL_MIDDLE, middle),
+                                   (CALL_REVERTING, reverting))}
+    for i in range(n_txs):
+        accounts[0xFF + i] = Account(address=0xFF + i, balance=CALL_ROUTER_BALANCE)
+    return accounts
+
+
+def call_code(op: str, rounds: int, reverts: bool) -> Bytecode:
+    """A router's contract: ``MSTORE(0, CALLDATALOAD(4))``, then, with the
+    stack holding i, ``rounds`` rounds of
+
+        top:  JUMPDEST DUP1 PUSH2 n GT ISZERO PUSH2 exit JUMPI
+              op(0xFFFF, 0xC0DE, [0,] mem[0..32), no return region) POP
+              RETURNDATASIZE POP RETURNDATACOPY(0, 0, 32)
+              PUSH1 1 ADD PUSH2 top JUMP
+
+    (35 steps a round, 34 for DELEGATECALL and STATICCALL), so each round's
+    args are the last round's return data; then a CALL with value 1 to
+    0xC0DE, a CALL to 0xB0B with a 32-byte return region (three frames
+    deep), a CALL to 0xDEAD and a RETURNDATACOPY of its revert data, and a
+    RETURN of 32 bytes, or a REVERT of 32 bytes when ``reverts``."""
+    assert 0 <= rounds < 1 << 16
+    bc = Bytecode().push1(4).calldataload().push1(0).mstore()
+    bc.push1(0)                                       # i
+    top = len(bc.code)
+    bc.jumpdest().dup1().push2(rounds).gt().iszero()
+    jumpi_at = len(bc.code)
+    bc.push2(0).jumpi()                               # exit, patched below
+    _call(bc, op, CALL_LEAF).pop()
+    bc.returndatasize().pop().push1(32).push1(0).push1(0).returndatacopy()
+    bc.push1(1).add().push2(top).jump()
+    exit_pc = len(bc.code)
+    bc.code[jumpi_at + 1:jumpi_at + 3] = exit_pc.to_bytes(2, "big")
+    bc.jumpdest().pop()
+    _call(bc, "call", CALL_LEAF, value=1).pop()
+    _call(bc, "call", CALL_MIDDLE, ret=(0, 32)).pop()
+    _call(bc, "call", CALL_REVERTING).pop()
+    bc.push1(32).push1(0).push1(0).returndatacopy()
+    bc.push1(32).push1(0)
+    return bc.revert() if reverts else bc.return_()
+
+
+def call_block_txs(n_txs: int, rounds: int, seed: int = 0
+                   ) -> List[Tuple[Transaction, Bytecode]]:
+    """The call block's txs: caller 0xFE (signing gives each tx its own
+    key's address), router 0xFF + i running ``call_code`` with
+    ``CALL_OPS[i % 4]``, 36 bytes of seeded calldata as ``flow_block_txs``
+    draws them, and the last tx reverting at its root."""
+    rng = np.random.RandomState(seed)
+    txs = []
+    for i in range(n_txs):
+        call_data = rng.bytes(4) + rng.bytes(32)
+        code = call_code(CALL_OPS[i % len(CALL_OPS)], rounds, reverts=i == n_txs - 1)
+        txs.append((Transaction(id=i + 1, gas=CALL_ROUND_GAS * rounds + CALL_TAIL_GAS,
+                                gas_price=int(2e9), caller_address=0xFE, callee_address=0xFF + i,
+                                call_data=call_data), code))
+    return txs
+
+
+def build_call_block(n_txs: int = CALL_BLOCK_TXS, rounds: int = CALL_BLOCK_ROUNDS,
+                     seed: int = 0):
+    """The call block's witness, signed: each tx a router calling 0xC0DE
+    ``rounds`` times with CALL, STATICCALL, DELEGATECALL or CALLCODE
+    (tx i uses ``CALL_OPS[i % 4]``), then a transfer, a 3-deep call and a
+    reverting callee; the last tx reverts at its root."""
+    return trace_block(Block(**FLOW_BLOCK_HEADER), call_block_txs(n_txs, rounds, seed),
+                       accounts=call_accounts(n_txs))
 
 
 # -- signed transfers: the tx and sig circuits' largest block ----------------------------
@@ -565,10 +709,11 @@ def signed_transfers(n: int):
 
 
 # (side, elements, m limbs) of every logUp partial sum (K13 call) of the
-# checks of chip_smoke.py's four blocks: the ALU block (build_alu_block(8,
-# 11000)), the arithmetic block at a quarter of its txs
-# (build_arith_block(10, 37)), the SSTORE block and the loop block
-# (build_flow_block(8, 1600)).  A query side's m is en (one
+# checks of chip_smoke.py's five blocks: the ALU block at half its rounds
+# (build_alu_block(8, 5500)), the arithmetic block at a quarter of its txs
+# (build_arith_block(10, 37)), the SSTORE block, the loop block at half its
+# txs and rounds (build_flow_block(4, 800)) and the call block
+# (build_call_block(8, 316)).  A query side's m is en (one
 # limb), a table side's the multiplicities (four limbs).  A side of the same
 # shape as one an earlier family of its block gave is listed once (the
 # SSTORE block's keccak query side is its copy query side's shape, its block
@@ -576,8 +721,8 @@ def signed_transfers(n: int):
 # it builds; profile_replay.py --logup times K13 at them without building
 # the blocks.
 LOGUP_SIDES = (
-    ("ALU rw query", 528401, 1), ("ALU rw table", 528369, 4),
-    ("ALU bytecode query", 6160016, 1), ("ALU bytecode table", 66002, 4),
+    ("ALU rw query", 264401, 1), ("ALU rw table", 264369, 4),
+    ("ALU bytecode query", 3080016, 1), ("ALU bytecode table", 33002, 4),
     ("ALU tx query", 180, 1), ("ALU tx table", 96, 4),
     ("ALU block query", 55, 1), ("ALU block table", 8, 4),
     ("arith rw query", 34173, 1), ("arith rw table", 24141, 4),
@@ -591,11 +736,16 @@ LOGUP_SIDES = (
     ("sstore keccak table", 8, 4),
     ("sstore tx query", 157, 1), ("sstore tx table", 84, 4),
     ("sstore block query", 48, 1),
-    ("flow rw query", 475337, 1), ("flow rw table", 476025, 4),
-    ("flow bytecode query", 2361920, 1), ("flow bytecode table", 128, 4),
-    ("flow copy query", 32, 1), ("flow copy table", 32, 4),
-    ("flow tx query", 409796, 1), ("flow tx table", 384, 4),
-    ("flow block query", 127, 1), ("flow block table", 264, 4))
+    ("flow rw query", 119265, 1), ("flow rw table", 119613, 4),
+    ("flow bytecode query", 592160, 1), ("flow bytecode table", 128, 4),
+    ("flow copy query", 16, 1), ("flow copy table", 16, 4),
+    ("flow tx query", 102496, 1), ("flow tx table", 192, 4),
+    ("flow block query", 63, 1), ("flow block table", 264, 4),
+    ("calls rw query", 599910, 1), ("calls rw table", 661833, 4),
+    ("calls bytecode query", 1671824, 1), ("calls bytecode table", 669, 4),
+    ("calls copy query", 2560, 1), ("calls copy table", 2560, 4),
+    ("calls tx query", 524, 1), ("calls tx table", 384, 4),
+    ("calls block query", 63, 1), ("calls block table", 264, 4))
 
 
 def receipt_gas_used(witness) -> int:
