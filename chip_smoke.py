@@ -130,10 +130,12 @@ script exits non-zero):
    failure dicts on the card and the CPU, clean and with both edits, and
    the conformance block's (``workloads.build_conformance_block``: 50
    execution states in one frame), clean;
-10c. calls: the call block (``workloads.build_call_block(8, 316)``, signed:
-   87969 steps, 661833 rw rows, 1000488 gas, 163840 copy rows; each tx a
-   router calling 0xC0DE 316 times with CALL, STATICCALL, DELEGATECALL or
-   CALLCODE, each round's return data copied into the next round's args,
+10c. calls: the call block at a quarter of its rounds
+   (``workloads.build_call_block(8, 79)``, signed: 22557 steps, 171006 rw
+   rows, 601380 gas, 42496 copy rows; cut from 8 x 316 for the run's time
+   since the create phase; each tx a router calling 0xC0DE 79 times with
+   CALL, STATICCALL, DELEGATECALL or CALLCODE, each round's return data
+   copied into the next round's args,
    then a CALL with value, a 3-deep call through 0xB0B and a call to 0xDEAD,
    which writes and reverts; the last tx reverts at its root) through the
    same steps, the copy check's share beside the keccak, tx, sig and pi
@@ -145,6 +147,23 @@ script exits non-zero):
    with both edits, and the mega conformance block's
    (``workloads.build_conformance_mega_block``: 55 execution states, the
    four call opcodes among them), clean and with the GasLeft edit;
+10d. create: the create-and-fail block (``workloads.build_create_block(8,
+   8)``, signed: 5774 steps, 33282 rw rows, 5541204 gas, 9648 copy rows;
+   each tx a factory running 8 rounds of CREATE2 of the self-replicating
+   initcode then a CALL of the new contract, then a CREATE, a CREATE with
+   value, a CREATE2 collision, a reverting initcode and an empty one, eight
+   callees that each halt in one error state, and four sub-factories that
+   each end in one create error; the last tx halts at its root in
+   ErrorInvalidOpcode) through the same steps, the copy check's share
+   beside the keccak, tx, sig and pi checks', two rebuilds (the first
+   CREATE2's pushed address + 1, failing at that step and the state row
+   of the first read of its stack slot; the caller's GasLeft that the first
+   error halt in a sub-call reads back + 1, failing at that halt and the
+   state row of the read, as the JAX verifier fails on the same edits of a
+   2 x 1 block), its logUp line, the 2 x 1 block's failure dicts on the
+   card and the CPU, clean and with both edits, and the create-then-call
+   chain block's (``workloads.build_create_chain_block``,
+   tests/test_block_create.py's), clean and with both edits;
 11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 714 signed transfers
    (``workloads.signed_transfers``: half of 30000000 // 21000, the most a
    30 M-gas block holds, cut so that the run keeps its time;
@@ -165,7 +184,8 @@ script exits non-zero):
    (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", "arith", "sstore", "flow" or "calls", 10 timed launches each, each entry with
+   "block", "arith", "sstore", "flow", "calls" or "create", 10 timed launches each, each
+   entry with
    its count in the pass, the pi, tx, sig and copy checks' K1, K3, K4, K6
    and K8 calls among them, and at tx_sig's shapes, labelled "tx_sig";
    and likewise at
@@ -333,11 +353,14 @@ TX_SIG_CORRUPT_LANE = 700
 FLOW_TXS = workloads.FLOW_BLOCK_TXS // 2
 FLOW_ITERATIONS = workloads.FLOW_BLOCK_ITERATIONS // 2
 SMALL_FLOW = (2, 8)       # txs x rounds of the loop block held against the CPU
-CALL_TXS, CALL_ROUNDS = workloads.CALL_BLOCK_TXS, workloads.CALL_BLOCK_ROUNDS
+# the call block at a quarter of its rounds (the run's time, since the create phase)
+CALL_TXS, CALL_ROUNDS = workloads.CALL_BLOCK_TXS, workloads.CALL_BLOCK_ROUNDS // 4
 SMALL_CALLS = (4, 3)      # txs x rounds of the call block held against the CPU
+CREATE_TXS, CREATE_ROUNDS = workloads.CREATE_BLOCK_TXS, workloads.CREATE_BLOCK_ROUNDS
+SMALL_CREATE = (2, 1)     # txs x rounds of the create block held against the CPU
 # the label of each block phase in workloads.LOGUP_SIDES
 BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore", "flow": "flow",
-                "calls": "calls"}
+                "calls": "calls", "create": "create"}
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
@@ -404,6 +427,9 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "calls": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
                           "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
+                "create": ("leaf_unpack", "verdict_pack", "fr_mul", "limb_mul", "limb_addsub",
+                           "lookup_gather_eq", "state_order_lt", "lookup_search_eq",
+                           "lookup_fingerprint", "keccak_sponge", "horner_rlc"),
                 "tx_sig": ("horner_rlc", "lookup_search_eq"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
@@ -1201,6 +1227,57 @@ def corrupt_dead_sstore_mirror(w):
             lambda bv, f: set(f) == {bad}, undo)
 
 
+def corrupt_create2_address(w):
+    """The first CREATE2's pushed address + 1 (tests/test_block_create.py:
+    test_block_create_corrupt_address_push_rejected's edit): exactly that
+    CREATE2 step and the state row of the first read of its stack slot (the
+    round's DUP6; the POP's later read is held to that read and passes)
+    fail, as the JAX verifier's keys on the same edit of the 2 x 1 block
+    (tests/test_torch_create_blocks.py, create2_address)."""
+    bad = next(i for i, s in enumerate(w.steps) if s.execution_state == ExecutionState.CREATE2)
+    rows = w.rw.rws
+    k = next(k for k, r in enumerate(rows) if r["rw_counter"] >= w.steps[bad].rw_counter
+             and r["key0"] == int(Target.Stack) and r["rw"] == int(RW.Write))
+    row = rows[k]
+    read = next(r for r in rows[k + 1:] if r["key0"] == int(Target.Stack)
+                and (r["id"], r["address"]) == (row["id"], row["address"]))
+    assert read["rw"] == int(RW.Read)
+    row["value"] += 1
+
+    def expected(bv, f):
+        read_row = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == read["rw_counter"]]
+        return set(f) == {bad, ("state", read_row[0])}
+
+    def undo():
+        row["value"] -= 1
+
+    return {"corrupt_create2_step": bad}, expected, undo
+
+
+def corrupt_error_restored_gas_left(w):
+    """The caller's GasLeft that the first error halt in a sub-call reads
+    back + 1: exactly that halt's step (its restored gas) and the state row
+    of the read fail, as the JAX verifier's keys on the same edit of the
+    2 x 1 block (tests/test_torch_create_blocks.py, error_restored_gas_left)."""
+    bad = next(i for i, s in enumerate(w.steps)
+               if s.execution_state.name.startswith("Error") and not s.is_root)
+    lo, hi = w.steps[bad].rw_counter, w.steps[bad + 1].rw_counter
+    row = next(r for r in w.rw.rws if lo <= r["rw_counter"] < hi
+               and r["key0"] == int(Target.CallContext) and r["rw"] == int(RW.Read)
+               and r["address"] == int(CallContextFieldTag.GasLeft))
+    row["value"] += 1
+
+    def expected(bv, f):
+        read_row = [k for k, r in enumerate(bv._state_rows) if r["rw_counter"] == row["rw_counter"]]
+        return set(f) == {bad, ("state", read_row[0])}
+
+    def undo():
+        row["value"] -= 1
+
+    return ({"corrupt_error_step": bad, "state": w.steps[bad].execution_state.name},
+            expected, undo)
+
+
 def corrupt_wrong_key(w):
     """Tx 0 re-signed with key 0xBAD over the same payload: its recovered
     signer is no longer the EVM-side sender, so the tx check's lane 0
@@ -1253,6 +1330,19 @@ BLOCK_PHASES = {
                   # program and the four call opcodes into a returning callee
                   also_small={"conformance_mega": (workloads.build_conformance_mega_block,
                                                    (None, corrupt_restored_gas_left))}),
+    "create": dict(build=lambda: workloads.build_create_block(CREATE_TXS, CREATE_ROUNDS),
+                   sizes={"txs": CREATE_TXS, "rounds_per_tx": CREATE_ROUNDS},
+                   shares=("copy", "keccak", "tx", "sig", "pi"),
+                   corruptions=(corrupt_create2_address, corrupt_error_restored_gas_left),
+                   small=lambda: workloads.build_create_block(*SMALL_CREATE),
+                   small_size=SMALL_CREATE,
+                   small_corruptions=(None, corrupt_create2_address,
+                                      corrupt_error_restored_gas_left),
+                   # tests/test_block_create.py's create-then-call-then-create2
+                   # chain block (its error edit lands on no halt: clean and
+                   # with the CREATE2 edit)
+                   also_small={"create_chain": (workloads.build_create_chain_block,
+                                                (None, corrupt_create2_address))}),
 }
 
 

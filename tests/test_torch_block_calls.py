@@ -69,31 +69,22 @@ def port_args(block, txs, accounts):
 
 class Intercepted:
     """The ``trace_block`` and ``verify_super_circuit`` a JAX block test
-    body calls, each doing both packages' work.  With ``refusals`` a block
-    the port's tracer refuses (``NotImplementedError``) is recorded and not
-    verified; without, the refusal fails the test."""
+    body calls, each doing both packages' work (a block the port's tracer
+    refuses fails the test with its ``NotImplementedError``)."""
 
-    def __init__(self, refusals: bool = False):
-        self.refusals = refusals
-        self.traced = []    # [jax witness, port witness or the port's refusal, clean copy]
+    def __init__(self):
+        self.traced = []    # [jax witness, port witness, clean copy]
 
     def trace_block(self, block, txs, **kw):
         pblock, ptxs, paccounts = port_args(block, txs, kw.get("accounts"))
         jw = JT.trace_block(block, txs, **kw)
-        try:
-            pw = PT.trace_block(pblock, ptxs, **{**kw, "accounts": paccounts})
-        except NotImplementedError as e:
-            pw = e
-        else:
-            assert_same_witness(jw, pw)
+        pw = PT.trace_block(pblock, ptxs, **{**kw, "accounts": paccounts})
+        assert_same_witness(jw, pw)
         self.traced.append((jw, pw, copy.deepcopy((jw.rw.rws, jw.steps))))
         return jw
 
     def verify_super_circuit(self, jw):
         _, pw, (rws, steps) = next(t for t in self.traced if t[0] is jw)
-        if isinstance(pw, NotImplementedError) and self.refusals:
-            return
-        assert not isinstance(pw, Exception), f"the port refused the block: {pw}"
         # the body's edits of the JAX witness, made on the port's too
         assert len(jw.rw.rws) == len(rws) and len(jw.steps) == len(steps)
         for j, (now, was) in enumerate(zip(jw.rw.rws, rws)):
@@ -121,10 +112,10 @@ def verify_both(jw, pw):
     return want
 
 
-def run_body(module, name, monkeypatch, refusals=False, **kwargs):
+def run_body(module, name, monkeypatch, **kwargs):
     """Run the JAX block test ``module.name`` with both packages behind its
     ``trace_block`` and ``verify_super_circuit``; returns the interceptor."""
-    it = Intercepted(refusals)
+    it = Intercepted()
     monkeypatch.setattr(module, "trace_block", it.trace_block)
     monkeypatch.setattr(module, "verify_super_circuit", it.verify_super_circuit)
     getattr(module, name)(**kwargs)

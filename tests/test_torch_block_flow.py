@@ -17,10 +17,10 @@ group's lane bits, every circuit's rows, the failure dicts of both device
 passes).  tests/test_torch_block_flow_sweeps.py runs the same checks on the
 context, log and boundary sweeps' blocks.
 
-Also the tracer's refusals: a JUMP to a byte that is not a JUMPDEST and a
-LOG without the gas for it raise ``NotImplementedError`` where the JAX
-tracer emits ErrorInvalidJump and ErrorOutOfGasLOG, and a JUMPDEST byte
-inside PUSH data is no destination."""
+Also the error halts of these opcodes: a JUMP to a byte that is not a
+JUMPDEST, a LOG, a copy and a BALANCE without the gas for them and a
+RETURNDATACOPY past the buffer, traced and verified as the JAX package
+does, and a JUMPDEST byte inside PUSH data is no destination."""
 import sys
 from pathlib import Path
 
@@ -40,6 +40,7 @@ from zkevm_specs_tpu_torch.witness import typing as PY  # noqa: E402
 
 import test_torch_block as B  # noqa: E402
 from test_block_conformance import wide_program  # noqa: E402
+from test_torch_block_calls import verify_both  # noqa: E402
 from test_torch_tracer import assert_same_witness  # noqa: E402
 
 torch.set_num_threads(1)
@@ -323,10 +324,16 @@ def test_error_states_raise_where_jax_emits_them(case, state):
     gas = {"log_out_of_gas": 21000 + 6 + 375 + 8 * 64, "copy_out_of_gas": 21000 + 9 + 500,
            "balance_out_of_gas": 21000 + 3 + 2000}.get(case, 100000)
     assert _jax_error_state(code(JY), gas) == [state]
-    tx = PY.Transaction(id=1, gas=gas, gas_price=int(2e9), caller_address=0xFE,
-                        callee_address=0xFF)
-    with pytest.raises(NotImplementedError, match=state):
-        PT.trace_block(PY.Block(), [(tx, code(PY))], sign=False)
+
+    def txs(Y):
+        return [(Y.Transaction(id=1, gas=gas, gas_price=int(2e9), caller_address=0xFE,
+                               callee_address=0xFF), code(Y))]
+
+    jw = JT.trace_block(JY.Block(), txs(JY), sign=False)
+    pw = PT.trace_block(PY.Block(), txs(PY), sign=False)
+    assert_same_witness(jw, pw)
+    assert [s.execution_state.name for s in pw.steps if s.execution_state.name == state]
+    assert verify_both(jw, pw) == {}
 
 
 def test_jumps_to_a_jumpdest_trace():

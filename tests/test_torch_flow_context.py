@@ -106,33 +106,41 @@ class _Recorded:
 
 
 def port_steps(steps):
-    return [StepState(ExecutionState[s.execution_state.name],
+    return [StepState(ExecutionState[s.execution_state.name], aux_data=s.aux_data,
                       **{f: getattr(s, f) for f in STEP_FIELDS}) for s in steps]
 
 
-def failures_of(main, tables, steps):
-    """``verify_steps``'s failure dict, before its success check."""
+def failures_of(main, tables, steps, begin=False, end=False):
+    """``verify_steps``'s failure dict (its grouping by state and the first-
+    and last-step flags), before its success check."""
     steps = list(steps)
+    if end:
+        steps.append(main.DUMMY_STEP_STATE)
+    n = len(steps) - 1
     groups = {}
-    for i in range(len(steps) - 1):
-        groups.setdefault(steps[i].execution_state, []).append(i)
+    for i in range(n):
+        groups.setdefault((steps[i].execution_state, begin and i == 0, end and i == n - 1),
+                          []).append(i)
     out = {}
-    for state, idxs in groups.items():
-        main._run_group(tables, steps, state, False, False, idxs, [], out)
+    for (state, first, last), idxs in groups.items():
+        main._run_group(tables, steps, state, first, last, idxs, [], out)
     return out
 
 
-def run_case(module, fn, kwargs, monkeypatch):
+def run_case(module, fn, kwargs, monkeypatch, also=()):
     """Run the test body with both packages' spec runs behind its
-    ``verify_steps``; returns the calls' (port tables, port steps, failures)."""
+    ``verify_steps`` (and that of each module of ``also``: a body built by
+    another file's helper); returns the calls' (port tables, port steps,
+    failures)."""
     calls = []
-    monkeypatch.setattr(module, "Tables", _Recorded(module.Tables))
 
-    def verify_steps(tables, steps, success=True):
-        want = failures_of(jmain, tables, steps)
+    def verify_steps(tables, steps, begin_with_first_step=False, end_with_last_step=False,
+                     success=True):
+        flags = (begin_with_first_step, end_with_last_step)
+        want = failures_of(jmain, tables, steps, *flags)
         ptables = Tables(**tables.recorded_rows)
         psteps = port_steps(steps)
-        assert failures_of(pmain, ptables, psteps) == want
+        assert failures_of(pmain, ptables, psteps, *flags) == want
         calls.append((ptables, psteps, want))
         if success:
             if want:
@@ -141,10 +149,20 @@ def run_case(module, fn, kwargs, monkeypatch):
         else:
             assert want, "expected verification to fail, but all steps passed"
 
-    monkeypatch.setattr(module, "verify_steps", verify_steps)
+    for m in (module, *also):
+        monkeypatch.setattr(m, "Tables", _Recorded(m.Tables))
+        monkeypatch.setattr(m, "verify_steps", verify_steps)
     fn(**kwargs)
     assert calls, "the test body verified nothing"
     return calls
+
+
+def replay_fails(ptables, psteps, lanes=REPLAY_LANES):
+    """The failing lanes of a vector's first step pair, its lane ``lanes``
+    times over, replayed by the port's ``CompiledGroupVerifier`` on the CPU."""
+    curr, nxt = [psteps[0]] * lanes, [psteps[1]] * lanes
+    v = CompiledGroupVerifier(ptables, psteps[0].execution_state, curr, nxt, device="cpu")
+    return torch.nonzero(v(*v.prepare_inputs(curr, nxt))).flatten().tolist()
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])

@@ -822,11 +822,15 @@ def _small_block(kind="alu"):
         return workloads.build_call_block(4, 3)
     if kind == "mega":
         return workloads.build_conformance_mega_block()
+    if kind == "create":
+        return workloads.build_create_block(2, 1)
+    if kind == "create_chain":
+        return workloads.build_create_chain_block()
     return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
 @pytest.mark.parametrize("kind", ["alu", "arith", "sstore", "flow", "conformance", "calls",
-                                  "mega"])
+                                  "mega", "create", "create_chain"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
@@ -834,7 +838,8 @@ def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     w = _small_block(kind)
     if corrupt:
         name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE", "flow": "CALLDATALOAD",
-                "conformance": "EXTCODECOPY", "calls": "CALL_OP", "mega": "CALL_OP"}[kind]
+                "conformance": "EXTCODECOPY", "calls": "CALL_OP", "mega": "CALL_OP",
+                "create": "CREATE2", "create_chain": "CREATE"}[kind]
         next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()

@@ -7,8 +7,10 @@ addresses and every field of ``signed_txs`` are equal on the same
 transactions (the default callers, one shared caller, calldata, an account
 pinned to the pre-signing sender, a small SSTORE-mix block).  Also the
 host witness classes it emits through (``Transaction``, ``Account``,
-``RWDictionary``'s rows, the copy circuit's), the blocks' builders, and
-what the subset refuses to trace."""
+``RWDictionary``'s rows, the copy circuit's), the blocks' builders, the
+error halts the tracer emits (a CREATE, a stack underflow, an invalid
+opcode and the out-of-gas cases, each held against the JAX tracer and
+verifier) and what it still refuses to trace (SELFDESTRUCT)."""
 import numpy as np
 import pytest
 import torch
@@ -181,12 +183,31 @@ def test_exp_without_an_event_leaves_no_exp_circuit():
     assert PT.trace_block(PY.Block(), [(tx, bc)], sign=False).exp_circuit is None
 
 
+def assert_parity(code, gas, state=None):
+    """The one-tx block of ``code(Y)`` (a Bytecode of the package ``Y``) with
+    ``gas``, traced by both packages (equal witnesses) and verified by both
+    (equal failure dicts, and none); ``state`` is a step the block must
+    reach."""
+    from test_torch_block_calls import verify_both
+
+    def txs(Y):
+        return [(Y.Transaction(id=1, gas=gas, caller_address=0xFE, callee_address=0xFF),
+                 code(Y))]
+
+    jw = JT.trace_block(JY.Block(), txs(JY), sign=False)
+    pw = PT.trace_block(PY.Block(), txs(PY), sign=False)
+    assert_same_witness(jw, pw)
+    if state is not None:
+        assert state in [s.execution_state.name for s in pw.steps]
+    assert verify_both(jw, pw) == {}
+
+
 def test_exp_out_of_gas_raises():
-    # 21000 + two PUSHes (6) leave 49 gas, under EXP's 50 for a 1-byte exponent
-    bc = PY.Bytecode().push1(3).push1(2).exp().stop()
-    tx = PY.Transaction(id=1, gas=21000 + 6 + 49, caller_address=0xFE, callee_address=0xFF)
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasEXP"):
-        PT.trace_block(PY.Block(), [(tx, bc)], sign=False)
+    """21000 + two PUSHes (6) leave 49 gas, under EXP's 50 for a 1-byte
+    exponent: an ErrorOutOfGasEXP halt, traced and verified as the JAX
+    package does."""
+    assert_parity(lambda Y: Y.Bytecode().push1(3).push1(2).exp().stop(), 21000 + 6 + 49,
+                  "ErrorOutOfGasEXP")
 
 
 def test_signed_block_is_not_ported():
@@ -202,20 +223,27 @@ def test_signed_block_is_not_ported():
 
 
 @pytest.mark.parametrize("code,what", [
-    (lambda: PY.Bytecode().push1(0).push1(0).push1(0).create(), "no handler"),
-    (lambda: PY.Bytecode().pop().stop(), "ErrorStack"),
-    (lambda: PY.Bytecode(bytearray([0x0C])), "ErrorInvalidOpcode"),
+    (lambda Y: Y.Bytecode().push1(0).push1(0).push1(0).create(), "CREATE"),
+    (lambda Y: Y.Bytecode().pop().stop(), "ErrorStack"),
+    (lambda Y: Y.Bytecode(bytearray([0x0C])), "ErrorInvalidOpcode"),
 ])
 def test_what_the_subset_does_not_trace_raises(code, what):
+    """An empty-initcode CREATE, a POP on an empty stack and an invalid
+    opcode, once refused, now traced and verified as the JAX package does."""
+    assert_parity(code, 100000, what)
+
+
+def test_selfdestruct_is_refused():
+    """SELFDESTRUCT has no handler in either tracer: the port refuses it."""
     tx = PY.Transaction(id=1, gas=100000, caller_address=0xFE, callee_address=0xFF)
-    with pytest.raises(NotImplementedError, match=what):
-        PT.trace_block(PY.Block(), [(tx, code())], sign=False)
+    with pytest.raises(NotImplementedError, match="SELFDESTRUCT"):
+        PT.trace_block(PY.Block(), [(tx, PY.Bytecode().push1(0).selfdestruct())], sign=False)
 
 
 def test_out_of_gas_raises():
-    tx = PY.Transaction(id=1, gas=21000 + 2, caller_address=0xFE, callee_address=0xFF)
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasConstant"):
-        PT.trace_block(PY.Block(), [(tx, PY.Bytecode().push1(1).stop())], sign=False)
+    """A PUSH1 with 2 gas left: ErrorOutOfGasConstant, as in the JAX
+    package."""
+    assert_parity(lambda Y: Y.Bytecode().push1(1).stop(), 21000 + 2, "ErrorOutOfGasConstant")
 
 
 # -- the host witness classes ------------------------------------------------------
@@ -367,20 +395,16 @@ def test_sstore_block_builder_is_bench_mix():
 
 
 def test_storage_errors_raise():
-    """The dynamic out-of-gas cases of the new handlers are error states,
-    not ported."""
-    def trace(code, gas):
-        tx = PY.Transaction(id=1, gas=gas, caller_address=0xFE, callee_address=0xFF)
-        PT.trace_block(PY.Block(), [(tx, code)], sign=False)
-
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSloadSstore"):
-        trace(PY.Bytecode().push1(1).push1(0).sstore().stop(), 21000 + 6 + 2300)
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSloadSstore"):
-        trace(PY.Bytecode().push1(0).sload().stop(), 21000 + 3 + 2000)
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasStaticMemoryExpansion"):
-        trace(PY.Bytecode().push2(0x4000).mload().stop(), 21000 + 3 + 100)
-    with pytest.raises(NotImplementedError, match="ErrorOutOfGasSHA3"):
-        trace(PY.Bytecode().push2(0x4000).push1(0).sha3().stop(), 21000 + 6 + 100)
+    """The dynamic out-of-gas cases of the storage, memory and SHA3
+    handlers: error halts, traced and verified as the JAX package does."""
+    assert_parity(lambda Y: Y.Bytecode().push1(1).push1(0).sstore().stop(), 21000 + 6 + 2300,
+                  "ErrorOutOfGasSloadSstore")
+    assert_parity(lambda Y: Y.Bytecode().push1(0).sload().stop(), 21000 + 3 + 2000,
+                  "ErrorOutOfGasSloadSstore")
+    assert_parity(lambda Y: Y.Bytecode().push2(0x4000).mload().stop(), 21000 + 3 + 100,
+                  "ErrorOutOfGasStaticMemoryExpansion")
+    assert_parity(lambda Y: Y.Bytecode().push2(0x4000).push1(0).sha3().stop(), 21000 + 6 + 100,
+                  "ErrorOutOfGasSHA3")
 
 
 def _rw_storage_calls(Y, s):

@@ -1,9 +1,9 @@
 """Execution-gadget registry (reference: execution/__init__.py:86-171).
 
 Only the gadgets ported so far are registered (every state a frame runs
-without a create, a precompile or an error, the CALL family and
-RETURN/REVERT included); ``verify_steps`` raises ``NotImplementedError``
-for any other execution state."""
+without a precompile: the CALL family, RETURN/REVERT, CREATE/CREATE2 and
+every error state but ErrorOutOfGasPrecompile included); ``verify_steps``
+raises ``NotImplementedError`` for any other execution state."""
 from typing import Callable, Dict
 
 from ..execution_state import ExecutionState
@@ -16,6 +16,7 @@ from .byte import byte
 from .calldataload import calldataload
 from .callop import callop
 from .comparator import cmp
+from .create import create
 from .context import (
     address,
     blockctx,
@@ -32,6 +33,27 @@ from .context import (
 from .copy_family import calldatacopy, codecopy, extcodecopy, returndatacopy, sha3
 from .end_block import end_block
 from .end_tx import end_tx
+from .errors import (
+    error_code_store,
+    error_gas_uint_overflow,
+    error_invalid_creation_code,
+    error_invalid_jump,
+    error_invalid_opcode,
+    error_oog_account_access,
+    error_oog_call,
+    error_oog_constant,
+    error_oog_create,
+    error_oog_dynamic_memory_expansion,
+    error_oog_exp,
+    error_oog_log,
+    error_oog_memory_copy,
+    error_oog_sha3,
+    error_oog_sload_sstore,
+    error_oog_static_memory_expansion,
+    error_return_data_out_of_bound,
+    error_stack,
+    error_write_protection,
+)
 from .exp import exp
 from .extcode import extcodehash, extcodesize
 from .gas import gas
@@ -61,6 +83,8 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.EndTx: end_tx,
     ExecutionState.EndBlock: end_block,
     ExecutionState.CALL_OP: callop,
+    ExecutionState.CREATE: create,
+    ExecutionState.CREATE2: create,
     ExecutionState.RETURN: return_revert,
     ExecutionState.ADD: add_sub,
     ExecutionState.MUL: mul_div_mod,
@@ -114,4 +138,25 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.SWAP: swap,
     ExecutionState.PC: pc,
     ExecutionState.JUMPDEST: jumpdest,
+    # the error states (ErrorOutOfGasPrecompile waits for the precompiles)
+    ExecutionState.ErrorInvalidJump: error_invalid_jump,
+    ExecutionState.ErrorGasUintOverflow: error_gas_uint_overflow,
+    ExecutionState.ErrorOutOfGasCall: error_oog_call,
+    ExecutionState.ErrorInvalidOpcode: error_invalid_opcode,
+    ExecutionState.ErrorOutOfGasConstant: error_oog_constant,
+    ExecutionState.ErrorStack: error_stack,
+    ExecutionState.ErrorOutOfGasDynamicMemoryExpansion: error_oog_dynamic_memory_expansion,
+    ExecutionState.ErrorOutOfGasMemoryCopy: error_oog_memory_copy,
+    ExecutionState.ErrorOutOfGasLOG: error_oog_log,
+    ExecutionState.ErrorWriteProtection: error_write_protection,
+    ExecutionState.ErrorMaxCodeSizeExceeded: error_code_store,
+    ExecutionState.ErrorOutOfGasCodeStore: error_code_store,
+    ExecutionState.ErrorOutOfGasEXP: error_oog_exp,
+    ExecutionState.ErrorInvalidCreationCode: error_invalid_creation_code,
+    ExecutionState.ErrorOutOfGasSHA3: error_oog_sha3,
+    ExecutionState.ErrorOutOfGasAccountAccess: error_oog_account_access,
+    ExecutionState.ErrorOutOfGasStaticMemoryExpansion: error_oog_static_memory_expansion,
+    ExecutionState.ErrorOutOfGasSloadSstore: error_oog_sload_sstore,
+    ExecutionState.ErrorReturnDataOutOfBound: error_return_data_out_of_bound,
+    ExecutionState.ErrorOutOfGasCREATE: error_oog_create,
 }

@@ -5,7 +5,8 @@ MSTORE8, SLOAD, SSTORE, SHA3, PUSH, POP, STOP, BeginTx, EndTx, EndBlock,
 DUP/SWAP/PC/JUMPDEST, JUMP/JUMPI, GAS, MSIZE, the context queries, BALANCE,
 EXTCODESIZE/EXTCODEHASH, CALLDATALOAD, CALLDATACOPY/CODECOPY/EXTCODECOPY/
 RETURNDATACOPY, LOG0-LOG4, the CALL family and RETURN/REVERT, with the
-return to a caller's restored context).
+return to a caller's restored context, CREATE/CREATE2 and the error
+states).
 
 Counterpart of ``zkevm_specs_tpu/evm/instruction.py`` (reference:
 src/zkevm_specs/evm_circuit/instruction.py:116-1452).  The same constraint
@@ -24,13 +25,14 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..dsl.cs import ConstraintSystem
+from ..dsl.cs import ConstraintSystem, LaneSplit
 from ..dsl.value import Ctx, F, Word, WordOrValue, trim, width_for_bits
 from ..ops import limbs as L
 from ..ops import word_mul
 from ..utils.param import (
     GAS_COST_COPY,
     MAX_N_BYTES,
+    MAX_U64,
     MEMORY_EXPANSION_LINEAR_COEFF,
     MEMORY_EXPANSION_QUAD_DENOMINATOR,
     N_BYTES_ACCOUNT_ADDRESS,
@@ -53,7 +55,7 @@ from ..tables.schemas import (
     TxReceiptFieldTag,
 )
 from .execution_state import ExecutionState
-from .opcode import constant_gas_cost, valid_opcodes
+from .opcode import Opcode, constant_gas_cost, valid_opcodes
 from .precompile import Precompile
 from .step import StepStateBatch
 
@@ -282,6 +284,28 @@ class Instruction:
         cs.decisions.append(val)
         cs._decision_idx += 1
         return val
+
+    def uniform_int(self, value: F) -> int:
+        """A lane-uniform host int of a witness value (a loop bound): the
+        eager trace records it in the control signature, as ``branch``
+        records a decision (a lane that differs splits the group), and the
+        replay takes it from the signature with an equality check."""
+        value = self._f(value)
+        cs = self.cs
+        if cs._decision_idx < len(cs.decisions):
+            decided = cs.decisions[cs._decision_idx]
+            cs._decision_idx += 1
+            cs.check(value.eq_mask(F.const(self.ctx, int(decided))),
+                     lambda: f"Value diverged from signature {decided}")
+            return int(decided)
+        assert self.ctx.eager, "the replay requires a full control signature"
+        vals = self.ints_of(value)
+        first = vals[0]
+        if all(v == first for v in vals):
+            cs.decisions.append(first)
+            cs._decision_idx += 1
+            return first
+        raise LaneSplit(np.array([v == first for v in vals]))
 
     def masked(self, mask):
         """Context manager: constraints and lookups inside are enforced only
@@ -545,6 +569,9 @@ class Instruction:
     def is_equal_word(self, lhs: Word, rhs: Word) -> F:
         return F.from_bool(self.ctx, lhs.eq_mask(rhs))
 
+    def is_u64_overflow(self, v: F) -> F:
+        return F.from_bool(self.ctx, ~self._f(v).le_bits_mask(64))
+
     def continuous_selectors(self, value: F, n: int) -> List[F]:
         return [F.from_bool(self.ctx, F.const(self.ctx, i).lt_mask(self._f(value)))
                 for i in range(n)]
@@ -619,6 +646,16 @@ class Instruction:
 
     def word_to_address(self, word: Word) -> F:
         return self.word_to_fq(word, N_BYTES_ACCOUNT_ADDRESS)
+
+    def word_to_address_truncated(self, word: Word) -> F:
+        """The word's low 160 bits, its high bits left unconstrained: the
+        EVM truncates an address operand, so a stack word with bits above
+        160 keys the access list by its low 160 bits (the JAX package's
+        deviation for the error gadgets that derive an access-list key)."""
+        lo32_hi = F(self.ctx, trim(word.hi.limbs, 2), min(32, word.hi.bits))
+        full = word.lo + lo32_hi * F.const(self.ctx, 1 << 128)
+        return F(self.ctx, trim(full.widen(16).limbs, width_for_bits(8 * N_BYTES_ACCOUNT_ADDRESS)),
+                 8 * N_BYTES_ACCOUNT_ADDRESS)
 
     def word_to_u64(self, word: Word) -> F:
         return self.word_to_fq(word, 8)
@@ -810,6 +847,12 @@ class Instruction:
         )
         return row.value
 
+    def bytecode_lookup_pair(self, bytecode_hash: Word, index: F) -> Tuple[F, F]:
+        """(byte, is_code) of a Byte row, is_code left free."""
+        row = self.tables.bytecode_lookup(
+            self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Byte), self._f(index), None)
+        return row.value, row.is_code
+
     def bytecode_length(self, bytecode_hash: Word) -> F:
         row = self.tables.bytecode_lookup(
             self.cs, bytecode_hash, self.fq(BytecodeFieldTag.Header), self.fq(0), self.fq(0))
@@ -960,6 +1003,9 @@ class Instruction:
                                storage_key=storage_key, reversion_info=reversion_info)
         return row.value, row.value_prev, row.aux0
 
+    def account_read(self, account_address: F, account_field_tag: AccountFieldTag) -> F:
+        return self.account_read_word(account_address, account_field_tag).value()
+
     def account_read_word(self, account_address: F,
                           account_field_tag: AccountFieldTag) -> WordOrValue:
         row = self.rw_lookup(RW.Read, Target.Account, address=self._f(account_address),
@@ -1010,6 +1056,17 @@ class Instruction:
                                self._f(account_address), storage_key=storage_key,
                                value=self.fq(1), reversion_info=reversion_info)
         return WordOrValue(row.value_prev).value()
+
+    def read_account_to_access_list(self, tx_id: F, account_address: F) -> F:
+        row = self.rw_lookup(RW.Read, Target.TxAccessListAccount, self._f(tx_id),
+                             self._f(account_address))
+        return WordOrValue(row.value_prev).value()
+
+    def read_account_storage_to_access_list(self, tx_id: F, account_address: F,
+                                            storage_key: Word) -> F:
+        row = self.rw_lookup(RW.Read, Target.TxAccessListAccountStorage, self._f(tx_id),
+                             self._f(account_address), storage_key=storage_key)
+        return WordOrValue(row.value).value()
 
     def transfer_with_gas_fee(self, sender_address: F, receiver_address: F, value: Word,
                               gas_fee: Word, reversion_info: Optional[ReversionInfo] = None):
@@ -1088,6 +1145,93 @@ class Instruction:
         self.range_check(gas_cost, N_BYTES_GAS)
         return gas_cost
 
+    def memory_size(self, opcode: F) -> Tuple[F, F]:
+        """(memory size, u64 overflow) of an opcode's memory operands, as
+        go-ethereum's memorySize computes it (reference instruction.py:
+        1198-1305).  The pops depend on the opcode, which is resolved
+        lane-uniformly."""
+        ops = (
+            Opcode.SHA3, Opcode.CALLDATACOPY, Opcode.RETURNDATACOPY,
+            Opcode.CODECOPY, Opcode.EXTCODECOPY, Opcode.MLOAD, Opcode.MSTORE8,
+            Opcode.MSTORE, Opcode.CREATE, Opcode.CREATE2, Opcode.CALL,
+            Opcode.DELEGATECALL, Opcode.STATICCALL, Opcode.CALLCODE,
+            Opcode.RETURN, Opcode.REVERT, Opcode.LOG0, Opcode.LOG1,
+            Opcode.LOG2, Opcode.LOG3, Opcode.LOG4,
+        )
+        sel = {op: self.branch(self.is_equal(opcode, int(op))) for op in ops}
+        if (sel[Opcode.SHA3] or sel[Opcode.RETURN] or sel[Opcode.REVERT] or sel[Opcode.LOG0]
+                or sel[Opcode.LOG1] or sel[Opcode.LOG2] or sel[Opcode.LOG3] or sel[Opcode.LOG4]):
+            return self.calc_mem_size64(self.stack_pop(), self.stack_pop())
+        if sel[Opcode.CALLDATACOPY] or sel[Opcode.RETURNDATACOPY] or sel[Opcode.CODECOPY]:
+            self.stack_pop()
+            return self.calc_mem_size64(self.stack_pop(), self.stack_pop())
+        if sel[Opcode.EXTCODECOPY]:
+            self.stack_pop()
+            self.stack_pop()
+            return self.calc_mem_size64(self.stack_pop(), self.stack_pop())
+        if sel[Opcode.MLOAD]:
+            return self.calc_mem_size64_with_uint(self.stack_pop(), self.fq(32))
+        if sel[Opcode.MSTORE8] or sel[Opcode.MSTORE]:
+            offset = self.stack_pop()
+            self.stack_pop()
+            return self.calc_mem_size64_with_uint(offset, self.fq(32))
+        if sel[Opcode.CREATE] or sel[Opcode.CREATE2]:
+            self.stack_pop()
+            offset = self.stack_pop()
+            size = self.stack_pop()
+            if sel[Opcode.CREATE2]:
+                self.stack_pop()
+            return self.calc_mem_size64(offset, size)
+        if (sel[Opcode.DELEGATECALL] or sel[Opcode.STATICCALL] or sel[Opcode.CALL]
+                or sel[Opcode.CALLCODE]):
+            if sel[Opcode.CALL] or sel[Opcode.CALLCODE]:
+                self.stack_pop()
+            self.stack_pop()
+            self.stack_pop()
+            cd_offset = self.stack_pop()
+            cd_length = self.stack_pop()
+            x, overflow = self.calc_mem_size64(self.stack_pop(), self.stack_pop())
+            if self.branch(overflow):
+                return self.fq(0), self.fq(1)
+            y, overflow = self.calc_mem_size64(cd_offset, cd_length)
+            if self.branch(overflow):
+                return self.fq(0), self.fq(1)
+            if self.branch(F.from_bool(self.ctx, y.lt_mask(x))):
+                return x, self.fq(0)
+            return y, self.fq(0)
+        # no listed opcode: not a memory-sizing opcode, the lanes fail
+        self.cs.check(torch.zeros((self.ctx.batch,), dtype=torch.bool, device=self.ctx.device),
+                      lambda: "memory_size: unexpected opcode")
+        return self.fq(0), self.fq(0)
+
+    def calc_mem_size64(self, offset: Word, length: Word) -> Tuple[F, F]:
+        length_v = self.word_to_fq(length, MAX_N_BYTES)
+        if self.branch(self.is_u64_overflow(length_v)):
+            return self.fq(0), self.fq(1)
+        return self.calc_mem_size64_with_uint(offset, length_v)
+
+    def calc_mem_size64_with_uint(self, offset_word: Word, length64: F) -> Tuple[F, F]:
+        if self.branch(self.is_zero(length64)):
+            return self.fq(0), self.fq(0)
+        offset = self.word_to_fq(offset_word, MAX_N_BYTES)
+        if self.branch(self.is_u64_overflow(offset)):
+            return self.fq(0), self.fq(1)
+        offset64 = self.word_to_fq(offset_word, N_BYTES_MEMORY_ADDRESS)
+        val = offset64 + length64
+        return val, F.from_bool(self.ctx, val.lt_mask(offset64))
+
+    def safe_mul(self, x: F, y: F) -> Tuple[F, F]:
+        mul = self._f(x) * self._f(y)
+        return mul, self.is_u64_overflow(mul)
+
+    def to_word_size(self, size: F) -> F:
+        """ceil(size / 32), saturating at u64 (reference instruction.py:
+        1333-1336)."""
+        size = self._f(size)
+        over = F.const(self.ctx, MAX_U64 - 31).lt_mask(size)
+        q, _ = self.constant_divmod_nocheck(size + 31, 32)
+        return q.select(~over, F.const(self.ctx, MAX_U64 // 32 + 1))
+
     # -- CREATE address derivation (host hint) ------------------------------
 
     def generate_contract_address(self, address: F, nonce: F) -> F:
@@ -1106,3 +1250,49 @@ class Instruction:
         else:
             outs = addrs  # dummies; f_hint replays the recorded stream
         return self.f_hint(outs, 160)
+
+    def generate_CREAET2_contract_address(self, address: F, salt: Word, code_hash: Word) -> F:
+        """keccak(0xff ++ address ++ salt ++ code_hash)[-20:] per lane, a
+        160-bit hint (see ``generate_contract_address``); the salt and the
+        code hash are packed little-endian, as the JAX package packs them
+        (reference instruction.py:1373-1393)."""
+        addrs = self.ints_of(self._f(address))
+        salts = self.ints_of(salt)
+        hashes = self.ints_of(code_hash)
+        if self.ctx.eager:
+            from ..ops.keccak import keccak256_batch
+
+            digests = keccak256_batch([b"\xff" + a.to_bytes(20, "big") + s.to_bytes(32, "little")
+                                       + h.to_bytes(32, "little")
+                                       for a, s, h in zip(addrs, salts, hashes)])
+            outs = [int.from_bytes(d[-20:], "big") for d in digests]
+        else:
+            outs = addrs  # dummies; f_hint replays the recorded stream
+        return self.f_hint(outs, 160)
+
+    # -- the error states' shared epilogue (reference instruction.py:
+    # 1426-1452) -------------------------------------------------------------
+
+    def constrain_error_state(self, rw_counter_delta: IntOrF):
+        """IsSuccess is 0, a root error ends the tx, and a sub-call's
+        error restores its caller's context with no return data and no
+        gas."""
+        rw_counter_delta = rw_counter_delta + 1
+        is_success = self.call_context_lookup(CallContextFieldTag.IsSuccess)
+        self.constrain_equal(is_success, self.fq(0))
+
+        is_to_end_tx = self.is_equal(self.next.execution_state, int(ExecutionState.EndTx))
+        self.constrain_equal(self.curr.is_root, is_to_end_tx)
+
+        if self.branch(self.curr.is_root):
+            self.constrain_step_state_transition(
+                rw_counter=Transition.delta(rw_counter_delta),
+                call_id=Transition.same(),
+            )
+        else:
+            self.step_state_transition_to_restored_context(
+                rw_counter_delta=rw_counter_delta,
+                return_data_offset=self.fq(0),
+                return_data_length=self.fq(0),
+                gas_left=self.fq(0),
+            )

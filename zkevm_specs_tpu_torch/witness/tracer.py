@@ -7,27 +7,29 @@ CALLDATACOPY / CODESIZE / CODECOPY / GASPRICE / ORIGIN / SELFBALANCE /
 RETURNDATASIZE / RETURNDATACOPY / COINBASE / TIMESTAMP / NUMBER / GASLIMIT /
 PREVRANDAO / BASEFEE / CHAINID / BLOCKHASH / BALANCE / EXTCODESIZE /
 EXTCODEHASH / EXTCODECOPY / LOG0-LOG4 / CALL / CALLCODE / DELEGATECALL /
-STATICCALL / RETURN / REVERT / STOP bytecodes, and signs its txs.  A call
-enters its callee's frame (its calldata a slice of the caller's memory);
-STOP, RETURN and REVERT in a sub-call restore the caller's context, and a
-REVERT mirrors its frame's reversible writes, at the root or in a
-sub-call.
+STATICCALL / CREATE / CREATE2 / RETURN / REVERT / STOP bytecodes, halts a
+frame in any error state, and signs its txs.  A call enters its callee's
+frame (its calldata a slice of the caller's memory), a create its initcode's
+frame; STOP, RETURN and REVERT in a sub-call restore the caller's context (a
+create frame's RETURN deploys its code), a REVERT or an error halt mirrors
+its frame's reversible writes, at the root or in a sub-call.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer`` :246-366, ``run_tx``
 :374-548, ``_detect_error`` :564-714, ``_valid_jumpdest`` :716, ``step_op``
-:721-749, the frames :914-974, ``op_callop`` :976-1252, the handlers
-:1835-2584, the signing :2585-2626 and ``trace_block`` :2629-2754).  Each
-executed opcode emits exactly the rw rows its gadget looks up, with the JAX
-tracer's rw_counter / gas / stack-pointer / memory-size / refund /
-reversion bookkeeping, so the witness equals the JAX tracer's row for row.
+and ``_halt_error`` :721-880, the frames :914-974, ``op_callop``
+:976-1252, ``op_create`` :1253-1477, the handlers :1835-2584, the signing
+:2585-2626 and ``trace_block`` :2629-2754).  Each executed opcode emits
+exactly the rw rows its gadget looks up, with the JAX tracer's rw_counter /
+gas / stack-pointer / memory-size / refund / reversion bookkeeping, so the
+witness equals the JAX tracer's row for row.
 
 Not ported, and raising ``NotImplementedError`` where a block reaches
-them: the error states (invalid opcode, stack under/overflow, write
-protection, invalid jump, out of gas, return data out of bound;
-``_detect_error`` classifies them as the JAX tracer does), a call to a
-precompile, a create frame's RETURN / REVERT, CREATE / CREATE2 and
-SELFDESTRUCT.
+them: a call to a precompile (and so ErrorOutOfGasPrecompile) and
+SELFDESTRUCT, which the JAX tracer has no handler for either.  The JAX
+tracer's limits hold here too: an initcode must return its own bytes (the
+RETURN gadget pins the deployed code hash to the frame's), and a CREATE2's
+deployer is the frame's CallerAddress.
 """
 from __future__ import annotations
 
@@ -61,8 +63,10 @@ from ..utils.param import (
     GAS_COST_CODE_DEPOSIT,
     GAS_COST_COPY,
     GAS_COST_COPY_SHA3,
+    GAS_COST_CREATE,
     GAS_COST_EXP_PER_BYTE,
     GAS_COST_FASTEST,
+    GAS_COST_INITCODE_WORD,
     GAS_COST_LOG,
     GAS_COST_LOGDATA,
     GAS_COST_NEW_ACCOUNT,
@@ -81,7 +85,17 @@ from ..utils.param import (
     SSTORE_SET_GAS,
     WARM_STORAGE_READ_COST,
 )
-from .typing import Account, Block, Bytecode, CopyCircuit, ExpCircuit, RWDictionary, Transaction
+from .rlp import rlp_encode
+from .typing import (
+    Account,
+    Block,
+    Bytecode,
+    CopyCircuit,
+    ExpCircuit,
+    RWDictionary,
+    Transaction,
+    init_is_code,
+)
 
 U256M = (1 << 256) - 1
 _ADDR_MASK = (1 << 160) - 1  # geth truncates address operands to 160 bits
@@ -451,7 +465,8 @@ class _Tracer:
         invalid JUMP / JUMPI destination, account-access gas, static memory
         expansion, RETURN / REVERT memory gas (and a create frame's code
         checks), copy gas and RETURNDATACOPY's bounds, SLOAD / SSTORE gas,
-        LOG gas, EXP gas, SHA3 gas and the CALL family's gas.  One table
+        LOG gas, EXP gas, SHA3 gas, a sub-call's CREATE gas and the CALL
+        family's gas.  One table
         lookup a check and an immediate exit for the opcodes with no dynamic
         check: the tracer runs this every step."""
         E = ExecutionState
@@ -541,6 +556,16 @@ class _Tracer:
                     + self._expansion_gas(off if size else 0, size))
             if gas < need:
                 return E.ErrorOutOfGasSHA3
+        elif op in (Opcode.CREATE, Opcode.CREATE2) and not self.is_root:
+            # (the gadget's root branch prices the tx's calldata; the JAX
+            # tracer reaches this state in sub-calls only)
+            offset, size = st[-2], st[-3]
+            words = (size + 31) // 32
+            need = (GAS_COST_CREATE + self._expansion_gas(offset if size else 0, size)
+                    + words * GAS_COST_INITCODE_WORD
+                    + (GAS_COST_COPY_SHA3 * words if op == Opcode.CREATE2 else 0))
+            if gas < need:
+                return E.ErrorOutOfGasCREATE
         elif op in _CALL_OPS:
             has_val = op in (Opcode.CALL, Opcode.CALLCODE)
             target = st[-2]
@@ -580,23 +605,136 @@ class _Tracer:
         code = self.code.code
         raw = code[self.pc] if self.pc < len(code) else 0  # STOP
         err = self._detect_error(raw)
-        if err is not None:
-            raise NotImplementedError(
-                f"tracer: error state {err.name} (tx {self.tx.id}, pc {self.pc}) is not ported")
         handler = _HANDLER[raw]
-        if handler is None:
+        if err is None and handler is None:
             raise NotImplementedError(f"tracer: no handler for {_OP_BY_RAW[raw]!r} is ported")
         sp = 1024 - len(self.stack)
         self.w.steps.append(
-            StepState(_STATE[raw], self.rw.rw_counter, call_id=self.call_id,
+            StepState(err or _STATE[raw], self.rw.rw_counter, call_id=self.call_id,
                       is_root=self.is_root, is_create=self.is_create_frame,
                       code_hash=self.code_hash,
                       program_counter=self.pc, stack_pointer=sp,
                       gas_left=self.gas_left, memory_word_size=self.mws,
                       reversible_write_counter=self.rev,
                       log_id=self.log_count))
+        if err is not None:
+            self._halt_error(err, raw)
+            return
         self.gas_left -= _CONST_GAS[raw]
         handler(self, _OP_BY_RAW[raw])
+
+    def _halt_error(self, state: ExecutionState, raw: int):
+        """An error halt: the rows of the state's gadget
+        (evm/execution/errors.py), IsSuccess == 0, the caller's restored
+        context in a sub-call, then the frame's mirror section in the rw
+        counters the gadget skips.  The frame's gas is consumed."""
+        self._mark_failed()
+        rw = self.rw
+        E = ExecutionState
+        CC = CallContextFieldTag
+        op = _OP_BY_RAW[raw]
+        sp = 1024 - len(self.stack)
+        st = self.stack
+
+        def sread(offset):  # stack_lookup(RW.Read, offset), no pop
+            rw.stack_read(self.call_id, sp + offset, st[-1 - offset])
+
+        if state == E.ErrorInvalidJump:
+            self.spop()
+            if op == Opcode.JUMPI:
+                self.spop()
+        elif state == E.ErrorWriteProtection:
+            self.cc_read(CC.IsStatic, 1)
+            if op == Opcode.CALL:
+                sread(2)
+        elif state == E.ErrorOutOfGasAccountAccess:
+            # the access list is keyed by the operand's low 160 bits
+            addr = self.spop() & _ADDR_MASK
+            self.cc_read(CC.TxId, self.tx_id)
+            rw.tx_access_list_account_read(self.tx_id, addr, addr in self.warm_addr)
+        elif state == E.ErrorOutOfGasStaticMemoryExpansion:
+            self.spop()
+        elif state in (E.ErrorOutOfGasDynamicMemoryExpansion, E.ErrorOutOfGasSHA3,
+                       E.ErrorOutOfGasLOG):
+            self.spop()
+            self.spop()
+        elif state == E.ErrorOutOfGasMemoryCopy:
+            off = 0
+            if op == Opcode.EXTCODECOPY:
+                sread(0)
+                off = 1
+            sread(off)
+            sread(off + 2)
+            if op == Opcode.EXTCODECOPY:
+                self.cc_read(CC.TxId, self.tx_id)
+                ext = st[-1] & _ADDR_MASK
+                rw.tx_access_list_account_read(self.tx_id, ext, ext in self.warm_addr)
+        elif state == E.ErrorReturnDataOutOfBound:
+            sread(1)
+            sread(2)
+            self.cc_read(CC.LastCalleeReturnDataLength, self.last_callee[2])
+        elif state == E.ErrorOutOfGasSloadSstore:
+            key = self.spop()
+            self.cc_read(CC.TxId, self.tx_id)
+            self.cc_read(CC.CalleeAddress, self.callee_address)
+            skey = (self.callee_address, key)
+            rw.tx_access_list_account_storage_read(self.tx_id, self.callee_address, key,
+                                                   skey in self.warm_slot)
+            if op == Opcode.SSTORE:
+                self.spop()
+                value_prev = self.storage.get(skey, 0)
+                committed = self.committed.get(skey, value_prev)
+                rw.account_storage_read(self.callee_address, key, value_prev, self.tx_id,
+                                        committed)
+                # the gadget's original-value hint rides the step's aux
+                self.w.steps[-1].aux_data = committed
+        elif state == E.ErrorGasUintOverflow:
+            # the gadget's CallDataLength, TxId and IsRoot reads, then
+            # memory_size's pops; reached by MLOAD / MSTORE / MSTORE8 with an
+            # offset past u64 (a root frame would need the calldata rows)
+            assert not self.is_root, "tracer: a root-frame gas-uint overflow needs calldata lookups"
+            self.cc_read(CC.CallDataLength, len(self.calldata))
+            self.cc_read(CC.TxId, self.tx_id)
+            self.cc_read(CC.IsRoot, 0)
+            self.spop()
+            if op in (Opcode.MSTORE, Opcode.MSTORE8):
+                self.spop()
+        elif state == E.ErrorOutOfGasCREATE:
+            sread(1)
+            sread(2)
+            self.cc_read(CC.IsRoot, 0)
+        elif state in (E.ErrorOutOfGasCodeStore, E.ErrorMaxCodeSizeExceeded):
+            sread(1)
+            self.cc_read(CC.IsStatic, 0)
+        elif state == E.ErrorInvalidCreationCode:
+            offset = self.spop()
+            rw.memory_read(self.call_id, offset, self.memory.get(offset, 0))
+        elif state == E.ErrorOutOfGasEXP:
+            sread(1)
+        elif state == E.ErrorOutOfGasCall:
+            self.cc_read(CC.TxId, self.tx_id)
+            self.spop()                # gas
+            target = self.spop()
+            if op in (Opcode.CALL, Opcode.CALLCODE):
+                self.spop()            # value
+            for _ in range(4):         # cd_offset, cd_length, rd_offset, rd_length
+                self.spop()
+            self.spush(0)              # CallGadget pins is_success to 0
+            rw.account_read(target, AccountFieldTag.CodeHash, self._account_code_hash(target))
+            rw.tx_access_list_account_read(self.tx_id, target, target in self.warm_addr)
+        rw.call_context_read(self.call_id, CC.IsSuccess, 0)
+        self.gas_left = 0
+        if self.is_root:
+            self._materialize_reversion()
+            self._rollback(self.snapshot)
+            self.stopped = True
+            return
+        saved = self.frames[-1]
+        last_callee = (self.call_id, 0, 0)
+        self._restore_context_rows(saved, last_callee)
+        self._materialize_reversion()
+        self._rollback(self.snapshot)
+        self._pop_frame(last_callee, success=False)
 
     # stack rw helpers (emit the row AND mutate the model stack)
     def spush(self, v: int):
@@ -892,12 +1030,202 @@ class _Tracer:
         self.snapshot = snapshot
         self.is_create_frame = False
 
+    def op_create(self, op):
+        """CREATE / CREATE2 (evm/execution/create.py's row order): the
+        prechecks, the address (a CREATE2 collision stays in the caller),
+        the transfer and the new account's nonce bound to the callee's
+        frame, then the initcode copied from memory to the bytecode table
+        and its frame entered; an empty initcode deploys in place.  As in
+        the JAX tracer, the deployer is the frame's CallerAddress, the
+        CREATE address takes the incremented nonce and CREATE2 packs the
+        salt and the code hash little-endian."""
+        is_create2 = op == Opcode.CREATE2
+        rw = self.rw
+        CC = CallContextFieldTag
+        callee_call_id = self.w.steps[-1].rw_counter
+        # the gadget charges GAS_COST_CREATE in its dynamic cost: undo
+        # step_op's constant cost
+        self.gas_left += constant_gas_cost(op)
+
+        value = self.spop()
+        offset = self.spop()
+        size = self.spop()
+        salt = self.spop() if is_create2 else 0
+
+        initcode_bytes = bytearray(self._mem_bytes(offset, size))
+        initcode = Bytecode(initcode_bytes)
+        init_hash = initcode.hash() if size else EMPTY_HASH
+        if size:
+            # the gadget's code-hash hint rides the step's aux
+            self.w.steps[-1].aux_data = init_hash
+
+        deployer = self.caller_address
+        nonce_prev = self.nonces.get(deployer, 0)
+        nonce = nonce_prev + 1
+        if is_create2:
+            contract = int.from_bytes(
+                keccak256(b"\xff" + deployer.to_bytes(20, "big") + salt.to_bytes(32, "little")
+                          + init_hash.to_bytes(32, "little"))[-20:], "big")
+        else:
+            contract = int.from_bytes(
+                keccak256(rlp_encode([deployer.to_bytes(20, "big"), nonce]))[-20:], "big")
+
+        # the prechecks (create.py:80-88) and a collision
+        precheck_ok = (self.depth < 1025 and self.balances.get(deployer, 0) >= value
+                       and nonce_prev < (1 << 64) - 1)
+        collision = precheck_ok and (
+            self.nonces.get(contract, 0) != 0
+            or self._account_code_hash(contract) not in (0, EMPTY_HASH))
+        enters = precheck_ok and not collision and size > 0
+        if enters:
+            cidx, csucc = self._frame_outcome()
+        else:
+            cidx, csucc = None, bool(precheck_ok and not collision)
+        self.spush(contract if csucc else 0)
+
+        self.cc_read(CC.Depth, self.depth)
+        self.cc_read(CC.TxId, self.tx_id)
+        self.cc_read(CC.CallerAddress, deployer)
+        rw.account_write(deployer, AccountFieldTag.Nonce, nonce, nonce_prev)
+        self.nonces[deployer] = nonce
+        rw.account_read(deployer, AccountFieldTag.Balance, self.balances.get(deployer, 0))
+        # the outcome, from the callee's context (the gadget's deviation)
+        rw.call_context_read(callee_call_id, CC.IsSuccess, int(csucc))
+        self.cc_read(CC.IsStatic, self.is_static)
+        self.reversion_reads()
+
+        # memory expansion and the initcode's word gas (create.py:60-78)
+        next_mws = max(self.mws, (offset + size + 31) // 32) if size else self.mws
+        mem_gas = self._expansion_gas(offset, size)
+        word_len = (size + 31) // 32
+        gas_cost = GAS_COST_CREATE + mem_gas + word_len * GAS_COST_INITCODE_WORD
+        if is_create2:
+            gas_cost += GAS_COST_COPY_SHA3 * word_len
+        gas_available = self.gas_left - gas_cost
+        callee_gas = gas_available - gas_available // 64
+
+        callee_persistent = self.persistent and csucc
+        callee_anchor = {"own": None, "parent": self.anchor, "poffset": self.rev + 1,
+                         "persistent": callee_persistent, "failed": enters and not csucc}
+        callee_pending: List[dict] = []
+        setup = [(callee_call_id, CC.IsSuccess, int(csucc))]
+        snapshot = None
+
+        if precheck_ok:
+            warm = contract in self.warm_addr
+            rw.tx_access_list_account_write(self.tx_id, contract, True, warm)
+            self._mirror_last()
+            self.rev += 1
+            self.warm_addr.add(contract)
+            rw.account_read(contract, AccountFieldTag.CodeHash, self._account_code_hash(contract))
+            rw.account_read(contract, AccountFieldTag.Nonce, self.nonces.get(contract, 0))
+            if not collision:
+                rw.call_context_read(callee_call_id, CC.RwCounterEndOfReversion, 0)
+                self._fix_rwceor(callee_anchor)
+                rw.call_context_read(callee_call_id, CC.IsPersistent, int(callee_persistent))
+                setup.append((callee_call_id, CC.RwCounterEndOfReversion, callee_anchor))
+                setup.append((callee_call_id, CC.IsPersistent, int(callee_persistent)))
+                # the transfer and the new account's nonce, bound to the
+                # callee's frame
+                snapshot = self._snapshot()
+                src_prev = self.balances.get(deployer, 0)
+                rw.account_write(deployer, AccountFieldTag.Balance, src_prev - value, src_prev)
+                self._mirror_last(callee_pending)
+                self.balances[deployer] = src_prev - value
+                dst_prev = self.balances.get(contract, 0)
+                rw.account_write(contract, AccountFieldTag.Balance, dst_prev + value, dst_prev)
+                self._mirror_last(callee_pending)
+                self.balances[contract] = dst_prev + value
+                rw.account_write(contract, AccountFieldTag.Nonce, 1, 0)
+                self._mirror_last(callee_pending)
+                self.nonces[contract] = 1
+        self.w.subcall_setups.append(setup)
+
+        if not enters:
+            # the create stays in the caller's frame (create.py:196-222)
+            for tag in (CC.LastCalleeId, CC.LastCalleeReturnDataOffset,
+                        CC.LastCalleeReturnDataLength):
+                rw.call_context_write(self.call_id, tag, 0)
+            # an empty initcode deploys in place: its mirrors join the caller's
+            self.pending += callee_pending
+            self.rev += len(callee_pending)
+            if csucc and size == 0:
+                self.codes[contract] = Bytecode(bytearray())
+                self._register_code(Bytecode(bytearray()))
+            self.gas_left -= gas_cost
+            self.mws = next_mws
+            self.pc += 1
+            return
+
+        # the initcode, copied from the caller's memory to the bytecode table
+        self._register_code(initcode)
+        is_code = init_is_code(initcode_bytes)
+        self.w.copy_circuit.copy(
+            self.copy_r, rw, self.call_id, CopyDataTypeTag.Memory, init_hash,
+            CopyDataTypeTag.Bytecode, offset, offset + size, 0, size,
+            {offset + i: (initcode_bytes[i], int(is_code[i])) for i in range(size)})
+
+        # the caller's context, saved (5 writes)
+        resume_gas = self.gas_left - gas_cost - callee_gas
+        for tag, v in ((CC.ProgramCounter, self.pc + 1),
+                       (CC.StackPointer, 1024 - len(self.stack)),
+                       (CC.GasLeft, resume_gas),
+                       (CC.MemorySize, next_mws),
+                       (CC.ReversibleWriteCounter, self.rev)):
+            rw.call_context_write(self.call_id, tag, v)
+
+        # the callee's context (create.py:163-183)
+        for tag, v in ((CC.CallerId, self.call_id), (CC.TxId, self.tx_id),
+                       (CC.Depth, self.depth + 1), (CC.CallerAddress, deployer),
+                       (CC.CalleeAddress, contract), (CC.IsSuccess, int(csucc)),
+                       (CC.IsStatic, 0), (CC.IsRoot, 0), (CC.IsCreate, 1),
+                       (CC.CodeHash, init_hash)):
+            rw.call_context_read(callee_call_id, tag, v)
+            if tag != CC.IsSuccess:
+                setup.append((callee_call_id, tag, v))
+
+        # enter the initcode's frame
+        saved = self._push_frame()
+        saved["resume_pc"] = self.pc + 1
+        saved["resume_gas"] = resume_gas
+        saved["resume_mws"] = next_mws
+        saved["resume_rev"] = self.rev
+        self.call_id = callee_call_id
+        self.code = initcode
+        self.code_hash = init_hash
+        self.stack = []
+        self.memory = {}
+        self.mws = 0
+        self.pc = 0
+        self.gas_left = callee_gas
+        self.rev = 3
+        self.is_root = False
+        self.callee_address = contract
+        self.caller_address = deployer
+        self.value = value
+        self.is_static = 0
+        self.depth = self.depth + 1
+        self.calldata = b""
+        self.cd_offset_abs = 0
+        self.caller_frame_id = saved["call_id"]
+        self.rd_offset_abs = 0
+        self.rd_length = 0
+        self.last_callee = (0, 0, 0)
+        self.frame_idx = cidx
+        self.persistent = callee_persistent
+        self.pending = callee_pending
+        self.anchor = callee_anchor
+        self.snapshot = snapshot
+        self.is_create_frame = True
+
     def op_return_revert(self, op):
         """RETURN / REVERT (evm/execution/return_revert.py's row order): at
         the root the tx ends; in a sub-call the returned chunk is copied
         into the caller's return region and the caller's context restored.
-        A REVERT places its frame's mirror section and rolls the world state
-        back to the frame's entry.  A create frame's halt raises."""
+        A create frame deploys the returned chunk as its contract's code
+        instead (the gadget's rows come for a REVERT too).  A REVERT places
+        its frame's mirror section and rolls the world state back to the
+        frame's entry."""
         is_return = op == Opcode.RETURN
         if not is_return:
             self._mark_failed()
@@ -906,9 +1234,29 @@ class _Tracer:
         offset = self.spop()
         length = self.spop()
         if self.is_create_frame:
-            raise NotImplementedError(
-                f"tracer: {op.name} in a create frame (tx {self.tx.id}, pc {self.pc}) is not "
-                "ported")
+            contract = self.callee_address
+            self.cc_read(CallContextFieldTag.CalleeAddress, contract)
+            self.rw.account_write(contract, AccountFieldTag.CodeHash, self.code_hash, EMPTY_HASH)
+            deployed_bytes = bytearray(self._mem_bytes(offset, length))
+            deployed = Bytecode(deployed_bytes)
+            # the deployment sticks on RETURN only (the JAX tracer's model of
+            # the gadget's unmirrored account write)
+            if is_return:
+                assert deployed.hash() == self.code_hash, (
+                    "tracer: an initcode must return its own bytes (the gadget pins the "
+                    "deployed CodeHash to the frame's, return_revert.py:40)")
+                self.codes[contract] = deployed
+            else:
+                assert length == 0, (
+                    "tracer: a REVERT with data in an initcode frame is not supported (the "
+                    "gadget would register the data as bytecode under the initcode's hash)")
+            self.gas_left -= length * GAS_COST_CODE_DEPOSIT
+            if length:
+                is_code = init_is_code(deployed_bytes)
+                self.w.copy_circuit.copy(
+                    self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory, self.code_hash,
+                    CopyDataTypeTag.Bytecode, offset, offset + length, 0, length,
+                    {offset + i: (deployed_bytes[i], int(is_code[i])) for i in range(length)})
 
         if self.is_root:
             self.cc_read(CallContextFieldTag.IsPersistent, int(is_return))
@@ -919,19 +1267,21 @@ class _Tracer:
             self.stopped = True
             return
 
-        # the returned chunk, copied into the caller's return region
         saved = self.frames[-1]
-        self.cc_read(CallContextFieldTag.ReturnDataOffset, self.rd_offset_abs)
-        self.cc_read(CallContextFieldTag.ReturnDataLength, self.rd_length)
-        copy_length = min(length, self.rd_length)
-        if copy_length:
-            src_data = {offset + i: self.memory.get(offset + i, 0) for i in range(copy_length)}
-            self.w.copy_circuit.copy(
-                self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory, saved["call_id"],
-                CopyDataTypeTag.Memory, offset, offset + length, self.rd_offset_abs, copy_length,
-                src_data)
-            for i in range(copy_length):
-                saved["memory"][self.rd_offset_abs + i] = self.memory.get(offset + i, 0)
+        if not self.is_create_frame:
+            # the returned chunk, copied into the caller's return region
+            self.cc_read(CallContextFieldTag.ReturnDataOffset, self.rd_offset_abs)
+            self.cc_read(CallContextFieldTag.ReturnDataLength, self.rd_length)
+            copy_length = min(length, self.rd_length)
+            if copy_length:
+                src_data = {offset + i: self.memory.get(offset + i, 0)
+                            for i in range(copy_length)}
+                self.w.copy_circuit.copy(
+                    self.copy_r, self.rw, self.call_id, CopyDataTypeTag.Memory,
+                    saved["call_id"], CopyDataTypeTag.Memory, offset, offset + length,
+                    self.rd_offset_abs, copy_length, src_data)
+                for i in range(copy_length):
+                    saved["memory"][self.rd_offset_abs + i] = self.memory.get(offset + i, 0)
         self._expand_dyn(offset if length else 0, length)
         last_callee = (self.call_id, offset, length)
         self._restore_context_rows(saved, last_callee)
@@ -1489,6 +1839,7 @@ _STATE_BY_OPCODE = {
     Opcode.RETURN: _ES.RETURN, Opcode.REVERT: _ES.RETURN,
     Opcode.CALL: _ES.CALL_OP, Opcode.CALLCODE: _ES.CALL_OP, Opcode.DELEGATECALL: _ES.CALL_OP,
     Opcode.STATICCALL: _ES.CALL_OP,
+    Opcode.CREATE: _ES.CREATE, Opcode.CREATE2: _ES.CREATE2,
 }
 for _i in range(1, 17):
     _STATE_BY_OPCODE[Opcode[f"DUP{_i}"]] = _ES.DUP
@@ -1519,6 +1870,7 @@ _HANDLERS = {
     **{_o: _Tracer.op_log for _o in _LOG_OPS},
     Opcode.RETURN: _Tracer.op_return_revert, Opcode.REVERT: _Tracer.op_return_revert,
     **{_o: _Tracer.op_callop for _o in _CALL_OPS},
+    Opcode.CREATE: _Tracer.op_create, Opcode.CREATE2: _Tracer.op_create,
 }
 
 # -- hot-path dispatch tables: 256-entry arrays indexed by the raw byte ------
@@ -1553,7 +1905,8 @@ for _o in Opcode:
 for _o in (Opcode.JUMP, Opcode.JUMPI, Opcode.BALANCE, Opcode.EXTCODESIZE, Opcode.EXTCODEHASH,
            Opcode.MLOAD, Opcode.MSTORE, Opcode.MSTORE8, Opcode.CALLDATACOPY, Opcode.CODECOPY,
            Opcode.EXTCODECOPY, Opcode.RETURNDATACOPY, Opcode.SLOAD, Opcode.SSTORE, *_LOG_OPS,
-           Opcode.EXP, Opcode.SHA3, Opcode.RETURN, Opcode.REVERT, *_CALL_OPS):
+           Opcode.EXP, Opcode.SHA3, Opcode.RETURN, Opcode.REVERT, Opcode.CREATE, Opcode.CREATE2,
+           *_CALL_OPS):
     _HAS_DYNAMIC_CHECK[int(_o)] = True
 
 

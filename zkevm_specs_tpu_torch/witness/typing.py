@@ -375,6 +375,16 @@ class RWDictionary:
                                  value=int(value), value_prev=int(value_prev),
                                  rw_counter_of_reversion=rw_counter_of_reversion)
 
+    def tx_access_list_account_read(self, tx_id, account_address, value: bool) -> "RWDictionary":
+        return self._append(RW.Read, Target.TxAccessListAccount, id=tx_id,
+                            address=account_address, value=int(value), value_prev=int(value))
+
+    def tx_access_list_account_storage_read(self, tx_id, account_address, storage_key,
+                                            value: bool) -> "RWDictionary":
+        return self._append(RW.Read, Target.TxAccessListAccountStorage, id=tx_id,
+                            address=account_address, storage_key=storage_key, value=int(value),
+                            value_prev=int(value))
+
     def tx_access_list_account_storage_write(self, tx_id, account_address, storage_key,
                                              value: bool, value_prev: bool,
                                              rw_counter_of_reversion: Optional[int] = None

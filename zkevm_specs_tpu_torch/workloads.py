@@ -2,15 +2,20 @@
 circuit's two row mixes, the bytecode circuit's ALU-mix bytecodes, the
 keccak circuit's two tables (the ALU block's bytecodes, and the many short
 preimages of a SHA3-heavy block) and the withdrawal circuit's mainnet
-payload; five blocks traced and signed by the port's tracer for the
+payload; six blocks traced and signed by the port's tracer for the
 block verifier, the ALU block (``build_alu_block``), the arithmetic block
 (``build_arith_block``), the SSTORE-heavy block (``build_sstore_block``),
 the loop block (``build_flow_block``: the root frame's context, account,
-copy and log opcodes, then a for-loop over a calldata word) and the call
+copy and log opcodes, then a for-loop over a calldata word), the call
 block (``build_call_block``: routers calling other contracts with the four
-call opcodes, a 3-deep call and a reverting callee), with the small blocks
+call opcodes, a 3-deep call and a reverting callee) and the create block
+(``build_create_block``: factories deploying with CREATE2 and calling what
+they deployed, the other creates, callees and sub-factories that halt in
+error states, and a tx that fails at its root), with the small blocks
 that run every root-frame execution state (``build_conformance_block``)
-and the four call opcodes besides (``build_conformance_mega_block``); and
+and the four call opcodes besides (``build_conformance_mega_block``) and
+tests/test_block_create.py's create-then-call chain
+(``build_create_chain_block``); and
 the signed transfers of the tx and sig circuits' largest block
 (``signed_transfers``).
 
@@ -688,6 +693,190 @@ def build_call_block(n_txs: int = CALL_BLOCK_TXS, rounds: int = CALL_BLOCK_ROUND
                        accounts=call_accounts(n_txs))
 
 
+# -- the create-and-fail block: factories deploying and calling, and failed frames --------
+
+CREATE_BLOCK_TXS, CREATE_BLOCK_ROUNDS = 8, 8
+CREATE_FACTORY_BALANCE = 10**18
+# a round's gas and the rest of a tx's (the intrinsic 21000, the five
+# creates after the loop, the eight error callees and the four
+# sub-factories), with room to spare
+CREATE_ROUND_GAS = 40000
+CREATE_TAIL_GAS = 600000
+CREATE_ERROR_GAS = 0x400          # the gas each error callee is given
+CREATE_FAILED_EMPTY = 4           # the empty-initcode CREATEs of the failing tx
+
+
+def self_replicating_initcode() -> Bytecode:
+    """The 12-byte initcode that deploys its own bytes, CODECOPY(0, 0, 12)
+    then RETURN(0, 12) (tests/test_block_create.py:31-40): the RETURN
+    gadget pins the deployed code hash to the frame's, so the JAX package
+    (and so the port) deploys only an initcode that returns itself."""
+    ic = Bytecode().push1(12).push1(0).push1(0).codecopy().push1(12).push1(0).return_()
+    assert len(ic.code) == 12
+    return ic
+
+
+def reverting_initcode() -> Bytecode:
+    """An initcode that writes a slot and reverts (tests/test_block_create.py:43)."""
+    return Bytecode().push1(0x31).push1(0x0F).sstore().push1(0).push1(0).revert()
+
+
+def _store_code(bc: Bytecode, code: Bytecode, offset: int = 0) -> int:
+    """MSTORE ``code`` into memory, left-aligned at ``offset``; returns its
+    length."""
+    data = bytes(code.code)
+    for i in range(0, len(data), 32):
+        bc.push32(int.from_bytes(data[i:i + 32].ljust(32, b"\x00"), "big"))
+        bc.push1(offset + i).mstore()
+    return len(data)
+
+
+def _call_with_gas(bc: Bytecode, op: str, target: int, gas: int, ret=(0, 0)) -> Bytecode:
+    """``op(gas, target, [value 0,] no args, ret)``."""
+    bc.push1(ret[1]).push1(ret[0]).push1(0).push1(0)
+    if op == "call":
+        bc.push1(0)
+    return getattr(bc.push2(target).push3(gas), op)()
+
+
+# the error callees: (address, code, the call opcode); each halts in one
+# error state when called with CREATE_ERROR_GAS
+CREATE_ERROR_CALLEES = (
+    (0xE000, Bytecode(bytearray([0x0C])), "call"),                        # ErrorInvalidOpcode
+    (0xE001, Bytecode().pop(), "call"),                                   # ErrorStack
+    (0xE002, Bytecode().push1(0).jump(), "call"),                         # ErrorInvalidJump
+    (0xE003, Bytecode().jumpdest().push1(0).jump(), "call"),              # ErrorOutOfGasConstant
+    (0xE004, Bytecode().push1(1).push1(0).sstore(), "staticcall"),        # ErrorWriteProtection
+    (0xE005, Bytecode().push1(1).push1(0).push1(0).returndatacopy(),      # ErrorReturnData-
+     "call"),                                                             # OutOfBound
+    (0xE006, Bytecode().push3(0xFFFFF).push1(0).sha3(), "call"),         # ErrorOutOfGasSHA3
+    (0xE007, Bytecode().push3(0xFFFFF).mload(), "call"),                  # ErrorOutOfGasStatic-
+)                                                                         # MemoryExpansion
+
+
+def _sub_factory(initcode: Bytecode, halt: bool = True) -> Bytecode:
+    """A factory that CREATEs ``initcode`` (tests/test_block_create.py:
+    271-330's sub-factories)."""
+    bc = Bytecode()
+    size = _store_code(bc, initcode)
+    bc.push1(size).push1(0).push1(0).create()
+    return bc.pop().stop() if halt else bc
+
+
+# the sub-factories: (address, code, the gas the call gives it); each
+# gives its initcode only the gas its create error needs
+CREATE_SUB_FACTORIES = (
+    # ErrorInvalidCreationCode: the initcode returns 0xEF as its first byte
+    (0x5000, _sub_factory(Bytecode().push1(0xEF).push1(0).mstore8().push1(1).push1(0).return_()),
+     32200),
+    # ErrorMaxCodeSizeExceeded: the initcode returns 30000 bytes
+    (0x5001, _sub_factory(Bytecode().push3(30000).push1(0).return_()), 37000),
+    # ErrorOutOfGasCodeStore: the initcode cannot pay its 2400-gas deposit
+    (0x5002, _sub_factory(self_replicating_initcode()), 34000),
+    # ErrorOutOfGasCREATE: the CREATE's constant gas, not its initcode word
+    (0x5003, _sub_factory(self_replicating_initcode(), halt=False), 32022),
+)
+
+
+def create_accounts(n_txs: int):
+    """The factories (0xFF + i, each holding a balance), the error callees
+    and the sub-factories."""
+    accounts = {addr: Account(address=addr, code=code)
+                for addr, code, _ in CREATE_ERROR_CALLEES + CREATE_SUB_FACTORIES}
+    for i in range(n_txs):
+        accounts[0xFF + i] = Account(address=0xFF + i, balance=CREATE_FACTORY_BALANCE)
+    return accounts
+
+
+def create_code(rounds: int, fails: bool) -> Bytecode:
+    """A factory's contract: the self-replicating initcode MSTOREd at 0;
+    ``rounds`` rounds of CREATE2(0, mem[0..12), salt = the round) then a
+    CALL of the new address with a 12-byte return region at 32 (a
+    deployment that is then used); a CREATE, a CREATE with value 1, a
+    CREATE2 that collides with round 0's, a CREATE of the reverting
+    initcode (MSTOREd at 64) and a CREATE of no initcode (four when
+    ``fails``: the lanes of the failing tx's, whose transfer takes the
+    non-persistent branch, then fill a device group); a call to each
+    error callee and to each sub-factory; then RETURN(32, 12), or an
+    invalid opcode at the root when ``fails``.  The deployer of a CREATE
+    is the frame's CallerAddress (the JAX package's quirk), so the root
+    frame's creates deploy from the tx's sender."""
+    bc = Bytecode()
+    size = _store_code(bc, self_replicating_initcode())
+    rev_size = _store_code(bc, reverting_initcode(), 64)
+    for r in range(rounds):
+        bc.push1(r).push1(size).push1(0).push1(0).create2()        # the new address
+        bc.push1(12).push1(32).push1(0).push1(0).push1(0)          # ret, args, value
+        bc.dup6().push2(0xFFFF).call().pop().pop()
+    bc.push1(size).push1(0).push1(0).create().pop()
+    bc.push1(size).push1(0).push1(1).create().pop()
+    if rounds:
+        bc.push1(0).push1(size).push1(0).push1(0).create2().pop()
+    bc.push1(rev_size).push1(64).push1(0).create().pop()
+    # a failing tx's empty-initcode CREATEs take the non-persistent
+    # transfer's branch: it makes four, so that they fill a device group
+    for _ in range(CREATE_FAILED_EMPTY if fails else 1):
+        bc.push1(0).push1(0).push1(0).create().pop()
+    for addr, _, op in CREATE_ERROR_CALLEES:
+        _call_with_gas(bc, op, addr, CREATE_ERROR_GAS).pop()
+    for addr, _, gas in CREATE_SUB_FACTORIES:
+        _call_with_gas(bc, "call", addr, gas).pop()
+    if fails:
+        bc.code.append(0x0C)
+        bc.is_code.append(True)
+        return bc
+    return bc.push1(12).push1(32).return_()
+
+
+def create_block_txs(n_txs: int, rounds: int, seed: int = 0
+                     ) -> List[Tuple[Transaction, Bytecode]]:
+    """The create block's txs: caller 0xFE (signing gives each tx its own
+    key's address, so each its own CREATE2 deployer), factory 0xFF + i
+    running ``create_code``, 36 bytes of seeded calldata as
+    ``flow_block_txs`` draws them, and the last tx failing at its root."""
+    rng = np.random.RandomState(seed)
+    txs = []
+    for i in range(n_txs):
+        call_data = rng.bytes(4) + rng.bytes(32)
+        txs.append((Transaction(id=i + 1, gas=CREATE_ROUND_GAS * rounds + CREATE_TAIL_GAS,
+                                gas_price=int(2e9), caller_address=0xFE, callee_address=0xFF + i,
+                                call_data=call_data),
+                    create_code(rounds, fails=i == n_txs - 1)))
+    return txs
+
+
+def build_create_block(n_txs: int = CREATE_BLOCK_TXS, rounds: int = CREATE_BLOCK_ROUNDS,
+                       seed: int = 0):
+    """The create block's witness, signed: each tx a factory deploying with
+    CREATE2 and calling what it deployed ``rounds`` times, then the five
+    creates, the eight error callees and the four create errors; the last
+    tx halts at its root in ErrorInvalidOpcode."""
+    return trace_block(Block(**FLOW_BLOCK_HEADER), create_block_txs(n_txs, rounds, seed),
+                       accounts=create_accounts(n_txs))
+
+
+def build_create_chain_block():
+    """tests/test_block_create.py:test_block_create_then_call_then_create2_chain's
+    block: one tx that CREATEs the self-replicating initcode, CALLs the new
+    contract (at the address of the sender's nonce 2, the CREATE's nonce
+    after BeginTx's) and CREATE2s it with salt 0xAB."""
+    from .ops.keccak import keccak256
+    from .witness.rlp import rlp_encode
+    from .witness.tracer import tx_sender_address
+
+    bc = Bytecode()
+    size = _store_code(bc, self_replicating_initcode())
+    bc.push1(size).push1(0).push1(0).create().pop()
+    addr = int.from_bytes(keccak256(rlp_encode([tx_sender_address(1).to_bytes(20, "big"),
+                                                2]))[-20:], "big")
+    bc.push1(0).push1(0).push1(0).push1(0).push1(0).push32(addr).push2(0xFFFF).call().pop()
+    bc.push1(0xAB).push1(size).push1(0).push1(0).create2().pop()
+    bc.stop()
+    tx = Transaction(id=1, gas=2000000, gas_price=int(2e9), caller_address=0xFE,
+                     callee_address=0xFF)
+    return trace_block(Block(base_fee=int(1e9)), [(tx, bc)])
+
+
 # -- signed transfers: the tx and sig circuits' largest block ----------------------------
 
 TX_SIG_CHAIN_ID = 1337                        # bench.py:bench_sig's
@@ -709,11 +898,12 @@ def signed_transfers(n: int):
 
 
 # (side, elements, m limbs) of every logUp partial sum (K13 call) of the
-# checks of chip_smoke.py's five blocks: the ALU block at half its rounds
+# checks of chip_smoke.py's six blocks: the ALU block at half its rounds
 # (build_alu_block(8, 5500)), the arithmetic block at a quarter of its txs
 # (build_arith_block(10, 37)), the SSTORE block, the loop block at half its
-# txs and rounds (build_flow_block(4, 800)) and the call block
-# (build_call_block(8, 316)).  A query side's m is en (one
+# txs and rounds (build_flow_block(4, 800)), the call block at a quarter of
+# its rounds (build_call_block(8, 79)) and the create block
+# (build_create_block(8, 8)).  A query side's m is en (one
 # limb), a table side's the multiplicities (four limbs).  A side of the same
 # shape as one an earlier family of its block gave is listed once (the
 # SSTORE block's keccak query side is its copy query side's shape, its block
@@ -741,11 +931,16 @@ LOGUP_SIDES = (
     ("flow copy query", 16, 1), ("flow copy table", 16, 4),
     ("flow tx query", 102496, 1), ("flow tx table", 192, 4),
     ("flow block query", 63, 1), ("flow block table", 264, 4),
-    ("calls rw query", 599910, 1), ("calls rw table", 661833, 4),
-    ("calls bytecode query", 1671824, 1), ("calls bytecode table", 669, 4),
-    ("calls copy query", 2560, 1), ("calls copy table", 2560, 4),
+    ("calls rw query", 155535, 1), ("calls rw table", 171006, 4),
+    ("calls bytecode query", 430418, 1), ("calls bytecode table", 669, 4),
+    ("calls copy query", 664, 1), ("calls copy table", 664, 4),
     ("calls tx query", 524, 1), ("calls tx table", 384, 4),
-    ("calls block query", 63, 1), ("calls block table", 264, 4))
+    ("calls block query", 63, 1), ("calls block table", 264, 4),
+    ("create rw query", 36326, 1), ("create rw table", 33282, 4),
+    ("create bytecode query", 115169, 1), ("create bytecode table", 1395, 4),
+    ("create copy query", 408, 1), ("create copy table", 408, 4),
+    ("create tx query", 268, 1), ("create tx table", 384, 4),
+    ("create block query", 63, 1), ("create block table", 264, 4))
 
 
 def receipt_gas_used(witness) -> int:
