@@ -45,9 +45,10 @@ script exits non-zero):
    CPU;
 7. withdrawal: the withdrawal circuit (``withdrawal_kernel``) at mainnet's
    16 rows, the same steps with one corrupted amount;
-8. block: the ALU block at half its rounds (``workloads.build_alu_block(8,
-   5500)``; ``bench.py:_alu_heavy_txs(8, 11000)``, cut so that the run keeps
-   its time; the bytecode and keccak phases keep its full codes) traced and signed by the port, as
+8. block: the ALU block at a quarter of its rounds
+   (``workloads.build_alu_block(8, 2750)``; ``bench.py:_alu_heavy_txs(8,
+   11000)``, cut so that the run keeps its time; the bytecode and keccak
+   phases keep its full codes) traced and signed by the port, as
    ``bench.py:_run_block_once`` traces it, caller 0xFE becoming each tx's
    own key's address) through the port's ``CompiledBlockVerifier``, the tx
    and sig circuits included (``"sign": true``; the host seconds of the
@@ -80,11 +81,11 @@ script exits non-zero):
    gas_left edit and with tx 0 re-signed with key 0xBAD (failing at ("tx",
    0) only).  Every circuit is ported (``"not_ported": []``), pi on every
    block;
-9. arith: the arithmetic block at a quarter of its txs
-   (``workloads.build_arith_block(10, 37)``: MUL, DIV, MOD, SDIV, SMOD,
-   ADDMOD, MULMOD, EXP, SHL and SHR on seeded words, 370 EXP events in the
+9. arith: the arithmetic block at an eighth of its txs
+   (``workloads.build_arith_block(5, 37)``: MUL, DIV, MOD, SDIV, SMOD,
+   ADDMOD, MULMOD, EXP, SHL and SHR on seeded words, 185 EXP events in the
    exp circuit; signed, one caller 0xFE; the 40-tx block, 1110840 gas, is
-   cut to a quarter so that the run keeps its time) through the same steps, the exp circuit's share beside the
+   cut to an eighth so that the run keeps its time) through the same steps, the exp circuit's share beside the
    keccak, tx, sig and pi checks', the tx and sig edits, and
    the pi edit above, and two corruptions each on its own rebuild (one
    MULMOD step's pushed result + 1; one exp-circuit row's d + 1) that must
@@ -115,12 +116,12 @@ script exits non-zero):
    verifier fails on the same edits of a 2-tx block), its logUp line (the
    copy and keccak families among them), and the 2-tx block's failure
    dicts on the card and the CPU, clean and with the SSTORE edit;
-10b. flow: the loop block at half its txs and half its rounds
-   (``workloads.build_flow_block(4, 800)``, signed: 54733 steps, 119613 rw
+10b. flow: the loop block at half its txs and a quarter of its rounds
+   (``workloads.build_flow_block(4, 400)``, signed: 27533 steps, 60413 rw
    rows; the 8 x 1600 block, 986488 gas, is cut so that the run keeps its
    time): each tx reads every context value, queries 0xCAFE's account cold
    and warm, copies from its code, the calldata and its own code, then runs
-   800 rounds of a Solidity-shaped for-loop over a calldata word (JUMPDEST,
+   400 rounds of a Solidity-shaped for-loop over a calldata word (JUMPDEST,
    DUP, PUSH, GT, ISZERO, JUMPI, CALLDATALOAD, SWAP, ADD, JUMP) and ends in
    a LOG1; the block goes through the same steps, the copy check's share beside the keccak, tx, sig and pi checks',
    two rebuilds (tx 3's LOG1 topic + 1, failing at its LOG step alone; the
@@ -130,10 +131,11 @@ script exits non-zero):
    failure dicts on the card and the CPU, clean and with both edits, and
    the conformance block's (``workloads.build_conformance_block``: 50
    execution states in one frame), clean;
-10c. calls: the call block at a quarter of its rounds
-   (``workloads.build_call_block(8, 79)``, signed: 22557 steps, 171006 rw
-   rows, 601380 gas, 42496 copy rows; cut from 8 x 316 for the run's time
-   since the create phase; each tx a router calling 0xC0DE 79 times with
+10c. calls: the call block at a sixteenth of its rounds
+   (``workloads.build_call_block(8, 19)``, signed: 5997 steps, 46746 rw
+   rows, 500340 gas, 11776 copy rows; cut from 8 x 316 for the run's time,
+   to 8 x 79 with the create phase and to 8 x 19 with the precompile
+   phase; each tx a router calling 0xC0DE 19 times with
    CALL, STATICCALL, DELEGATECALL or CALLCODE, each round's return data
    copied into the next round's args,
    then a CALL with value, a 3-deep call through 0xB0B and a call to 0xDEAD,
@@ -164,6 +166,25 @@ script exits non-zero):
    card and the CPU, clean and with both edits, and the create-then-call
    chain block's (``workloads.build_create_chain_block``,
    tests/test_block_create.py's), clean and with both edits;
+10e. precompile: the proof-verifier and signature-relayer block
+   (``workloads.build_precompile_block(4, 4, 64)``, signed: 10733 steps,
+   469909 rw rows, 2635528 gas, 529664 copy rows; not cut): four rollups
+   each STATICCALL the shared Groth16 verifier 0xBEEF with the proof in
+   their calldata (2 ecMul, 2 ecAdd and a 4-pair ecPairing, the ecc
+   circuit's capacity over the four; the result SSTOREd), four relayers
+   each recover 64 signers (a round: CALLDATACOPY, identity, ecRecover and
+   a LOG1 of the address), then an ecRecover with v = 29 and one given 2999
+   gas (ErrorOutOfGasPrecompile), through the same steps, the ecc and
+   sig_trace checks' shares beside the copy, keccak, tx, sig and pi
+   checks', a rebuild with the first identity output byte + 1 in the rw
+   rows (failing at its copy row and the state row of the byte's next
+   read), its logUp line (sig and ecc among its families), and the small
+   block's (``build_precompile_block(1, 1, 2)``: a rollup, a relayer of 2
+   messages) failure dicts on the card and the CPU, clean and with each
+   of ``workloads.PRECOMPILE_EDITS`` at its predicted keys (the first
+   ecAdd op's out y + 1: that BN254_ADD step and ("ecc", 0); the first sig
+   row's is_valid flipped: the first ECRECOVER step and ("sig_trace", 0);
+   the identity edit), as the JAX verifier fails on the same edits;
 11. tx_sig: ``tx_kernel`` and ``sig_kernel`` on 714 signed transfers
    (``workloads.signed_transfers``: half of 30000000 // 21000, the most a
    30 M-gas block holds, cut so that the run keeps its time;
@@ -184,7 +205,8 @@ script exits non-zero):
    (with the path its launcher took, one warp a lane or a staged tile) and
    K7 at both keccak tables, and every kernel at each distinct shape the
    block verifier's device pass gave it (``path_shapes`` entries labelled
-   "block", "arith", "sstore", "flow", "calls" or "create", 10 timed launches each, each
+   "block", "arith", "sstore", "flow", "calls", "create" or "precompile", 10 timed
+   launches each, each
    entry with
    its count in the pass, the pi, tx, sig and copy checks' K1, K3, K4, K6
    and K8 calls among them, and at tx_sig's shapes, labelled "tx_sig";
@@ -208,7 +230,7 @@ script exits non-zero):
    rows and at every block's state rows, each also against the keys compared
    on Python ints.  K8 at the ALU block's 66001 steps is
    timed at that shape and held against its plain version on the first
-   1024 steps of the same rows (512 at the block verifier's tables), which
+   512 steps of the same rows (256 at the block verifier's tables), which
    the line says (at the blocks' shapes its plain time is that of the one
    held call: it takes seconds); at every K8 shape of every path the whole output is
    also held against the Python-int Horner, and the entry gives the
@@ -318,27 +340,27 @@ STATE_ROWS = workloads.ALU_BLOCK_STATE_ROWS
 SMALL_STATE_ROWS = 512
 CORRUPT_ROW = 77_777
 ALU_TXS, ALU_OPS = workloads.ALU_BLOCK_TXS, workloads.ALU_BLOCK_OPS
-# the block verifier's ALU block at half its rounds (the bytecode and keccak
-# phases keep its full codes): with the call block's phase the whole run went
-# past the time it has
-BLOCK_ALU_OPS = ALU_OPS // 2
+# the block verifier's ALU block at a quarter of its rounds (the bytecode and
+# keccak phases keep its full codes): with the call block's phase, and again
+# with the precompile phase, the whole run went past the time it has
+BLOCK_ALU_OPS = ALU_OPS // 4
 SMALL_K = 10
 SHA3_PREIMAGES = workloads.SHA3_MIX_PREIMAGES
 SMALL_SHA3 = 512
 WITHDRAWALS = workloads.MAX_WITHDRAWALS_PER_PAYLOAD
 # K8's plain version at the ALU block: the first steps only (its plain
 # version takes about 12 ms a step; the run's time)
-K8_HELD_STEPS = 1024
-K8_BLOCK_HELD_STEPS = 512  # ... and at the block verifiers' keccak tables (another r)
+K8_HELD_STEPS = 512
+K8_BLOCK_HELD_STEPS = 256  # ... and at the block verifiers' keccak tables (another r)
 BLOCK_SHAPE_REPEATS = 10  # timed launches of a kernel at each of the block's shapes
 BLOCK_PASS_REPEATS = 5    # the per-kernel pass at the ALU block (about a third of a second each)
 SMALL_BLOCK = (2, 6)      # txs x rounds of the block held against the CPU
 # its txs' calldata: zero and nonzero bytes, 43 in all
 SMALL_BLOCK_CALL_DATA = (bytes([0, 1, 2, 0]), bytes(range(1, 40)))
-# the arithmetic block at a quarter of its txs (workloads.ARITH_BLOCK_TXS is
-# 40): with the SSTORE, tx_sig and loop-block phases the whole block ran
-# past the time the run has
-ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 4, workloads.ARITH_BLOCK_CYCLES
+# the arithmetic block at an eighth of its txs (workloads.ARITH_BLOCK_TXS is
+# 40): with the SSTORE, tx_sig and loop-block phases, and again with the
+# precompile phase, the whole block ran past the time the run has
+ARITH_TXS, ARITH_CYCLES = workloads.ARITH_BLOCK_TXS // 8, workloads.ARITH_BLOCK_CYCLES
 SMALL_ARITH = (4, 1)      # txs x cycles of the arithmetic block held against the CPU
 SSTORE_TXS = workloads.SSTORE_BLOCK_TXS
 SMALL_SSTORE = 2          # txs of the SSTORE block held against the CPU
@@ -347,20 +369,26 @@ SMALL_SSTORE = 2          # txs of the SSTORE block held against the CPU
 TX_SIG_TXS = workloads.TX_SIG_TXS // 2
 SMALL_TX_SIG = 4          # signed transfers of the tx and sig checks held against the CPU
 TX_SIG_CORRUPT_LANE = 700
-# the loop block at half its txs and half its rounds (workloads.FLOW_BLOCK_TXS
-# x FLOW_BLOCK_ITERATIONS is 8 x 1600): with the call block's phase the whole
-# run went past the time it has; the call block runs the same loop gadgets
+# the loop block at half its txs and a quarter of its rounds
+# (workloads.FLOW_BLOCK_TXS x FLOW_BLOCK_ITERATIONS is 8 x 1600): with the
+# call block's phase, and again with the precompile phase, the whole run went
+# past the time it has; the call block runs the same loop gadgets
 FLOW_TXS = workloads.FLOW_BLOCK_TXS // 2
-FLOW_ITERATIONS = workloads.FLOW_BLOCK_ITERATIONS // 2
+FLOW_ITERATIONS = workloads.FLOW_BLOCK_ITERATIONS // 4
 SMALL_FLOW = (2, 8)       # txs x rounds of the loop block held against the CPU
-# the call block at a quarter of its rounds (the run's time, since the create phase)
-CALL_TXS, CALL_ROUNDS = workloads.CALL_BLOCK_TXS, workloads.CALL_BLOCK_ROUNDS // 4
+# the call block at a sixteenth of its rounds (the run's time: a quarter since
+# the create phase, a sixteenth since the precompile phase)
+CALL_TXS, CALL_ROUNDS = workloads.CALL_BLOCK_TXS, workloads.CALL_BLOCK_ROUNDS // 16
 SMALL_CALLS = (4, 3)      # txs x rounds of the call block held against the CPU
 CREATE_TXS, CREATE_ROUNDS = workloads.CREATE_BLOCK_TXS, workloads.CREATE_BLOCK_ROUNDS
 SMALL_CREATE = (2, 1)     # txs x rounds of the create block held against the CPU
+PRECOMPILE_SIZE = (workloads.PRECOMPILE_VERIFIER_TXS, workloads.PRECOMPILE_RELAYER_TXS,
+                   workloads.PRECOMPILE_MESSAGES)
+# verifier txs x relayer txs x messages of the precompile block held against the CPU
+SMALL_PRECOMPILE = (1, 1, 2)
 # the label of each block phase in workloads.LOGUP_SIDES
 BLOCK_LABELS = {"block": "ALU", "arith": "arith", "sstore": "sstore", "flow": "flow",
-                "calls": "calls", "create": "create"}
+                "calls": "calls", "create": "create", "precompile": "precompile"}
 FR_INV_LANES = 131072     # K12 held and timed beside its one-lane path shape
 
 # the kernels by the name their wrapper counts launches under (L.LAUNCHES)
@@ -433,6 +461,8 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                 "tx_sig": ("horner_rlc", "lookup_search_eq"),
                 "logup": ("lookup_gather_eq", "fr_mul", "limb_reduce", "limb_addsub", "fr_inv",
                           "logup_sum")}
+# the precompile block's pass launches the create block's kernels (and K11 once)
+PATH_KERNELS["precompile"] = PATH_KERNELS["create"]
 # the last eight ALU gadgets' groups: every one reaches K3 and K4 (their
 # fixed Bitwise, SignByte and Pow2 lookups are computed predicates, as in the
 # JAX package); SLT's and SAR's bytes_to_fq products reach K2 and K1
@@ -1278,6 +1308,31 @@ def corrupt_error_restored_gas_left(w):
             expected, undo)
 
 
+def _precompile_edit(w, name):
+    """``workloads.PRECOMPILE_EDITS[name]`` on the witness: exactly the keys
+    it predicts from the witness (the CPU tests hold them against the JAX
+    verifier on the small block) fail."""
+    keys, undo = workloads.PRECOMPILE_EDITS[name](w)
+    return {"edit": name}, (lambda bv, f: set(f) == keys(bv)), undo
+
+
+def corrupt_ecc_add_out(w):
+    """The first ecAdd op's out y + 1: ("ecc", 0) and that BN254_ADD step."""
+    return _precompile_edit(w, "ecc_add_out")
+
+
+def corrupt_sig_row_is_valid(w):
+    """The first sig row's is_valid flipped: ("sig_trace", 0) and the first
+    ECRECOVER step."""
+    return _precompile_edit(w, "sig_row_is_valid")
+
+
+def corrupt_identity_output(w):
+    """The first identity output byte + 1 in the rw rows: its copy row and
+    the state row of the byte's next read."""
+    return _precompile_edit(w, "identity_output")
+
+
 def corrupt_wrong_key(w):
     """Tx 0 re-signed with key 0xBAD over the same payload: its recovered
     signer is no longer the EVM-side sender, so the tx check's lane 0
@@ -1343,6 +1398,22 @@ BLOCK_PHASES = {
                    # with the CREATE2 edit)
                    also_small={"create_chain": (workloads.build_create_chain_block,
                                                 (None, corrupt_create2_address))}),
+    "precompile": dict(build=lambda: workloads.build_precompile_block(*PRECOMPILE_SIZE),
+                       sizes=dict(zip(("verifier_txs", "relayer_txs", "messages_per_relayer"),
+                                      PRECOMPILE_SIZE)),
+                       shares=("copy", "keccak", "tx", "sig", "ecc", "sig_trace", "pi"),
+                       # at full size the edit of the largest tables (a
+                       # rebuild of this block is about half a minute of host
+                       # work); every edit on the small block, each at its
+                       # predicted keys on the card and the CPU
+                       corruptions=(corrupt_identity_output,),
+                       small=lambda: workloads.build_precompile_block(*SMALL_PRECOMPILE),
+                       small_size=SMALL_PRECOMPILE,
+                       small_corruptions=(None, corrupt_ecc_add_out, corrupt_sig_row_is_valid,
+                                          corrupt_identity_output),
+                       small_keys_predicted=True,
+                       # the lookup families its logUp line must prove
+                       logup_families=("sig", "ecc")),
 }
 
 
@@ -1524,6 +1595,8 @@ def run_block(path, card):
     for name in COUNTED_CALLS:
         assert sum(kw[COUNT] for _, kw in calls[name]) == pass_counts[name], \
             f"{path}: the captured {name} calls differ from the per-kernel pass's launches"
+    missing = set(spec.get("logup_families", ())) - set(logup_families(bv))
+    assert not missing, f"{path}: the block looks up no {sorted(missing)}"
     logup_counts, logup_captured = run_logup(path, bv, prepared, card)
 
     # the pi kernel's inputs corrupted in the built verifier, uploaded anew:
@@ -1561,14 +1634,15 @@ def run_block(path, card):
     out["small_block_variants"] = {}
     for corrupt in spec["small_corruptions"]:
         small = spec["small"]()
-        if corrupt is not None:
-            corrupt(small)
+        edited = corrupt(small) if corrupt is not None else None
         on_card = CBV(small)
         p = on_card.prepare()
         f_card, f_graph = on_card.run_device(p), on_card.run_device_combined(p)
         f_cpu, lu_cpu = cpu_result(path, "small", corrupt)
         assert f_card == f_graph == f_cpu, f"{path}: card {f_card}, graph {f_graph}, CPU {f_cpu}"
         assert bool(f_cpu) == (corrupt is not None)
+        if spec.get("small_keys_predicted") and corrupt is not None:
+            assert edited[1](on_card, f_card), f"{path}: {edited[0]}, failures {f_card}"
         if corrupt is corrupt_wrong_key:
             assert set(f_cpu) == {("tx", 0)}, f_cpu
         out["small_block_variants"][corrupt.__name__ if corrupt else "clean"] = \

@@ -16,7 +16,7 @@ of 0xDEAD's SSTORE + 1, failing at that SSTORE step alone.
 tests/test_block_conformance.py:test_block_conformance_mega runs as that
 file's own test body through tests/test_torch_block_calls.py's
 interception, and its block is ``workloads.build_conformance_mega_block``.
-A call to a precompile is refused by the port's tracer, naming it."""
+(The blocks that call a precompile run in tests/test_torch_precompiles_blocks.py.)"""
 import sys
 from pathlib import Path
 
@@ -31,8 +31,6 @@ from zkevm_specs_tpu.witness import typing as JY  # noqa: E402
 from zkevm_specs_tpu_torch import workloads  # noqa: E402
 from zkevm_specs_tpu_torch.evm.execution_state import ExecutionState  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier  # noqa: E402
-from zkevm_specs_tpu_torch.witness import tracer as PT  # noqa: E402
-from zkevm_specs_tpu_torch.witness import typing as PY  # noqa: E402
 
 import test_block_conformance  # noqa: E402
 import test_torch_block_calls as C  # noqa: E402
@@ -143,13 +141,3 @@ def test_call_block_shape():
     ops = {bytes(bc.code)[i] for bc in w.bytecodes for i in range(len(bc.code))
            if bc.is_code[i]}
     assert {0xF1, 0xF2, 0xF4, 0xFA, 0xF3, 0xFD} <= ops
-
-
-def test_call_to_a_precompile_raises_naming_it():
-    """A call to 0x04 (the identity precompile) is refused, as are the
-    precompiles until they are ported."""
-    bc = PY.Bytecode().push1(0).push1(0).push1(0).push1(0).push1(0).push1(4).push2(0xFFFF)
-    bc = bc.call().pop().stop()
-    tx = PY.Transaction(id=1, gas=100000, caller_address=0xFE, callee_address=0xFF)
-    with pytest.raises(NotImplementedError, match="DATACOPY"):
-        PT.trace_block(PY.Block(), [(tx, bc)])

@@ -1,13 +1,12 @@
 """The port's error-state gadgets (zkevm_specs_tpu_torch.evm.execution.errors)
 against the JAX package, on the CPU, tolerance 0.
 
-Every vector of tests/evm/test_errors.py, test_errors_oog.py (all but
-``test_error_oog_precompile``: the precompiles are not ported) and
+Every vector of tests/evm/test_errors.py, test_errors_oog.py and
 test_errors_oog_matrix.py runs as that file's own test body with its
 ``Tables`` and ``verify_steps`` intercepted, test_errors.py's
 ``run_error_step`` too (``test_torch_flow_context.run_case``): both packages'
 spec failure dicts equal key for key and message for message, then the
-body's own expectation applied.  One vector of each of the 20 ported error
+body's own expectation applied.  One vector of each of the 21 error
 states is replayed on the port's ``CompiledGroupVerifier`` at 8 lanes and
 fails exactly the lanes spec mode fails.  tests/test_torch_errors_matrix.py
 runs the stack and invalid-opcode matrices."""
@@ -19,8 +18,7 @@ import test_errors_oog  # noqa: E402
 import test_errors_oog_matrix  # noqa: E402
 from zkevm_specs_tpu_torch.evm.execution import EXECUTION_STATE_IMPL  # noqa: E402
 
-OOG_TESTS = tuple(sorted(n for n in vars(test_errors_oog)
-                         if n.startswith("test_") and n != "test_error_oog_precompile"))
+OOG_TESTS = tuple(sorted(n for n in vars(test_errors_oog) if n.startswith("test_")))
 CASES = FC._cases(((test_errors, None), (test_errors_oog, OOG_TESTS),
                    (test_errors_oog_matrix, None)))
 
@@ -35,7 +33,7 @@ def test_error_vectors_match_jax(case, monkeypatch):
     _run(case, monkeypatch)
 
 
-# one vector of each ported error state
+# one vector of each error state
 REPLAYED = [
     ("ErrorInvalidOpcode", "test_errors.test_error_invalid_opcode[0]"),
     ("ErrorStack", "test_errors.test_error_stack_underflow[0]"),
@@ -59,13 +57,14 @@ REPLAYED = [
     ("ErrorOutOfGasCall", "test_errors_oog.test_error_oog_call[0]"),
     ("ErrorOutOfGasCREATE", "test_errors_oog_matrix.test_oog_create2_root[0]"),
     ("ErrorGasUintOverflow", "test_errors_oog.test_error_gas_uint_overflow[0]"),
+    ("ErrorOutOfGasPrecompile", "test_errors_oog.test_error_oog_precompile[0]"),
 ]
 
 
 def test_replay_covers_every_ported_error_state():
     assert {c[0] for c in CASES} >= {case for _, case in REPLAYED}
     ported = {s.name for s in EXECUTION_STATE_IMPL if s.name.startswith("Error")}
-    assert {s for s, _ in REPLAYED} == ported and len(ported) == 20
+    assert {s for s, _ in REPLAYED} == ported and len(ported) == 21
 
 
 @pytest.mark.parametrize("state,case", REPLAYED)

@@ -826,11 +826,13 @@ def _small_block(kind="alu"):
         return workloads.build_create_block(2, 1)
     if kind == "create_chain":
         return workloads.build_create_chain_block()
+    if kind == "precompile":
+        return workloads.build_precompile_block(1, 1, 2)
     return workloads.build_alu_block(2, 6) if kind == "alu" else workloads.build_arith_block(2, 2)
 
 
 @pytest.mark.parametrize("kind", ["alu", "arith", "sstore", "flow", "conformance", "calls",
-                                  "mega", "create", "create_chain"])
+                                  "mega", "create", "create_chain", "precompile"])
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     from zkevm_specs_tpu_torch.runtime.block import CompiledBlockVerifier
@@ -839,7 +841,7 @@ def test_block_graph_replay_equals_per_kernel_pass(dev, corrupt, kind):
     if corrupt:
         name = {"alu": "ADD", "arith": "MULMOD", "sstore": "SSTORE", "flow": "CALLDATALOAD",
                 "conformance": "EXTCODECOPY", "calls": "CALL_OP", "mega": "CALL_OP",
-                "create": "CREATE2", "create_chain": "CREATE"}[kind]
+                "create": "CREATE2", "create_chain": "CREATE", "precompile": "BN254_ADD"}[kind]
         next(s for s in w.steps if s.execution_state.name == name).gas_left += 1
     bv = CompiledBlockVerifier(w)                       # device "cuda"
     prepared = bv.prepare()

@@ -1,8 +1,10 @@
 """The port's tracer (zkevm_specs_tpu_torch.witness.tracer, the ALU subset
 with SIGNEXTEND, ADDMOD, MULMOD and EXP, memory, storage and SHA3) against
 the JAX package's ``trace_block``, unsigned and signed, tolerance 0: every
-field of every step, every rw row, the tables' rows, the exp and copy
-circuits' rows, the per-tx outcome bookkeeping and, signed, the caller
+field of every step (its ``aux_data`` too), every rw row, the tables'
+rows, the exp and copy circuits' rows, the ecc circuit's ops and
+capacities, the sig rows, the prologue's memory setups, the per-tx outcome
+bookkeeping and, signed, the caller
 addresses and every field of ``signed_txs`` are equal on the same
 transactions (the default callers, one shared caller, calldata, an account
 pinned to the pre-signing sender, a small SSTORE-mix block).  Also the
@@ -11,6 +13,8 @@ host witness classes it emits through (``Transaction``, ``Account``,
 error halts the tracer emits (a CREATE, a stack underflow, an invalid
 opcode and the out-of-gas cases, each held against the JAX tracer and
 verifier) and what it still refuses to trace (SELFDESTRUCT)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -48,12 +52,36 @@ def txs_of(Y, n_txs=2, n_ops=6, shared_caller=False, ops=("add",)):
     return txs
 
 
+def plain(x):
+    """A value with both packages' classes taken apart: a dataclass (the
+    ``PrecompileAuxData`` of ecRecover's steps) as its field values, a
+    tuple or list as a tuple, recursively."""
+    if dataclasses.is_dataclass(x):
+        return tuple(plain(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, (tuple, list)):
+        return tuple(plain(v) for v in x)
+    return x
+
+
+def ecc_ops(circuit):
+    """An ecc circuit's capacities and ops as plain tuples (None: none)."""
+    if circuit is None:
+        return None
+    return ((circuit.max_add_ops, circuit.max_mul_ops, circuit.max_pairing_ops),
+            plain(circuit.add_ops), plain(circuit.mul_ops), plain(circuit.pairing_ops))
+
+
 def assert_same_witness(jw, pw):
     assert len(jw.steps) == len(pw.steps)
     for i, (a, b) in enumerate(zip(jw.steps, pw.steps)):
         assert a.execution_state.name == b.execution_state.name, i
         for f in STEP_FIELDS:
             assert getattr(a, f) == getattr(b, f), (i, f)
+        assert plain(a.aux_data) == plain(b.aux_data), (i, "aux_data")
+    assert ecc_ops(pw.ecc_circuit) == ecc_ops(jw.ecc_circuit)
+    assert [r.table_row() for r in pw.sig_rows] == [r.table_row() for r in jw.sig_rows]
+    assert [r.pub_key for r in pw.sig_rows] == [r.pub_key for r in jw.sig_rows]
+    assert pw.memory_setups == jw.memory_setups
     assert pw.rw.rws == jw.rw.rws
     assert pw.tables_kwargs() == {k: v for k, v in jw.tables_kwargs().items()
                                   if k in pw.tables_kwargs()}

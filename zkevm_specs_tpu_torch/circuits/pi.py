@@ -12,6 +12,7 @@ lookups are fingerprint searches (K6).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Set, Tuple
 
@@ -50,7 +51,10 @@ evm_rand = 255
 keccak_rand = 255
 
 
+@functools.lru_cache(maxsize=1 << 16)
 def _inv(x: int) -> int:
+    """x's inverse mod p (0 for 0), cached: the witness inverts the same
+    small values (tx ids, calldata bytes) row after row."""
     return pow(x % P, P - 2, P) if x % P else 0
 
 

@@ -1,10 +1,11 @@
 """The block's glue between circuits: the rw rows as state-circuit
-operations, the pi circuit's view of a block, and the in-circuit prologue
-check.
+operations, the pi circuit's view of a block, the in-circuit prologue
+check, and ``verify_super_circuit``, the spec-mode verifier of a whole
+block (every sub-circuit eagerly on the host, the first failure raising).
 
 Counterpart of ``zkevm_specs_tpu/circuits/super_circuit.py``
 (``rw_rows_to_state_ops`` :62-118, ``public_data_from_witness`` :121-155,
-``build_prologue_inputs`` /
+``verify_super_circuit`` :179-326, ``build_prologue_inputs`` /
 ``_canon_u32`` / ``check_prologue`` / ``prologue_kernel`` :327-495).  The
 tracer prepends a prologue of call-context setup writes at rw counters
 1..K; the prologue check pins those rows in-circuit: their counters, keys
@@ -13,7 +14,7 @@ values against the tx table and the code hash against the bytecode table.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -302,3 +303,105 @@ def sig_witness_from_txs(signed_txs, chain_id: int, keccak_randomness: int):
         kt.add(secp256k1.pubkey_bytes(pk), keccak_randomness)
         rows.append(SigRow.assign((parity, tx.sig_r, tx.sig_s), pk, h))
     return Witness(rows, kt)
+
+
+def verify_super_circuit(witness: BlockWitness, keccak_randomness: Optional[int] = None,
+                         signed_txs=None,
+                         tx_circuit_params: Optional[Tuple[int, int, int]] = None,
+                         k_bytecode: Optional[int] = None, config=None) -> None:
+    """Verify every sub-circuit of a block witness in spec mode (eager, on
+    the host), each against the shared tables, raising ``AssertionError``
+    at the first failure, as the JAX ``verify_super_circuit`` does: the EVM
+    circuit over every step and the prologue, the state circuit over the rw
+    table, the bytecode, keccak, copy and exp circuits, the tx and sig
+    circuits when the txs are signed, the ecc circuit and the sig rows of
+    the traced ecRecover calls, and the withdrawal and pi circuits.  The
+    capacities and the randomness default from ``config``
+    (``DEFAULT_CONFIG``); ``signed_txs`` replaces the witness's signed
+    txs."""
+    from ..config import DEFAULT_CONFIG
+    from ..evm.main import verify_steps
+    from ..ops.ecc import secp256k1
+    from ..runtime.kernels import run_spec
+    from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
+    from . import ecc, pi, sig, tx, withdrawal
+    from .bytecode import (assign_bytecode_circuit, assign_keccak_table, unroll,
+                           verify_bytecode_circuit)
+    from .copy import verify_copy_table
+    from .exp import verify_exp_circuit
+    from .keccak import verify_keccak_circuit
+    from .state import assign_state_circuit, mpt_table_from_ops, verify_state_rows
+
+    config = config or DEFAULT_CONFIG
+    r = config.keccak_randomness if keccak_randomness is None else keccak_randomness
+    codes = [bytes(bc.code) for bc in witness.bytecodes]
+    if k_bytecode is None:
+        # grow k to fit the block's unrolled bytecodes (the config's is the
+        # floor; 2^k must exceed the rows and the trailing Header)
+        n_rows = sum(len(c) + 1 for c in codes) + 1
+        k_bytecode = max(config.bytecode_k, n_rows.bit_length())
+    signed_txs = witness.signed_txs if signed_txs is None else signed_txs
+    if signed_txs is not None and tx_circuit_params is None:
+        # the capacities scale to the block (the config's are floors)
+        max_txs, max_cd, chain_id = config.tx_circuit_params()
+        tx_circuit_params = (max(max_txs, len(signed_txs)),
+                             max(max_cd, sum(len(t.data) for t in signed_txs)), chain_id)
+    # the shared keccak table: the code hashes and the SHA3 preimages
+    keccak_data = codes + list(witness.sha3_preimages)
+    keccak_rows = assign_keccak_table(keccak_data, r)
+    kwargs = witness.tables_kwargs()
+    if witness.copy_circuit is not None:
+        kwargs["copy_table"] = copy_circuit_to_table(witness.copy_circuit)
+    if witness.exp_circuit is not None:
+        kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
+    if witness.ecc_circuit is not None:
+        kwargs["ecc_table"] = ecc.ecc_table_rows(witness.ecc_circuit, r)
+    if witness.sig_rows:
+        kwargs["sig_table"] = [row.table_row() for row in witness.sig_rows]
+    kwargs["keccak_table"] = keccak_rows
+    tables = Tables(**kwargs)
+
+    # 1. the EVM circuit over every step (BeginTx starts past the prologue,
+    # which is checked in-circuit next)
+    verify_steps(tables, list(witness.steps), end_with_last_step=True)
+    p_cols, p_tables, p_extra = build_prologue_inputs(witness, tables)
+    run_spec("prologue", check_prologue, p_cols, p_tables,
+             {"header_tag": int(BytecodeFieldTag.Header)}, p_extra)
+    # 2. the state circuit proves the rw table
+    ops = rw_rows_to_state_ops(witness.rw.rws)
+    verify_state_rows(assign_state_circuit(ops), mpt_table_from_ops(ops))
+    # 3.-5. the bytecode, keccak, copy and exp circuits prove their tables
+    bc_rows = assign_bytecode_circuit(k_bytecode, [unroll(c) for c in codes], r)
+    verify_bytecode_circuit(bc_rows, keccak_rows, r)
+    verify_keccak_circuit(keccak_data, keccak_rows, r)
+    if witness.copy_circuit is not None:
+        verify_copy_table(witness.copy_circuit, tables, r)
+    if witness.exp_circuit is not None:
+        verify_exp_circuit(witness.exp_circuit)
+    # 6. the tx and sig circuits prove the signatures of signed txs
+    if signed_txs is not None:
+        max_txs, max_calldata, chain_id = tx_circuit_params
+        tx.verify_circuit(tx.txs2witness(signed_txs, chain_id, max_txs, max_calldata, r),
+                          max_txs, max_calldata, r,
+                          evm_callers=[t.caller_address for t in witness.txs])
+        sig.verify_circuit(sig_witness_from_txs(signed_txs, chain_id, r), r)
+    # 7. the ecc circuit proves the ecc table, the sig circuit the traced
+    # ecRecover calls' rows
+    if witness.ecc_circuit is not None:
+        ecc.verify_circuit(witness.ecc_circuit, r)
+    if witness.sig_rows:
+        kt = sig.KeccakTable()
+        for row in witness.sig_rows:
+            kt.add(secp256k1.pubkey_bytes(row.pub_key), r)
+        sig.verify_circuit(sig.Witness(list(witness.sig_rows), kt), r)
+    # 8. the withdrawal and pi circuits commit the public data of every
+    # block (one padding withdrawal when the block has none)
+    n_wd = max(1, len(witness.withdrawals))
+    withdrawal.verify_circuit(
+        withdrawal.withdrawals2witness(witness.withdrawals, n_wd, r, kwargs["block_table"]),
+        n_wd, r)
+    max_txs = len(witness.txs)
+    max_calldata = max(1, sum(len(t.call_data) for t in witness.txs))
+    pi.verify_circuit(pi.public_data2witness(public_data_from_witness(witness, n_wd), max_txs,
+                                             max_calldata, n_wd),
+                      max_txs, max_calldata, n_wd)

@@ -1,9 +1,11 @@
 """Execution-gadget registry (reference: execution/__init__.py:86-171).
 
-Only the gadgets ported so far are registered (every state a frame runs
-without a precompile: the CALL family, RETURN/REVERT, CREATE/CREATE2 and
-every error state but ErrorOutOfGasPrecompile included); ``verify_steps``
-raises ``NotImplementedError`` for any other execution state."""
+Every gadget of the JAX package's registry is registered: the CALL
+family, RETURN/REVERT, CREATE/CREATE2, every error state and the five
+precompiles the JAX package implements (ecRecover, identity, BN254 add,
+scalar mul and pairing).  SHA256, RIPEMD160, BIGMODEXP and BLAKE2F have no
+gadget there either (the reference's execution/__init__.py:160-168);
+``verify_steps`` raises ``NotImplementedError`` for their states."""
 from typing import Callable, Dict
 
 from ..execution_state import ExecutionState
@@ -47,6 +49,7 @@ from .errors import (
     error_oog_exp,
     error_oog_log,
     error_oog_memory_copy,
+    error_oog_precompile,
     error_oog_sha3,
     error_oog_sload_sstore,
     error_oog_static_memory_expansion,
@@ -67,6 +70,7 @@ from .mul_div_mod import mul_div_mod
 from .mulmod import mulmod
 from .not_ import not_opcode
 from .pop import pop
+from .precompiles import dataCopy, ecAdd, ecMul, ecPairing, ecRecover
 from .push import push
 from .return_revert import return_revert
 from .sar import sar
@@ -138,7 +142,7 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.SWAP: swap,
     ExecutionState.PC: pc,
     ExecutionState.JUMPDEST: jumpdest,
-    # the error states (ErrorOutOfGasPrecompile waits for the precompiles)
+    # the error states
     ExecutionState.ErrorInvalidJump: error_invalid_jump,
     ExecutionState.ErrorGasUintOverflow: error_gas_uint_overflow,
     ExecutionState.ErrorOutOfGasCall: error_oog_call,
@@ -159,4 +163,12 @@ EXECUTION_STATE_IMPL: Dict[ExecutionState, Callable] = {
     ExecutionState.ErrorOutOfGasSloadSstore: error_oog_sload_sstore,
     ExecutionState.ErrorReturnDataOutOfBound: error_return_data_out_of_bound,
     ExecutionState.ErrorOutOfGasCREATE: error_oog_create,
+    ExecutionState.ErrorOutOfGasPrecompile: error_oog_precompile,
+    # the precompiles (SHA256, RIPEMD160, BIGMODEXP and BLAKE2F have no
+    # gadget, as in the reference, execution/__init__.py:160-168)
+    ExecutionState.ECRECOVER: ecRecover,
+    ExecutionState.DATACOPY: dataCopy,
+    ExecutionState.BN254_ADD: ecAdd,
+    ExecutionState.BN254_PAIRING: ecPairing,
+    ExecutionState.BN254_SCALAR_MUL: ecMul,
 }

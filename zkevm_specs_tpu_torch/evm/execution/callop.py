@@ -2,8 +2,8 @@
 evm_circuit/execution/callop.py:12-341).
 
 Counterpart of ``zkevm_specs_tpu/evm/execution/callop.py``, its precompile
-branch included (the port's tracer refuses a call to a precompile, so no
-traced block reaches that branch yet)."""
+branch included (a call to ecRecover, identity or the BN254 precompiles, and
+one that runs out of gas)."""
 from ...dsl.value import WordOrValue
 from ...ops.keccak import EMPTY_HASH
 from ...tables.schemas import (

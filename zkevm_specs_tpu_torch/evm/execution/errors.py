@@ -1,7 +1,8 @@
 """Error-state gadgets (reference: evm_circuit/execution/error_*.py).
 
 Counterpart of ``zkevm_specs_tpu/evm/execution/errors.py``, every gadget
-but ErrorOutOfGasPrecompile's (the precompiles are not ported).  All
+(ErrorOutOfGasPrecompile's, a precompile call given too little gas,
+included).  All
 constrain IsSuccess == 0 and share ``Instruction.constrain_error_state``
 (reference instruction.py:1426-1452)."""
 from ...tables.schemas import RW, CallContextFieldTag, FixedTableTag
@@ -28,6 +29,8 @@ from ...utils.param import (
     MAX_INIT_CODE_SIZE,
     MAX_N_BYTES,
     MAX_U64,
+    Bn254PairingPerPointGas,
+    IdentityPerWordGas,
     N_BYTES_GAS,
     N_BYTES_MEMORY_ADDRESS,
     N_BYTES_MEMORY_WORD_SIZE,
@@ -45,6 +48,7 @@ from ...utils.param import (
 from ..gadgets.call_gadget import CallGadget
 from ..instruction import Instruction
 from ..opcode import Opcode
+from ..precompile import Precompile
 
 
 def _finish(instruction: Instruction):
@@ -431,6 +435,32 @@ def error_oog_create(instruction: Instruction):
     )
     insufficient_gas, _ = instruction.compare(instruction.curr.gas_left, gas_cost, N_BYTES_GAS)
     instruction.constrain_not_zero(insufficient_gas + is_exceed_max_initcode_size)
+    _finish(instruction)
+
+
+def error_oog_precompile(instruction: Instruction):
+    BYTES_PER_PAIRING = 192
+
+    address_word = instruction.call_context_lookup_word(CallContextFieldTag.CalleeAddress)
+    address = instruction.word_to_address(address_word)
+    calldata_len = instruction.call_context_lookup(CallContextFieldTag.CallDataLength)
+
+    instruction.constrain_equal(instruction.precompile(address), 1)
+
+    gas_cost = instruction.fq(0)
+    for p in Precompile:
+        if instruction.branch(instruction.is_equal(address, int(p))):
+            gas_cost = instruction.fq(p.base_gas_cost())
+            if p == Precompile.BN254PAIRING:
+                pairs, _ = instruction.constant_divmod_nocheck(calldata_len, BYTES_PER_PAIRING)
+                gas_cost = gas_cost + Bn254PairingPerPointGas * pairs
+            elif p == Precompile.DATACOPY:
+                gas_cost = gas_cost + instruction.memory_copier_gas_cost(
+                    calldata_len, instruction.fq(0), IdentityPerWordGas)
+            break
+
+    insufficient_gas, _ = instruction.compare(instruction.curr.gas_left, gas_cost, N_BYTES_GAS)
+    instruction.constrain_equal(insufficient_gas, 1)
     _finish(instruction)
 
 

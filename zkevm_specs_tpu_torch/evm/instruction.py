@@ -353,6 +353,24 @@ class Instruction:
             return [extract(a) for a in self.curr.aux_data]
         return [_DUMMY]
 
+    def aux_scalar(self, extract: Callable, default=0):
+        """A group-uniform host scalar from the steps' ``aux_data`` (the
+        keccak randomness of ecRecover's RLCs) in the eager pass;
+        ``default`` in the replay, where it only feeds placeholder work
+        whose values the hint stream replaces."""
+        if self.ctx.eager:
+            return extract(self.curr.aux_data)
+        return default
+
+    def host_ints(self, values: Callable[[], list]) -> list:
+        """Per-lane host values that only feed hints: computed in the eager
+        pass, one inert placeholder in the replay (which takes the values
+        from the hint stream), so a host loop over the lanes runs once a
+        prepare and never in a replay."""
+        if self.ctx.eager:
+            return values()
+        return [_DUMMY]
+
     def word_hint(self, values: Sequence[int]) -> Word:
         """A 256-bit witness hint column: built from host ints in the eager
         pass (and recorded), replayed from the hint stream otherwise."""
@@ -880,6 +898,14 @@ class Instruction:
         row = self.tables.exp_lookup(self.cs, self._f(identifier), self._f(is_last), base_limbs,
                                      exponent)
         return row.exponentiation
+
+    def sig_lookup(self, msg_hash: Word, sig_v: F, sig_r: Word, sig_s: Word,
+                   recovered_addr: F, is_valid: F):
+        self.tables.sig_lookup(self.cs, msg_hash, sig_v, sig_r, sig_s, recovered_addr, is_valid)
+
+    def ecc_lookup(self, op_type: F, px: Word, py: Word, qx: Word, qy: Word,
+                   input_rlc: F, outx: F, outy: F, is_valid: F):
+        self.tables.ecc_lookup(self.cs, op_type, px, py, qx, qy, input_rlc, outx, outy, is_valid)
 
     def pow2_lookup(self, value: F, pow_lo128: F, pow_hi128: F):
         self.fixed_lookup(FixedTableTag.Pow2, value, pow_lo128, pow_hi128)

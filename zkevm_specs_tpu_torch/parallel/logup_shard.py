@@ -155,15 +155,12 @@ def block_lookup_log(witness):
     ``CompiledBlockVerifier.lookup_log`` is the same log, taken by its
     partition pass."""
     from ..circuits.bytecode import assign_keccak_table
+    from ..circuits.ecc import ecc_table_rows
     from ..config import DEFAULT_CONFIG
     from ..evm.main import verify_steps
     from ..tables.container import Tables
     from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
 
-    for name, present in (("ecc", witness.ecc_circuit is not None),
-                          ("sig (ecRecover)", bool(witness.sig_rows))):
-        if present:
-            raise NotImplementedError(f"block_lookup_log: the {name} table is not ported")
     codes = [bytes(bc.code) for bc in witness.bytecodes]
     kwargs = witness.tables_kwargs()
     kwargs["keccak_table"] = assign_keccak_table(codes + list(witness.sha3_preimages),
@@ -172,6 +169,12 @@ def block_lookup_log(witness):
         kwargs["copy_table"] = copy_circuit_to_table(witness.copy_circuit)
     if witness.exp_circuit is not None:
         kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
+    if witness.ecc_circuit is not None:
+        kwargs["ecc_table"] = ecc_table_rows(witness.ecc_circuit,
+                                             DEFAULT_CONFIG.keccak_randomness)
+    if witness.sig_rows:
+        # the traced ecRecover calls look the sig table up
+        kwargs["sig_table"] = [r.table_row() for r in witness.sig_rows]
     tables = Tables(**kwargs)
     log: List[tuple] = []
     verify_steps(tables, list(witness.steps), end_with_last_step=True, lookup_log=log)

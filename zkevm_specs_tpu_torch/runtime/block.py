@@ -10,10 +10,11 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    repeated) to powers of two; a chunk of fewer than ``min_jit_lanes``
    lanes is verified on the host, as the JAX package does;
 3. the state circuit proves the rw table, and the prologue, bytecode,
-   keccak, copy (when the block ran a SHA3), exp (when it ran an EXP), tx
-   and sig (when its txs are signed), withdrawal and pi circuits run as
-   ``CircuitKernel`` checks, the withdrawal and pi circuits on every
-   block;
+   keccak, copy (when the block copied), exp (when it ran an EXP), tx and
+   sig (when its txs are signed), ecc (when it called a bn254 precompile),
+   sig_trace (the sig rows of its recovered ecRecover calls), withdrawal
+   and pi circuits run as ``CircuitKernel`` checks, the withdrawal and pi
+   circuits on every block;
 4. ``prepare`` uploads every input leaf once (kernel K9, ``transfer.py``);
    ``run_device`` runs the checks one by one and reads each verdict back;
    ``run_device_combined`` replays the whole device pass as one CUDA graph,
@@ -23,10 +24,8 @@ Counterpart of ``zkevm_specs_tpu/runtime/block.py`` (:49-625):
    (``parallel/logup_shard.py``) from the lookups that step 2's eager pass
    logged (``lookup_log``) and the table columns ``prepare`` uploaded.
 
-Not ported: the ecc circuit and the sig rows of traced ecRecover calls; a
-witness that carries one of them raises ``NotImplementedError``.  The
-verdicts are the JAX verifier's, key for key, its ``("pi", row)`` keys
-included.
+The verdicts are the JAX verifier's, key for key, its ``("pi", row)``
+and ``("sig_trace", row)`` keys included.
 """
 from __future__ import annotations
 
@@ -39,6 +38,7 @@ import torch
 from ..circuits import pi as pi_circuit
 from ..circuits.bytecode import assign_bytecode_circuit, assign_keccak_table, bytecode_kernel, unroll
 from ..circuits.copy import copy_kernel
+from ..circuits.ecc import circuit2rows, ecc_kernel
 from ..circuits.exp import exp_kernel
 from ..circuits.keccak import keccak_kernel
 from ..circuits.state import (
@@ -53,6 +53,8 @@ from ..circuits.super_circuit import (
     rw_rows_to_state_ops,
     sig_witness_from_txs,
 )
+from ..circuits.sig import KeccakTable as SigKeccakTable
+from ..circuits.sig import Witness as SigWitness
 from ..circuits.sig import sig_kernel
 from ..circuits.tx import tx_kernel, txs2witness
 from ..circuits.withdrawal import withdrawal_kernel, withdrawals2witness
@@ -64,6 +66,7 @@ from ..evm.instruction import Instruction
 from ..evm.main import DUMMY_STEP_STATE, verify_step
 from ..evm.step import StepState, StepStateBatch
 from ..ops import limbs as L
+from ..ops.ecc import secp256k1
 from ..tables.container import Tables
 from ..witness.tracer import BlockWitness
 from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
@@ -142,20 +145,14 @@ class CompiledBlockVerifier:
     """Whole-block witness verification on ``device`` ("cuda" unless the
     caller asks for "cpu"; there is no fallback): every EVM step group, the
     state circuit over the rw table, and the prologue, bytecode, keccak,
-    copy, exp, tx, sig, withdrawal and pi circuits.  Every circuit the JAX
-    verifier runs on a block of the ported opcodes, signed or not, is
-    ported (``not_ported`` is empty); the ecc circuit and the sig rows of
-    ecRecover calls, which only the unported precompiles produce, raise."""
+    copy, exp, tx, sig, ecc, sig_trace, withdrawal and pi circuits.  Every
+    circuit the JAX verifier runs is ported (``not_ported`` is empty)."""
 
     not_ported = ()
 
     def __init__(self, witness: BlockWitness, min_jit_lanes: int = 4,
                  max_group_lanes: int = 1 << 16, device="cuda"):
         self.device = require_device(device, "CompiledBlockVerifier")
-        for name, present in (("ecc", witness.ecc_circuit is not None),
-                              ("sig (ecRecover)", bool(witness.sig_rows))):
-            if present:
-                raise NotImplementedError(f"CompiledBlockVerifier: the {name} circuit is not ported")
         r = DEFAULT_CONFIG.keccak_randomness
         # grow k to fit the block's unrolled bytecodes (DEFAULT_CONFIG's
         # bytecode_k is the floor; 2^k must exceed the rows and the trailing
@@ -172,6 +169,12 @@ class CompiledBlockVerifier:
             kwargs["copy_table"] = copy_circuit_to_table(witness.copy_circuit)
         if witness.exp_circuit is not None:
             kwargs["exp_table"] = exp_circuit_to_table(witness.exp_circuit)
+        ecc_rows = None
+        if witness.ecc_circuit is not None:
+            ecc_rows = circuit2rows(witness.ecc_circuit, r)
+            kwargs["ecc_table"] = [row.row for row in ecc_rows]
+        if witness.sig_rows:
+            kwargs["sig_table"] = [row.table_row() for row in witness.sig_rows]
         kwargs["keccak_table"] = keccak_rows
         self.tables = Tables(**kwargs)
 
@@ -207,6 +210,18 @@ class CompiledBlockVerifier:
             sk = sig_kernel(sig_witness_from_txs(signed, chain_id, r), r, device=self.device)
             if sk is not None:
                 self.circuit_kernels.append(("sig", sk))
+        if witness.ecc_circuit is not None:
+            ek = ecc_kernel(witness.ecc_circuit, r, device=self.device, rows=ecc_rows)
+            if ek is not None:
+                self.circuit_kernels.append(("ecc", ek))
+        if witness.sig_rows:
+            # the sig rows of the traced ecRecover calls, with their own
+            # table of the public keys' hashes
+            kt = SigKeccakTable()
+            for row in witness.sig_rows:
+                kt.add(secp256k1.pubkey_bytes(row.pub_key), r)
+            self.circuit_kernels.append(("sig_trace", sig_kernel(
+                SigWitness(list(witness.sig_rows), kt), r, device=self.device)))
         n_wd = max(1, len(witness.withdrawals))
         wd_witness = withdrawals2witness(witness.withdrawals, n_wd, r, kwargs["block_table"])
         self.circuit_kernels.append(("withdrawal", withdrawal_kernel(wd_witness, n_wd, r,

@@ -194,6 +194,24 @@ class Tables:
             enabled=enabled,
         )
 
+    def sig_lookup(self, cs, msg_hash: Word, sig_v: F, sig_r: Word, sig_s: Word,
+                   recovered_addr: F, is_valid: F, enabled=None) -> Row:
+        return self.sig.lookup(
+            cs,
+            {"msg_hash": msg_hash, "sig_v": sig_v, "sig_r": sig_r, "sig_s": sig_s,
+             "recovered_addr": recovered_addr, "is_valid": is_valid},
+            enabled=enabled,
+        )
+
+    def ecc_lookup(self, cs, op_type: F, px: Word, py: Word, qx: Word, qy: Word,
+                   input_rlc: F, out_x: F, out_y: F, is_valid: F, enabled=None) -> Row:
+        return self.ecc.lookup(
+            cs,
+            {"op_type": op_type, "px": px, "py": py, "qx": qx, "qy": qy,
+             "input_rlc": input_rlc, "out_x": out_x, "out_y": out_y, "is_valid": is_valid},
+            enabled=enabled,
+        )
+
 
 class TablesView(Tables):
     """Some of the tables under their usual attribute names, so that a

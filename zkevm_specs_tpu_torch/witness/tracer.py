@@ -7,34 +7,43 @@ CALLDATACOPY / CODESIZE / CODECOPY / GASPRICE / ORIGIN / SELFBALANCE /
 RETURNDATASIZE / RETURNDATACOPY / COINBASE / TIMESTAMP / NUMBER / GASLIMIT /
 PREVRANDAO / BASEFEE / CHAINID / BLOCKHASH / BALANCE / EXTCODESIZE /
 EXTCODEHASH / EXTCODECOPY / LOG0-LOG4 / CALL / CALLCODE / DELEGATECALL /
-STATICCALL / CREATE / CREATE2 / RETURN / REVERT / STOP bytecodes, halts a
-frame in any error state, and signs its txs.  A call enters its callee's
-frame (its calldata a slice of the caller's memory), a create its initcode's
-frame; STOP, RETURN and REVERT in a sub-call restore the caller's context (a
-create frame's RETURN deploys its code), a REVERT or an error halt mirrors
-its frame's reversible writes, at the root or in a sub-call.
+STATICCALL / CREATE / CREATE2 / RETURN / REVERT / STOP bytecodes, calls the
+precompiles ecRecover (0x01), identity (0x04) and BN254 add, scalar mul and
+pairing (0x06-0x08), halts a frame in any error state (a precompile given
+too little gas in ErrorOutOfGasPrecompile), and signs its txs.  A call
+enters its callee's frame (its calldata a slice of the caller's memory), a
+create its initcode's frame; STOP, RETURN and REVERT in a sub-call restore
+the caller's context (a create frame's RETURN deploys its code), a REVERT
+or an error halt mirrors its frame's reversible writes, at the root or in a
+sub-call.  A call to a precompile runs it on the host and emits its step in
+the callee's frame, which restores the caller's context at once.
 
 Counterpart of ``zkevm_specs_tpu/witness/tracer.py`` (``BlockWitness``
 :167-201, ``_resolve_anchor`` :207-218, ``_Tracer`` :246-366, ``run_tx``
 :374-548, ``_detect_error`` :564-714, ``_valid_jumpdest`` :716, ``step_op``
 and ``_halt_error`` :721-880, the frames :914-974, ``op_callop``
-:976-1252, ``op_create`` :1253-1477, the handlers :1835-2584, the signing
+:976-1252, ``op_create`` :1253-1477, the precompile calls
+``_precompile_required_gas`` :221-237, ``_enter_precompile`` :1478-1730,
+``_enter_precompile_oog`` :1732-1826 and ``_ecc_circuit`` :1828-1833, the
+handlers :1835-2584, the signing
 :2585-2626 and ``trace_block`` :2629-2754).  Each executed opcode emits
 exactly the rw rows its gadget looks up, with the JAX tracer's rw_counter /
 gas / stack-pointer / memory-size / refund / reversion bookkeeping, so the
 witness equals the JAX tracer's row for row.
 
-Not ported, and raising ``NotImplementedError`` where a block reaches
-them: a call to a precompile (and so ErrorOutOfGasPrecompile) and
-SELFDESTRUCT, which the JAX tracer has no handler for either.  The JAX
-tracer's limits hold here too: an initcode must return its own bytes (the
-RETURN gadget pins the deployed code hash to the frame's), and a CREATE2's
-deployer is the frame's CallerAddress.
+The JAX tracer's refusals hold here too, with its conditions: SELFDESTRUCT
+(no handler) and a call to 0x02, 0x03, 0x05 or 0x09 raise
+``NotImplementedError``; a precompile call with value, one inside a
+reverting frame and an identity call whose regions break its layout fail
+its assertions.  So do its limits: an initcode must return its own bytes
+(the RETURN gadget pins the deployed code hash to the frame's), and a
+CREATE2's deployer is the frame's CallerAddress.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from ..config import DEFAULT_CONFIG
 from ..evm.execution_state import ExecutionState
 from ..evm.opcode import (
     Opcode,
@@ -57,6 +66,13 @@ from ..tables.schemas import (
 )
 from ..utils.param import (
     COLD_SLOAD_COST,
+    Bn254AddGas,
+    Bn254PairingBaseGas,
+    Bn254PairingPerPointGas,
+    Bn254ScalarMulGas,
+    EcrecoverGas,
+    IdentityBaseGas,
+    IdentityPerWordGas,
     EXTRA_GAS_COST_ACCOUNT_COLD_ACCESS,
     GAS_COST_ACCOUNT_COLD_ACCESS,
     GAS_COST_CALL_WITH_VALUE,
@@ -85,6 +101,7 @@ from ..utils.param import (
     SSTORE_SET_GAS,
     WARM_STORAGE_READ_COST,
 )
+from .rlc import RLC
 from .rlp import rlp_encode
 from .typing import (
     Account,
@@ -113,11 +130,8 @@ class BlockWitness:
         self.exp_circuit: Optional[ExpCircuit] = None  # EXP events (None: none)
         self.copy_circuit: Optional[CopyCircuit] = None  # SHA3 copy events (None: none)
         self.signed_txs = None             # signed tx list (tx + sig circuits)
-        # sub-circuit witnesses of the JAX tracer that this subset never
-        # fills (the ecRecover precompile's and the ecc circuit's); the block
-        # verifier refuses a witness that carries one
-        self.ecc_circuit = None
-        self.sig_rows: List = []
+        self.ecc_circuit = None            # the bn254 precompiles' ops (EccCircuit)
+        self.sig_rows: List = []           # the sig rows of recovered ecRecover calls
         self.sha3_preimages: List[bytes] = []
         self.tx_code_hashes: List[int] = []    # per-tx root code hash
         self.subcall_setups: List[List[Tuple[int, object, object]]] = []
@@ -158,6 +172,19 @@ def _resolve_anchor(a: dict) -> int:
     return 0 if p == 0 else p - a["poffset"]
 
 
+def _precompile_required_gas(target: int, cd_length: int) -> int:
+    """A precompile's gas as errors.error_oog_precompile computes it (the
+    reference's error_oog_precompile.py: the base cost, per word for
+    identity, per pair for the bn254 pairing)."""
+    p = Precompile(target)
+    gas = p.base_gas_cost()
+    if p == Precompile.BN254PAIRING:
+        gas += Bn254PairingPerPointGas * (cd_length // 192)
+    elif p == Precompile.DATACOPY:
+        gas += IdentityPerWordGas * ((cd_length + 31) // 32)
+    return gas
+
+
 def _signed(v: int) -> int:
     return v - (1 << 256) if v >= U255 else v
 
@@ -171,14 +198,20 @@ class _Tracer:
 
     def __init__(self, block: Block, start_counter: int,
                  accounts: Optional[Dict[int, Account]] = None,
-                 outcomes: Optional[List[bool]] = None):
+                 outcomes: Optional[List[bool]] = None, curve_results: Optional[dict] = None):
         self.w = BlockWitness()
+        # the precompiles' curve results (recovered keys, pairing verdicts),
+        # shared by trace_block's two passes, which run the same calls
+        self.curve_results = {} if curve_results is None else curve_results
         self.w.block = block
         self.w.rw = RWDictionary(start_counter)
         self.w.exp_circuit = ExpCircuit()
         self.w.copy_circuit = CopyCircuit()
         self.rw = self.w.rw
         self.copy_r = 0x64  # randomness of the copy events' RLC (the JAX tracer's)
+        # the randomness the keccak, sig and ecc tables share
+        # (DEFAULT_CONFIG.keccak_randomness, as in the JAX tracer)
+        self.keccak_r = DEFAULT_CONFIG.keccak_randomness
         self.block = block
         self.cumulative_gas = 0
         self.call_ids: List[int] = []
@@ -816,13 +849,15 @@ class _Tracer:
             self.rev = saved["resume_rev"]
         self.last_callee = last_callee
 
-    def _restore_context_rows(self, saved: dict, last_callee):
+    def _restore_context_rows(self, saved: dict, last_callee, read_caller_id: bool = True):
         """The 12 rows of ``step_state_transition_to_restored_context``
-        (evm/instruction.py): the CallerId read, the caller's saved fields
-        and its last-callee writes."""
+        (evm/instruction.py): the CallerId read (which a gadget that passes
+        the caller's id, identity's, skips), the caller's saved fields and
+        its last-callee writes."""
         caller_id = saved["call_id"]
         CC = CallContextFieldTag
-        self.rw.call_context_read(self.call_id, CC.CallerId, caller_id)
+        if read_caller_id:
+            self.rw.call_context_read(self.call_id, CC.CallerId, caller_id)
         for tag, value in (
             (CC.IsRoot, int(saved["is_root"])),
             (CC.IsCreate, 0),
@@ -840,9 +875,9 @@ class _Tracer:
 
     def op_callop(self, op):
         """CALL / CALLCODE / DELEGATECALL / STATICCALL: the call into a
-        callee's frame, and the no-code and precheck-fail calls that stay in
-        the caller (evm/execution/callop.py's row order).  A call to a
-        precompile raises."""
+        callee's frame, the no-code and precheck-fail calls that stay in the
+        caller, and the calls to a precompile (evm/execution/callop.py's row
+        order)."""
         is_call = op == Opcode.CALL
         is_callcode = op == Opcode.CALLCODE
         is_delegatecall = op == Opcode.DELEGATECALL
@@ -881,20 +916,32 @@ class _Tracer:
         balance_ok = (not (is_call or is_callcode)
                       or self.balances.get(self.callee_address, 0) >= value)
         precheck_ok = self.depth < 1025 and balance_ok
-        if 1 <= target <= 9 and precheck_ok:
-            raise NotImplementedError(
-                f"tracer: a call to the {Precompile(target).name} precompile (tx {self.tx.id}, "
-                f"pc {self.pc}) is not ported")
-        enters_callee = precheck_ok and not no_code
+        is_precompile = 1 <= target <= 9
+        enters_callee = precheck_ok and not no_code and not is_precompile
+        has_value = int(value != 0) if not (is_delegatecall or is_staticcall) else 0
+        next_mws, mem_gas = self._call_expansion_gas(cd_offset, cd_length, rd_offset, rd_length)
+        warm = target in self.warm_addr
+        gas_cost = ((GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS)
+                    + has_value * (GAS_COST_CALL_WITH_VALUE
+                                   + (GAS_COST_NEW_ACCOUNT if is_call and callee_not_exists
+                                      else 0))
+                    + mem_gas)
+        gas_available = self.gas_left - gas_cost
+        all_but_64th = gas_available - gas_available // 64
+        callee_gas = min(all_but_64th, gas_arg) if gas_arg < (1 << 64) else all_but_64th
+        # a precompile call runs out of gas (ErrorOutOfGasPrecompile) when
+        # the callee's gas is below the precompile's cost
+        prec_oog = (is_precompile and precheck_ok
+                    and callee_gas < _precompile_required_gas(target, cd_length))
         if enters_callee:
             cidx, csucc = self._frame_outcome()
         else:
-            cidx, csucc = None, bool(precheck_ok)
+            # no-code and precompile calls succeed unless the precompile
+            # runs out of gas
+            cidx, csucc = None, bool(precheck_ok) and not prec_oog
         self.spush(int(csucc))
-        next_mws, mem_gas = self._call_expansion_gas(cd_offset, cd_length, rd_offset, rd_length)
 
         rw.account_read(target, AccountFieldTag.CodeHash, code_hash)
-        warm = target in self.warm_addr
         rw.tx_access_list_account_write(self.tx_id, target, True, warm)
         al_row = rw.rws[-1]
         self._mirror_last()
@@ -915,7 +962,6 @@ class _Tracer:
                  (callee_call_id, CC.IsPersistent, int(callee_persistent))]
         self.w.subcall_setups.append(setup)
 
-        has_value = int(value != 0) if not (is_delegatecall or is_staticcall) else 0
         # the callee frame's addresses and value (callop.py:48-55)
         ctx_callee = self.callee_address if (is_callcode or is_delegatecall) else target
         ctx_caller = self.caller_address if is_delegatecall else self.callee_address
@@ -946,14 +992,15 @@ class _Tracer:
             pad["value"] = pad["value_prev"] = 1
             callee_pending.append(pad)
 
-        gas_cost = ((GAS_COST_WARM_ACCESS if warm else GAS_COST_ACCOUNT_COLD_ACCESS)
-                    + has_value * (GAS_COST_CALL_WITH_VALUE
-                                   + (GAS_COST_NEW_ACCOUNT if is_call and callee_not_exists
-                                      else 0))
-                    + mem_gas)
-        gas_available = self.gas_left - gas_cost
-        all_but_64th = gas_available - gas_available // 64
-        callee_gas = min(all_but_64th, gas_arg) if gas_arg < (1 << 64) else all_but_64th
+        if is_precompile and precheck_ok:
+            if prec_oog:
+                self._enter_precompile_oog(target, callee_call_id, callee_anchor, callee_pending,
+                                           cd_offset, cd_length, rd_offset, rd_length, gas_cost,
+                                           callee_gas, next_mws)
+            else:
+                self._enter_precompile(target, callee_call_id, cd_offset, cd_length, rd_offset,
+                                       rd_length, value, gas_cost, callee_gas, next_mws)
+            return
 
         if not enters_callee:
             # the call stays in the caller's frame (callop.py:120-142), whose
@@ -1029,6 +1076,264 @@ class _Tracer:
         self.anchor = callee_anchor
         self.snapshot = snapshot
         self.is_create_frame = False
+
+    # -- the calls to a precompile ---------------------------------------------
+
+    def _run_precompile(self, target: int, inp: bytes, cd_offset: int, cd_length: int,
+                        rd_offset: int, rd_length: int):
+        """The precompile run on the host: (its output, its gas, its
+        execution state, the step's aux_data), with the witness rows it adds
+        (a sig row for a recovered ecRecover, an ecc op for bn254)."""
+        from ..circuits.ecc import EcAdd, EcMul, EcPairing
+        from ..circuits.sig import SigRow
+        from ..evm.execution.precompiles import PrecompileAuxData
+        from ..ops.ecc import bn254, secp256k1
+
+        def words(data: bytes, n: int):
+            return [int.from_bytes(data[i:i + 32], "big") for i in range(0, 32 * n, 32)]
+
+        if target == 1:  # ECRECOVER
+            assert cd_length == 128, "tracer: ecrecover needs 128-byte calldata"
+            msg_hash, v, r, s_ = words(inp, 4)
+            pub = self._curve_result(("recover", msg_hash, v, r, s_),
+                                     lambda: secp256k1.recover(msg_hash, v - 27, r, s_))
+            addr = (int.from_bytes(keccak256(secp256k1.pubkey_bytes(pub))[-20:], "big")
+                    if pub is not None else 0)
+            ib = b"".join(int(x).to_bytes(32, "little") for x in (msg_hash, v, r, s_))
+            input_rlc = RLC(bytes(reversed(ib)), self.keccak_r, n_bytes=128).expr()
+            output_rlc = RLC(bytes(reversed(addr.to_bytes(32, "little"))), self.keccak_r,
+                             n_bytes=32).expr()
+            aux = (PrecompileAuxData(msg_hash=msg_hash, sig_v=v, sig_r=r, sig_s=s_,
+                                     recovered_addr=addr, input_rlc=input_rlc,
+                                     output_rlc=output_rlc), self.keccak_r)
+            if pub is not None:
+                self.w.sig_rows.append(SigRow.assign((v - 27, r, s_), pub, inp[0:32]))
+            return (addr.to_bytes(32, "big") if addr else b""), EcrecoverGas, \
+                ExecutionState.ECRECOVER, aux
+        if target == 4:  # DATACOPY (identity)
+            assert rd_offset == 0 and rd_length == cd_length, (
+                "tracer: identity calls need rd_offset == 0 and "
+                "rd_length == cd_length (dataCopy.py length-expression quirk)")
+            assert cd_offset == 0 or cd_offset >= cd_length, (
+                "tracer: identity calldata region must equal or be disjoint "
+                "from the return region — the dataCopy gadget's copy events "
+                "(dataCopy.py:38-62) re-read the input AFTER the callop "
+                "return-region write, so a partial overlap cannot form a "
+                "read-consistent integrated witness")
+            gas = IdentityBaseGas + IdentityPerWordGas * ((cd_length + 31) // 32)
+            return inp, gas, ExecutionState.DATACOPY, None
+        if target == 6:  # BN254 ADD
+            assert cd_length == 128
+            px, py, qx, qy = words(inp, 4)
+            out = bn254.g1_add(None if px == py == 0 else (px, py),
+                               None if qx == qy == 0 else (qx, qy))
+            ox, oy = (0, 0) if out is None else out
+            self._ecc_circuit().append_add(EcAdd(p=(px, py), q=(qx, qy), out=(ox, oy)))
+            return (ox.to_bytes(32, "big") + oy.to_bytes(32, "big"), Bn254AddGas,
+                    ExecutionState.BN254_ADD, (px, py, qx, qy, ox, oy))
+        if target == 7:  # BN254 SCALAR MUL
+            assert cd_length == 96
+            px, py, k = words(inp, 3)
+            out = bn254.g1_mul(None if px == py == 0 else (px, py), k)
+            ox, oy = (0, 0) if out is None else out
+            self._ecc_circuit().append_mul(EcMul(p=(px, py), s=k, out=(ox, oy)))
+            return (ox.to_bytes(32, "big") + oy.to_bytes(32, "big"), Bn254ScalarMulGas,
+                    ExecutionState.BN254_SCALAR_MUL, (px, py, k, ox, oy))
+        if target == 8:  # BN254 PAIRING
+            assert cd_length % 192 == 0
+            n_pairs = cd_length // 192
+            pts = [tuple(words(inp[k * 192:(k + 1) * 192], 6)) for k in range(n_pairs)]
+            g1s = [pt[:2] for pt in pts]
+            g2s = [pt[2:] for pt in pts]        # (x2, x1, y2, y1), the EVM's order
+            ok = self._curve_result(("pairing", inp), lambda: bn254.pairing_check(list(zip(
+                [None if x == y == 0 else (x, y) for x, y in g1s],
+                [None if all(v == 0 for v in g2) else
+                 (bn254.FQ2([g2[1], g2[0]]), bn254.FQ2([g2[3], g2[2]])) for g2 in g2s]))))
+            ib = b"".join(vv.to_bytes(32, "little")
+                          for (p_x, p_y, q_x2, q_x1, q_y2, q_y1) in pts
+                          for vv in (p_x, p_y, q_x1, q_x2, q_y1, q_y2))
+            input_rlc = RLC(bytes(reversed(ib)), self.keccak_r, n_bytes=n_pairs * 192).expr()
+            self._ecc_circuit().append_pairing(EcPairing(g1_pts=g1s, g2_pts=g2s, out=int(ok)))
+            gas = Bn254PairingBaseGas + n_pairs * Bn254PairingPerPointGas
+            return (int(ok).to_bytes(32, "big"), gas, ExecutionState.BN254_PAIRING,
+                    (input_rlc, n_pairs, 1, int(ok)))
+        raise NotImplementedError(f"tracer: precompile 0x{target:02x}")
+
+    def _curve_result(self, key, compute):
+        if key not in self.curve_results:
+            self.curve_results[key] = compute()
+        return self.curve_results[key]
+
+    def _precompile_callee_rows(self, target: int, callee_call_id: int, success: int,
+                                cd_offset: int, cd_length: int, rd_offset: int, rd_length: int,
+                                resume_gas: int, next_mws: int, ret_len: int):
+        """The callop gadget's precompile branch (callop.py:157-184): the
+        callee's 7 context writes, the caller's 8 saved fields."""
+        CC = CallContextFieldTag
+        for tag, v in ((CC.IsSuccess, success), (CC.CalleeAddress, target),
+                       (CC.CallerId, self.call_id), (CC.CallDataOffset, cd_offset),
+                       (CC.CallDataLength, cd_length), (CC.ReturnDataOffset, rd_offset),
+                       (CC.ReturnDataLength, rd_length)):
+            self.rw.call_context_write(callee_call_id, tag, v)
+        for tag, v in ((CC.ProgramCounter, self.pc + 1),
+                       (CC.StackPointer, 1024 - len(self.stack)),
+                       (CC.GasLeft, resume_gas), (CC.MemorySize, next_mws),
+                       (CC.ReversibleWriteCounter, self.rev), (CC.LastCalleeId, callee_call_id),
+                       (CC.LastCalleeReturnDataOffset, 0), (CC.LastCalleeReturnDataLength, ret_len)):
+            self.rw.call_context_write(self.call_id, tag, v)
+
+    def _saved_caller(self, resume_gas: int, next_mws: int) -> dict:
+        return {"call_id": self.call_id, "is_root": self.is_root, "code_hash": self.code_hash,
+                "resume_pc": self.pc + 1, "stack": self.stack, "resume_gas": resume_gas,
+                "resume_mws": next_mws, "resume_rev": self.rev}
+
+    def _enter_precompile(self, target, callee_call_id, cd_offset, cd_length, rd_offset,
+                          rd_length, value, gas_cost, callee_gas, next_mws):
+        """A call to 0x01 / 0x04 / 0x06 / 0x07 / 0x08: the callop gadget's
+        precompile branch (callop.py:143-249), then the precompile's own
+        step in the callee's frame, which restores the caller's context.
+        The JAX tracer's limits hold: no value, and a persistent calling
+        frame."""
+        assert value == 0, "tracer: precompile calls must carry no value"
+        assert self.persistent, (
+            "tracer: precompile calls inside reverting frames unsupported "
+            "(the transfer mirrors would need reference-incoherent offsets)")
+        rw = self.rw
+        CC = CallContextFieldTag
+        inp = self._mem_bytes(cd_offset, cd_length)
+        output, prec_gas, state, aux = self._run_precompile(target, inp, cd_offset, cd_length,
+                                                            rd_offset, rd_length)
+        ret_len = len(output)
+
+        # the CALL_OP step's aux: (input length, return length), the
+        # callop gadget's hints (callop.py:144-152)
+        self.w.steps[-1].aux_data = (cd_length, ret_len)
+        min_rd = min(ret_len, rd_length)
+        resume_gas = self.gas_left - gas_cost - callee_gas
+        self._precompile_callee_rows(target, callee_call_id, 1, cd_offset, cd_length, rd_offset,
+                                     rd_length, resume_gas, next_mws, ret_len)
+
+        # the copy events (callop.py:187-226): input -> RlcAcc, output ->
+        # RlcAcc, output -> the caller's return region.  The callee's output
+        # bytes are written by the block's prologue (memory_setups), so that
+        # their first access is a write (the state circuit's rule)
+        callee_mem = {i: output[i] for i in range(ret_len)}
+        self.w.memory_setups += [(callee_call_id, i, output[i]) for i in range(ret_len)]
+        cc = self.w.copy_circuit
+        if cd_length:
+            cc.copy(self.copy_r, rw, self.call_id, CopyDataTypeTag.Memory, callee_call_id,
+                    CopyDataTypeTag.RlcAcc, cd_offset, cd_offset + cd_length, 0, cd_length,
+                    {cd_offset + i: inp[i] for i in range(cd_length)})
+        if ret_len:
+            cc.copy(self.copy_r, rw, callee_call_id, CopyDataTypeTag.Memory, callee_call_id,
+                    CopyDataTypeTag.RlcAcc, 0, ret_len, 0, ret_len, dict(callee_mem))
+            cc.copy(self.copy_r, rw, callee_call_id, CopyDataTypeTag.Memory, self.call_id,
+                    CopyDataTypeTag.Memory, 0, min_rd, rd_offset, min_rd, dict(callee_mem))
+            for i in range(min_rd):
+                self.memory[rd_offset + i] = output[i]
+
+        # the precompile's step: the pc advances by 1 and the stack pointer
+        # carries over (callop.py:242-243's Transition delta(1) / same), as
+        # the reference's precompile steps do
+        call_step = self.w.steps[-1]
+        self.w.steps.append(StepState(
+            state, rw.rw_counter, call_id=callee_call_id, is_root=False, code_hash=EMPTY_HASH,
+            program_counter=call_step.program_counter + 1,
+            stack_pointer=call_step.stack_pointer, gas_left=callee_gas,
+            memory_word_size=(min_rd + 31) // 32, reversible_write_counter=2,
+            log_id=self.log_count, aux_data=aux))
+
+        # the precompile gadget's own rows, then the caller's restore
+        saved = self._saved_caller(resume_gas, next_mws)
+        prev_call_id, self.call_id = self.call_id, callee_call_id
+        if target == 4:
+            for tag, v in ((CC.CalleeAddress, target), (CC.CallerId, prev_call_id),
+                           (CC.CallDataOffset, cd_offset), (CC.CallDataLength, cd_length),
+                           (CC.ReturnDataOffset, rd_offset), (CC.ReturnDataLength, rd_length)):
+                self.cc_read(tag, v)
+            # dataCopy's two copy events (dataCopy.py:38-62)
+            src_data = {cd_offset + i: inp[i] for i in range(cd_length)}
+            cc.copy(self.copy_r, rw, prev_call_id, CopyDataTypeTag.Memory, prev_call_id,
+                    CopyDataTypeTag.Memory, cd_offset, cd_offset + cd_length, rd_offset,
+                    cd_length, src_data)
+            cc.copy(self.copy_r, rw, prev_call_id, CopyDataTypeTag.Memory, callee_call_id,
+                    CopyDataTypeTag.Memory, cd_offset, cd_offset + cd_length, 0, cd_length,
+                    dict(src_data))
+        else:
+            self.cc_read(CC.IsSuccess, 1)
+            if target == 8:  # ecPairing also reads CallDataLength
+                self.cc_read(CC.CallDataLength, cd_length)
+            self.cc_read(CC.CalleeAddress, target)
+        self._restore_context_rows(saved, (callee_call_id, 0, ret_len),
+                                   read_caller_id=target != 4)
+        self.call_id = prev_call_id
+        self.gas_left = resume_gas + (callee_gas - prec_gas)
+        self.mws = next_mws
+        self.last_callee = (callee_call_id, 0, ret_len)
+        self.pc += 1
+
+    def _enter_precompile_oog(self, target, callee_call_id, callee_anchor, callee_pending,
+                              cd_offset, cd_length, rd_offset, rd_length, gas_cost, callee_gas,
+                              next_mws):
+        """A call to a precompile given too little gas: the callop gadget's
+        precompile branch (IsSuccess 0, the input's copy alone), then an
+        ErrorOutOfGasPrecompile step in the callee's frame, which restores
+        the caller's context and burns the callee's gas (the reference's
+        error_oog_precompile.py, which its callop leaves unreachable)."""
+        assert self.persistent, "tracer: OOG precompile calls inside reverting frames unsupported"
+        if target == 4:
+            # PrecompileGadget pins identity's return length to its calldata
+            # length, which a failed call (0 bytes returned) meets only with
+            # empty calldata (the reference's precompile_gadget.py:24)
+            assert cd_length == 0, "tracer: OOG identity calls need empty calldata"
+        rw = self.rw
+        CC = CallContextFieldTag
+        self.w.steps[-1].aux_data = (cd_length, 0)
+        resume_gas = self.gas_left - gas_cost - callee_gas
+        self._precompile_callee_rows(target, callee_call_id, 0, cd_offset, cd_length, rd_offset,
+                                     rd_length, resume_gas, next_mws, 0)
+        # the input's copy event (callop.py:187-199); no output or return copy
+        if cd_length:
+            inp = self._mem_bytes(cd_offset, cd_length)
+            self.w.copy_circuit.copy(
+                self.copy_r, rw, self.call_id, CopyDataTypeTag.Memory, callee_call_id,
+                CopyDataTypeTag.RlcAcc, cd_offset, cd_offset + cd_length, 0, cd_length,
+                {cd_offset + i: inp[i] for i in range(cd_length)})
+
+        call_step = self.w.steps[-1]
+        self.w.steps.append(StepState(
+            ExecutionState.ErrorOutOfGasPrecompile, rw.rw_counter, call_id=callee_call_id,
+            is_root=False, code_hash=EMPTY_HASH, program_counter=call_step.program_counter + 1,
+            stack_pointer=call_step.stack_pointer, gas_left=callee_gas, memory_word_size=0,
+            reversible_write_counter=2, log_id=self.log_count))
+
+        saved = self._saved_caller(resume_gas, next_mws)
+        prev_call_id, self.call_id = self.call_id, callee_call_id
+        # the gadget's CalleeAddress and CallDataLength reads, then
+        # constrain_error_state's IsSuccess read and the caller's restore
+        self.cc_read(CC.CalleeAddress, target)
+        self.cc_read(CC.CallDataLength, cd_length)
+        self.cc_read(CC.IsSuccess, 0)
+        self._restore_context_rows(saved, (callee_call_id, 0, 0))
+        # the callee's frame failed: its two reversible-write slots revert in
+        # the counters the error gadget skipped
+        caller_pending, caller_anchor = self.pending, self.anchor
+        self.pending, self.anchor = list(callee_pending), callee_anchor
+        self._materialize_reversion()
+        self.pending, self.anchor = caller_pending, caller_anchor
+
+        self.call_id = prev_call_id
+        self.gas_left = resume_gas  # the callee's gas is consumed
+        self.mws = next_mws
+        self.last_callee = (callee_call_id, 0, 0)
+        self.pc += 1
+
+    def _ecc_circuit(self):
+        if self.w.ecc_circuit is None:
+            from ..circuits.ecc import EccCircuit
+
+            self.w.ecc_circuit = EccCircuit(8, 8, 4)
+        return self.w.ecc_circuit
 
     def op_create(self, op):
         """CREATE / CREATE2 (evm/execution/create.py's row order): the
@@ -1982,8 +2287,10 @@ def trace_block(
         # WithdrawalRoot matches the withdrawal circuit's final root
         block.withdrawal_root = 7 * sum(1 for wd in withdrawals if wd.amount)
 
+    curve_results: dict = {}
+
     def run(start: int, outcomes=None) -> _Tracer:
-        tracer = _Tracer(block, start, accounts, outcomes)
+        tracer = _Tracer(block, start, accounts, outcomes, curve_results)
         for i, (tx, bytecode) in enumerate(txs):
             tracer.balances.setdefault(tx.caller_address, caller_balance)
             tracer.has_next_tx = i + 1 < len(txs)
@@ -2029,8 +2336,8 @@ def trace_block(
                    "value_prev": 0, "aux0": 0}]
 
     # --- call-context setup prologue: rw counters 1..11*n_txs for the root
-    # frames, then one write a sub-call context key (the memory region of
-    # the precompiles' outputs stays empty: no precompile is traced) ---
+    # frames, then one write a sub-call context key, then one memory write
+    # a byte of the precompiles' outputs ---
     prologue = RWDictionary(1)
     CC = CallContextFieldTag
     for i, ((tx, bytecode), call_id) in enumerate(zip(txs, tracer.call_ids)):
@@ -2052,6 +2359,8 @@ def trace_block(
     for setup in w.subcall_setups:
         for callee_id, tag, value in setup:
             prologue.call_context_write(callee_id, tag, value)
+    for callee_id, addr, byte in w.memory_setups:
+        prologue.memory_write(callee_id, addr, byte)
     assert prologue.rw_counter == start + n_setup_rows
     w.rw.rws = start_rows + prologue.rws + w.rw.rws
 

@@ -877,6 +877,282 @@ def build_create_chain_block():
     return trace_block(Block(base_fee=int(1e9)), [(tx, bc)])
 
 
+# -- the proof-verifier and signature-relayer block: the precompiles ---------------------
+
+PRECOMPILE_VERIFIER_TXS, PRECOMPILE_RELAYER_TXS, PRECOMPILE_MESSAGES = 4, 4, 64
+PRECOMPILE_VERIFIER = 0xBEEF      # the rollups' shared Groth16 verifier
+PRECOMPILE_RELAYER_TOPIC = 0x7E1A  # the relayer's event topic
+PRECOMPILE_PREFIX = 36            # the seeded calldata bytes before a proof
+PROOF_BYTES = 320                 # in1, in2, A (G1), B (G2), C (G1)
+MESSAGE_BYTES = 128               # a relayed message: (hash, v, r, s)
+ECRECOVER_OOG_GAS = 2999          # one below ecRecover's 3000
+PRECOMPILE_VERIFIER_GAS = 400000
+PRECOMPILE_RELAYER_BASE_GAS = 250000
+PRECOMPILE_MESSAGE_GAS = 5000
+
+# the verifier's memory: the pairing's 4 pairs at 0x200 (-A, B; alpha, beta;
+# vk_x, gamma; C, delta), its output at 0x500; ecMul(IC1, in1) at 0x600 into
+# 0x700, ecMul(IC2, in2) at 0x660 into 0x7C0, ecAdd(IC0, _) at 0x6C0 into
+# 0x780, ecAdd(_, _) at 0x780 into vk_x's slot at 0x380: every return region
+# disjoint from its call's input region
+_PAIRING_AT, _PAIRING_OUT = 0x200, 0x500
+_MUL1_AT, _MUL2_AT, _ADD1_AT = 0x600, 0x660, 0x6C0
+_MUL1_OUT, _ADD1_OUT, _MUL2_OUT = 0x700, 0x780, 0x7C0
+
+
+def _g1_words(pt) -> List[int]:
+    return [pt[0], pt[1]]
+
+
+def _g2_words(pt) -> List[int]:
+    """A G2 point in the EVM's order: x's c1, x's c0, y's c1, y's c0."""
+    return [pt[0].c[1], pt[0].c[0], pt[1].c[1], pt[1].c[0]]
+
+
+def groth16_keys(rng: np.random.RandomState) -> dict:
+    """A verifying key's scalars (alpha, beta, gamma, delta, ic0..ic2), each
+    a point's discrete log, drawn from ``rng``."""
+    from .ops.ecc import bn254
+
+    names = ("alpha", "beta", "gamma", "delta", "ic0", "ic1", "ic2")
+    return {k: 1 + int.from_bytes(rng.bytes(32), "big") % (bn254.R - 1) for k in names}
+
+
+def groth16_proof(keys: dict, rng: np.random.RandomState) -> bytes:
+    """A valid proof with 2 public inputs, as calldata (in1, in2, A, B, C):
+    every point a multiple of G1 or G2, and c = (a b - alpha beta - x gamma)
+    / delta mod R with x = ic0 + in1 ic1 + in2 ic2, so that e(-A, B) e(alpha,
+    beta) e(vk_x, gamma) e(C, delta) = 1."""
+    from .ops.ecc import bn254
+
+    R = bn254.R
+    in1, in2, a, b = (1 + int.from_bytes(rng.bytes(32), "big") % (R - 1) for _ in range(4))
+    x = (keys["ic0"] + in1 * keys["ic1"] + in2 * keys["ic2"]) % R
+    c = ((a * b - keys["alpha"] * keys["beta"] - x * keys["gamma"])
+         * pow(keys["delta"], R - 2, R)) % R
+    words = ([in1, in2] + _g1_words(bn254.g1_mul(bn254.G1, a))
+             + _g2_words(bn254.g2_mul(bn254.G2, b)) + _g1_words(bn254.g1_mul(bn254.G1, c)))
+    return b"".join(w.to_bytes(32, "big") for w in words)
+
+
+def _mstore_words(bc: Bytecode, at: int, words: List[int]) -> Bytecode:
+    for i, w in enumerate(words):
+        bc.push32(w).push2(at + 32 * i).mstore()
+    return bc
+
+
+def _staticcall(bc: Bytecode, target: int, args, ret, gas: int = 0xFFFFFF) -> Bytecode:
+    """``STATICCALL(gas, target, args, ret)`` and a POP of its success bit."""
+    bc.push2(ret[1]).push2(ret[0]).push2(args[1]).push2(args[0])
+    return bc.push2(target).push3(gas).staticcall().pop()
+
+
+def groth16_verifier_code(keys: dict) -> Bytecode:
+    """The shared verifier (a Solidity Groth16 verifier's shape): the
+    verifying key's points stored from its code, the proof's B and C copied
+    and -A computed from its calldata, vk_x = IC0 + in1 IC1 + in2 IC2 by two
+    ecMul (0x07) and two ecAdd (0x06), then ecPairing (0x08) on the 4 pairs
+    (768 bytes) and a RETURN of its 32-byte result."""
+    from .ops.ecc import bn254
+
+    def g1(k):
+        return _g1_words(bn254.g1_mul(bn254.G1, k))
+
+    def g2(k):
+        return _g2_words(bn254.g2_mul(bn254.G2, k))
+
+    bc = Bytecode()
+    _mstore_words(bc, _MUL1_AT, g1(keys["ic1"]))
+    _mstore_words(bc, _MUL2_AT, g1(keys["ic2"]))
+    _mstore_words(bc, _ADD1_AT, g1(keys["ic0"]))
+    # the calldata by CALLDATACOPY (the JAX package's CALLDATALOAD packs
+    # its word little-endian, the reference's quirk)
+    bc.push1(32).push1(0).push2(_MUL1_AT + 64).calldatacopy()         # in1
+    bc.push1(32).push1(32).push2(_MUL2_AT + 64).calldatacopy()        # in2
+    # -A = (A.x, P - A.y), then B, alpha, beta, gamma, C, delta
+    bc.push1(64).push1(64).push2(_PAIRING_AT).calldatacopy()
+    bc.push2(_PAIRING_AT + 32).mload().push32(bn254.P).sub().push2(_PAIRING_AT + 32).mstore()
+    bc.push1(128).push1(128).push2(_PAIRING_AT + 64).calldatacopy()   # B
+    _mstore_words(bc, _PAIRING_AT + 192, g1(keys["alpha"]) + g2(keys["beta"]))
+    _mstore_words(bc, _PAIRING_AT + 448, g2(keys["gamma"]))
+    bc.push1(64).push2(256).push2(_PAIRING_AT + 576).calldatacopy()   # C
+    _mstore_words(bc, _PAIRING_AT + 640, g2(keys["delta"]))
+    _staticcall(bc, 0x07, (_MUL1_AT, 96), (_MUL1_OUT, 64))
+    _staticcall(bc, 0x07, (_MUL2_AT, 96), (_MUL2_OUT, 64))
+    _staticcall(bc, 0x06, (_ADD1_AT, 128), (_ADD1_OUT, 64))
+    _staticcall(bc, 0x06, (_ADD1_OUT, 128), (_PAIRING_AT + 384, 64))     # vk_x
+    _staticcall(bc, 0x08, (_PAIRING_AT, 768), (_PAIRING_OUT, 32))
+    return bc.push1(32).push2(_PAIRING_OUT).return_()
+
+
+def rollup_code(slot: int) -> Bytecode:
+    """A rollup's contract: its calldata's proof (after the 36-byte prefix)
+    copied to memory, a STATICCALL of the verifier with it, and the 32-byte
+    result SSTOREd in ``slot``."""
+    bc = Bytecode().push2(PROOF_BYTES).push1(PRECOMPILE_PREFIX).push1(0).calldatacopy()
+    _staticcall(bc, PRECOMPILE_VERIFIER, (0, PROOF_BYTES), (PROOF_BYTES, 32))
+    return bc.push2(PROOF_BYTES).mload().push1(slot).sstore().stop()
+
+
+def signed_messages(n: int, rng: np.random.RandomState) -> bytes:
+    """``n`` messages (hash, v = 27 + the recovery id, r, s), each signed by
+    its own key, as 128-byte calldata records; the hashes, keys and nonces
+    drawn from ``rng``."""
+    from .ops.ecc import secp256k1
+    from .ops.keccak import keccak256
+
+    out = bytearray()
+    for _ in range(n):
+        msg_hash = int.from_bytes(keccak256(rng.bytes(32)), "big")
+        key = 1 + int.from_bytes(rng.bytes(32), "big") % (secp256k1.N - 1)
+        nonce = 1 + int.from_bytes(rng.bytes(32), "big") % (secp256k1.N - 1)
+        v, r, s = secp256k1.sign(msg_hash, key, nonce)
+        assert v in (0, 1)
+        out += b"".join(w.to_bytes(32, "big") for w in (msg_hash, 27 + v, r, s))
+    return bytes(out)
+
+
+def relayer_code(messages: int) -> Bytecode:
+    """A relayer's contract, with the stack holding i, ``messages`` rounds
+    of
+
+        top:  JUMPDEST DUP1 PUSH2 n GT ISZERO PUSH2 exit JUMPI
+              CALLDATACOPY(0x100, i << 7, 128)
+              STATICCALL identity (0x04): mem[0x100..0x180) -> mem[0..128) POP
+              STATICCALL ecRecover (0x01): mem[0..128) -> mem[0x180..0x1A0) POP
+              LOG1(mem[0x180..0x1A0), topic) PUSH1 1 ADD PUSH2 top JUMP
+
+    then one ecRecover of the last message with v = 29 (invalid: it returns
+    nothing) and one given 2999 gas (ErrorOutOfGasPrecompile), and STOP."""
+    assert 0 <= messages < 1 << 16
+    bc = Bytecode().push1(0)                                         # i
+    top = len(bc.code)
+    bc.jumpdest().dup1().push2(messages).gt().iszero()
+    jumpi_at = len(bc.code)
+    bc.push2(0).jumpi()                                              # exit, patched below
+    bc.push1(MESSAGE_BYTES).dup2().push1(7).shl().push2(0x100).calldatacopy()
+    _staticcall(bc, 0x04, (0x100, MESSAGE_BYTES), (0, MESSAGE_BYTES))
+    _staticcall(bc, 0x01, (0, MESSAGE_BYTES), (0x180, 32))
+    bc.push2(PRECOMPILE_RELAYER_TOPIC).push1(32).push2(0x180).log1()
+    bc.push1(1).add().push2(top).jump()
+    exit_pc = len(bc.code)
+    bc.code[jumpi_at + 1:jumpi_at + 3] = exit_pc.to_bytes(2, "big")
+    bc.jumpdest().pop()
+    bc.push1(29).push1(32).mstore()
+    _staticcall(bc, 0x01, (0, MESSAGE_BYTES), (0x180, 32))
+    _staticcall(bc, 0x01, (0, MESSAGE_BYTES), (0x180, 32), gas=ECRECOVER_OOG_GAS)
+    return bc.stop()
+
+
+def precompile_accounts(keys: dict):
+    return {PRECOMPILE_VERIFIER: Account(address=PRECOMPILE_VERIFIER,
+                                         code=groth16_verifier_code(keys))}
+
+
+def precompile_block_txs(n_verifier_txs: int, n_relayer_txs: int, messages: int,
+                         seed: int = 0):
+    """The precompile block's txs and accounts: caller 0xFE (signing gives
+    each tx its own key's address); txs 1..n_verifier_txs to rollup 0xFF + i
+    with 36 seeded calldata bytes and a proof, the rest to relayer 0xFF + i
+    with ``messages`` signed messages."""
+    rng = np.random.RandomState(seed)
+    keys = groth16_keys(rng)
+    txs = []
+    for i in range(n_verifier_txs + n_relayer_txs):
+        if i < n_verifier_txs:
+            call_data = rng.bytes(PRECOMPILE_PREFIX) + groth16_proof(keys, rng)
+            code, gas = rollup_code(i), PRECOMPILE_VERIFIER_GAS
+        else:
+            call_data = signed_messages(messages, rng)
+            code = relayer_code(messages)
+            gas = PRECOMPILE_RELAYER_BASE_GAS + PRECOMPILE_MESSAGE_GAS * messages
+        txs.append((Transaction(id=i + 1, gas=gas, gas_price=int(2e9), caller_address=0xFE,
+                                callee_address=0xFF + i, call_data=call_data), code))
+    return txs, precompile_accounts(keys)
+
+
+def build_precompile_block(n_verifier_txs: int = PRECOMPILE_VERIFIER_TXS,
+                           n_relayer_txs: int = PRECOMPILE_RELAYER_TXS,
+                           messages: int = PRECOMPILE_MESSAGES, seed: int = 0):
+    """The precompile block's witness, signed: rollups checking a Groth16
+    proof each through the shared verifier (2 ecMul, 2 ecAdd and a 4-pair
+    ecPairing a tx: at 4 txs the ecc circuit's capacity, 8 / 8 / 4), then
+    relayers recovering ``messages`` signers each through identity and
+    ecRecover, an invalid v and an ecRecover out of gas."""
+    txs, accounts = precompile_block_txs(n_verifier_txs, n_relayer_txs, messages, seed)
+    return trace_block(Block(**FLOW_BLOCK_HEADER), txs, accounts=accounts)
+
+
+# the card run's three edits of a precompile block's witness (either
+# package's: they go by the witness's names alone).  Each returns the keys
+# the edit must fail at, as a function of the port's verifier of the edited
+# witness, and the undo of the edit.
+
+def _first_step(w, state: str) -> int:
+    return next(i for i, s in enumerate(w.steps) if s.execution_state.name == state)
+
+
+def edit_ecc_add_out(w):
+    """The first ecAdd op's out y + 1 (tests/test_block_jit.py:228-249's
+    edit): its ecc row's chip verdict and the BN254_ADD step's ecc lookup
+    fail."""
+    op = w.ecc_circuit.add_ops[0]
+    w.ecc_circuit.add_ops[0] = op._replace(out=(op.out[0], op.out[1] + 1))
+    step = _first_step(w, "BN254_ADD")
+
+    def undo():
+        w.ecc_circuit.add_ops[0] = op
+
+    return (lambda bv: {step, ("ecc", 0)}), undo
+
+
+def edit_sig_row_is_valid(w):
+    """The first sig row's is_valid flipped (tests/test_block_jit.py:
+    222-225's edit): its sig_trace row's ECDSA verdict and the first
+    ECRECOVER step's sig lookup fail."""
+    row = w.sig_rows[0]
+    row.is_valid = not row.is_valid
+    step = _first_step(w, "ECRECOVER")
+
+    def undo():
+        row.is_valid = not row.is_valid
+
+    return (lambda bv: {step, ("sig_trace", 0)}), undo
+
+
+def edit_identity_output(w):
+    """The first identity call's first output byte + 1 in the rw rows, the
+    DATACOPY step's write into the caller's return region
+    (tests/test_block_precompiles.py:198-214's edit): the copy row of that
+    write and the state row of the next read of the byte fail."""
+    from .tables.schemas import Target
+
+    d = _first_step(w, "DATACOPY")
+    lo, hi, caller = w.steps[d].rw_counter, w.steps[d + 1].rw_counter, w.steps[d - 1].call_id
+    memory = int(Target.Memory)
+    row = next(r for r in w.rw.rws if lo <= r["rw_counter"] < hi and r["key0"] == memory
+               and r["rw"] == 1 and r["id"] == caller)
+    read = min((r["rw_counter"] for r in w.rw.rws
+                if r["key0"] == memory and r["rw"] == 0 and r["id"] == caller
+                and r["address"] == row["address"] and r["rw_counter"] > row["rw_counter"]))
+    copy_row = next(k for k, c in enumerate(w.copy_circuit.rows)
+                    if c["q_step"] == 0 and c["rw_counter"] == row["rw_counter"])
+    row["value"] += 1
+
+    def keys(bv):
+        return {("copy", copy_row), *(("state", k) for k, r in enumerate(bv._state_rows)
+                                      if r["rw_counter"] == read)}
+
+    def undo():
+        row["value"] -= 1
+
+    return keys, undo
+
+
+PRECOMPILE_EDITS = {"ecc_add_out": edit_ecc_add_out, "sig_row_is_valid": edit_sig_row_is_valid,
+                    "identity_output": edit_identity_output}
+
+
 # -- signed transfers: the tx and sig circuits' largest block ----------------------------
 
 TX_SIG_CHAIN_ID = 1337                        # bench.py:bench_sig's
@@ -898,12 +1174,13 @@ def signed_transfers(n: int):
 
 
 # (side, elements, m limbs) of every logUp partial sum (K13 call) of the
-# checks of chip_smoke.py's six blocks: the ALU block at half its rounds
-# (build_alu_block(8, 5500)), the arithmetic block at a quarter of its txs
-# (build_arith_block(10, 37)), the SSTORE block, the loop block at half its
-# txs and rounds (build_flow_block(4, 800)), the call block at a quarter of
-# its rounds (build_call_block(8, 79)) and the create block
-# (build_create_block(8, 8)).  A query side's m is en (one
+# checks of chip_smoke.py's seven blocks: the ALU block at a quarter of its
+# rounds (build_alu_block(8, 2750)), the arithmetic block at an eighth of its
+# txs (build_arith_block(5, 37)), the SSTORE block, the loop block at half
+# its txs and a quarter of its rounds (build_flow_block(4, 400)), the call
+# block at a sixteenth of its rounds (build_call_block(8, 19)), the create
+# block (build_create_block(8, 8)) and the precompile block
+# (build_precompile_block(4, 4, 64)).  A query side's m is en (one
 # limb), a table side's the multiplicities (four limbs).  A side of the same
 # shape as one an earlier family of its block gave is listed once (the
 # SSTORE block's keccak query side is its copy query side's shape, its block
@@ -911,36 +1188,43 @@ def signed_transfers(n: int):
 # it builds; profile_replay.py --logup times K13 at them without building
 # the blocks.
 LOGUP_SIDES = (
-    ("ALU rw query", 264401, 1), ("ALU rw table", 264369, 4),
-    ("ALU bytecode query", 3080016, 1), ("ALU bytecode table", 33002, 4),
+    ("ALU rw query", 132401, 1), ("ALU rw table", 132369, 4),
+    ("ALU bytecode query", 1540016, 1), ("ALU bytecode table", 16502, 4),
     ("ALU tx query", 180, 1), ("ALU tx table", 96, 4),
     ("ALU block query", 55, 1), ("ALU block table", 8, 4),
-    ("arith rw query", 34173, 1), ("arith rw table", 24141, 4),
-    ("arith bytecode query", 287510, 1), ("arith bytecode table", 241630, 4),
-    ("arith exp query", 740, 1), ("arith exp table", 3349, 4),
-    ("arith tx query", 226, 1), ("arith tx table", 120, 4),
-    ("arith block query", 69, 1), ("arith block table", 8, 4),
+    ("arith rw query", 17083, 1), ("arith rw table", 12071, 4),
+    ("arith bytecode query", 143755, 1), ("arith bytecode table", 120815, 4),
+    ("arith exp query", 370, 1), ("arith exp table", 1682, 4),
+    ("arith tx query", 111, 1), ("arith tx table", 60, 4),
+    ("arith block query", 34, 1), ("arith block table", 8, 4),
     ("sstore rw query", 1568, 1), ("sstore rw table", 1765, 4),
     ("sstore bytecode query", 7854, 1), ("sstore bytecode table", 770, 4),
     ("sstore copy query", 7, 1), ("sstore copy table", 7, 4),
     ("sstore keccak table", 8, 4),
     ("sstore tx query", 157, 1), ("sstore tx table", 84, 4),
     ("sstore block query", 48, 1),
-    ("flow rw query", 119265, 1), ("flow rw table", 119613, 4),
-    ("flow bytecode query", 592160, 1), ("flow bytecode table", 128, 4),
+    ("flow rw query", 60065, 1), ("flow rw table", 60413, 4),
+    ("flow bytecode query", 297760, 1), ("flow bytecode table", 128, 4),
     ("flow copy query", 16, 1), ("flow copy table", 16, 4),
-    ("flow tx query", 102496, 1), ("flow tx table", 192, 4),
+    ("flow tx query", 51296, 1), ("flow tx table", 192, 4),
     ("flow block query", 63, 1), ("flow block table", 264, 4),
-    ("calls rw query", 155535, 1), ("calls rw table", 171006, 4),
-    ("calls bytecode query", 430418, 1), ("calls bytecode table", 669, 4),
-    ("calls copy query", 664, 1), ("calls copy table", 664, 4),
+    ("calls rw query", 43035, 1), ("calls rw table", 46746, 4),
+    ("calls bytecode query", 116138, 1), ("calls bytecode table", 669, 4),
+    ("calls copy query", 184, 1), ("calls copy table", 184, 4),
     ("calls tx query", 524, 1), ("calls tx table", 384, 4),
     ("calls block query", 63, 1), ("calls block table", 264, 4),
     ("create rw query", 36326, 1), ("create rw table", 33282, 4),
     ("create bytecode query", 115169, 1), ("create bytecode table", 1395, 4),
     ("create copy query", 408, 1), ("create copy table", 408, 4),
     ("create tx query", 268, 1), ("create tx table", 384, 4),
-    ("create block query", 63, 1), ("create block table", 264, 4))
+    ("create block query", 63, 1), ("create block table", 264, 4),
+    ("precompile rw query", 107977, 1), ("precompile rw table", 469909, 4),
+    ("precompile bytecode query", 214968, 1), ("precompile bytecode table", 1219, 4),
+    ("precompile copy query", 5712, 1), ("precompile copy table", 2656, 4),
+    ("precompile tx query", 180, 1), ("precompile tx table", 34288, 4),
+    ("precompile block query", 55, 1), ("precompile block table", 264, 4),
+    ("precompile sig query", 260, 1), ("precompile sig table", 256, 4),
+    ("precompile ecc query", 20, 1), ("precompile ecc table", 20, 4))
 
 
 def receipt_gas_used(witness) -> int:
