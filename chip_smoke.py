@@ -304,7 +304,7 @@ from zkevm_specs_tpu_torch.ops import fr  # noqa: E402
 from zkevm_specs_tpu_torch.ops import keccak as keccak_ops  # noqa: E402
 from zkevm_specs_tpu_torch.ops import limbs as L  # noqa: E402
 from zkevm_specs_tpu_torch.ops import word_mul  # noqa: E402
-from zkevm_specs_tpu_torch.ops.ecc import secp256k1  # noqa: E402
+from zkevm_specs_tpu_torch.ops.ecc import bn254, secp256k1  # noqa: E402
 from zkevm_specs_tpu_torch.parallel import logup_shard  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import block as block_runtime  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
@@ -313,6 +313,8 @@ from zkevm_specs_tpu_torch.runtime.bounds import (  # noqa: E402
     reduce_chain, reduce_chain_ms, reduce_cost, search_cost, sm_clock_max_hz, sponge_chain_ms,
     sponge_cost, word_mul_chain_ms, word_mul_cost)
 from zkevm_specs_tpu_torch.runtime import cuda_build  # noqa: E402
+from zkevm_specs_tpu_torch.runtime import native  # noqa: E402
+from zkevm_specs_tpu_torch.runtime import profiling  # noqa: E402
 from zkevm_specs_tpu_torch.runtime import transfer  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.convert import to_device  # noqa: E402
 from zkevm_specs_tpu_torch.runtime.jit import CompiledGroupVerifier  # noqa: E402
@@ -463,6 +465,11 @@ PATH_KERNELS = {"ADD": ("limb_addsub", "lookup_gather_eq"),
                           "logup_sum")}
 # the precompile block's pass launches the create block's kernels (and K11 once)
 PATH_KERNELS["precompile"] = PATH_KERNELS["create"]
+# the sharded checks at world size 1: the groups, the state check, the
+# circuits and the logUp argument, with no K9 upload nor K10 pack
+PATH_KERNELS["sharded"] = ("fr_mul", "limb_addsub", "lookup_gather_eq", "state_order_lt",
+                           "lookup_search_eq", "keccak_sponge", "horner_rlc", "fr_inv",
+                           "logup_sum", "limb_reduce")
 # the last eight ALU gadgets' groups: every one reaches K3 and K4 (their
 # fixed Bitwise, SignByte and Pow2 lookups are computed predicates, as in the
 # JAX package); SLT's and SAR's bytes_to_fq products reach K2 and K1
@@ -1461,7 +1468,7 @@ def run_block(path, card):
     spec = BLOCK_PHASES[path]
     CBV = block_runtime.CompiledBlockVerifier
     out = {"phase": path, **spec["sizes"], "sign": True, "not_ported": list(CBV.not_ported),
-           "card": card}
+           "host_crypto": host_crypto(), "card": card}
     assert not CBV.not_ported, CBV.not_ported
     t_phase = t0 = time.perf_counter()
     witness = spec["build"]()
@@ -1684,7 +1691,7 @@ def run_tx_sig(card):
     n, chain, r = TX_SIG_TXS, workloads.TX_SIG_CHAIN_ID, 0x64
     max_cd = workloads.TX_SIG_MAX_CALLDATA
     out = {"phase": "tx_sig", "txs": n, "chain_id": chain, "max_calldata_bytes": max_cd,
-           "card": card}
+           "host_crypto": host_crypto(), "card": card}
     t_phase = t0 = time.perf_counter()
     txs = workloads.signed_transfers(n)
     t_sign = time.perf_counter() - t0
@@ -1772,6 +1779,290 @@ def run_tx_sig(card):
     return counts, {"calls": calls, "instances": {}}
 
 
+# -- the native host library, the sharded verifier, the profiling hooks -------
+
+NATIVE_PREIMAGES = 64         # keccak preimages of 0..300 bytes
+NATIVE_DOUBLE_MULS = 256      # secp256k1 u1 G + u2 Q
+NATIVE_VERIFY_ROWS = TX_SIG_TXS   # verify_batch rows, tx_sig's 714
+NATIVE_BAD_ROWS = (3, 100, 357, 700)   # rows made invalid among them
+COMM_MODEL_WORLDS = (1, 2, 4, 8)
+
+
+def host_crypto():
+    """The path the port's host crypto takes: "native" or "python"."""
+    return "native" if native.native_available() else "python"
+
+
+def _fq2_pow(a, e):
+    out = bn254.FQ2.one()
+    while e:
+        if e & 1:
+            out = out * a
+        a = a * a
+        e >>= 1
+    return out
+
+
+def g2_off_subgroup():
+    """A point on BN254's twist curve outside the order-r subgroup: the
+    first x = k + u with x^3 + b2 a square in FQ2."""
+    p = bn254.P
+    for k in range(1, 100):
+        x = bn254.FQ2([k, 1])
+        a = x * x * x + bn254.B2
+        a1 = _fq2_pow(a, (p - 3) // 4)
+        alpha, x0 = a1 * a1 * a, a1 * a
+        y = (bn254.FQ2([0, 1]) * x0 if alpha == bn254.FQ2([p - 1, 0])
+             else _fq2_pow(alpha + bn254.FQ2.one(), (p - 1) // 2) * x0)
+        if y * y == a:
+            return (x, y)
+    raise AssertionError("no point off the subgroup found")
+
+
+def run_native(card):
+    """The native host library: built from csrc/'s sources (its seconds),
+    each wrapper held against the port's Python path on seeded inputs, and
+    native and Python times of verify_batch at tx_sig's rows and of a
+    4-pair pairing check.  Any mismatch or a failed build fails the run."""
+    import random
+
+    out = {"phase": "native", "card": card}
+    t_phase = t0 = time.perf_counter()
+    out["library"] = str(native.require_native().relative_to(native.BUILD_DIR.parents[1]))
+    out["build_s"] = native.BUILD_SECONDS    # None where it was built before this run
+    out["load_s"] = time.perf_counter() - t0
+    rng = random.Random(19)
+
+    def both(fn, *args):
+        got = fn(*args)
+        with native.disabled():
+            want = fn(*args)
+        assert got == want, f"native: {fn.__name__} differs from the Python path"
+        return got
+
+    datas = [bytes(rng.getrandbits(8) for _ in range(rng.randrange(0, 301)))
+             for _ in range(NATIVE_PREIMAGES)]
+    keccak_ops._keccak256.cache_clear()
+    both(keccak_ops.keccak256_batch, datas)
+    assert [native.keccak256_native(d) for d in datas] == [keccak_ops._keccak256_py(d)
+                                                             for d in datas]
+    t0 = time.perf_counter()
+    keccak_ops.keccak256_batch(datas * 32)
+    out["keccak_batch_2048_native_ms"] = (time.perf_counter() - t0) * 1e3
+    with native.disabled():
+        t0 = time.perf_counter()
+        keccak_ops.keccak256_batch(datas * 32)
+        out["keccak_batch_2048_python_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for d in datas:
+            keccak_ops._keccak256_py(d)
+        out["keccak_64_python_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for d in datas:
+        native.keccak256_native(d)
+    out["keccak_64_native_ms"] = (time.perf_counter() - t0) * 1e3
+
+    for _ in range(NATIVE_DOUBLE_MULS):
+        q = secp256k1.mul(secp256k1.G, rng.randrange(1, secp256k1.N))
+        both(secp256k1._double_mul, rng.randrange(secp256k1.N), rng.randrange(secp256k1.N), q)
+    txs = workloads.signed_transfers(NATIVE_VERIFY_ROWS)
+    tw = tx_circuit.txs2witness(txs, workloads.TX_SIG_CHAIN_ID, NATIVE_VERIFY_ROWS,
+                                workloads.TX_SIG_MAX_CALLDATA, 0x64)
+    rows = [(c.msg_hash_int, *c.signature, c.pub_key) for c in tw.sign_verifications]
+    for k, i in enumerate(NATIVE_BAD_ROWS):
+        h, r, s_, pk = rows[i]
+        rows[i] = [(h, r, (s_ + 1) % secp256k1.N, pk), (h, r, s_, (pk[0], pk[1] + 1)),
+                   (h, 0, s_, pk), (h, r, s_, None)][k]
+    t0 = time.perf_counter()
+    verdicts = secp256k1.verify_batch(rows)
+    out["verify_batch_native_s"] = time.perf_counter() - t0
+    with native.disabled():
+        t0 = time.perf_counter()
+        assert secp256k1.verify_batch(rows) == verdicts, "native: verify_batch differs"
+        out["verify_batch_python_s"] = time.perf_counter() - t0
+    assert [i for i, v in enumerate(verdicts) if not v] == list(NATIVE_BAD_ROWS), verdicts
+    out["verify_batch_rows"] = len(rows)
+
+    # (a coordinate at or past p: the library reduces it, the Python path
+    # keeps it, so they may differ there; the CPU tests hold those inputs
+    # against the JAX package's library)
+    g1 = bn254.G1
+    pts = [None, g1, bn254.g1_mul(g1, 31337), (g1[0], bn254.P - g1[1])]
+    for a in pts:
+        for b in pts:
+            both(bn254.g1_add, a, b)
+    for pt in pts:
+        for k in (0, 1, bn254.R - 1, bn254.R, rng.getrandbits(254), 2**256 - 1, 2**256 + 3):
+            both(bn254.g1_mul, pt, k)
+    ks = [rng.getrandbits(128) for _ in range(4)]
+    msm_pts = [bn254.g1_mul(g1, i + 2) for i in range(4)]
+    want = None
+    for q, k in zip(msm_pts, ks):
+        want = bn254.g1_add(want, bn254.g1_mul(q, k))
+    assert native.bn254_g1_msm_native(msm_pts + [None], ks + [5]) == want, "native: g1_msm"
+    member, outsider = bn254.g2_mul(bn254.G2, 12345), g2_off_subgroup()
+    assert both(bn254.g2_in_subgroup, member) is True
+    assert both(bn254.g2_in_subgroup, outsider) is False
+    neg = (g1[0], bn254.P - g1[1])
+    a = 9876543210
+    a_p, a_q = bn254.g1_mul(g1, a), bn254.g2_mul(bn254.G2, a)
+    true_pairs = [(a_p, bn254.G2), (neg, a_q), (g1, bn254.G2), (neg, bn254.G2)]
+    false_pairs = [(a_p, bn254.G2), (neg, a_q), (g1, bn254.G2), (g1, bn254.G2)]
+    t0 = time.perf_counter()
+    assert bn254.pairing_check(true_pairs) is True
+    out["pairing_4_native_s"] = time.perf_counter() - t0
+    assert bn254.pairing_check(false_pairs) is False
+    with native.disabled():
+        t0 = time.perf_counter()
+        assert bn254.pairing_check(true_pairs) is True, "native: pairing differs"
+        out["pairing_4_python_s"] = time.perf_counter() - t0
+        assert bn254.pairing_check(false_pairs) is False, "native: pairing differs"
+    out["host_crypto"] = host_crypto()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_sharded(card, backend="nccl", device=None):
+    """``ShardedBlockVerifier`` over NCCL at world size 1 on this card: the
+    SSTORE block and the small precompile block, each with its verdicts
+    equal to ``CompiledBlockVerifier.run_device``'s key for key and every
+    logUp family true; on the SSTORE block four edits (an ADD step's
+    gas_left, a state row's value, an rw table part in the lookup
+    argument, a copy row's rlc_acc) each caught at the single-device
+    verifier's keys; and the communication model's rows of the SSTORE block
+    at 1, 2, 4 and 8 ranks."""
+    import torch.distributed as dist
+
+    from zkevm_specs_tpu_torch.parallel import comm_model
+    from zkevm_specs_tpu_torch.parallel.block_shard import ShardedBlockVerifier
+    from zkevm_specs_tpu_torch.parallel.shard import make_mesh
+
+    out = {"phase": "sharded", "backend": backend, "world_size": 1, "card": card,
+           "host_crypto": host_crypto()}
+    t_phase = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    counts = collections.Counter()
+    try:
+        mesh = make_mesh(device=device)
+        blocks = {"sstore": lambda: workloads.build_sstore_block(SSTORE_TXS),
+                  "precompile_small": lambda: workloads.build_precompile_block(*SMALL_PRECOMPILE)}
+        for name, build in blocks.items():
+            w = build()
+            sbv = ShardedBlockVerifier(w, mesh)
+            reset_counts()
+            t0 = time.perf_counter()
+            failures, lookups = sbv.check()
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize()
+            check_s = time.perf_counter() - t0
+            counts.update(read_counts())
+            single = sbv.inner.run_device(sbv.inner.prepare())
+            assert failures == single == {}, f"sharded {name}: {sorted(failures, key=str)[:8]}"
+            assert lookups and all(lookups.values()), f"sharded {name}: {lookups}"
+            assert lookups == sbv.inner.verify_lookups(), f"sharded {name}: logUp differs"
+            out[name] = {"steps": len(w.steps), "rw_rows": len(w.rw.rws), "check_s": check_s,
+                         "families": sorted(lookups), "placement": sbv.producer_placement}
+            if name != "sstore":
+                continue
+            sstore_bv = sbv.inner
+            edits = {}
+            # a state row's value + 1
+            mid = len(sbv.inner._state_rows) // 2
+            sbv.inner._state_rows[mid]["value"] += 1
+            got = set(np.flatnonzero(sbv.verify_state()).tolist())
+            cols, tree, meta = state.pack_state_inputs(sbv.inner._state_rows, sbv.inner._state_mpt)
+            want = set(torch.nonzero(state.make_state_check_fn(meta, mesh.device)(
+                *to_device((cols, tree), mesh.device))).flatten().tolist())
+            sbv.inner._state_rows[mid]["value"] -= 1
+            assert got == want and got, f"sharded: state row edit {got} != {want}"
+            edits["state_row"] = {"row": mid, "failing_rows": sorted(got)}
+
+            # an rw table part in the lookup argument
+            def corrupt(family, parts):
+                if family == "rw":
+                    parts[-1][1][parts[-1][1].shape[0] // 2, 0] ^= 1
+            got = sbv.verify_lookups(corrupt_table=corrupt)
+            want = sbv.inner.verify_lookups(corrupt_table=corrupt)
+            assert got == want and got["rw"] is False and sum(not v for v in got.values()) == 1, got
+            edits["rw_table_part"] = got
+            # a step and a producer row, each on its own rebuild
+            for edit in (corrupt_gas_left, corrupt_copy_rlc):
+                info, expected, undo = edit(w)
+                try:
+                    bad = ShardedBlockVerifier(w, mesh, logup_tables=())
+                    reset_counts()
+                    got, _ = bad.check()
+                    counts.update(read_counts())
+                    want = bad.inner.run_device(bad.inner.prepare())
+                finally:
+                    undo()
+                assert got == want and expected(bad.inner, got), \
+                    f"sharded {edit.__name__}: {sorted(got, key=str)[:8]} != {sorted(want, key=str)[:8]}"
+                edits[edit.__name__] = {**info, "failing": sorted(map(str, got))}
+            out["edits"] = edits
+            out["comm_model"] = [comm_model.row(comm_model.model_from_witness(w, n), "sstore")
+                                 for n in COMM_MODEL_WORLDS]
+    finally:
+        dist.destroy_process_group()
+    for k in PATH_KERNELS["sharded"]:
+        assert counts[k] > 0, f"sharded: kernel {k} was not launched"
+    out["launches"] = dict(counts)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {k: counts[k] for k in KERNELS}, {"calls": {}, "instances": {}}, sstore_bv
+
+
+def run_profile(card, bv):
+    """``runtime.profiling``: ``STATS`` after one ``run_device`` of the
+    SSTORE block (``bv``, the sharded phase's single-device verifier), and
+    one ``device_trace`` of it under chiprun_out/."""
+    from pathlib import Path
+
+    out = {"phase": "profile", "card": card}
+    t_phase = time.perf_counter()
+    prepared = bv.prepare()
+    bv.run_device(prepared)                   # the kernels loaded, the caches filled
+    torch.cuda.synchronize()
+    profiling.STATS.reset()
+    reset_counts()
+    assert not bv.run_device(prepared)
+    counts = read_counts()
+    out["stats"] = json.loads(profiling.STATS.report())
+    out["device_seconds"] = profiling.STATS.device_times
+    labels = {r["kernel"] for r in out["stats"]}
+    assert "state" in labels and any(k.startswith("evm:") for k in labels), labels
+    # what the hooks add to a run_device: its regions, each an empty one's
+    # host time (a pair of CUDA events and the host clock)
+    probe = profiling.KernelStats()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        with probe.timed("probe", bv.device):
+            pass
+    out["timed_region_us"] = (time.perf_counter() - t0) * 1e3
+    probe.report()
+    out["regions_per_run"] = sum(r["calls"] for r in out["stats"])
+    trace_dir = Path("chiprun_out") / "profile_trace"
+    with profiling.device_trace(str(trace_dir)) as path:
+        with profiling.annotate("sstore run_device"):
+            bv.run_device(prepared)
+        torch.cuda.synchronize()
+    size = Path(path).stat().st_size
+    assert size > 0, "profile: the trace is empty"
+    out.update({"trace": str(path), "trace_bytes": size,
+                "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    return counts, {"calls": {}, "instances": {}}
+
+
 def logup_families(bv):
     """The families of the block's lookup log that the JAX package's
     ShardedBlockVerifier proves, in its order."""
@@ -1797,7 +2088,7 @@ LOGUP_CAPTURES = (
     ("limb_addsub", L, "limb_addsub", addsub_key),
     ("lookup_gather_eq", logup_shard, "lookup_gather_eq", gather_key),
     ("fr_inv", fr, "inv", lambda a: shapes(a)),
-    ("logup_sum", logup_shard, "logup_partial_sum",
+    ("logup_sum", logup, "logup_partial_sum",
      lambda a: shapes([a[0], a[2] if len(a) > 2 else None])),
 )
 
@@ -3017,6 +3308,7 @@ def run_all():
           "flags": cuda_build.NVCC_FLAGS,
           "resource_usage": {name: cuda_build.resource_usage(name)
                              for name in cuda_build.SIGNATURES}})
+    run_native(card)
 
     # the groups: (name, state, builder, pops a step, what corrupt_lane
     # makes wrong, phase)
@@ -3042,6 +3334,8 @@ def run_all():
         (by_path[path], captured[path], by_path[f"logup_{path}"],
          captured[f"logup_{path}"]) = run_block(path, card)
     by_path["tx_sig"], captured["tx_sig"] = run_tx_sig(card)
+    by_path["sharded"], captured["sharded"], sstore_bv = run_sharded(card)
+    by_path["profile"], captured["profile"] = run_profile(card, sstore_bv)
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
 
     # the kernels phase, the seconds of each of its parts in a kernel_rows line

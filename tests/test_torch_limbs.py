@@ -195,3 +195,33 @@ def test_addsub_tile_case_matches_jax(case):
     got, want = (got, want) if mode == L.SUB else ((got,), (want,))
     for g, w in zip(got, want):
         _same(g, w)
+
+
+@pytest.mark.parametrize("m,out_n", [(5, 8), (34, 34), (64, 64), (70, 70), (130, 124)])
+def test_carry_chains_match_python_ints(m, out_n):
+    """The plain carry and borrow resolution (``_normalize``, ``_sub_plain``)
+    on columns up to the int64 limit, on 0xFFFF runs that one carry ripples
+    through end to end, and past 62 limbs (two packed words of carry
+    flags), against Python ints."""
+    rng = np.random.RandomState(m)
+    cols = torch.from_numpy(rng.randint(0, 1 << 62, size=(12, m), dtype=np.int64))
+    cols[0] = (1 << 63) - 1
+    cols[1] = L.LIMB_MASK
+    cols[1, 0] += 1                      # one carry through every limb
+    cols[2] = L.LIMB_MASK
+    cols[3, ::2] = L.LIMB_MASK + 1
+    got = L._normalize(cols, out_n)
+    for r in range(cols.shape[0]):
+        v = sum(int(c) << (16 * k) for k, c in enumerate(cols[r].tolist())) % (1 << (16 * out_n))
+        assert got[r].tolist() == [(v >> (16 * k)) & L.LIMB_MASK for k in range(out_n)]
+    a = cols & L.LIMB_MASK
+    b = torch.flip(a, [0])
+    b[1] = a[1]
+    b[2, 0] = a[2, 0] + 1 if a[2, 0] < L.LIMB_MASK else 0
+    diff, borrow = L._sub_plain(a, b, m)
+    for r in range(a.shape[0]):
+        va = sum(int(c) << (16 * k) for k, c in enumerate(a[r].tolist()))
+        vb = sum(int(c) << (16 * k) for k, c in enumerate(b[r].tolist()))
+        v = (va - vb) % (1 << (16 * m))
+        assert diff[r].tolist() == [(v >> (16 * k)) & L.LIMB_MASK for k in range(m)]
+        assert int(borrow[r]) == int(va < vb)

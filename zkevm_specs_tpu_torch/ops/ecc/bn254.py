@@ -8,8 +8,10 @@ and subgroup tests, the Miller loop over the 6t+2 ate count and the naive
 final exponentiation.  G1's scalar multiplication runs in Jacobian
 coordinates (one inversion at the end) and FQ2's inverse by its conjugate;
 both give the affine points and inverses of the JAX module's formulas.
-The ecc circuit (precompiles 0x06-0x08) and the tracer call it; everything
-runs on the host, as in the JAX package, whose circuit constrains the
+G1 addition and scalar multiplication, the G2 subgroup check and the
+pairing check go to the native library (``runtime/native.py``) where it
+loads, under the JAX module's conditions.  The ecc circuit (precompiles
+0x06-0x08) and the tracer call it; everything runs on the host, as in the JAX package, whose circuit constrains the
 host's verdict bit, not the curve arithmetic.
 """
 from __future__ import annotations
@@ -173,8 +175,14 @@ def g1_is_on_curve(pt: PointG1) -> bool:
 
 
 def g1_add(p1: PointG1, p2: PointG1) -> PointG1:
-    """Affine addition (the points need not be on the curve: the formulas
-    are the JAX module's)."""
+    """Affine addition: by the native library where it loads (the JAX
+    module's dispatch, (0, 0) being infinity there), else by the JAX
+    module's formulas (the points need not be on the curve)."""
+    from ...runtime.native import bn254_g1_add_native
+
+    native = bn254_g1_add_native(p1, p2)
+    if native is not False:
+        return native
     if p1 is None:
         return p2
     if p2 is None:
@@ -237,7 +245,15 @@ def _jadd(p, q):
 def g1_mul(pt: PointG1, k: int) -> PointG1:
     """k * pt by double-and-add: in Jacobian coordinates for a point on the
     curve with reduced coordinates, else (the precompile's invalid inputs)
-    by the JAX module's affine loop, whose results such points keep."""
+    by the JAX module's affine loop, whose results such points keep.  A
+    scalar in [0, 2^256) goes to the native library where it loads, as in
+    the JAX module."""
+    from ...runtime.native import bn254_g1_mul_native
+
+    if 0 <= k < 2**256:
+        native = bn254_g1_mul_native(pt, k)
+        if native is not False:
+            return native
     if pt is None or k == 0:
         return None
     if not (pt[0] < P and pt[1] < P and g1_is_on_curve(pt)):
@@ -352,7 +368,16 @@ def _g2_jadd(p, q):
 def g2_mul(pt: PointG2, k: int) -> PointG2:
     """k * pt by double-and-add: in Jacobian coordinates (one inversion)
     for a point on the curve, else by the JAX module's affine loop, whose
-    results an off-curve point keeps."""
+    results an off-curve point keeps.  ``g2_mul(pt, R)``, the subgroup
+    check, is answered by the native library where it loads and pt is a
+    member; a non-member falls through to Python (the JAX module's
+    shortcut)."""
+    if k == R and pt is not None:
+        from ...runtime.native import bn254_g2_subgroup_native
+
+        x, y = pt
+        if bn254_g2_subgroup_native(x.c[0], x.c[1], y.c[0], y.c[1]):
+            return None
     if pt is not None and g2_is_on_curve(pt):
         acc, addend = None, (pt[0], pt[1], FQ2.one())
         while k:
@@ -531,7 +556,15 @@ def pairing(Q: PointG2, Pt: PointG1) -> FQ12:
 
 
 def pairing_check(pairs: List[Tuple[PointG1, PointG2]]) -> bool:
-    """prod e(P_i, Q_i) == 1: the ecPairing precompile's predicate."""
+    """prod e(P_i, Q_i) == 1: the ecPairing precompile's predicate; by the
+    native library where it loads (the JAX module's dispatch)."""
+    from ...runtime.native import bn254_pairing_check_native
+
+    native = bn254_pairing_check_native(
+        [(pt, None if q is None else ((q[0].c[0], q[0].c[1]), (q[1].c[0], q[1].c[1])))
+         for pt, q in pairs])
+    if native is not None:
+        return native
     f = FQ12.one()
     for Pt, Q in pairs:
         f = f * pairing(Q, Pt)

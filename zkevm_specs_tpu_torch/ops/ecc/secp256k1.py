@@ -6,8 +6,10 @@ double-and-add over the secp256k1 prime field, G's multiples from a table
 of its 4-bit windows, and u1 G + u2 Q summed before the one inversion (the
 same points as the JAX module's affine sum, in about 60 % of its time).  The tracer signs with it,
 the tx circuit recovers each sender's key with it, and the tx and sig
-circuits take their ECDSA verdicts from ``verify_batch``.  Everything runs
-on the host, as in the JAX package (``circuits/sig.py``): the circuits
+circuits take their ECDSA verdicts from ``verify_batch``.  ``_double_mul``
+and ``verify_batch`` go to the native library (``runtime/native.py``)
+where it loads, as in the JAX module.  Everything runs on the host, as in
+the JAX package (``circuits/sig.py``): the circuits
 constrain the verdict bit, not the curve arithmetic.
 """
 from __future__ import annotations
@@ -174,7 +176,14 @@ def sign(msg_hash: int, priv_key: int, k: int) -> Tuple[int, int, int]:
 
 
 def _double_mul(u1: int, u2: int, p: Point) -> Point:
-    """u1 * G + u2 * p, summed in Jacobian coordinates (one inversion)."""
+    """u1 * G + u2 * p: by the native library where it loads (the JAX
+    module's dispatch), else summed in Jacobian coordinates (one
+    inversion)."""
+    from ...runtime.native import secp256k1_double_mul_native
+
+    native = secp256k1_double_mul_native(u1, u2, p[0], p[1])
+    if native is not False:
+        return native
     return _to_affine(_jadd(_jmul_g(u1 % N), _jmul(p, u2 % N)))
 
 
@@ -213,10 +222,19 @@ def verify(msg_hash: int, r: int, s: int, pubkey: Point) -> bool:
 
 
 def verify_batch(rows) -> list:
-    """The verdict of each row ``(msg_hash, r, s, pubkey)``.  A row whose
-    key is None or off the curve is False before any curve arithmetic, as
-    in the JAX package's batched call; the others are ``verify``'s."""
-    return [p is not None and is_on_curve(p) and verify(h, r, s, p) for h, r, s, p in rows]
+    """The verdict of each row ``(msg_hash, r, s, pubkey)``, in one call of
+    the native library where it loads, else ``verify``'s.  A row whose key
+    is None or off the curve is False before any curve arithmetic: the
+    native call takes G in its place, and its verdict is masked (the JAX
+    module's rule)."""
+    from ...runtime.native import secp256k1_verify_batch_native
+
+    usable = [p is not None and is_on_curve(p) for _, _, _, p in rows]
+    out = secp256k1_verify_batch_native([(h, r, s, p if ok else G)
+                                         for ok, (h, r, s, p) in zip(usable, rows)])
+    if out is not None:
+        return [ok and v for ok, v in zip(usable, out)]
+    return [ok and verify(h, r, s, p) for ok, (h, r, s, p) in zip(usable, rows)]
 
 
 def pubkey_bytes(pubkey: Point) -> bytes:

@@ -3,11 +3,13 @@ keccak circuit.
 
 Counterpart of ``zkevm_specs_tpu/ops/keccak.py``.  Three forms:
 
-* ``keccak256`` (pure Python, from the Keccak specification): witness
-  builders hash bytecode with it;
-* ``keccak256_batch`` (numpy ``uint64`` lanes): the same hash over many
-  inputs at once, for witness builders that hash tens of thousands of
-  preimages; host code, never on the device path;
+* ``keccak256`` (the native library, ``runtime/native.py``, where it
+  loads, else pure Python from the Keccak specification): witness builders
+  hash bytecode with it;
+* ``keccak256_batch`` (the native library's batch, else numpy ``uint64``
+  lanes): the same hash over many inputs at once, for witness builders
+  that hash tens of thousands of preimages; host code, never on the device
+  path;
 * the lane form of the keccak circuit: 64-bit lanes as (lo, hi) 32-bit
   halves in int64 tensors, as the JAX package keeps them in u32 arrays
   (``keccak_round``, ``keccak_f_lanes``, ``keccak256_batch_fixed_blocks``),
@@ -84,7 +86,9 @@ def keccak_f(state: List[int]) -> List[int]:
 
 def keccak256(data: bytes) -> bytes:
     """Keccak-256 (the Ethereum hash; pad 0x01, NOT sha3's 0x06).  Digests
-    are memoised: a witness hashes the same bytecode several times."""
+    are memoised: a witness hashes the same bytecode several times; a miss
+    is hashed by the native library where it loads (the JAX module's
+    dispatch), else in Python."""
     return _keccak256(bytes(data))
 
 
@@ -114,6 +118,15 @@ def pad_blocks(preimages: Sequence[bytes]):
 
 @functools.lru_cache(maxsize=256)
 def _keccak256(data: bytes) -> bytes:
+    from ..runtime.native import keccak256_native
+
+    native = keccak256_native(data)
+    if native is not None:
+        return native
+    return _keccak256_py(data)
+
+
+def _keccak256_py(data: bytes) -> bytes:
     lanes = pad_blocks([data])[2][0].view("<u8").reshape(-1, RATE_LANES)
     state = [0] * 25
     for block in lanes.tolist():
@@ -164,7 +177,16 @@ def _keccak_f_u64(st: List[np.ndarray]) -> List[np.ndarray]:
 def keccak256_batch(preimages: Sequence[bytes]) -> List[bytes]:
     """``keccak256`` of every preimage, the permutation run over numpy
     ``uint64`` lanes of all rows at once (each row stops absorbing after its
-    own block count)."""
+    own block count); the native library's batch where it loads."""
+    from ..runtime.native import keccak256_batch_native
+
+    native = keccak256_batch_native([bytes(d) for d in preimages])
+    if native is not None:
+        return native
+    return _keccak256_batch_py(preimages)
+
+
+def _keccak256_batch_py(preimages: Sequence[bytes]) -> List[bytes]:
     n = len(preimages)
     if n == 0:
         return []

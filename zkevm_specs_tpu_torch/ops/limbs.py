@@ -138,17 +138,46 @@ def batch_rows(a: torch.Tensor, b: torch.Tensor) -> int:
 # Carry normalisation (plain PyTorch)
 # ---------------------------------------------------------------------------
 
-def _normalize(cols: torch.Tensor, out_n: int) -> torch.Tensor:
-    """Sequential carry ripple of non-negative columns into ``out_n``
-    canonical limbs; the carry out of the top limb is dropped."""
+_CARRY_WORD = 62    # limbs a packed word of carry flags spans (its sums stay below 2^63)
+
+
+def _carries(g: torch.Tensor, p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The carry into each limb of a chain in which limb k carries out
+    ``g_k | (p_k & carry_in_k)`` (0/1 int64 ``g``, ``p`` over ``[..., n]``,
+    never both 1), and the carry out of the top limb: the carries of the
+    binary sum ``(g | p) + g`` with the flags packed into words of 62 bits,
+    one word at a time.  No value is read back."""
+    n = g.shape[-1]
+    cin = torch.empty_like(g)
+    carry = torch.zeros(g.shape[:-1], dtype=DTYPE, device=g.device)
+    for lo in range(0, n, _CARRY_WORD):
+        hi = min(n, lo + _CARRY_WORD)
+        shift = torch.arange(hi - lo, dtype=DTYPE, device=g.device)
+        x = ((g[..., lo:hi] | p[..., lo:hi]) << shift).sum(-1)
+        y = (g[..., lo:hi] << shift).sum(-1)
+        total = x + y + carry
+        cin[..., lo:hi] = ((total ^ x ^ y)[..., None] >> shift) & 1
+        carry = total >> (hi - lo)
+    return cin, carry
+
+
+def _normalize(cols: torch.Tensor, out_n: int, rounds: int = 3) -> torch.Tensor:
+    """Non-negative columns into ``out_n`` canonical limbs, the carry out
+    of the top limb dropped (the limbs of a sequential ripple).  ``rounds``
+    of every limb's carry moved up one limb bring each column to at most
+    0x1FFFE (3 rounds for any int64 column, 2 below 2^47, a product's
+    columns; none for a sum of two canonical limbs), so a limb then
+    carries out 1 where it is 2^16 or more and its incoming carry where it
+    is 0xFFFF; ``_carries`` resolves those chains.  No value is read
+    back."""
     m = cols.shape[-1]
-    out = torch.empty(cols.shape[:-1] + (out_n,), dtype=DTYPE, device=cols.device)
-    carry = torch.zeros(cols.shape[:-1], dtype=DTYPE, device=cols.device)
-    for k in range(out_n):
-        v = cols[..., k] + carry if k < m else carry
-        out[..., k] = v & LIMB_MASK
-        carry = v >> LIMB_BITS
-    return out
+    out = cols[..., :out_n] if m >= out_n else torch.nn.functional.pad(cols, (0, out_n - m))
+    for _ in range(rounds):
+        carry = out >> LIMB_BITS
+        out = out & LIMB_MASK
+        out[..., 1:] += carry[..., :-1]
+    cin, _ = _carries(out >> LIMB_BITS, (out == LIMB_MASK).to(DTYPE))
+    return (out + cin) & LIMB_MASK
 
 
 def carry_propagate_plain(cols: torch.Tensor, out_n: int) -> torch.Tensor:
@@ -231,7 +260,7 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
     for i in range(min(na, ncols)):
         n = min(nb, ncols - i)
         cols[:, i:i + n] += a[:, i:i + 1] * b[:, :n]
-    return _normalize(cols, out_n)
+    return _normalize(cols, out_n, rounds=2)      # columns below min(na, nb) * 2^32
 
 
 def limb_mul(a: torch.Tensor, b: torch.Tensor, out_n: int) -> torch.Tensor:
@@ -309,15 +338,11 @@ def _p_row(n: int, device) -> torch.Tensor:
 
 def _sub_plain(a: torch.Tensor, b: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
     rows = batch_rows(a, b)
-    a = pad_limbs(a, n)
-    b = pad_limbs(b, n)
-    out = torch.empty((rows, n), dtype=DTYPE, device=a.device)
-    borrow = torch.zeros((rows,), dtype=DTYPE, device=a.device)
-    for k in range(n):
-        v = a[:, k] - b[:, k] - borrow
-        out[:, k] = v & LIMB_MASK
-        borrow = -(v >> LIMB_BITS)      # v in [-2^16, 2^16): 1 iff negative
-    return out, borrow
+    d = (pad_limbs(a, n) - pad_limbs(b, n)).expand(rows, n)
+    # each limb's difference is in (-2^16, 2^16): it borrows 1 where it is
+    # negative and its incoming borrow where it is 0
+    borrow_in, borrow = _carries((d < 0).to(DTYPE), (d == 0).to(DTYPE))
+    return (d - borrow_in) & LIMB_MASK, borrow
 
 
 def addsub_plain(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int):
@@ -325,7 +350,7 @@ def addsub_plain(a: torch.Tensor, b: torch.Tensor, mode: int, out_n: int):
     if mode == ADD:
         n = max(a.shape[-1], b.shape[-1])
         s = pad_limbs(a, n) + pad_limbs(b, n)
-        return _normalize(s[:, :out_n], out_n)
+        return _normalize(s[:, :out_n], out_n, rounds=0)
     if mode == SUB:
         return _sub_plain(a, b, max(a.shape[-1], b.shape[-1]))
     if mode == FR_ADD:

@@ -1,3 +1,5 @@
-"""Lookup argument of a block (``logup_shard``), at world size 1: the
-counterpart of ``zkevm_specs_tpu/parallel/``'s logUp argument; the
-multi-device layer is not ported."""
+"""Verification over ranks (``torch.distributed``): the mesh, the sharded
+EVM groups and state circuit (``shard``), the lookup argument over ranks
+(``logup_shard``), the sharded block verifier (``block_shard``), the
+communication model (``comm_model``) and the weak-scaling harness
+(``scaling``): the counterpart of ``zkevm_specs_tpu/parallel/``."""

@@ -29,6 +29,7 @@ and ``("sig_trace", row)`` keys included.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
@@ -73,6 +74,11 @@ from ..witness.typing import copy_circuit_to_table, exp_circuit_to_table
 from .jit import CompiledGroupVerifier, tables_meta, tables_to_pytree
 from .kernels import require_device
 from .transfer import upload, verdict_pack, verdict_table, verdict_unpack
+
+
+def _untimed(name: str, device=None):
+    """``_device_pass``'s default wrapper of a check: none."""
+    return contextlib.nullcontext()
 
 
 def _next_pow2(n: int) -> int:
@@ -327,20 +333,32 @@ class CompiledBlockVerifier:
             "circuits": [(name, k, _remap(a, by_id)) for name, k, a in host_circuits],
         }
 
-    def _device_pass(self, prepared) -> List[torch.Tensor]:
+    def _device_pass(self, prepared, timed=_untimed) -> List[torch.Tensor]:
         """Every device check in verdict order: the device-scheduled groups,
-        the state check, the circuit checks; their fail vectors."""
-        outs = [g["verifier"](*args) for g, args in zip(self.groups, prepared["groups"])
-                if g["verifier"] is not None]
-        outs.append(prepared["state_fn"](*prepared["state_args"]))
-        outs += [k(args) for _n, k, args in prepared["circuits"]]
+        the state check, the circuit checks; their fail vectors.  Each
+        check runs inside ``timed(label, device)``."""
+        outs = []
+        for g, args in zip(self.groups, prepared["groups"]):
+            if g["verifier"] is not None:
+                with timed("evm:" + g["state"].name, self.device):
+                    outs.append(g["verifier"](*args))
+        with timed("state", self.device):
+            outs.append(prepared["state_fn"](*prepared["state_args"]))
+        for name, k, args in prepared["circuits"]:
+            with timed(name, self.device):
+                outs.append(k(args))
         return outs
 
-    def host_group_fails(self) -> List[np.ndarray]:
+    def host_group_fails(self, timed=_untimed) -> List[np.ndarray]:
         """The per-lane fail bits of the host-scheduled groups, in group
-        order.  The passes below run them while the card works on the
-        device pass."""
-        return [self._run_eager_group(g) for g in self.groups if g["verifier"] is None]
+        order, each group inside ``timed(label)``.  The passes below run
+        them while the card works on the device pass."""
+        fails = []
+        for g in self.groups:
+            if g["verifier"] is None:
+                with timed("host:" + g["state"].name):
+                    fails.append(self._run_eager_group(g))
+        return fails
 
     def _failures(self, device_fails: List[np.ndarray],
                   host_fails: List[np.ndarray]) -> Dict[object, bool]:
@@ -362,9 +380,14 @@ class CompiledBlockVerifier:
     def run_device(self, prepared) -> Dict[object, bool]:
         """The per-kernel pass: every check launched from Python, each
         verdict read back on its own.  Returns {step index | ('state', row)
-        | (circuit, row): True} for every failing lane or row."""
-        outs = self._device_pass(prepared)
-        host_fails = self.host_group_fails()
+        | (circuit, row): True} for every failing lane or row.  Each check's
+        time adds into ``runtime.profiling.STATS`` under the JAX labels:
+        ``evm:<state>`` for a device group, ``host:<state>`` for a host
+        group, ``state`` and each circuit's name."""
+        from .profiling import STATS
+
+        outs = self._device_pass(prepared, STATS.timed)
+        host_fails = self.host_group_fails(STATS.timed)
         return self._failures([f.cpu().numpy() for f in outs], host_fails)
 
     def run_device_combined(self, prepared) -> Dict[object, bool]:

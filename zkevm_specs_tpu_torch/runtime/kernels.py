@@ -129,10 +129,12 @@ class CircuitKernel:
             self._device_args = to_device(self.args, self.device)
         return self._device_args
 
-    def __call__(self, args=None) -> torch.Tensor:
-        """Run the check on the device; the ``[n]`` bool fail bits there."""
+    def __call__(self, args=None, n: Optional[int] = None) -> torch.Tensor:
+        """Run the check on the device; the ``[n]`` bool fail bits there.
+        ``n``: the rows of ``args`` where they are a share of the circuit's
+        rows (a rank's, ``parallel/block_shard.py``)."""
         cols_tree, tbl_tree, extra_tree = args if args is not None else self.device_args()
-        ctx = Ctx(self.device, self.n, "device")
+        ctx = Ctx(self.device, self.n if n is None else n, "device")
         cs = ConstraintSystem(ctx)
         cols = unpack_values(ctx, cols_tree, self.cols_meta)
         tables = {k: unpack_table(ctx, v, self.tbl_meta[k]) for k, v in tbl_tree.items()}

@@ -261,22 +261,37 @@ def logup_partial_sum(fps: torch.Tensor, alpha: torch.Tensor,
 
     Replaces ``zkevm_specs_tpu/tables/logup.py:logup_partial_sum``
     (:87-106)."""
+    fps, alpha, multiplicities = _check_side(fps, alpha, multiplicities)
+    if L.on_cpu(*(t for t in (fps, alpha, multiplicities) if t is not None)):
+        return logup_partial_sum_plain(fps, alpha, multiplicities)
+    out = torch.empty((NL,), dtype=L.DTYPE, device=fps.device)
+    _logup_launch(fps, alpha.contiguous(), multiplicities, out, sum_mode=True)
+    return out
+
+
+def logup_partial_sums(sides) -> List[torch.Tensor]:
+    """``logup_partial_sum`` at several sides ``(fps, alpha, m)``, each
+    checked as it checks its inputs: on the card ``logup_partial_sum`` a
+    side, on the CPU ``logup_partial_sums_plain`` (one inverse for every
+    side)."""
+    sides = [_check_side(*side) for side in sides]
+    if L.on_cpu(*(t for side in sides for t in side if t is not None)):
+        return logup_partial_sums_plain(sides)
+    return [logup_partial_sum(*side) for side in sides]
+
+
+def _check_side(fps: torch.Tensor, alpha: torch.Tensor, multiplicities: Optional[torch.Tensor]):
+    """``logup_partial_sum``'s inputs checked; ``alpha`` as one row."""
     _check_elements(fps, "logup_partial_sum fps")
     alpha = alpha.reshape(1, -1)
     L.check_limbs(alpha, "logup_partial_sum alpha")
     if alpha.shape[1] != NL:
         raise ValueError(f"logup_partial_sum: alpha takes {NL} limbs, got {alpha.shape[1]}")
-    tensors = [fps, alpha]
     if multiplicities is not None:
         _check_elements(multiplicities, "logup_partial_sum multiplicities")
         if multiplicities.shape[0] != fps.shape[0]:
             raise ValueError("logup_partial_sum: multiplicities and fps differ in rows")
-        tensors.append(multiplicities)
-    if L.on_cpu(*tensors):
-        return logup_partial_sum_plain(fps, alpha, multiplicities)
-    out = torch.empty((NL,), dtype=L.DTYPE, device=fps.device)
-    _logup_launch(fps, alpha.contiguous(), multiplicities, out, sum_mode=True)
-    return out
+    return fps, alpha, multiplicities
 
 
 def multiset_check(ctx: Ctx, query_fps, table_fps, multiplicities, alpha: int) -> bool:
